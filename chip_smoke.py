@@ -7,8 +7,8 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 It builds the hand-written CUDA kernels from ``flow_updating_tpu_torch/csrc``,
 holds each kernel against its plain PyTorch version at the shapes of the
-main path, drives the two main paths through the public entry points, and
-prints one JSON line per phase:
+main paths, drives the three main paths through the public entry points,
+and prints one JSON line per phase:
 
 1. ``device``  — the card (``torch.cuda.get_device_name``) and the
    ``nvidia-smi --query-gpu=name,power.limit`` line;
@@ -27,17 +27,29 @@ prints one JSON line per phase:
 6. ``path_b``  — the same with ``spmv='banded_fused'`` on the ring: K2
    launched once per round, estimates ``torch.equal`` to an
    ``spmv='banded'`` run of the same rounds on the card;
-7. ``profile`` — ``torch.profiler`` over a few more rounds of each path:
+7. ``k3``      — kernel B3 (the fused passes of the Beneš neighbor-sum
+   network) on the fat tree's network (P = 2^23): the routing time, the
+   passes per flavour, each flavour on a real pass of the plan
+   ``torch.equal`` to its plain version in float32 and float64 (and with a
+   batch of 3), and the whole plan ``torch.equal`` to the per-stage
+   executor;
+8. ``path_c``  — ``Engine`` with ``spmv='benes_fused'`` on the fat tree:
+   ms/round, B3 launches == rounds x passes (per flavour too), rmse,
+   estimates ``torch.equal`` to an ``spmv='benes'`` run on the card, and
+   whether they equal an ``spmv='xla'`` run;
+9. ``profile`` — ``torch.profiler`` over a few more rounds of each path:
    device time per round, the device's busy share of the wall time and
    the kernels that take it;
-8. the ``{"kernels": [...]}`` line (launches from the main paths; times,
-   errors and bounds measured in this run), then the nvidia-smi line, then
-   ``{"ok": true, "device": {...}}`` as the last line.
+10. the ``{"kernels": [...]}`` line (launches from the main paths; times,
+    errors and bounds measured in this run), then the nvidia-smi line,
+    then ``{"ok": true, "device": {...}}`` as the last line.
 
 A kernel's ``ms``, ``plain_ms`` and ``library_ms`` are device time per
 call: the profiler's sum over the call's CUDA kernels, averaged over
 ``REPS`` calls.  ``call_ms`` is the wrapper's time per call from CUDA
 events around ``REPS`` back-to-back calls, host launch gaps included.
+B3's yardstick is ``torch.index_select`` with the pass's own source index
+(the pass applied to ``arange(P)``).
 
 Any failure raises and exits non-zero.  Without a CUDA device it exits
 with code 2 and prints no result.  It takes no options: the sizes below
@@ -54,7 +66,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-FAT_TREE_K = 160        # fat_tree(160): 1,056,000 nodes (path A, K1)
+FAT_TREE_K = 160        # fat_tree(160): 1,056,000 nodes (paths A, C; K1, B3)
 RING_N = 1_000_000      # ring(1_000_000, 2) (path B, K2)
 ROUNDS = 50             # timed rounds per main path
 WARMUP = 5              # rounds before the timed ones
@@ -134,12 +146,35 @@ def bound(nbytes: int, ops: int) -> dict:
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
+#: B3's flavours: (row name, wrapper in ops/fused_passes.py, CUDA kernel
+#: name, line of the TPU kernel in flow_updating_tpu/ops/pallas_fused.py)
+B3_FLAVOURS = (("local", "local_pass", "staged_pass", 292),
+               ("window", "window_pass", "staged_pass", 323),
+               ("wide", "wide_pass", "wide_pass", 356),
+               ("wide2", "wide2_pass", "wide2_pass", 387))
+
+
+def b3_family(kind: str) -> str:
+    """The B3 flavour that runs a pass of ``kind``."""
+    return kind.replace("_swap", "").replace("_roll", "")
+
+
 def reset_counts() -> None:
+    from flow_updating_tpu_torch.ops import fused_passes
     from flow_updating_tpu_torch.ops.fused_round import fused_banded_round
     from flow_updating_tpu_torch.ops.spmv import neighbor_sum_ell
 
     neighbor_sum_ell.launches = 0
     fused_banded_round.launches = 0
+    for _, wrapper, _, _ in B3_FLAVOURS:
+        getattr(fused_passes, wrapper).launches = 0
+
+
+def b3_launches() -> dict:
+    from flow_updating_tpu_torch.ops import fused_passes
+
+    return {name: getattr(fused_passes, wrapper).launches
+            for name, wrapper, _, _ in B3_FLAVOURS}
 
 
 def phase_k1(topo, dev):
@@ -303,6 +338,114 @@ def phase_k2(ring_topo, dev):
     return out
 
 
+def phase_k3(topo, dev):
+    """B3 vs plain on the fat tree's network, as path C plans it."""
+    import numpy as np
+    import torch
+
+    from flow_updating_tpu_torch.models.config import RoundConfig
+    from flow_updating_tpu_torch.models.sync import NodeKernel
+    from flow_updating_tpu_torch.ops import fused_passes as fp
+    from flow_updating_tpu_torch.ops.permute import apply_stages
+    from flow_updating_tpu_torch.ops.spmv_benes import plan_neighbor_sum
+
+    xla = NodeKernel(topo, RoundConfig.fast(kernel="node", spmv="xla"),
+                     device=dev)
+    mats = tuple(m.cpu().numpy() for m in xla.arrays.mats)
+    M = xla.padded_size
+    del xla
+    t0 = time.perf_counter()
+    plan = plan_neighbor_sum(mats, M + 1, fused=True)
+    plan_s = time.perf_counter() - t0
+    stages, fused = plan.base.stages, plan.fused
+    geom = fused.geom
+    t0 = time.perf_counter()
+    planes = plan.to(dev)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    by_flavour = {name: 0 for name, _, _, _ in B3_FLAVOURS}
+    for ps in fused.passes:
+        by_flavour[b3_family(ps.kind)] += 1
+    out = {"P": geom.P, "tile": geom.tile, "grid": geom.grid,
+           "plan_s": plan_s, "planes_upload_s": upload_s,
+           "stages": len(stages.dists),
+           "stages_by_kind": {k: stages.kinds.count(k)
+                              for k in ("roll", "swap")},
+           "passes": len(fused.passes), "passes_by_flavour": by_flavour,
+           "pass_kinds": [ps.kind for ps in fused.passes],
+           "stages_per_pass": [len(ps.dists) for ps in fused.passes],
+           "flavours": {}}
+    rng = np.random.default_rng(SEED + 2)
+    P = geom.P
+    shape = (1, geom.grid, geom.tile)
+    idx = torch.arange(P, device=dev).reshape(shape)
+    for name, wrapper_name, kernel, _ in B3_FLAVOURS:
+        i = next((i for i, ps in enumerate(fused.passes)
+                  if b3_family(ps.kind) == name), None)
+        if i is None:
+            raise AssertionError(f"the k={FAT_TREE_K} plan holds no "
+                                 f"{name} pass")
+        ps, plane = fused.passes[i], planes[i]
+        wrapper = getattr(fp, wrapper_name)
+        plain = fp.PLAIN_FNS[ps.kind]
+        row = {"pass": i, "kind": ps.kind, "dists": list(ps.dists),
+               "max_abs_err": 0.0}
+        for dt, batch in ((torch.float32, 1), (torch.float64, 1),
+                          (torch.float32, 3)):
+            x = torch.from_numpy(rng.uniform(-1.0, 1.0, (batch,) + shape[1:])
+                                 ).to(dev, dt)
+            got, ref = wrapper(x, plane, ps, geom), plain(x, plane, ps, geom)
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            if not torch.equal(got, ref):
+                raise AssertionError(f"B3 {name} ({dt}, batch {batch}) "
+                                     f"differs from its plain version "
+                                     f"(max {err})")
+        x = torch.from_numpy(rng.uniform(-1.0, 1.0, shape)).to(
+            dev, torch.float32)
+        src = wrapper(idx, plane, ps, geom).reshape(P)
+        xf = x.reshape(P)
+        if not torch.equal(torch.index_select(xf, 0, src),
+                           wrapper(x, plane, ps, geom).reshape(P)):
+            raise AssertionError(f"index_select yardstick does not compute "
+                                 f"the {name} pass")
+        row["ms"] = device_ms(lambda: wrapper(x, plane, ps, geom), kernel)
+        row["call_ms"] = cuda_ms(lambda: wrapper(x, plane, ps, geom))
+        row["plain_ms"] = device_ms(lambda: plain(x, plane, ps, geom))
+        row["library_ms"] = device_ms(lambda: torch.index_select(xf, 0, src))
+        # pure data movement: no arithmetic to bound by
+        row.update(bound(fp.pass_min_bytes(ps, geom, 1, 4), 0))
+        out["flavours"][name] = row
+    # the whole network: every pass against the per-stage executor
+    masks = stages.to(dev)
+    for dt in (torch.float32, torch.float64):
+        z = torch.from_numpy(rng.uniform(-1.0, 1.0, P)).to(dev, dt)
+        got = fp.apply_fused(z, fused, planes)
+        ref = apply_stages(z, stages, masks)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"apply_fused ({dt}) differs from "
+                                 "apply_stages over the whole network")
+    z = torch.from_numpy(rng.uniform(-1.0, 1.0, P)).to(dev, torch.float32)
+    src = fp.apply_fused(torch.arange(P, device=dev), fused, planes)
+    if not torch.equal(torch.index_select(z, 0, src),
+                       fp.apply_fused(z, fused, planes)):
+        raise AssertionError("index_select yardstick does not compute the "
+                             "network")
+    out["network"] = {
+        "ms": device_ms(lambda: fp.apply_fused(z, fused, planes)),
+        "call_ms": cuda_ms(lambda: fp.apply_fused(z, fused, planes)),
+        "plain_ms": device_ms(lambda: apply_stages(z, stages, masks)),
+        "library_ms": device_ms(lambda: torch.index_select(z, 0, src)),
+        "bound_ms": sum(bound(fp.pass_min_bytes(ps, geom, 1, 4), 0)[
+            "bound_ms"] for ps in fused.passes),
+        "bound_by": "bytes"}
+    del masks
+    torch.cuda.empty_cache()
+    return out
+
+
 def _timed_rounds(engine, rounds: int) -> float:
     import torch
 
@@ -400,6 +543,72 @@ def phase_path_b(ring_topo):
             "rmse_initial": rmse0, **rep}, eng
 
 
+def _estimate_tensor(engine):
+    arrs = engine._node_kernel.arrays
+    return arrs.value + engine.state.G
+
+
+def phase_path_c(topo):
+    import numpy as np
+    import torch
+
+    from flow_updating_tpu_torch import Engine, RoundConfig
+
+    cfg = RoundConfig.fast(kernel="node", spmv="benes_fused")
+    t0 = time.perf_counter()
+    eng = Engine(config=cfg).set_topology(topo).build()
+    build_s = time.perf_counter() - t0
+    rmse0 = eng.convergence_report()["rmse"]
+    eng.run_rounds(WARMUP)
+    passes = eng._node_kernel.arrays.ns_plan.fused.passes
+    per_round = {name: 0 for name, _, _, _ in B3_FLAVOURS}
+    for ps in passes:
+        per_round[b3_family(ps.kind)] += 1
+    reset_counts()
+    ms = _timed_rounds(eng, ROUNDS)
+    launches = b3_launches()
+    if sum(launches.values()) != ROUNDS * len(passes):
+        raise AssertionError(f"B3 launched {sum(launches.values())} times "
+                             f"in {ROUNDS} rounds, expected "
+                             f"{ROUNDS * len(passes)}")
+    for name, count in per_round.items():
+        if launches[name] != ROUNDS * count:
+            raise AssertionError(f"B3 {name}: {launches[name]} launches, "
+                                 f"expected {ROUNDS * count}")
+    rep = eng.convergence_report()
+    est = eng.estimates()
+    if est.shape != (topo.num_nodes,) or not np.isfinite(est).all():
+        raise AssertionError("path C estimates are not finite (N,) values")
+    if not rep["rmse"] < rmse0:
+        raise AssertionError("path C did not reduce the rmse")
+    mine = _estimate_tensor(eng)
+    twins = {}
+    for spmv in ("benes", "xla"):
+        twin = Engine(config=RoundConfig.fast(kernel="node", spmv=spmv))
+        twin.set_topology(topo).build().run_rounds(WARMUP)
+        twin_ms = _timed_rounds(twin, ROUNDS)
+        other = _estimate_tensor(twin)
+        twins[spmv] = {"equal": bool(torch.equal(mine, other)),
+                       "max_abs_diff": float((mine - other).abs().max()),
+                       "ms_per_round": twin_ms / ROUNDS}
+        del twin
+    if not twins["benes"]["equal"]:
+        raise AssertionError("benes_fused estimates differ from spmv='benes' "
+                             f"(max {twins['benes']['max_abs_diff']})")
+    return {"rounds": ROUNDS, "ms_per_round": ms / ROUNDS,
+            "rounds_per_s": ROUNDS / (ms / 1e3), "build_s": build_s,
+            "passes_per_round": len(passes),
+            "passes_per_round_by_flavour": per_round,
+            "b3_launches": launches,
+            "b3_launches_total": sum(launches.values()),
+            "equal_to_benes": twins["benes"]["equal"],
+            "benes_ms_per_round": twins["benes"]["ms_per_round"],
+            "equal_to_xla": twins["xla"]["equal"],
+            "max_abs_diff_to_xla": twins["xla"]["max_abs_diff"],
+            "xla_ms_per_round": twins["xla"]["ms_per_round"],
+            "rmse_initial": rmse0, **rep}, eng
+
+
 def profile_rounds(engine, rounds: int) -> dict:
     """Where a round's time goes on the card: ``torch.profiler`` over
     ``rounds`` rounds, the device time of every CUDA-side event (kernels,
@@ -477,9 +686,18 @@ def main() -> int:
     torch.cuda.synchronize()
     emit({"phase": "path_b", "topology": f"ring:{RING_N}:2", **path_b})
 
+    k3 = phase_k3(tree, dev)
+    torch.cuda.synchronize()
+    emit({"phase": "k3", **k3})
+
+    path_c, engine_c = phase_path_c(tree)
+    torch.cuda.synchronize()
+    emit({"phase": "path_c", "topology": f"fat_tree:{FAT_TREE_K}", **path_c})
+
     emit({"phase": "profile",
           "path_a": profile_rounds(engine_a, PROFILE_ROUNDS),
-          "path_b": profile_rounds(engine_b, PROFILE_ROUNDS)})
+          "path_b": profile_rounds(engine_b, PROFILE_ROUNDS),
+          "path_c": profile_rounds(engine_c, PROFILE_ROUNDS)})
     torch.cuda.synchronize()
 
     emit({"kernels": [
@@ -503,6 +721,19 @@ def main() -> int:
          "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
          "library_ms": None},
+        *({"name": f"benes_pass.{name}", "route": "cuda",
+           "source": "flow_updating_tpu_torch/csrc/benes_pass.cu",
+           "replaces": f"flow_updating_tpu/ops/pallas_fused.py:{line}",
+           "launches": path_c["b3_launches"][name],
+           "parity": "bit-exact (torch.equal), float32 and float64",
+           "max_abs_err": k3["flavours"][name]["max_abs_err"],
+           "ms": k3["flavours"][name]["ms"],
+           "call_ms": k3["flavours"][name]["call_ms"],
+           "plain_ms": k3["flavours"][name]["plain_ms"],
+           "bound_ms": k3["flavours"][name]["bound_ms"],
+           "bound_by": k3["flavours"][name]["bound_by"],
+           "library_ms": k3["flavours"][name]["library_ms"]}
+          for name, _, _, line in B3_FLAVOURS),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

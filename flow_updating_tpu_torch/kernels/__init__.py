@@ -40,6 +40,8 @@ SIGNATURES = {
     "fused_round": (_I, _I, _LL, _I, _I, _P, _P,
                     _P, _P, _P, _P, _P, _P, _P,
                     _P, _P, _I, _LL, _P, _P, _P, _P, _P),
+    "benes_pass": (_I, _I, _P, _P, _P, _LL, _LL, _LL, _I, _P, _LL, _LL,
+                   _P),
 }
 
 _lock = threading.Lock()

@@ -5,8 +5,10 @@ Counterpart of ``flow_updating_tpu/models/config.py``: the same frozen
 validation and the same ``spmv`` value strings, so configurations and
 command lines carry over unchanged.  ``torch_dtype`` replaces
 ``jnp_dtype``.  In this package ``spmv='pallas'`` names the hand-written
-CUDA ELL neighbor-sum kernel (``ops/spmv.py``) and ``'banded_fused'`` the
-hand-written one-kernel round (``ops/fused_round.py``).  The traced-knob
+CUDA ELL neighbor-sum kernel (``ops/spmv.py``), ``'banded_fused'`` the
+hand-written one-kernel round (``ops/fused_round.py``) and
+``'benes_fused'`` the hand-written fused network passes
+(``ops/fused_passes.py``).  The traced-knob
 twin ``RoundParams`` belongs to the sweep engine and is not ported.
 
 Mapping to the reference's knobs:
@@ -109,10 +111,14 @@ class RoundConfig:
     #                                    + gather remainder, plan/) |
     #                                    'banded_fused' (the whole round in
     #                                    one CUDA kernel over the banded
-    #                                    plan, ops/fused_round.py).  'benes',
-    #                                    'benes_fused' and 'structured' are
-    #                                    accepted here and raise in the
-    #                                    node kernel (later port items)
+    #                                    plan, ops/fused_round.py) | 'benes'
+    #                                    (permutation network, per-stage
+    #                                    torch ops, ops/spmv_benes.py) |
+    #                                    'benes_fused' (the same network as
+    #                                    fused passes, the CUDA kernel of
+    #                                    ops/fused_passes.py).  'structured'
+    #                                    is accepted here and raises in the
+    #                                    node kernel (a later port item)
     robust: str = "off"                # robust-aggregation variant of the
     #                                    fire/average step, BOTH protocol
     #                                    families (Byzantine tolerance,

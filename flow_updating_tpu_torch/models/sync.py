@@ -20,11 +20,16 @@ operation is the neighbor sum A, selected by ``RoundConfig.spmv``:
 * ``'banded'``       — the topology compiler's masked-roll bands + gather
                        remainder as plain tensor ops (``plan/banded.py``);
 * ``'banded_fused'`` — kernel K2, the whole round in one CUDA launch
-                       (``ops/fused_round.fused_banded_round``).
+                       (``ops/fused_round.fused_banded_round``);
+* ``'benes'``        — the gather-free permutation network, one set of
+                       torch ops per stage (``ops/spmv_benes.py``);
+* ``'benes_fused'``  — the same network as fused passes, kernel B3
+                       (``ops/fused_passes.py``).
 
-Node vectors live in the layout of the chosen path (ELL degree order, or
-the plan's RCM order padded to the tile grid), exactly as in the JAX
-package, so a state can be carried across between the two packages
+Node vectors live in the layout of the chosen path (ELL degree order, which
+the Beneš paths share with 'xla', or the plan's RCM order padded to the
+tile grid), exactly as in the JAX package, so a state can be carried
+across between the two packages
 (:meth:`NodeKernel.state_from_numpy`).  Rounds run as a Python loop over
 tensor ops on the kernel's device.
 """
@@ -50,6 +55,10 @@ from flow_updating_tpu_torch.ops.spmv import (
     neighbor_sum,
     neighbor_sum_ell,
 )
+from flow_updating_tpu_torch.ops.spmv_benes import (
+    neighbor_sum_benes,
+    plan_neighbor_sum,
+)
 from flow_updating_tpu_torch.plan.banded import (
     BandedLeaves,
     BandedSpmvPlan,
@@ -61,8 +70,6 @@ from flow_updating_tpu_torch.utils.device import resolve_device
 
 #: spmv values of the JAX package that wait for a later port item
 _LATER = {
-    "benes": "Beneš circuits and their kernels (A6, B3/B4)",
-    "benes_fused": "Beneš circuits and their kernels (A6, B3/B4)",
     "structured": "structured stencil (A4)",
 }
 
@@ -85,7 +92,10 @@ class NodeSyncArrays:
     value: torch.Tensor      # (M,) or (M, D) initial values, kernel layout
     inv_depp1: torch.Tensor  # (M,) 1 / (deg + 1)
     deg: torch.Tensor        # (M,) float degree
-    mats: tuple = ()         # 'xla'/'pallas': per-bucket (rows, width) int32
+    mats: tuple = ()         # 'xla'/'pallas'/'benes*': per-bucket (rows,
+    #                          width) int32
+    ns_plan: object = None   # 'benes*': NeighborSumPlan / FusedNeighborSumPlan
+    ns_masks: tuple = ()     # 'benes*': its stage masks / pass planes
     band: BandedSpmvPlan | None = None    # 'banded*': static plan
     band_leaves: BandedLeaves | None = None
     fused: FusedRoundSpec | None = None   # 'banded_fused': tile geometry
@@ -103,7 +113,7 @@ def _check_cfg(cfg: RoundConfig) -> None:
         raise NotImplementedError(
             f"spmv={cfg.spmv!r} is the ROADMAP item '{_LATER[cfg.spmv]}', "
             "not ported yet; this package runs spmv='xla', 'pallas', "
-            "'banded' and 'banded_fused'")
+            "'banded', 'banded_fused', 'benes' and 'benes_fused'")
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -116,8 +126,9 @@ class NodeKernel:
     ``device`` defaults to the CUDA card (raising if there is none); pass
     ``device='cpu'`` to run the plain tensor versions on the host.
     ``values`` overrides ``topo.values`` and may be ``(N, D)`` (paths
-    'xla', 'banded' and 'banded_fused'; 'pallas' is scalar, as in the JAX
-    package).  ``plan`` (banded paths) supplies a compiled
+    'xla', 'banded' and 'banded_fused'; 'pallas', 'benes' and
+    'benes_fused' are scalar, as in the JAX package).  ``plan`` (banded
+    paths) supplies a compiled
     :class:`~flow_updating_tpu_torch.plan.compile.ExecutionPlan`;
     ``fused_tile`` pins the one-kernel round's tile height.  The
     one-kernel round takes its remainder on the 'lanes' route."""
@@ -171,8 +182,14 @@ class NodeKernel:
                     pos[np.minimum(m, topo.num_nodes - 1)], M,
                 ).astype(np.int32)
             mats.append(mat)
+        ns_plan, ns_masks = None, ()
+        if cfg.spmv in ("benes", "benes_fused"):
+            ns_plan = plan_neighbor_sum(tuple(mats), M + 1,
+                                        fused=cfg.spmv == "benes_fused")
+            ns_masks = ns_plan.to(self.device)
         self.arrays = self._constants(value, deg, mats=tuple(
-            torch.from_numpy(m).to(self.device) for m in mats))
+            torch.from_numpy(m).to(self.device) for m in mats),
+            ns_plan=ns_plan, ns_masks=ns_masks)
 
     def _constants(self, value, deg, **kw) -> NodeSyncArrays:
         dev, dt = self.device, self.dtype
@@ -295,6 +312,8 @@ def node_round_step(state: NodeSyncState, arrs: NodeSyncArrays,
         A_cur = neighbor_sum_ell(avg, arrs.mats)
     elif cfg.spmv == "banded":
         A_cur = banded_neighbor_sum(avg, arrs.band, arrs.band_leaves)
+    elif cfg.spmv in ("benes", "benes_fused"):
+        A_cur = neighbor_sum_benes(avg, arrs.ns_plan, arrs.ns_masks)
     else:
         A_cur = neighbor_sum(avg, arrs.mats)
     deg = _ex(arrs.deg, arrs.value)

@@ -1,0 +1,162 @@
+"""ctypes bindings for the port's C++ host runtime (``src/funative.cpp``).
+
+The library holds the exact Erdős–Rényi and Barabási–Albert generators,
+the big-graph builder and the Beneš router — the same algorithms as the
+JAX package's native runtime, so both packages build the same graphs and
+route the same networks from the same seed.  It is compiled on first use
+with ``g++ -O3 -std=c++17 -fPIC -shared`` into
+``flow_updating_tpu_torch/_build/`` under a name that hashes the source
+and the flags (an edited source rebuilds), then loaded with ``ctypes``.
+
+There is no numpy fallback: the generators' numpy paths draw other random
+numbers, so a missing compiler or a failed build raises
+:class:`NativeError` instead of quietly building a different graph.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+import numpy as np
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(_HERE, "src", "funative.cpp")
+BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
+CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
+
+_lock = threading.Lock()
+_lib = None
+
+
+class NativeError(RuntimeError):
+    """The native library failed to build or load."""
+
+
+def _target() -> str:
+    with open(SRC, "rb") as f:
+        digest = hashlib.sha1(f.read() + " ".join(CXX_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"funative-{digest.hexdigest()[:12]}.so")
+
+
+def _build(target: str) -> None:
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise NativeError("g++ not found on PATH; the port's native runtime "
+                          "(graph generators above the JAX package's native "
+                          "thresholds, the big-graph builder, the Beneš "
+                          "router) is compiled from source on first use")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{target}.{os.getpid()}.tmp"
+    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, SRC],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise NativeError(f"g++ failed on {SRC}:\n{proc.stderr}")
+    os.replace(tmp, target)
+
+
+def get_lib() -> ctypes.CDLL:
+    """The loaded native library, built on first use (raises
+    :class:`NativeError` when it cannot be built or loaded)."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    with _lock:
+        if _lib is None:
+            target = _target()
+            if not os.path.exists(target):
+                _build(target)
+            try:
+                lib = ctypes.CDLL(target)
+            except OSError as exc:
+                raise NativeError(f"cannot load {target}: {exc}") from exc
+            i64, u64 = ctypes.c_int64, ctypes.c_uint64
+            i32p = ctypes.POINTER(ctypes.c_int32)
+            i64p = ctypes.POINTER(ctypes.c_int64)
+            u8p = ctypes.POINTER(ctypes.c_uint8)
+            lib.fu_gen_erdos_renyi.restype = i64
+            lib.fu_gen_erdos_renyi.argtypes = [i64, i64, u64, i64p]
+            lib.fu_gen_barabasi_albert.restype = i64
+            lib.fu_gen_barabasi_albert.argtypes = [i64, i64, u64, i64p]
+            lib.fu_build_graph_count.restype = i64
+            lib.fu_build_graph_count.argtypes = [i64, i64, i64p]
+            lib.fu_build_graph.restype = i64
+            lib.fu_build_graph.argtypes = [i64, i64, i64p, i32p, i32p, i32p,
+                                           i32p]
+            lib.fu_benes_route.restype = i64
+            lib.fu_benes_route.argtypes = [i64, i64p, u8p]
+            _lib = lib
+    return _lib
+
+
+def _ptr(arr: np.ndarray, ctype):
+    return arr.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def gen_erdos_renyi_pairs(n: int, m: int, seed: int = 0) -> np.ndarray:
+    """G(n, m) pairs plus a Hamiltonian backbone, ``(m + n, 2)`` int64."""
+    lib = get_lib()
+    out = np.empty(2 * (m + n), dtype=np.int64)
+    k = lib.fu_gen_erdos_renyi(n, m, seed, _ptr(out, ctypes.c_int64))
+    if k < 0:
+        raise ValueError("bad Erdős–Rényi parameters")
+    return out[: 2 * k].reshape(-1, 2)
+
+
+def gen_barabasi_albert_pairs(n: int, m: int, seed: int = 0) -> np.ndarray:
+    """The exact sequential Barabási–Albert pair list, int64 ``(K, 2)``."""
+    lib = get_lib()
+    npairs = m * (m + 1) // 2 + (n - m - 1) * m
+    out = np.empty(2 * max(npairs, 0), dtype=np.int64)
+    k = lib.fu_gen_barabasi_albert(n, m, seed, _ptr(out, ctypes.c_int64))
+    if k < 0:
+        raise ValueError("bad Barabási–Albert parameters")
+    return out[: 2 * k].reshape(-1, 2)
+
+
+def build_graph_arrays(num_nodes: int, pairs: np.ndarray):
+    """Symmetrize, dedupe, sort and pair the reverse edges of ``pairs``:
+    ``(src, dst, rev, out_deg)`` int32 arrays.  Pairs with an endpoint
+    outside ``[0, num_nodes)`` are skipped, so range-check first."""
+    lib = get_lib()
+    flat = np.ascontiguousarray(pairs, dtype=np.int64).reshape(-1)
+    npairs = flat.size // 2
+    E = lib.fu_build_graph_count(num_nodes, npairs,
+                                 _ptr(flat, ctypes.c_int64))
+    src = np.empty(E, dtype=np.int32)
+    dst = np.empty(E, dtype=np.int32)
+    rev = np.empty(E, dtype=np.int32)
+    deg = np.empty(num_nodes, dtype=np.int32)
+    E2 = lib.fu_build_graph(num_nodes, npairs, _ptr(flat, ctypes.c_int64),
+                            _ptr(src, ctypes.c_int32),
+                            _ptr(dst, ctypes.c_int32),
+                            _ptr(rev, ctypes.c_int32),
+                            _ptr(deg, ctypes.c_int32))
+    if E2 != E:
+        raise NativeError(f"graph builder wrote {E2} edges, counted {E}")
+    return src, dst, rev, deg
+
+
+def benes_route(perm: np.ndarray) -> list:
+    """The Beneš swap masks realizing ``y = x[perm]``: ``2 log2(n) - 1``
+    bool arrays of length ``n`` (views of one buffer), the same masks as
+    the numpy recursion in :func:`flow_updating_tpu_torch.ops.permute.
+    benes_plan`."""
+    lib = get_lib()
+    perm = np.ascontiguousarray(perm, np.int64)
+    n = len(perm)
+    if n < 2 or n & (n - 1):
+        raise ValueError("benes_route needs power-of-two length >= 2")
+    stages = 2 * (n.bit_length() - 1) - 1
+    # bool and uint8 share their layout: the rows are zero-copy views
+    out = np.zeros((stages, n), np.bool_)
+    if lib.fu_benes_route(n, _ptr(perm, ctypes.c_int64),
+                          _ptr(out, ctypes.c_uint8)) < 0:
+        raise ValueError("not a permutation")
+    return [out[s] for s in range(stages)]

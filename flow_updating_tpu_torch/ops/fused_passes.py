@@ -1,0 +1,400 @@
+"""Fused permutation-network passes: many stages per memory round trip.
+
+Counterpart of ``flow_updating_tpu/ops/pallas_fused.py``.  The per-stage
+executor (:func:`~flow_updating_tpu_torch.ops.permute.apply_stages`) reads
+and writes the whole network array for every stage; here the stages are
+segmented into passes that each make one trip:
+
+* **local**: a run of swap stages whose pair blocks fit inside one tile —
+  up to 32 butterflies ``x[p] <- x[p ^ d]``;
+* **window**: a run of roll stages applied on the window ``[prev; own]``
+  of two tiles, valid while the run's halo (:func:`halo_rows`) fits the
+  tile (the halo-consumption argument of :func:`plan_fused`);
+* **wide**: one stage whose partner lies a whole number of tiles away
+  (``i ^ D`` for a swap, ``max(i - D, 0)`` for a roll) — one select;
+* **wide2**: two adjacent wide stages of one kind merged into one pass.
+
+The host planner (:func:`plan_fused`, :func:`pack_masks`) is the JAX
+package's, unchanged in meaning: for the same ``block_rows`` it gives the
+same passes and the same bit planes.  Only the default tile differs — the
+TPU's 2,048-row VMEM block becomes :data:`DEFAULT_BLOCK_ROWS` rows of 128
+elements, whose float64 window fits an SM's shared memory with room to
+spare.  Unlike the JAX package there is no small-network cut-off: a
+network narrower than one tile is one tile (``geometry``).
+
+Each flavour has a plain torch version (``local_pass_plain`` ...), written
+as the JAX pass bodies on the flat tile view (a tile is ``R`` rows of 128
+elements; a row roll inside it is a flat roll), and a wrapper
+(``local_pass`` ...) that takes the plain version for a CPU tensor and
+launches kernel **B3** (``csrc/benes_pass.cu``) for a CUDA tensor,
+counting each launch in its ``launches``.  :func:`apply_fused` runs a
+whole plan and is bit-exact to ``apply_stages`` (pure data movement).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import numpy as np
+import torch
+
+from flow_updating_tpu_torch import kernels
+from flow_updating_tpu_torch.ops.permute import StagePlan
+
+LANE = 128
+MAX_STAGES_PER_PASS = 32
+#: the card's tile height in rows of 128: 4,096 elements, so a float64
+#: window (two tiles) takes 64 KiB of shared memory
+DEFAULT_BLOCK_ROWS = 32
+#: the kernel's largest tile (its window is 2 * MAX_TILE words: 512
+#: threads holding 16 each)
+MAX_TILE = 4096
+
+_KIND_CODE = {"local": 0, "window": 1, "wide_swap": 2, "wide_roll": 3,
+              "wide_swap2": 4, "wide_roll2": 5}
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PassSpec:
+    """One memory round trip."""
+
+    kind: str            # 'local' | 'window' | 'wide_swap' | 'wide_roll'
+    #                      | 'wide_swap2' | 'wide_roll2' (two merged stages)
+    dists: tuple         # element distances, in stage order
+    block_dist: int      # wide passes: partner distance in tiles
+    block_dist2: int = 0  # wide2 passes: second stage's tile distance
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Geometry:
+    """Tile geometry shared by every pass flavour."""
+
+    P: int
+    rows: int
+    block_rows: int
+    grid: int
+
+    @property
+    def tile(self) -> int:
+        """Elements per tile (``P`` for a network narrower than a row)."""
+        return self.P // self.grid
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class FusedPlan:
+    """Pass sequence for one :class:`StagePlan`."""
+
+    geom: Geometry
+    passes: tuple        # of PassSpec
+
+    @property
+    def P(self):
+        return self.geom.P
+
+
+def geometry(P: int, block_rows: int | None = None) -> Geometry:
+    """Tiles of ``min(block_rows, P / 128)`` rows of 128 elements.  A
+    network narrower than 128 elements (a power of two) is one tile of
+    one row."""
+    block_rows = DEFAULT_BLOCK_ROWS if block_rows is None else block_rows
+    if P < LANE:
+        if P < 2 or P & (P - 1):
+            raise ValueError("a network narrower than 128 elements must "
+                             "have a power-of-two width >= 2")
+        return Geometry(P=P, rows=1, block_rows=1, grid=1)
+    if P % LANE:
+        raise ValueError(f"geometry needs P % {LANE} == 0 (or P < {LANE})")
+    rows = P // LANE
+    R = min(block_rows, rows)
+    if R < 1 or R & (R - 1) or rows % R:
+        raise ValueError("block_rows must be a power of two dividing rows")
+    return Geometry(P=P, rows=rows, block_rows=R, grid=rows // R)
+
+
+def halo_rows(dists) -> int:
+    """Window-halo consumption of a stage run, in rows: a roll at
+    distance d reads d/128 rows below, a lane distance costs one row."""
+    return sum(max(d // LANE, 1) for d in dists)
+
+
+def _classify(kind: str, d: int, R: int) -> str:
+    """Pass flavour for one stage at a tile height of ``R`` rows."""
+    rowd = d // LANE
+    if kind == "swap":
+        # the pair block of 2*rowd rows must fit in (and align to) R rows
+        return "local" if (d < LANE or 2 * rowd <= R) else "wide_swap"
+    return "window" if rowd < R else "wide_roll"
+
+
+def plan_fused(plan: StagePlan, block_rows: int | None = None) -> FusedPlan:
+    """Segment ``plan``'s stages into fused passes, preserving order.
+
+    Halo rule for window passes: a roll at row distance dr reads dr rows
+    below, so the own half of the ``[prev; own]`` window stays exact while
+    the run's :func:`halo_rows` is at most ``R``.  Masked-on reads never
+    hit the invalid prefix because the stage masks never select a
+    wrapped-around source (checked by :func:`pack_masks`)."""
+    geom = geometry(plan.n, block_rows)
+    R = geom.block_rows
+    passes = []
+    cur_kind, cur_dists, cur_halo = None, [], 0
+
+    def flush():
+        nonlocal cur_kind, cur_dists, cur_halo
+        if cur_dists:
+            passes.append(PassSpec(kind=cur_kind, dists=tuple(cur_dists),
+                                   block_dist=0))
+        cur_kind, cur_dists, cur_halo = None, [], 0
+
+    for d, kind in zip(plan.dists, plan.kinds):
+        if kind == "swap" and d & (d - 1):
+            raise ValueError(f"swap distance {d} is not a power of two")
+        if kind == "roll" and d >= LANE and d % LANE:
+            raise ValueError(
+                f"roll distance {d} >= {LANE} must be a multiple of {LANE}")
+        flavor = _classify(kind, d, R)
+        if flavor in ("wide_swap", "wide_roll"):
+            if (d // LANE) % R:
+                raise ValueError(
+                    f"wide stage distance {d} is not a multiple of the "
+                    f"block ({R * LANE} elements)")
+            flush()
+            passes.append(PassSpec(kind=flavor, dists=(d,),
+                                   block_dist=(d // LANE) // R))
+            continue
+        halo = max(d // LANE, 1) if flavor == "window" else 0
+        if (cur_kind != flavor
+                or len(cur_dists) >= MAX_STAGES_PER_PASS
+                or (flavor == "window" and cur_halo + halo > R)):
+            flush()
+            cur_kind = flavor
+        cur_dists.append(d)
+        cur_halo += halo
+    flush()
+    # merge adjacent single-stage wide passes of one kind pairwise: two
+    # stages per round trip (source tiles {0, D1, D2, D1+D2})
+    merged = []
+    for ps in passes:
+        prev = merged[-1] if merged else None
+        if (prev is not None and prev.kind in ("wide_swap", "wide_roll")
+                and ps.kind == prev.kind):
+            merged[-1] = PassSpec(kind=prev.kind + "2",
+                                  dists=prev.dists + ps.dists,
+                                  block_dist=prev.block_dist,
+                                  block_dist2=ps.block_dist)
+            continue
+        merged.append(ps)
+    return FusedPlan(geom=geom, passes=tuple(merged))
+
+
+def pack_masks(plan: StagePlan, fused: FusedPlan) -> tuple:
+    """Host mask planes, one flat ``(P,)`` array per pass, in pass order:
+    local/window passes ``uint32`` (bit j = stage j of the pass), wide
+    passes ``int8`` (wide2: bit 0 = first stage, bit 1 = second)."""
+    planes = []
+    s = 0
+    for ps in fused.passes:
+        n_stages = len(ps.dists)
+        stage_masks = plan.masks[s: s + n_stages]
+        if ps.kind in ("window", "wide_roll", "wide_roll2"):
+            # the passes clamp/duplicate tile 0 where apply_stages' roll
+            # wraps circularly, so a roll mask selecting a wrapped source
+            # (p < d) would silently corrupt data: refuse it here
+            for j, (d, m) in enumerate(zip(ps.dists, stage_masks)):
+                if m[:d].any():
+                    raise ValueError(
+                        f"roll stage {s + j} (distance {d}) selects a "
+                        f"wrapped-around source: mask is set below index "
+                        f"{d}; fused kernels do not implement circular "
+                        f"wrap (use the apply_stages path)")
+        s += n_stages
+        if ps.kind in ("local", "window"):
+            plane = np.zeros(fused.P, np.uint32)
+            for j, m in enumerate(stage_masks):
+                plane |= m.astype(np.uint32) << j
+        elif ps.kind in ("wide_swap2", "wide_roll2"):
+            plane = (stage_masks[0].astype(np.int8)
+                     | (stage_masks[1].astype(np.int8) << 1))
+        else:
+            plane = stage_masks[0].astype(np.int8)
+        planes.append(plane)
+    if s != len(plan.masks):
+        raise ValueError("pass segmentation lost stages")
+    return tuple(planes)
+
+
+def mask_planes(plan: StagePlan, fused: FusedPlan, device) -> tuple:
+    """:func:`pack_masks` as tensors on ``device``: the uint32 planes as
+    ``torch.int32`` (the same bits — torch's uint32 lacks shifts and
+    ``&``; bit 31 is the sign bit, which ``(m >> j) & 1`` still reads),
+    the wide planes as ``torch.int8``."""
+    out = []
+    for p in pack_masks(plan, fused):
+        if p.dtype == np.uint32:
+            p = p.view(np.int32)
+        out.append(torch.from_numpy(p).to(device))
+    return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# plain versions: x3 is (B, grid, tile), a plane is (P,)
+# ---------------------------------------------------------------------------
+
+def _tiles(plane: torch.Tensor, geom: Geometry) -> torch.Tensor:
+    return plane.reshape(geom.grid, geom.tile)
+
+
+def _prev_tiles(t: torch.Tensor, axis: int) -> torch.Tensor:
+    """Tile ``max(i - 1, 0)`` at position i along ``axis``."""
+    first = t.narrow(axis, 0, 1)
+    return torch.cat([first, t.narrow(axis, 0, t.shape[axis] - 1)], axis)
+
+
+def local_pass_plain(x3: torch.Tensor, plane: torch.Tensor, ps: PassSpec,
+                     geom: Geometry) -> torch.Tensor:
+    """Butterflies ``x[p] <- x[p ^ d]`` inside each tile, as the JAX body:
+    two rolls and two selects per stage."""
+    m = _tiles(plane, geom)
+    iota = torch.arange(geom.tile, dtype=torch.int64, device=x3.device)
+    x = x3
+    for j, d in enumerate(ps.dists):
+        bit = ((m >> j) & 1) != 0
+        hi = (iota & d) != 0
+        x = torch.where(bit & hi, torch.roll(x, d, -1),
+                        torch.where(bit & ~hi, torch.roll(x, -d, -1), x))
+    return x
+
+
+def window_pass_plain(x3: torch.Tensor, plane: torch.Tensor, ps: PassSpec,
+                      geom: Geometry) -> torch.Tensor:
+    """Rolls on the ``[prev; own]`` window, circular inside the window,
+    keeping the own half (tile 0's window repeats tile 0)."""
+    T = geom.tile
+    m = _tiles(plane, geom)
+    w = torch.cat([_prev_tiles(x3, 1), x3], -1)
+    mw = torch.cat([_prev_tiles(m, 0), m], -1)
+    for j, d in enumerate(ps.dists):
+        bit = ((mw >> j) & 1) != 0
+        w = torch.where(bit, torch.roll(w, d, -1), w)
+    return w[..., T:]
+
+
+def _partner_tiles(geom: Geometry, D: int, swap: bool, device):
+    i = torch.arange(geom.grid, dtype=torch.int64, device=device)
+    return i ^ D if swap else torch.clamp(i - D, min=0)
+
+
+def wide_pass_plain(x3: torch.Tensor, plane: torch.Tensor, ps: PassSpec,
+                    geom: Geometry) -> torch.Tensor:
+    """One select against the partner tile."""
+    swap = ps.kind == "wide_swap"
+    src = _partner_tiles(geom, ps.block_dist, swap, x3.device)
+    return torch.where(_tiles(plane, geom) != 0, x3[:, src], x3)
+
+
+def wide2_pass_plain(x3: torch.Tensor, plane: torch.Tensor, ps: PassSpec,
+                     geom: Geometry) -> torch.Tensor:
+    """Two merged wide stages: four source tiles, two mask reads."""
+    swap = ps.kind == "wide_swap2"
+    D1, D2 = ps.block_dist, ps.block_dist2
+    dev = x3.device
+    at1 = _partner_tiles(geom, D1, swap, dev)
+    at2 = _partner_tiles(geom, D2, swap, dev)
+    at12 = (at1 ^ D2) if swap else _partner_tiles(geom, D1 + D2, False, dev)
+    m = _tiles(plane, geom)
+    m1_own = (m & 1) != 0
+    m1_shift = (m[at2] & 1) != 0
+    m2_own = (m & 2) != 0
+    s1_own = torch.where(m1_own, x3[:, at1], x3)
+    s1_shift = torch.where(m1_shift, x3[:, at12], x3[:, at2])
+    return torch.where(m2_own, s1_shift, s1_own)
+
+
+# ---------------------------------------------------------------------------
+# kernel B3 wrappers
+# ---------------------------------------------------------------------------
+
+def _launch(x3: torch.Tensor, plane: torch.Tensor, ps: PassSpec,
+            geom: Geometry, what: str) -> torch.Tensor:
+    if x3.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {x3.device}")
+    if x3.dim() != 3 or x3.shape[1:] != (geom.grid, geom.tile) \
+            or not x3.is_contiguous():
+        raise ValueError(f"{what}: expected a contiguous (B, {geom.grid}, "
+                         f"{geom.tile}) tensor, got {tuple(x3.shape)}")
+    if x3.element_size() not in (4, 8):
+        raise ValueError(f"{what}: the kernel moves 4- or 8-byte words, "
+                         f"got {x3.dtype}")
+    staged = ps.kind in ("local", "window")
+    want = torch.int32 if staged else torch.int8
+    if (plane.device != x3.device or plane.dtype != want
+            or plane.numel() != geom.P or not plane.is_contiguous()):
+        raise ValueError(f"{what}: the mask plane must be a contiguous "
+                         f"({geom.P},) {want} tensor on the payload's "
+                         "device")
+    if geom.tile > MAX_TILE:
+        raise ValueError(f"{what}: tile of {geom.tile} elements exceeds the "
+                         f"kernel's {MAX_TILE}; plan with block_rows <= "
+                         f"{MAX_TILE // LANE}")
+    out = torch.empty_like(x3)
+    dists = (ctypes.c_int * max(len(ps.dists), 1))(*ps.dists)
+    fn = kernels.library("benes_pass").benes_pass
+    kernels.check(fn(_KIND_CODE[ps.kind], x3.element_size(), x3.data_ptr(),
+                     out.data_ptr(), plane.data_ptr(), geom.P, x3.shape[0],
+                     geom.tile, len(ps.dists) if staged else 0, dists,
+                     ps.block_dist, ps.block_dist2, kernels.stream_ptr(x3)),
+                  what)
+    return out
+
+
+def _wrapper(name: str, plain):
+    def run(x3, plane, ps, geom):
+        if x3.device.type == "cpu":
+            return plain(x3, plane, ps, geom)
+        out = _launch(x3, plane, ps, geom, name)
+        run.launches += 1
+        return out
+
+    run.__name__ = run.__qualname__ = name
+    run.__doc__ = (f"Kernel B3's {name.split('_')[0]} flavour: the plain "
+                   f"version on a CPU tensor, the CUDA kernel (counted in "
+                   f"``{name}.launches``) on a CUDA tensor.")
+    run.launches = 0
+    return run
+
+
+local_pass = _wrapper("local_pass", local_pass_plain)
+window_pass = _wrapper("window_pass", window_pass_plain)
+wide_pass = _wrapper("wide_pass", wide_pass_plain)
+wide2_pass = _wrapper("wide2_pass", wide2_pass_plain)
+
+PASS_FNS = {"local": local_pass, "window": window_pass,
+            "wide_swap": wide_pass, "wide_roll": wide_pass,
+            "wide_swap2": wide2_pass, "wide_roll2": wide2_pass}
+PLAIN_FNS = {"local": local_pass_plain, "window": window_pass_plain,
+             "wide_swap": wide_pass_plain, "wide_roll": wide_pass_plain,
+             "wide_swap2": wide2_pass_plain, "wide_roll2": wide2_pass_plain}
+
+
+def apply_fused(x: torch.Tensor, fused: FusedPlan, planes) -> torch.Tensor:
+    """Run every pass over the last axis of ``x`` (leading batch dims
+    share the planes from :func:`mask_planes`); equal to
+    ``apply_stages(x, stage_plan)`` bit for bit."""
+    geom = fused.geom
+    if x.shape[-1] != geom.P:
+        raise ValueError(f"apply_fused: last axis {x.shape[-1]}, network "
+                         f"width {geom.P}")
+    lead = x.shape[:-1]
+    x3 = x.reshape(-1, geom.grid, geom.tile)
+    for ps, plane in zip(fused.passes, planes):
+        x3 = PASS_FNS[ps.kind](x3, plane, ps, geom)
+    return x3.reshape(*lead, geom.P)
+
+
+def pass_min_bytes(ps: PassSpec, geom: Geometry, batch: int,
+                   dtype_bytes: int) -> int:
+    """The least bytes one pass must move: x read once, its mask plane
+    read once, the output written once."""
+    mask_bytes = 4 if ps.kind in ("local", "window") else 1
+    return int(geom.P * (2 * batch * dtype_bytes + mask_bytes))

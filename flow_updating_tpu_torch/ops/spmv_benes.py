@@ -1,0 +1,190 @@
+"""Gather-free neighbor sum: the adjacency SpMV as a permutation network.
+
+Counterpart of ``flow_updating_tpu/ops/spmv_benes.py``, the node kernel's
+``spmv='benes'`` (per-stage torch ops) and ``spmv='benes_fused'`` (fused
+passes, kernel B3 on the card).  All maps are topology constants planned
+on the host once:
+
+    x[idx_flat]  =  permute_benes( fill_forward( spread(x) ) )
+
+* ``spread``: place ``x[v]`` at the first slot of value v's run in the
+  sorted index list (monotone injective: a conflict-free barrel shifter).
+  A synthetic leading block ``[0, m1)`` in the index list makes every
+  value occur, so the sorted runs cover all of x;
+* ``fill_forward``: copy each run head over its run;
+* ``permute_benes``: route sorted positions back to ELL slots (the
+  inverse argsort, an arbitrary permutation, routed by the C++ router at
+  scale).
+
+The ELL row sums that follow are plain reductions.  On the H100 the gather
+these stages replace is native (``spmv='xla'``/``'pallas'``); the network
+is ported for parity with the JAX package and for the delivery and
+segment paths that reuse it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+
+import numpy as np
+import torch
+
+from flow_updating_tpu_torch.ops.fused_passes import (
+    FusedPlan,
+    apply_fused,
+    mask_planes,
+    plan_fused,
+)
+from flow_updating_tpu_torch.ops.permute import (
+    StagePlan,
+    apply_stages,
+    benes_plan,
+    concat_plans,
+    fill_forward_stages,
+    next_pow2,
+    spread_plan,
+)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class NeighborSumPlan:
+    """Host plan of the network (masks are numpy; :meth:`to` moves them)."""
+
+    m1: int              # padded node-vector length incl. the zero slot
+    P: int               # power-of-two network width
+    flat_begin: int      # ELL payload offset inside the network domain
+    bucket_shapes: tuple  # (rows, width) per ELL bucket
+    stages: StagePlan
+
+    def to(self, device) -> tuple:
+        """The stage masks :func:`neighbor_sum_benes` takes, on
+        ``device``."""
+        return self.stages.to(device)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class FusedNeighborSumPlan:
+    """:class:`NeighborSumPlan` whose stages run as fused passes
+    (``spmv='benes_fused'``) — at every network width."""
+
+    base: NeighborSumPlan
+    fused: FusedPlan
+
+    @property
+    def m1(self):
+        return self.base.m1
+
+    @property
+    def P(self):
+        return self.base.P
+
+    @property
+    def flat_begin(self):
+        return self.base.flat_begin
+
+    @property
+    def bucket_shapes(self):
+        return self.base.bucket_shapes
+
+    def to(self, device) -> tuple:
+        """The pass mask planes, on ``device``."""
+        return mask_planes(self.base.stages, self.fused, device)
+
+
+_plan_cache: dict = {}
+
+
+def _mats_key(mats: tuple, m1: int):
+    h = hashlib.sha1()
+    for m in mats:
+        h.update(m.dtype.str.encode())
+        h.update(np.ascontiguousarray(m))
+    return (m1, tuple(m.shape for m in mats), h.hexdigest())
+
+
+def plan_neighbor_sum(mats: tuple, m1: int, fused: bool = False):
+    """Plan the network for ELL matrices ``mats`` (per-bucket ``(rows,
+    width)`` int32 numpy neighbor slots in padded node space, pad value
+    ``m1 - 1``, the zero slot; ``m1`` = padded vector length + 1).
+    ``fused=True`` also plans the fused passes, at the card's tile.
+
+    Plans are cached in-process on the content of ``mats``: routing the
+    network at a million nodes costs seconds to minutes, and the
+    ``'benes'`` twin and ``'benes_fused'`` share one routing."""
+    key0 = _mats_key(mats, m1)
+    key = (key0, fused)
+    cached = _plan_cache.get(key)
+    if cached is not None:
+        return cached
+    plan = _plan_cache.get((key0, False))
+    if plan is None:
+        spread, fill, benes, P = plan_sections(mats, m1)
+        plan = NeighborSumPlan(
+            m1=m1, P=P, flat_begin=m1,
+            bucket_shapes=tuple(m.shape for m in mats),
+            stages=concat_plans(spread, fill, benes))
+        _plan_cache[(key0, False)] = plan
+    out = plan
+    if fused:
+        out = FusedNeighborSumPlan(base=plan, fused=plan_fused(plan.stages))
+        _plan_cache[key] = out
+    while len(_plan_cache) > 8:   # bound held host memory (masks are big)
+        _plan_cache.pop(next(iter(_plan_cache)))
+    return out
+
+
+def plan_sections(mats: tuple, m1: int):
+    """The three network sections (spread, fill, benes StagePlans) plus
+    the common width ``P`` for one set of ELL matrices."""
+    flats = [np.asarray(m, np.int64).ravel() for m in mats]
+    idx_flat = np.concatenate(flats) if flats else np.zeros(0, np.int64)
+    # synthetic block: every value present at least once
+    aug = np.concatenate([np.arange(m1, dtype=np.int64), idx_flat])
+    Ea = len(aug)
+    P = next_pow2(max(Ea, m1))
+
+    order = np.argsort(aug, kind="stable")
+    g = aug[order]
+    heads = np.zeros(Ea, bool)
+    heads[0] = True
+    heads[1:] = g[1:] != g[:-1]
+    head_pos = np.flatnonzero(heads)
+    if len(head_pos) != m1:
+        raise ValueError("ELL matrices index outside [0, m1)")
+
+    spread = spread_plan(head_pos, P)
+    run_id = np.concatenate([g, np.full(P - Ea, g[-1] if Ea else 0)])
+    fill = fill_forward_stages(run_id)
+    # sorted position r holds x[g[r]]; ELL slot s needs x[aug[s]] = the
+    # value at sorted position inv_order[s]
+    inv_order = np.empty(Ea, np.int64)
+    inv_order[order] = np.arange(Ea, dtype=np.int64)
+    perm2 = np.concatenate([inv_order, np.arange(Ea, P, dtype=np.int64)])
+    benes = benes_plan(perm2)
+    return spread, fill, benes, P
+
+
+def neighbor_sum_benes(x: torch.Tensor, plan, masks) -> torch.Tensor:
+    """A(x) for the node kernel: ``x`` is the padded ``(m1 - 1,)`` vector;
+    the zero slot and the network padding are appended here as one block
+    of zeros.  ``masks`` come from ``plan.to(device)``.  A
+    :class:`FusedNeighborSumPlan` runs :func:`apply_fused` (kernel B3 on a
+    CUDA tensor), a :class:`NeighborSumPlan` the per-stage executor."""
+    if x.dim() != 1:
+        raise ValueError("the Beneš neighbor sum takes a scalar (M,) "
+                         f"payload, got shape {tuple(x.shape)}")
+    z = torch.cat([x, x.new_zeros(plan.P - plan.m1 + 1)])
+    if isinstance(plan, FusedNeighborSumPlan):
+        z = apply_fused(z, plan.fused, masks)
+    else:
+        z = apply_stages(z, plan.stages, masks)
+    parts = []
+    off = plan.flat_begin
+    for rows, w in plan.bucket_shapes:
+        if w == 0:
+            parts.append(x.new_zeros(rows))
+        else:
+            parts.append(z[off: off + rows * w].reshape(rows, w).sum(dim=1))
+            off += rows * w
+    return torch.cat(parts) if len(parts) > 1 else parts[0]

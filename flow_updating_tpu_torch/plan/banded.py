@@ -4,13 +4,20 @@ Counterpart of ``flow_updating_tpu/plan/banded.py``.  After RCM
 reordering, most edges of a structured-ish graph sit on a few near-full
 diagonals of the adjacency.  Each kept diagonal ``d`` contributes
 ``where(mask_d, roll(x, -d), 0)`` to the neighbor sum; edges on
-low-occupancy diagonals form the *remainder*, summed by a plain bucketed
-ELL gather (:func:`flow_updating_tpu_torch.ops.spmv.neighbor_sum`).
+low-occupancy diagonals form the *remainder*, routed through either
 
-The JAX package can also route the remainder through a Beneš
-permutation network (``remainder='benes'``); that route is the ROADMAP
-item "Beneš circuits and their kernels (A6, B3/B4)" and raises here.
-``remainder='auto'`` resolves to ``'gather'``.
+* a plain bucketed ELL gather + row sums
+  (:func:`flow_updating_tpu_torch.ops.spmv.neighbor_sum`), or
+* ``remainder='benes'``: the Beneš permutation network of
+  :mod:`flow_updating_tpu_torch.ops.spmv_benes` over the remainder's ELL
+  matrices, and a second, padded network that un-permutes the
+  bucket-ordered rows back to RCM order — both unfused (per-stage torch
+  ops), as in the JAX package.
+
+``remainder='auto'`` resolves to ``'gather'`` here, where the JAX package
+picks ``'benes'`` for large remainders when its C++ router is present: on
+the card the gather is native, and parity between the packages is on
+results, not on planning choices.
 
 The plan (:class:`BandedSpmvPlan`) is static host metadata; the arrays
 travel separately as :class:`BandedLeaves` tensors.
@@ -24,7 +31,15 @@ import numpy as np
 import torch
 
 from flow_updating_tpu_torch.models.state import _ex
+from flow_updating_tpu_torch.ops.permute import (
+    apply_padded_perm,
+    padded_perm_plan,
+)
 from flow_updating_tpu_torch.ops.spmv import neighbor_sum
+from flow_updating_tpu_torch.ops.spmv_benes import (
+    neighbor_sum_benes,
+    plan_neighbor_sum,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,12 +51,17 @@ class BandedLeaves:
     #                        in RCM node space (pad index n -> zero slot)
     rem_pos: torch.Tensor | None = None  # 'gather': (n,) int64 — RCM row ->
     #                                      bucket position
+    rem_ns_masks: tuple = ()      # 'benes': remainder network stage masks
+    rem_unperm_masks: tuple = ()  # 'benes': bucket-order -> RCM-order masks
 
     def to(self, device) -> BandedLeaves:
         return BandedLeaves(
             band_masks=tuple(m.to(device) for m in self.band_masks),
             rem_mats=tuple(m.to(device) for m in self.rem_mats),
             rem_pos=None if self.rem_pos is None else self.rem_pos.to(device),
+            rem_ns_masks=tuple(m.to(device) for m in self.rem_ns_masks),
+            rem_unperm_masks=tuple(m.to(device)
+                                   for m in self.rem_unperm_masks),
         )
 
 
@@ -50,7 +70,7 @@ class BandedSpmvPlan:
     """Static banded-spmv descriptor.
 
     ``offsets`` are the kept signed diagonals in ascending order;
-    ``rem_mode`` is 'none' | 'gather'."""
+    ``rem_mode`` is 'none' | 'gather' | 'benes'."""
 
     n: int                     # real node count (RCM space)
     offsets: tuple             # kept signed diagonals, ascending
@@ -58,6 +78,8 @@ class BandedSpmvPlan:
     remainder_edges: int
     rem_mode: str
     rem_bucket_shapes: tuple = ()
+    rem_ns_plan: object = None       # 'benes': spmv_benes.NeighborSumPlan
+    rem_unperm_plan: object = None   # 'benes': permute.PaddedPermPlan
 
     @property
     def coverage(self) -> float:
@@ -109,18 +131,13 @@ def build_banded(n: int, src: np.ndarray, dst: np.ndarray, *,
 
     A diagonal is kept as a band lane while it holds at least
     ``min_fill * n`` edges, up to ``max_lanes`` lanes (most-occupied
-    first).  ``remainder`` is 'auto' | 'gather' | 'none' ('none' raises
-    if any edge is left over, 'auto' = 'gather'; 'benes' raises).
+    first).  ``remainder`` is 'auto' | 'gather' | 'benes' | 'none'
+    ('none' raises if any edge is left over, 'auto' = 'gather').
     ``features`` declares a vector payload, which the rolls and the
-    gather remainder both broadcast over.  Leaves are CPU tensors."""
-    if remainder == "benes":
-        raise NotImplementedError(
-            "remainder='benes' routes the remainder through a Beneš "
-            "permutation network — the ROADMAP item 'Beneš circuits and "
-            "their kernels (A6, B3/B4)', not ported yet; use 'gather'")
-    if remainder not in ("auto", "gather", "none"):
+    gather remainder broadcast over ('benes' packs scalar lanes and
+    refuses it).  Leaves are CPU tensors."""
+    if remainder not in ("auto", "gather", "benes", "none"):
         raise ValueError(f"unknown remainder route {remainder!r}")
-    del features  # both remainder routes of the port broadcast over D
     src = np.asarray(src, np.int64)
     dst = np.asarray(dst, np.int64)
     E = len(src)
@@ -150,28 +167,44 @@ def build_banded(n: int, src: np.ndarray, dst: np.ndarray, *,
         raise ValueError(
             f"remainder='none' but {n_rem} edge(s) fall outside the "
             f"{len(kept)} kept band(s) — allow a remainder path "
-            "('gather'/'auto') or widen min_fill/max_lanes")
+            "('gather'/'benes'/'auto') or widen min_fill/max_lanes")
     if n_rem == 0:
         mode = "none"
     elif mode == "auto":
         mode = "gather"
+    if features and mode == "benes":
+        raise ValueError(
+            "remainder='benes' packs scalar lanes; vector payloads "
+            "route the remainder through 'gather'")
 
     rem_mats: tuple = ()
     rem_pos = None
     shapes: tuple = ()
-    if mode == "gather":
+    ns_plan = unperm_plan = None
+    ns_masks: tuple = ()
+    unperm_masks: tuple = ()
+    if mode in ("gather", "benes"):
         rem_mats, rem_pos = _remainder_ell(n, rem_src, rem_dst)
         shapes = tuple(m.shape for m in rem_mats)
+        if mode == "benes":
+            # m1 = n + 1: the zero slot follows the generic convention
+            ns_plan = plan_neighbor_sum(rem_mats, n + 1)
+            ns_masks = ns_plan.to("cpu")
+            unperm_plan = padded_perm_plan(rem_pos.astype(np.int64))
+            unperm_masks = unperm_plan.to("cpu")
+            rem_mats, rem_pos = (), None  # the network replaces the gather
 
     leaves = BandedLeaves(
         band_masks=tuple(torch.from_numpy(m) for m in band_masks),
         rem_mats=tuple(torch.from_numpy(m) for m in rem_mats),
         rem_pos=(None if rem_pos is None
                  else torch.from_numpy(rem_pos.astype(np.int64))),
+        rem_ns_masks=ns_masks, rem_unperm_masks=unperm_masks,
     )
     plan = BandedSpmvPlan(
         n=n, offsets=tuple(int(d) for d in kept), in_band_edges=n_in,
         remainder_edges=n_rem, rem_mode=mode, rem_bucket_shapes=shapes,
+        rem_ns_plan=ns_plan, rem_unperm_plan=unperm_plan,
     )
     return plan, leaves
 
@@ -194,7 +227,7 @@ def banded_neighbor_sum(x: torch.Tensor, plan: BandedSpmvPlan,
     for d, mask in zip(plan.offsets, leaves.band_masks):
         contrib = torch.roll(xv, -d, 0)
         acc = acc + torch.where(_ex(mask, xv), contrib, 0)
-    if plan.rem_mode == "gather":
+    if plan.rem_mode in ("gather", "benes"):
         acc = acc + _remainder_term(xv, plan, leaves)
     return _pad_to(acc, x.shape[0])
 
@@ -205,8 +238,11 @@ def _remainder_term(xv: torch.Tensor, plan: BandedSpmvPlan,
     one implementation both :func:`banded_neighbor_sum` and
     :func:`banded_remainder_sum` add, so the fused round's
     ``rem_route='lanes'`` bit-parity contract cannot drift."""
-    del plan  # one remainder route ('gather') in this package
-    return neighbor_sum(xv, leaves.rem_mats)[leaves.rem_pos]
+    if plan.rem_mode == "gather":
+        return neighbor_sum(xv, leaves.rem_mats)[leaves.rem_pos]
+    a = neighbor_sum_benes(xv, plan.rem_ns_plan, leaves.rem_ns_masks)
+    return apply_padded_perm(a, plan.rem_unperm_plan,
+                             leaves.rem_unperm_masks)
 
 
 def banded_remainder_sum(x: torch.Tensor, plan: BandedSpmvPlan,
@@ -216,7 +252,7 @@ def banded_remainder_sum(x: torch.Tensor, plan: BandedSpmvPlan,
     ``rem_route='lanes'`` input of the one-kernel fused round."""
     n = plan.n
     xv = x[:n]
-    if plan.rem_mode == "gather":
+    if plan.rem_mode in ("gather", "benes"):
         acc = _remainder_term(xv, plan, leaves)
     else:
         acc = torch.zeros_like(xv)

@@ -185,7 +185,7 @@ def compile_topology(topo: Topology, *, max_lanes: int = 96,
     Knobs: ``max_lanes`` bounds the dense roll lanes (each costs one
     streamed pass per neighbor sum); ``min_fill`` is the occupancy floor
     below which a diagonal goes to the remainder; ``remainder`` routes
-    the out-of-band edges ('auto' | 'gather' | 'none'; 'benes' raises);
+    the out-of-band edges ('auto' | 'gather' | 'benes' | 'none');
     ``features`` > 0 declares a vector payload (rolls broadcast over it,
     the remainder then gathers).  Plans are cached on (topology content,
     knobs)."""

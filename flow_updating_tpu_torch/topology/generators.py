@@ -1,16 +1,14 @@
-"""Synthetic topology generators (numpy).
+"""Synthetic topology generators.
 
 Counterpart of ``flow_updating_tpu/topology/generators.py``.  Each generator
 emits undirected edges once and lets :func:`build_topology` symmetrize
-them.  Differences from the JAX package, both deliberate for now:
-
-* every generator takes its numpy path at every size (the JAX package
-  hands Erdős–Rényi above 100k nodes and Barabási–Albert above 10k nodes
-  to its C++ runtime, whose random draws differ — graphs above those sizes
-  are therefore different graphs here);
-* no closed-form ``structure`` descriptor is attached (it feeds only
-  ``spmv='structured'``, a later port item), and ``fat_tree`` always
-  materializes its edges.
+them.  As in the JAX package, Erdős–Rényi from 100,000 nodes and
+Barabási–Albert above 10,000 nodes draw their edges in the C++ runtime
+(:mod:`flow_updating_tpu_torch.native`, the exact sequential BA process),
+so both packages build the same graph from the same seed at every size.
+No closed-form ``structure`` descriptor is attached (it feeds only
+``spmv='structured'``, a later port item), and ``fat_tree`` always
+materializes its edges.
 """
 
 from __future__ import annotations
@@ -19,6 +17,7 @@ import dataclasses
 
 import numpy as np
 
+from flow_updating_tpu_torch import native
 from flow_updating_tpu_torch.topology.graph import Topology, build_topology
 
 
@@ -79,6 +78,9 @@ def erdos_renyi(n: int, avg_degree: float = 8.0, seed: int = 0,
     """G(n, m) with m = n * avg_degree / 2 undirected edges, plus a random
     Hamiltonian-cycle backbone so the graph is connected."""
     m = int(n * avg_degree / 2)
+    if n >= 100_000:
+        return _finish(n, native.gen_erdos_renyi_pairs(n, m, seed), seed,
+                       values)
     rng = np.random.default_rng(seed)
     u = rng.integers(0, n, size=m, dtype=np.int64)
     v = rng.integers(0, n, size=m, dtype=np.int64)
@@ -90,9 +92,13 @@ def erdos_renyi(n: int, avg_degree: float = 8.0, seed: int = 0,
 
 def barabasi_albert(n: int, m: int = 4, seed: int = 0,
                     values=None) -> Topology:
-    """Preferential attachment (degree-skewed), repeated-endpoints sampling
-    vectorized in chunks: a whole chunk of new nodes draws its targets from
-    the endpoint multiset built so far."""
+    """Preferential attachment (degree-skewed).  Above 10,000 nodes the
+    exact sequential process runs in the native runtime; below it,
+    repeated-endpoints sampling vectorized in chunks: a whole chunk of new
+    nodes draws its targets from the endpoint multiset built so far."""
+    if n > 10_000:
+        return _finish(n, native.gen_barabasi_albert_pairs(n, m, seed), seed,
+                       values)
     rng = np.random.default_rng(seed)
     if n <= m + 1:
         return complete(n, seed=seed, values=values)

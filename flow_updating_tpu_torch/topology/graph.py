@@ -13,9 +13,10 @@ missing reverse edges are added at load time and reported through
 :func:`build_topology`'s ``adopted`` output.
 
 Everything here is host-side numpy; the node kernel (``models/sync.py``)
-moves what it needs onto its device.  Graphs are always built on the numpy
-path (the JAX package switches to a C++ builder above two million pairs;
-the port has no native runtime yet).
+moves what it needs onto its device.  As in the JAX package, a generator's
+graph of two million declared pairs or more is symmetrized, sorted and
+paired with its reverse edges by the C++ builder
+(:mod:`flow_updating_tpu_torch.native`), which gives the same arrays.
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ import logging
 from collections.abc import Mapping, Sequence
 
 import numpy as np
+
+from flow_updating_tpu_torch import native
 
 logger = logging.getLogger("flow_updating_tpu_torch")
 
@@ -202,29 +205,41 @@ def build_topology(
     tick_interval))``; ``route_links``/``link_caps``/``link_shared``
     attach the link-level contention model."""
     pairs_arr = np.asarray(pairs, dtype=np.int64).reshape(-1, 2)
-    edges, adopted = _symmetrize(pairs_arr)
-    if len(adopted) and warn_asymmetric:
-        shown = ", ".join(f"{int(a)}->{int(b)}" for a, b in adopted[:8])
-        logger.warning(
-            "topology: %d directed edge(s) had no declared reverse; "
-            "adopted at load time (%s%s)",
-            len(adopted), shown, "..." if len(adopted) > 8 else "",
-        )
-    if edges.size and (edges.max() >= num_nodes or edges.min() < 0):
-        raise ValueError("edge endpoint out of range")
+    adopted = None
+    if len(pairs_arr) >= 2_000_000 and not warn_asymmetric:
+        # big generator graphs: the C++ builder (the adopted-edge report
+        # needs the numpy path).  It skips bad endpoints instead of
+        # raising, so the range check comes first.
+        if pairs_arr.min() < 0 or pairs_arr.max() >= num_nodes:
+            raise ValueError("edge endpoint out of range")
+        src, dst, rev, out_deg = native.build_graph_arrays(num_nodes,
+                                                           pairs_arr)
+        E = len(src)
+    else:
+        edges, adopted = _symmetrize(pairs_arr)
+        if len(adopted) and warn_asymmetric:
+            shown = ", ".join(f"{int(a)}->{int(b)}" for a, b in adopted[:8])
+            logger.warning(
+                "topology: %d directed edge(s) had no declared reverse; "
+                "adopted at load time (%s%s)",
+                len(adopted), shown, "..." if len(adopted) > 8 else "",
+            )
+        if edges.size and (edges.max() >= num_nodes or edges.min() < 0):
+            raise ValueError("edge endpoint out of range")
 
-    E = edges.shape[0]
-    src = edges[:, 0].astype(np.int32)
-    dst = edges[:, 1].astype(np.int32)
+        E = edges.shape[0]
+        src = edges[:, 0].astype(np.int32)
+        dst = edges[:, 1].astype(np.int32)
 
-    # reverse-edge permutation: position of (dst, src) in the sorted list
-    order_keys = src.astype(np.int64) * num_nodes + dst.astype(np.int64)
-    rev_keys = dst.astype(np.int64) * num_nodes + src.astype(np.int64)
-    rev = np.searchsorted(order_keys, rev_keys).astype(np.int32)
-    if not np.array_equal(order_keys[rev], rev_keys):
-        raise ValueError("symmetrized graph has an edge without reverse")
+        # reverse-edge permutation: position of (dst, src) in the sorted
+        # list
+        order_keys = src.astype(np.int64) * num_nodes + dst.astype(np.int64)
+        rev_keys = dst.astype(np.int64) * num_nodes + src.astype(np.int64)
+        rev = np.searchsorted(order_keys, rev_keys).astype(np.int32)
+        if not np.array_equal(order_keys[rev], rev_keys):
+            raise ValueError("symmetrized graph has an edge without reverse")
 
-    out_deg = np.bincount(src, minlength=num_nodes).astype(np.int32)
+        out_deg = np.bincount(src, minlength=num_nodes).astype(np.int32)
     row_start = np.zeros(num_nodes + 1, dtype=np.int64)
     np.cumsum(out_deg, out=row_start[1:])
     edge_rank = (np.arange(E, dtype=np.int64) - row_start[src]).astype(np.int32)

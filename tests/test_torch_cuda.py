@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
-Every test here needs an NVIDIA GPU with ``nvcc`` and skips without one.
+Every test here needs an NVIDIA GPU with ``nvcc`` and skips without one
+(kernels K1, K2 and the four flavours of B3).
 This file imports no JAX, so it also runs where JAX is absent, without the
 suite's JAX-pinning conftest:
 
@@ -103,3 +104,118 @@ def test_engine_pallas_on_card_matches_host(card):
     np.testing.assert_allclose(on_card.estimates(), host.estimates(),
                                rtol=1e-12, atol=1e-12)
     assert on_card.device.type == "cuda"
+
+
+def _random_plan(seed, kinds_dists, n):
+    from flow_updating_tpu_torch.ops.permute import StagePlan
+
+    rng = np.random.default_rng(seed)
+    masks = []
+    for kind, d in kinds_dists:
+        m = rng.integers(0, 2, size=n).astype(bool)
+        if kind == "swap":
+            m = m | m[np.arange(n) ^ d]
+        else:
+            m[:d] = False
+        masks.append(m)
+    return StagePlan(n=n, dists=tuple(d for _, d in kinds_dists),
+                     kinds=tuple(k for k, _ in kinds_dists),
+                     masks=tuple(masks))
+
+
+_T = 16 * 128
+_FLAVOURS = {
+    "local": [("swap", d) for d in (1, 8, 64, 128, 512, _T // 2)],
+    "window": [("roll", d) for d in (1, 3, 64, 128, 256, 512)],
+    "wide_swap": [("swap", 2 * _T)],
+    "wide_roll": [("roll", _T)],
+    "wide_swap2": [("swap", _T), ("swap", 2 * _T)],
+    "wide_roll2": [("roll", 2 * _T), ("roll", _T)],
+}
+
+
+@pytest.mark.parametrize("flavour", sorted(_FLAVOURS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.int32])
+@pytest.mark.parametrize("batch", [1, 3])
+def test_benes_pass_kernel_matches_plain(card, flavour, dtype, batch):
+    """Kernel B3, each flavour, against its plain version: bit-exact, at
+    the JAX test geometry (64 rows of 128 in tiles of 16 rows)."""
+    from flow_updating_tpu_torch.ops import fused_passes as fp
+
+    plan = _random_plan(3, _FLAVOURS[flavour], 64 * 128)
+    fused = fp.plan_fused(plan, block_rows=16)
+    (ps,) = fused.passes
+    assert ps.kind == flavour
+    (plane,) = fp.mask_planes(plan, fused, card)
+    geom = fused.geom
+    x = torch.from_numpy(np.random.default_rng(batch).normal(
+        size=(batch, geom.grid, geom.tile)) * 1000).to(card, dtype)
+    wrapper = fp.PASS_FNS[flavour]
+    before = wrapper.launches
+    got = wrapper(x, plane, ps, geom)
+    assert wrapper.launches == before + 1
+    assert torch.equal(got, fp.PLAIN_FNS[flavour](x, plane, ps, geom))
+
+
+@pytest.mark.parametrize("log2n,block_rows", [(16, None), (13, 16),
+                                              (6, None), (9, None)])
+def test_apply_fused_on_card_equals_apply_stages(card, log2n, block_rows):
+    """A routed network through B3 at the card's tile (and below one
+    tile, where the JAX package would not fuse) equals the per-stage
+    executor and the permutation itself."""
+    from flow_updating_tpu_torch.ops import fused_passes as fp
+    from flow_updating_tpu_torch.ops import permute as pm
+
+    n = 1 << log2n
+    rng = np.random.default_rng(log2n)
+    runs = np.sort(rng.integers(0, n // 4 + 1, size=n))
+    heads = np.flatnonzero(np.r_[True, runs[1:] != runs[:-1]])
+    plan = pm.concat_plans(pm.spread_plan(heads, n),
+                           pm.fill_forward_stages(runs))
+    perm = rng.permutation(n)
+    for stages in (plan, pm.benes_plan(perm)):
+        fused = fp.plan_fused(stages, block_rows=block_rows)
+        x = torch.from_numpy(rng.normal(size=(2, n))).to(card)
+        got = fp.apply_fused(x, fused, fp.mask_planes(stages, fused, card))
+        assert torch.equal(got, pm.apply_stages(x, stages,
+                                                stages.to(card)))
+    idx = torch.arange(n, device=card)
+    fused = fp.plan_fused(pm.benes_plan(perm), block_rows=block_rows)
+    routed = fp.apply_fused(idx, fused, fp.mask_planes(
+        pm.benes_plan(perm), fused, card))
+    assert torch.equal(routed.cpu(), torch.from_numpy(perm))
+
+
+def test_benes_routes_on_card_equal_gather(card):
+    topo = barabasi_albert(3000, 4, seed=3)
+    est = {}
+    for spmv in ("xla", "benes", "benes_fused"):
+        k = NodeKernel(topo, RoundConfig.fast(kernel="node", spmv=spmv,
+                                              dtype="float64"), device=card)
+        est[spmv] = k.estimates(k.run(k.init_state(), 25))
+    assert np.array_equal(est["benes"], est["benes_fused"])
+    # the same values are summed per row, but from a slice of the network
+    # array rather than a fresh gather: the card's reduction picks its
+    # vector width by alignment, so the order (and the last bit) may move
+    np.testing.assert_allclose(est["benes"], est["xla"], rtol=1e-12,
+                               atol=1e-12)
+
+
+def test_benes_fused_launches_b3_on_a_tiny_graph(card):
+    from flow_updating_tpu_torch.ops import fused_passes as fp
+
+    cfg = RoundConfig.fast(kernel="node", spmv="benes_fused")
+    k = NodeKernel(ring(16, 2, seed=0), cfg, device=card)
+    passes = len(k.arrays.ns_plan.fused.passes)
+    before = sum(f.launches for f in (fp.local_pass, fp.window_pass,
+                                      fp.wide_pass, fp.wide2_pass))
+    s = k.run(k.init_state(), 5)
+    after = sum(f.launches for f in (fp.local_pass, fp.window_pass,
+                                     fp.wide_pass, fp.wide2_pass))
+    assert after - before == 5 * passes
+    host = NodeKernel(ring(16, 2, seed=0), cfg, device="cpu")
+    # float32 row sums of four neighbors, added in the card's order
+    np.testing.assert_allclose(k.estimates(s),
+                               host.estimates(host.run(host.init_state(), 5)),
+                               rtol=1e-6, atol=1e-6)

@@ -5,13 +5,16 @@ masks, gather remainder), the stable reorder, the fused round's tile
 geometry, its bit planes and its window-coordinate remainder index must
 all be exactly equal — both packages must lay a graph out identically for
 a state to carry across between them.  The JAX side is asked for the
-gather remainder explicitly (its 'auto' may pick a Beneš route that the
-port does not have yet).
+gather remainder explicitly (its 'auto' may pick the Beneš route, which
+the port's 'auto' does not); the Beneš remainder is held against the JAX
+one when both are asked for it.
 """
 
 import numpy as np
 import pytest
 import torch
+
+import jax.numpy as jnp
 
 from flow_updating_tpu.ops import pallas_round as jround
 from flow_updating_tpu.plan import compile_topology as jcompile
@@ -171,10 +174,41 @@ def test_inline_reach_check_raises_identically():
         jround._rem_window_index(jplan, jleaves, jspec))
 
 
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_benes_remainder_matches_jax(name):
+    """remainder='benes': the same remainder networks (masks equal), and
+    the banded neighbor sum equals JAX's (exactly on integer payloads,
+    within 1e-12 on random floats: the two add the lanes in another
+    order)."""
+    from flow_updating_tpu.plan.banded import banded_neighbor_sum as jbns
+    from flow_updating_tpu_torch.plan import banded_neighbor_sum
+
+    p = compile_topology(GRAPHS[name](pgen), remainder="benes")
+    j = jcompile(GRAPHS[name](jgen), remainder="benes")
+    assert p.spmv.rem_mode == j.spmv.rem_mode
+    if p.spmv.rem_mode == "benes":
+        for pp, jp in ((p.spmv.rem_ns_plan.stages, j.spmv.rem_ns_plan.stages),
+                       (p.spmv.rem_unperm_plan.stages,
+                        j.spmv.rem_unperm_plan.stages)):
+            assert pp.dists == jp.dists and pp.kinds == jp.kinds
+            for a, b in zip(pp.masks, jp.masks):
+                np.testing.assert_array_equal(a, b)
+    rng = np.random.default_rng(0)
+    n = p.num_nodes
+    for x, tol in ((rng.integers(-20, 20, n).astype(np.float64), 0.0),
+                   (rng.uniform(-1, 1, n), 1e-12)):
+        got = banded_neighbor_sum(torch.from_numpy(x), p.spmv, p.leaves)
+        want = np.asarray(jbns(jnp.asarray(x), j.spmv, j.leaves))
+        np.testing.assert_allclose(got.numpy(), want, rtol=tol, atol=tol)
+
+
 def test_unported_remainder_routes_raise():
     topo = pgen.community(200, 4, seed=0)
-    with pytest.raises(NotImplementedError, match="Beneš"):
-        compile_topology(topo, remainder="benes")
+    with pytest.raises(ValueError, match="scalar lanes"):
+        compile_topology(topo, remainder="benes", features=3)
+    plan = compile_topology(topo, remainder="benes")
+    assert plan.spmv.rem_mode == "benes" and not plan.leaves.rem_mats
+    assert compile_topology(topo).spmv.rem_mode == "gather"   # 'auto'
     path = build_topology(64, [(i, i + 1) for i in range(63)],
                           warn_asymmetric=False)
     plan = compile_topology(path, remainder="none")
