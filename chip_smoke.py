@@ -35,12 +35,29 @@ and prints one JSON line per phase:
    executor;
 8. ``path_c``  — ``Engine`` with ``spmv='benes_fused'`` on the fat tree:
    ms/round, B3 launches == rounds x passes (per flavour too), rmse,
-   estimates ``torch.equal`` to an ``spmv='benes'`` run on the card, and
-   whether they equal an ``spmv='xla'`` run;
-9. ``profile`` — ``torch.profiler`` over a few more rounds of each path:
-   device time per round, the device's busy share of the wall time and
-   the kernels that take it;
-10. the ``{"kernels": [...]}`` line (launches from the main paths; times,
+   estimates ``torch.equal`` to ``spmv='benes'`` and ``spmv='xla'`` runs
+   on the card;
+9. ``k4``      — kernel B4 (the segmented scan and fill-forward of the edge
+   kernel's segment networks) on the fat tree's segment plan (P = 2^23):
+   scan sum (float32, float64), min and max (float32), min (int32) and fill
+   (float32, int32) at batch 1 and 3, each ``torch.equal`` to its plain
+   version; a star with a hub of degree 5,000 (the split into several
+   launches) too; the whole ``seg_reduce`` and ``broadcast`` against
+   ``torch.segment_reduce`` and ``index_select``;
+10. ``path_d`` — the general edge round: ``Engine`` with
+   ``RoundConfig.reference('collectall', segment_impl='benes_fused',
+   delivery='benes_fused')`` on the fat tree: routing time, the timeout
+   bootstrap (no node fires in 49 rounds, every node in the 50th), ms/round
+   over 150 rounds after the first 50, B3 and B4 launches equal to the
+   count the plans and the round's calls give, a falling rmse, estimates
+   after 60 rounds ``torch.equal`` to a ``'benes'`` twin and close to a
+   ``'segment'``/``'gather'`` twin; then fast pairwise with
+   ``segment_impl='benes_fused'`` (the native edge coloring) for 50 rounds,
+   ``torch.equal`` to its ``'benes'`` twin;
+11. ``profile`` — ``torch.profiler`` over a few more rounds of each path:
+   device time per round, the device's busy share of the wall time, the
+   time of each hand-written kernel and the kernels that take the most;
+12. the ``{"kernels": [...]}`` line (launches from the main paths; times,
     errors and bounds measured in this run), then the nvidia-smi line,
     then ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -49,7 +66,9 @@ call: the profiler's sum over the call's CUDA kernels, averaged over
 ``REPS`` calls.  ``call_ms`` is the wrapper's time per call from CUDA
 events around ``REPS`` back-to-back calls, host launch gaps included.
 B3's yardstick is ``torch.index_select`` with the pass's own source index
-(the pass applied to ``arange(P)``).
+(the pass applied to ``arange(P)``); the fill's is ``index_select`` with
+each position's run head; no single library call computes a segmented
+scan.
 
 Any failure raises and exits non-zero.  Without a CUDA device it exits
 with code 2 and prints no result.  It takes no options: the sizes below
@@ -71,7 +90,16 @@ RING_N = 1_000_000      # ring(1_000_000, 2) (path B, K2)
 ROUNDS = 50             # timed rounds per main path
 WARMUP = 5              # rounds before the timed ones
 REPS = 20               # calls per kernel timing
+TRACES = 3              # profiler traces tried before one counts as empty
 PROFILE_ROUNDS = 20     # rounds per path under the profiler
+EDGE_BOOT = 50          # path D: the faithful timeout (no fire before it)
+EDGE_ROUNDS = 150       # path D: timed rounds after the bootstrap
+TWIN_ROUNDS = 60        # path D: rounds before the twin comparisons
+PAIRWISE_ROUNDS = 50    # path D: fast pairwise rounds
+STAR_HUB = 5000         # k4: the hub degree that splits B4's passes
+#: path D's float32 estimates against the 'segment'/'gather' twin, whose
+#: per-node sums add in another order (sequential rows vs the scan tree)
+EDGE_TWIN_ATOL = 1e-4
 SEED = 0
 
 #: NVIDIA H100 SXM data sheet: peak HBM rate (bytes/s) and float32 rate
@@ -113,8 +141,9 @@ def cuda_ms(fn) -> float:
 def device_ms(fn, only: str | None = None) -> float:
     """Mean device milliseconds per call of ``fn``: ``torch.profiler``'s
     self device time summed over the CUDA events of ``REPS`` calls (only
-    those whose name contains ``only``, when given).  Raises when the trace
-    holds none."""
+    those whose name contains ``only``, when given).  A trace now and then
+    comes back without its CUDA events, so an empty one is taken again, up
+    to ``TRACES`` times; raises when every trace holds none."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -122,18 +151,19 @@ def device_ms(fn, only: str | None = None) -> float:
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(REPS):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(ev.self_device_time_total for ev in prof.key_averages()
-             if ev.device_type == DeviceType.CUDA
-             and (only is None or only in ev.key))
-    if not us > 0:
-        raise AssertionError(f"the profiler saw no device time for "
-                             f"{only or 'the call'}")
-    return us / REPS / 1e3
+    for _ in range(TRACES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(REPS):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(ev.self_device_time_total for ev in prof.key_averages()
+                 if ev.device_type == DeviceType.CUDA
+                 and (only is None or only in ev.key))
+        if us > 0:
+            return us / REPS / 1e3
+    raise AssertionError(f"the profiler saw no device time for "
+                         f"{only or 'the call'} in {TRACES} traces")
 
 
 def bound(nbytes: int, ops: int) -> dict:
@@ -154,6 +184,17 @@ B3_FLAVOURS = (("local", "local_pass", "staged_pass", 292),
                ("wide2", "wide2_pass", "wide2_pass", 387))
 
 
+#: B4's flavours: (row name, wrapper in ops/fused_passes.py, line of the
+#: TPU kernel in flow_updating_tpu/ops/pallas_fused.py)
+B4_FLAVOURS = (("scan", "segscan_pass", 475), ("fill", "fill_pass", 513))
+
+
+#: the hand-written kernels' CUDA function names, by kernel (profile)
+KERNEL_FAMILIES = {"K1": ("spmv_ell_",), "K2": ("fused_round_kernel",),
+                   "B3": ("::staged_pass<", "::wide_pass<", "::wide2_pass<"),
+                   "B4": ("::seg_window_pass<", "::seg_wide_pass<")}
+
+
 def b3_family(kind: str) -> str:
     """The B3 flavour that runs a pass of ``kind``."""
     return kind.replace("_swap", "").replace("_roll", "")
@@ -168,6 +209,8 @@ def reset_counts() -> None:
     fused_banded_round.launches = 0
     for _, wrapper, _, _ in B3_FLAVOURS:
         getattr(fused_passes, wrapper).launches = 0
+    for _, wrapper, _ in B4_FLAVOURS:
+        getattr(fused_passes, wrapper).launches = 0
 
 
 def b3_launches() -> dict:
@@ -175,6 +218,60 @@ def b3_launches() -> dict:
 
     return {name: getattr(fused_passes, wrapper).launches
             for name, wrapper, _, _ in B3_FLAVOURS}
+
+
+def b4_launches() -> dict:
+    from flow_updating_tpu_torch.ops import fused_passes
+
+    return {name: getattr(fused_passes, wrapper).launches
+            for name, wrapper, _ in B4_FLAVOURS}
+
+
+def round_network_calls(cfg) -> dict:
+    """Network applications and B4 calls of one edge round on the planned
+    segment networks, by the round's code (models/rounds.py): deliver
+    broadcasts ``alive`` and, per drain step, takes two segment minima and
+    broadcasts each; collect-all fire reduces (flow, est) as one batched
+    sum scan plus, in the faithful mode, the all-heard scan, through ONE
+    extraction, and broadcasts (fire, avg) as one batch; fast pairwise
+    fire reduces the flow sum, the matched max and the average sum one by
+    one; delivery='benes_fused' moves the lanes through the rev network
+    once."""
+    faithful = cfg.fire_policy != "every_round"
+    if cfg.variant == "collectall":
+        scans = 2 * cfg.drain + 1 + int(faithful)
+        extracts = 2 * cfg.drain + 1
+        places = 1 + 2 * cfg.drain + 1
+    elif not faithful:
+        scans = extracts = 3
+        places = 1
+    else:
+        raise ValueError("faithful pairwise is not a chip-smoke path")
+    return {"scan": scans, "fill": places, "extract": extracts,
+            "place": places, "rev": int(cfg.delivery == "benes_fused")}
+
+
+def planned_launches(arrays, cfg) -> dict:
+    """B3 launches per flavour and B4 launches per flavour of one edge
+    round, from the plans (passes per network, B4 passes per stage list)
+    and :func:`round_network_calls`."""
+    from flow_updating_tpu_torch.ops.fused_passes import plan_dist_passes
+
+    calls = round_network_calls(cfg)
+    plan = arrays.seg_plan
+    nets = [(calls["extract"], plan.extract_fused),
+            (calls["place"], plan.place_fused)]
+    if calls["rev"]:
+        nets.append((calls["rev"], arrays.rev_plan.fused))
+    out = {name: 0 for name, _, _, _ in B3_FLAVOURS}
+    for times, fused in nets:
+        for ps in fused.passes:
+            out[b3_family(ps.kind)] += times
+    n_b4 = len(plan_dist_passes(tuple(1 << k for k in range(plan.scan_bits)),
+                                plan.geom))
+    out["scan"] = calls["scan"] * n_b4
+    out["fill"] = calls["fill"] * n_b4
+    return out
 
 
 def phase_k1(topo, dev):
@@ -592,9 +689,10 @@ def phase_path_c(topo):
                        "max_abs_diff": float((mine - other).abs().max()),
                        "ms_per_round": twin_ms / ROUNDS}
         del twin
-    if not twins["benes"]["equal"]:
-        raise AssertionError("benes_fused estimates differ from spmv='benes' "
-                             f"(max {twins['benes']['max_abs_diff']})")
+    for spmv, twin in twins.items():
+        if not twin["equal"]:
+            raise AssertionError(f"benes_fused estimates differ from "
+                                 f"spmv={spmv!r} (max {twin['max_abs_diff']})")
     return {"rounds": ROUNDS, "ms_per_round": ms / ROUNDS,
             "rounds_per_s": ROUNDS / (ms / 1e3), "build_s": build_s,
             "passes_per_round": len(passes),
@@ -607,6 +705,280 @@ def phase_path_c(topo):
             "max_abs_diff_to_xla": twins["xla"]["max_abs_diff"],
             "xla_ms_per_round": twins["xla"]["ms_per_round"],
             "rmse_initial": rmse0, **rep}, eng
+
+
+def _b4_payload(rng, shape, dt, dev):
+    import torch
+
+    if dt == torch.int32:
+        return torch.from_numpy(rng.integers(-10**6, 10**6, shape,
+                                             dtype="int32")).to(dev)
+    return torch.from_numpy(rng.uniform(-1.0, 1.0, shape)).to(dev, dt)
+
+
+def _b4_cases(plan, dist, dev, rng, cases, batches=(1, 3)):
+    """Each (op, dtype) case at each batch through B4 and its plain
+    version; returns the largest error and raises unless torch.equal."""
+    import torch
+
+    from flow_updating_tpu_torch.ops import fused_passes as fp
+
+    geom = plan.geom
+    dists = tuple(1 << k for k in range(plan.scan_bits))
+    err = 0.0
+    for op, dt in cases:
+        for batch in batches:
+            x = _b4_payload(rng, (batch, geom.P), dt, dev)
+            if op == "fill":
+                got = fp.fill_pass(x, dist, dists, geom)
+                ref = fp.fill_pass_plain(x, dist, dists, geom)
+            else:
+                got = fp.segscan_pass(x, dist, dists, op, geom)
+                ref = fp.segscan_pass_plain(x, dist, dists, op, geom)
+            e = float((got.double() - ref.double()).abs().max())
+            err = max(err, e)
+            if not torch.equal(got, ref):
+                raise AssertionError(f"B4 {op} ({dt}, batch {batch}) "
+                                     f"differs from its plain version "
+                                     f"(max {e})")
+    return err
+
+
+def phase_k4(topo, arrays, dev):
+    """B4 vs plain on path D's segment plan, plus the split path on a
+    star and the whole reduce/broadcast against one library call."""
+    import numpy as np
+    import torch
+
+    from flow_updating_tpu_torch.ops import fused_passes as fp
+    from flow_updating_tpu_torch.ops.seg_benes import (
+        broadcast,
+        plan_segments,
+        seg_reduce,
+    )
+    from flow_updating_tpu_torch.topology.graph import build_topology
+
+    plan, dist = arrays.seg_plan, arrays.seg_dist
+    geom = plan.geom
+    P = geom.P
+    dists = tuple(1 << k for k in range(plan.scan_bits))
+    passes = fp.plan_dist_passes(dists, geom)
+    rng = np.random.default_rng(SEED + 4)
+    f32, f64, i32 = torch.float32, torch.float64, torch.int32
+    cases = {"scan": (("sum", f32), ("sum", f64), ("min", f32),
+                      ("max", f32), ("min", i32)),
+             "fill": (("fill", f32), ("fill", i32))}
+    out = {"P": P, "tile": geom.tile, "stages": list(dists),
+           "passes": [[dp.kind, list(dp.dists)] for dp in passes],
+           "flavours": {}}
+    for name, _, _ in B4_FLAVOURS:
+        row = {"cases": [[op, str(dt).replace("torch.", "")]
+                         for op, dt in cases[name]], "batches": [1, 3],
+               "max_abs_err": _b4_cases(plan, dist, dev, rng, cases[name])}
+        x = _b4_payload(rng, (1, P), f32, dev)
+        if name == "scan":
+            run = lambda: fp.segscan_pass(x, dist, dists, "sum", geom)
+            plain = lambda: fp.segscan_pass_plain(x, dist, dists, "sum", geom)
+            ops = P * len(dists)
+            row["library_ms"] = None
+        else:
+            run = lambda: fp.fill_pass(x, dist, dists, geom)
+            plain = lambda: fp.fill_pass_plain(x, dist, dists, geom)
+            ops = 0
+            head = torch.arange(P, device=dev) - dist.long()
+            if not torch.equal(torch.index_select(x[0], 0, head), run()[0]):
+                raise AssertionError("index_select with the run heads does "
+                                     "not compute the fill")
+            row["library_ms"] = device_ms(
+                lambda: torch.index_select(x[0], 0, head))
+        row["ms"] = device_ms(run)
+        row["call_ms"] = cuda_ms(run)
+        row["plain_ms"] = device_ms(plain)
+        row.update(bound(len(passes) * fp.dist_pass_min_bytes(geom, 1, 4),
+                         ops))
+        out["flavours"][name] = row
+    # the split path: a star whose hub has STAR_HUB out-edges
+    star = build_topology(STAR_HUB + 1,
+                          [(0, i) for i in range(1, STAR_HUB + 1)],
+                          warn_asymmetric=False)
+    splan, sdist = plan_segments(star.row_start, star.out_deg,
+                                 star.edge_rank, fused=True)
+    sdist = torch.from_numpy(sdist).to(dev)
+    sdists = tuple(1 << k for k in range(splan.scan_bits))
+    skinds = [dp.kind for dp in fp.plan_dist_passes(sdists, splan.geom)]
+    if "wide" not in skinds or skinds.count("window") < 2:
+        raise AssertionError(f"the star's stages did not split: {skinds}")
+    star_err = _b4_cases(splan, sdist, dev, rng,
+                         (("sum", f32), ("min", i32), ("max", f64),
+                          ("fill", f32)))
+    for op in ("sum", "min", "fill"):
+        x = _b4_payload(rng, (2, splan.P), f64, dev)
+        loop = x.clone()
+        for d in sdists:
+            loop = fp.dist_stage(loop, torch.roll(loop, d, -1), sdist, d,
+                                 op)
+        got = (fp.fill_pass(x, sdist, sdists, splan.geom) if op == "fill"
+               else fp.segscan_pass(x, sdist, sdists, op, splan.geom))
+        if not torch.equal(got, loop):
+            raise AssertionError(f"B4 {op} on the star differs from the "
+                                 "unsplit stage loop")
+    out["star"] = {"hub_degree": STAR_HUB, "P": splan.P,
+                   "passes": skinds, "max_abs_err": star_err,
+                   "equal_to_stage_loop": True}
+    # the whole reduce (scan + extraction) and the whole broadcast
+    # (placement + fill) against one library call each
+    E, N = topo.num_edges, topo.num_nodes
+    xe = torch.from_numpy(rng.uniform(-1.0, 1.0, E)).to(dev, f32)
+    deg = arrays.out_deg
+    red = lambda: seg_reduce(xe, "sum", plan, dist, arrays.seg_extract_masks)
+    lib = lambda: torch.segment_reduce(xe, "sum", lengths=deg)
+    red_err = float((red() - lib()).abs().max())
+    if not red_err <= 1e-4:
+        raise AssertionError(f"seg_reduce disagrees with segment_reduce "
+                             f"(max {red_err})")
+    vn = torch.from_numpy(rng.uniform(-1.0, 1.0, N)).to(dev, f32)
+    bc = lambda: broadcast(vn, plan, dist, arrays.seg_place_masks)
+    bc_lib = lambda: torch.index_select(vn, 0, arrays.src)
+    if not torch.equal(bc(), bc_lib()):
+        raise AssertionError("broadcast differs from index_select(v, src)")
+    out["seg_reduce"] = {"ms": device_ms(red), "call_ms": cuda_ms(red),
+                         "library_ms": device_ms(lib),
+                         "max_abs_err_to_library": red_err}
+    out["broadcast"] = {"ms": device_ms(bc), "call_ms": cuda_ms(bc),
+                        "library_ms": device_ms(bc_lib),
+                        "equal_to_library": True}
+    out["max_abs_err"] = max(row["max_abs_err"]
+                             for row in out["flavours"].values())
+    return out
+
+
+def _edge_estimates(engine):
+    from flow_updating_tpu_torch.models.rounds import node_estimates
+
+    return node_estimates(engine.state, engine._topo_arrays)
+
+
+def build_path_d(topo):
+    """Path D's engine: its build routes the extract, place and rev
+    networks (cached on the topology for the twins)."""
+    import torch
+
+    from flow_updating_tpu_torch import Engine, RoundConfig
+
+    cfg = RoundConfig.reference("collectall", segment_impl="benes_fused",
+                                delivery="benes_fused")
+    t0 = time.perf_counter()
+    eng = Engine(config=cfg).set_topology(topo).build(seed=SEED)
+    torch.cuda.synchronize()
+    return eng, time.perf_counter() - t0
+
+
+def phase_path_d(topo, eng, plan_s):
+    import numpy as np
+    import torch
+
+    from flow_updating_tpu_torch import Engine, RoundConfig
+
+    n = topo.num_nodes
+    cfg = eng.config
+    arrays = eng._topo_arrays
+    eng.run_rounds(EDGE_BOOT - 1)
+    fired49 = int(eng.state.fired.sum())
+    rmse49 = eng.convergence_report()["rmse"]
+    eng.run_rounds(1)
+    fired50 = int(eng.state.fired.sum())
+    if fired49 != 0 or fired50 != n:
+        raise AssertionError(f"timeout bootstrap: {fired49} fired after "
+                             f"{EDGE_BOOT - 1} rounds, {fired50} after "
+                             f"{EDGE_BOOT} (expected 0 and {n})")
+    expected = {k: v * EDGE_ROUNDS
+                for k, v in planned_launches(arrays, cfg).items()}
+    # 150 timed rounds in two stretches: the state after round 60 is kept
+    # for the twin comparisons
+    reset_counts()
+    ms = _timed_rounds(eng, TWIN_ROUNDS - EDGE_BOOT)
+    state60 = eng.state
+    ms += _timed_rounds(eng, EDGE_ROUNDS - (TWIN_ROUNDS - EDGE_BOOT))
+    got = {**b3_launches(), **b4_launches()}
+    if got != expected:
+        raise AssertionError(f"path D launches {got}, planned {expected}")
+    rep = eng.convergence_report()
+    est = eng.estimates()
+    if est.shape != (n,) or not np.isfinite(est).all():
+        raise AssertionError("path D estimates are not finite (N,) values")
+    if not rep["rmse"] < rmse49:
+        raise AssertionError(f"path D rmse {rep['rmse']} after "
+                             f"{EDGE_BOOT + EDGE_ROUNDS} rounds is not below "
+                             f"{rmse49} at round {EDGE_BOOT - 1}")
+    from flow_updating_tpu_torch.models.rounds import node_estimates
+
+    mine = node_estimates(state60, arrays)
+    del state60
+    twins = {}
+    for seg, dlv in (("benes", "benes"), ("segment", "gather")):
+        tcfg = RoundConfig.reference("collectall", segment_impl=seg,
+                                     delivery=dlv)
+        twin = Engine(config=tcfg).set_topology(topo).build(seed=SEED)
+        twin_ms = _timed_rounds(twin, TWIN_ROUNDS)
+        other = _edge_estimates(twin)
+        twins[seg] = {"equal": bool(torch.equal(mine, other)),
+                      "max_abs_diff": float((mine - other).abs().max()),
+                      "ms_per_round": twin_ms / TWIN_ROUNDS}
+        del twin, other
+        torch.cuda.empty_cache()
+    if not twins["benes"]["equal"]:
+        raise AssertionError("path D estimates differ from the 'benes' twin "
+                             f"(max {twins['benes']['max_abs_diff']})")
+    if not twins["segment"]["max_abs_diff"] <= EDGE_TWIN_ATOL:
+        raise AssertionError("path D estimates are not within "
+                             f"{EDGE_TWIN_ATOL} of the 'segment' twin "
+                             f"(max {twins['segment']['max_abs_diff']})")
+    # fast pairwise on the same segment networks, colored natively
+    pcfg = RoundConfig.fast("pairwise", segment_impl="benes_fused")
+    t0 = time.perf_counter()
+    pw = Engine(config=pcfg).set_topology(topo).build(seed=SEED)
+    pw_build_s = time.perf_counter() - t0
+    pw_expected = planned_launches(pw._topo_arrays, pcfg)
+    reset_counts()
+    pw_ms = _timed_rounds(pw, PAIRWISE_ROUNDS)
+    pw_got = {**b3_launches(), **b4_launches()}
+    if pw_got != {k: v * PAIRWISE_ROUNDS for k, v in pw_expected.items()}:
+        raise AssertionError(f"fast pairwise launches {pw_got}, planned "
+                             f"{pw_expected} per round")
+    pw_rep = pw.convergence_report()
+    ptwin = Engine(config=RoundConfig.fast("pairwise", segment_impl="benes"))
+    ptwin.set_topology(topo).build(seed=SEED).run_rounds(PAIRWISE_ROUNDS)
+    if not torch.equal(_edge_estimates(pw), _edge_estimates(ptwin)):
+        raise AssertionError("fast pairwise benes_fused differs from its "
+                             "'benes' twin")
+    pairwise = {"rounds": PAIRWISE_ROUNDS, "build_s": pw_build_s,
+                "colors": pw._topo_arrays.num_colors,
+                "ms_per_round": pw_ms / PAIRWISE_ROUNDS,
+                "rounds_per_s": PAIRWISE_ROUNDS / (pw_ms / 1e3),
+                "launches_per_round": pw_expected,
+                "equal_to_benes": True, "rmse": pw_rep["rmse"],
+                "mass_residual": pw_rep["mass_residual"]}
+    del pw, ptwin
+    torch.cuda.empty_cache()
+    per_round = planned_launches(arrays, cfg)
+    return {"plan_s": plan_s, "P": arrays.seg_plan.P,
+            "rev_P": arrays.rev_plan.stages.n,
+            "rounds_timed": EDGE_ROUNDS, "after_round": EDGE_BOOT,
+            "ms_per_round": ms / EDGE_ROUNDS,
+            "rounds_per_s": EDGE_ROUNDS / (ms / 1e3),
+            "fired_after_49": fired49, "fired_after_50": fired50,
+            "rmse_round_49": rmse49,
+            "network_calls_per_round": round_network_calls(cfg),
+            "launches_per_round": per_round,
+            "b3_launches": {k: got[k] for k, _, _, _ in B3_FLAVOURS},
+            "b4_launches": {k: got[k] for k, _, _ in B4_FLAVOURS},
+            "twins_at_round": TWIN_ROUNDS,
+            "equal_to_benes": True,
+            "benes_ms_per_round": twins["benes"]["ms_per_round"],
+            "max_abs_diff_to_segment": twins["segment"]["max_abs_diff"],
+            "segment_atol": EDGE_TWIN_ATOL,
+            "segment_ms_per_round": twins["segment"]["ms_per_round"],
+            "pairwise_fast": pairwise, **rep}
 
 
 def profile_rounds(engine, rounds: int) -> dict:
@@ -632,14 +1004,18 @@ def profile_rounds(engine, rounds: int) -> dict:
               and ev.self_device_time_total > 0]
     busy_us = sum(t for _, t, _ in device)
     device.sort(key=lambda row: -row[1])
+    families = {family: sum(t for k, t, _ in device
+                            if any(m in k for m in marks)) / rounds / 1e3
+                for family, marks in KERNEL_FAMILIES.items()}
     return {"rounds": rounds, "wall_ms_per_round": wall_us / rounds / 1e3,
             "device_ms_per_round": busy_us / rounds / 1e3,
             "busy_share": busy_us / wall_us if busy_us else None,
             "device_launches_per_round": sum(c for _, _, c in device)
             / rounds,
+            "kernel_ms_per_round": families,
             "top": [{"kernel": k[:90], "ms_per_round": t / rounds / 1e3,
                      "calls_per_round": c / rounds}
-                    for k, t, c in device[:6]]}
+                    for k, t, c in device[:10]]}
 
 
 def main() -> int:
@@ -694,10 +1070,20 @@ def main() -> int:
     torch.cuda.synchronize()
     emit({"phase": "path_c", "topology": f"fat_tree:{FAT_TREE_K}", **path_c})
 
+    engine_d, plan_s = build_path_d(tree)
+    k4 = phase_k4(tree, engine_d._topo_arrays, dev)
+    torch.cuda.synchronize()
+    emit({"phase": "k4", **k4})
+
+    path_d = phase_path_d(tree, engine_d, plan_s)
+    torch.cuda.synchronize()
+    emit({"phase": "path_d", "topology": f"fat_tree:{FAT_TREE_K}", **path_d})
+
     emit({"phase": "profile",
           "path_a": profile_rounds(engine_a, PROFILE_ROUNDS),
           "path_b": profile_rounds(engine_b, PROFILE_ROUNDS),
-          "path_c": profile_rounds(engine_c, PROFILE_ROUNDS)})
+          "path_c": profile_rounds(engine_c, PROFILE_ROUNDS),
+          "path_d": profile_rounds(engine_d, PROFILE_ROUNDS)})
     torch.cuda.synchronize()
 
     emit({"kernels": [
@@ -724,7 +1110,8 @@ def main() -> int:
         *({"name": f"benes_pass.{name}", "route": "cuda",
            "source": "flow_updating_tpu_torch/csrc/benes_pass.cu",
            "replaces": f"flow_updating_tpu/ops/pallas_fused.py:{line}",
-           "launches": path_c["b3_launches"][name],
+           "launches": (path_c["b3_launches"][name]
+                        + path_d["b3_launches"][name]),
            "parity": "bit-exact (torch.equal), float32 and float64",
            "max_abs_err": k3["flavours"][name]["max_abs_err"],
            "ms": k3["flavours"][name]["ms"],
@@ -734,6 +1121,20 @@ def main() -> int:
            "bound_by": k3["flavours"][name]["bound_by"],
            "library_ms": k3["flavours"][name]["library_ms"]}
           for name, _, _, line in B3_FLAVOURS),
+        *({"name": f"seg_scan.{name}", "route": "cuda",
+           "source": "flow_updating_tpu_torch/csrc/seg_scan.cu",
+           "replaces": f"flow_updating_tpu/ops/pallas_fused.py:{line}",
+           "launches": path_d["b4_launches"][name],
+           "parity": "bit-exact (torch.equal): float32, float64, int32, "
+                     "batch 1 and 3, the split passes",
+           "max_abs_err": k4["flavours"][name]["max_abs_err"],
+           "ms": k4["flavours"][name]["ms"],
+           "call_ms": k4["flavours"][name]["call_ms"],
+           "plain_ms": k4["flavours"][name]["plain_ms"],
+           "bound_ms": k4["flavours"][name]["bound_ms"],
+           "bound_by": k4["flavours"][name]["bound_by"],
+           "library_ms": k4["flavours"][name]["library_ms"]}
+          for name, _, line in B4_FLAVOURS),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

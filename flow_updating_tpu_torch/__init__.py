@@ -6,20 +6,31 @@ counterpart is easy to find; the JAX package stays the reference every
 part is tested against.  This package imports ``torch`` and ``numpy`` and
 nothing of JAX.
 
-Ported so far: the topology layer (generators, XML loaders), the
-node-collapsed fast synchronous round (``models/sync.py``) with its four
-neighbor-sum paths, the topology compiler (RCM + banded plan), the
-``Engine`` façade and the ``run`` CLI.  The TPU's two kernels on that path
-are hand-written CUDA for Hopper (``csrc/``): the ELL neighbor sum
-(``spmv='pallas'``) and the one-kernel banded round
-(``spmv='banded_fused'``).  Everything runs on the CUDA card unless the
-caller passes ``device='cpu'``.
+Ported so far: the topology layer (generators, XML loaders), the general
+per-edge round (``models/rounds.py``, the default kernel) with its segment
+and delivery layouts, the node-collapsed fast synchronous round
+(``models/sync.py``) with its neighbor-sum paths, the topology compiler
+(RCM + banded plan), the ``Engine`` façade and the ``run`` CLI.  The TPU
+kernels on those paths are hand-written CUDA for Hopper (``csrc/``): the
+ELL neighbor sum, the one-kernel banded round, the fused Beneš passes and
+the segmented scan / fill-forward.  Everything runs on the CUDA card
+unless the caller passes ``device='cpu'``.
 """
 
 __version__ = "0.1.0"
 
 from flow_updating_tpu_torch.engine import Engine
 from flow_updating_tpu_torch.models.config import RoundConfig
+from flow_updating_tpu_torch.models.rounds import (
+    node_estimates,
+    round_step,
+    run_rounds,
+)
+from flow_updating_tpu_torch.models.state import (
+    FlowUpdatingState,
+    init_state,
+    state_from_numpy,
+)
 from flow_updating_tpu_torch.models.sync import NodeKernel
 from flow_updating_tpu_torch.topology.graph import (
     Topology,
@@ -29,9 +40,15 @@ from flow_updating_tpu_torch.topology.graph import (
 
 __all__ = [
     "Engine",
+    "FlowUpdatingState",
     "NodeKernel",
     "RoundConfig",
     "Topology",
     "build_topology",
+    "init_state",
+    "node_estimates",
+    "round_step",
+    "run_rounds",
+    "state_from_numpy",
     "topology_from_arrays",
 ]

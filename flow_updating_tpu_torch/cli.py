@@ -94,6 +94,10 @@ def cmd_run(args) -> int:
         if getattr(args, flag) not in (None, False):
             raise SystemExit(f"--{flag.replace('_', '-')} is the ROADMAP "
                              f"item '{item}', not ported yet")
+    if args.contention or args.fidelity:
+        raise SystemExit("--contention/--fidelity is the ROADMAP item "
+                         "'general edge round: contention (A3)', not "
+                         "ported yet")
     if args.shards or args.multichip != "auto":
         raise SystemExit("--shards/--multichip is the ROADMAP item "
                          "'multi-device execution (A12, B5, B6)', not "
@@ -180,7 +184,10 @@ def build_parser() -> argparse.ArgumentParser:
                           "'every_round' = fast synchronous mode")
     run.add_argument("--delivery", default="gather",
                      choices=("gather", "scatter", "benes", "benes_fused"),
-                     help="edge-kernel message delivery")
+                     help="edge-kernel message delivery: gather (pull "
+                          "through rev), scatter (push), benes / "
+                          "benes_fused (the rev pull through a permutation "
+                          "network; benes_fused through CUDA kernel B3)")
     run.add_argument("--spmv", default="xla",
                      choices=("xla", "pallas", "benes", "benes_fused",
                               "structured", "banded", "banded_fused"),
@@ -191,7 +198,10 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--segment", default="auto",
                      choices=("auto", "segment", "ell", "benes",
                               "benes_fused"),
-                     help="edge-kernel per-node reduction layout")
+                     help="edge-kernel per-node reductions: segment/auto "
+                          "(CSR segment_reduce), ell (bucketed gather), "
+                          "benes (permutation networks), benes_fused (the "
+                          "same through CUDA kernels B3 and B4)")
     run.add_argument("--multichip", default="auto",
                      choices=("auto", "halo", "pod"))
     run.add_argument("--halo", default="ppermute",
@@ -201,9 +211,10 @@ def build_parser() -> argparse.ArgumentParser:
                      choices=("bfs", "contiguous"))
     run.add_argument("--shards", type=int, default=0)
     run.add_argument("--kernel", default="edge", choices=("edge", "node"),
-                     help="'node' = collapsed SpMV recurrence (fast "
-                          "synchronous collect-all; the ported path); "
-                          "'edge' = general per-edge kernel (not ported)")
+                     help="'edge' = the general per-edge round (every "
+                          "dynamics; --segment and --delivery pick its "
+                          "layouts); 'node' = the collapsed SpMV recurrence "
+                          "(fast synchronous collect-all only; --spmv)")
     run.add_argument("--plan", default="off", choices=("off", "auto"))
     run.add_argument("--drain", type=int, default=None)
     run.add_argument("--timeout", type=int, default=None)

@@ -1,0 +1,258 @@
+// B4: the segmented scan and the fill-forward passes of the edge kernel's
+// segment networks.
+//
+// Replaces the TPU kernels of flow_updating_tpu/ops/pallas_fused.py:
+// segscan_pass and fill_pass (both launched through _dist_window_call).
+// Both run a list of stages at power-of-two distances d, ascending, over
+// the network array x (batch rows of P values, sharing one int32 plane
+// `dist` of P words: each edge's rank inside its CSR row, 0 on the
+// padding), and derive every stage's mask from `dist` in the kernel:
+//
+//  * scan (sum, min, max):  x[p] = comb(x[p], dist[p] >= d ? x[p-d] : id)
+//    — a segmented Hillis-Steele scan; id is 0 for sum and the type's
+//    largest (min) or lowest (max) finite value, as the TPU kernel's;
+//  * fill:                  x[p] = (dist[p] & d) ? x[p-d] : x[p]
+//    — each run head's value copied over its run.
+//
+// One launch is one pass (ops/fused_passes.py, plan_dist_passes):
+//
+//  * window — up to 32 stages on the window [prev; own] of two tiles of
+//    `tile` elements, prev = tile max(i - 1, 0), rolled circularly inside
+//    the window (the TPU kernel's semantics, tile 0's window repeating
+//    tile 0); the own half is written.  The own half is exact while the
+//    stages' reach stays inside the window, which the planner's halo rule
+//    guarantees, and dist[p] >= d implies p >= d, so no selected source
+//    ever wraps;
+//  * wide — one stage whose distance passes the window: an elementwise
+//    select against x[(p - d) mod P].
+//
+// A stage always combines, even where its mask is off (a sum adds the
+// identity 0), in the same stage order as the plain version, so a scan
+// equals it bit for bit.  min and max follow torch.minimum/maximum on the
+// card: a NaN operand wins, otherwise ::min / ::max.
+//
+// What bounds it on an H100: bytes.  A pass reads x and the dist plane
+// once and writes x once; the window pass stages its two tiles in shared
+// memory (64 KiB for float64) and keeps each thread's values and dist
+// words in registers, two __syncthreads() per stage.  Offsets are 64-bit.
+//
+// Plain C interface, loaded with ctypes (flow_updating_tpu_torch/kernels).
+
+#include <cfloat>
+#include <climits>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kMaxStages = 32;
+constexpr int kThreads = 512;
+constexpr int kMaxPer = 16;                              // words per thread
+constexpr long long kMaxTile = kThreads * kMaxPer / 2;   // 4096 elements
+constexpr int kWideThreads = 256;
+
+enum Op { kSum = 0, kMin = 1, kMax = 2, kFill = 3 };
+
+struct Dists {
+  int d[kMaxStages];
+};
+
+template <typename T> struct Limits;
+template <> struct Limits<float> {
+  __device__ static float hi() { return FLT_MAX; }
+  __device__ static float lo() { return -FLT_MAX; }
+};
+template <> struct Limits<double> {
+  __device__ static double hi() { return DBL_MAX; }
+  __device__ static double lo() { return -DBL_MAX; }
+};
+template <> struct Limits<int> {
+  __device__ static int hi() { return INT_MAX; }
+  __device__ static int lo() { return INT_MIN; }
+};
+
+template <typename T>
+__device__ __forceinline__ bool is_nan(T v) { return v != v; }
+
+template <typename T, int kOp>
+__device__ __forceinline__ T identity() {
+  if (kOp == kMin) return Limits<T>::hi();
+  if (kOp == kMax) return Limits<T>::lo();
+  return T(0);
+}
+
+// comb(a, b): a is the running value, b the taken one (torch argument
+// order, which decides which NaN wins)
+template <typename T, int kOp>
+__device__ __forceinline__ T comb(T a, T b) {
+  if (kOp == kSum) return a + b;
+  if (is_nan(a)) return a;
+  if (is_nan(b)) return b;
+  return kOp == kMin ? ::min(a, b) : ::max(a, b);
+}
+
+template <typename T, int kOp>
+__device__ __forceinline__ T stage(T cur, T src, int dv, int d) {
+  if (kOp == kFill) return (dv & d) ? src : cur;
+  return comb<T, kOp>(cur, dv >= d ? src : identity<T, kOp>());
+}
+
+template <typename T, int kOp>
+__global__ void __launch_bounds__(kThreads)
+seg_window_pass(const T* __restrict__ x, T* __restrict__ out,
+                const int* __restrict__ dist, long long P, int tile,
+                int n_stages, Dists ds) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* s = reinterpret_cast<T*>(smem_raw);
+  const int elems = 2 * tile;
+  const int wrap = elems - 1;  // elems is a power of two
+  const long long blk = blockIdx.x;
+  const long long prev = blk > 0 ? blk - 1 : 0;
+  const T* xb = x + (long long)blockIdx.y * P;
+  T v[kMaxPer];
+  int dv[kMaxPer];
+#pragma unroll
+  for (int k = 0; k < kMaxPer; ++k) {
+    const int q = threadIdx.x + k * blockDim.x;
+    if (q < elems) {
+      const long long g =
+          q < tile ? prev * tile + q : blk * tile + (q - tile);
+      v[k] = xb[g];
+      dv[k] = dist[g];
+      s[q] = v[k];
+    }
+  }
+  __syncthreads();
+  for (int j = 0; j < n_stages; ++j) {
+    const int d = ds.d[j];
+#pragma unroll
+    for (int k = 0; k < kMaxPer; ++k) {
+      const int q = threadIdx.x + k * blockDim.x;
+      if (q < elems)
+        v[k] = stage<T, kOp>(v[k], s[(q - d) & wrap], dv[k], d);
+    }
+    if (j + 1 < n_stages) {
+      __syncthreads();
+#pragma unroll
+      for (int k = 0; k < kMaxPer; ++k) {
+        const int q = threadIdx.x + k * blockDim.x;
+        if (q < elems) s[q] = v[k];
+      }
+      __syncthreads();
+    }
+  }
+  T* ob = out + (long long)blockIdx.y * P + blk * tile;
+#pragma unroll
+  for (int k = 0; k < kMaxPer; ++k) {
+    const int q = threadIdx.x + k * blockDim.x;
+    if (q >= tile && q < elems) ob[q - tile] = v[k];
+  }
+}
+
+template <typename T, int kOp>
+__global__ void seg_wide_pass(const T* __restrict__ x,
+                              T* __restrict__ out,
+                              const int* __restrict__ dist, long long P,
+                              int d) {
+  const T* xb = x + (long long)blockIdx.y * P;
+  T* ob = out + (long long)blockIdx.y * P;
+  for (long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       p < P; p += (long long)gridDim.x * blockDim.x) {
+    const long long src = p >= d ? p - d : p - d + P;
+    const int dv = dist[p];
+    const T cur = xb[p];
+    // the source word is read only where the mask takes it
+    if (kOp == kFill)
+      ob[p] = (dv & d) ? xb[src] : cur;
+    else
+      ob[p] = comb<T, kOp>(cur, dv >= d ? xb[src] : identity<T, kOp>());
+  }
+}
+
+template <typename T, int kOp>
+int launch_op(const void* x, void* out, const int* dist, long long P,
+              long long batch, int tile, int n_stages, const Dists& ds,
+              bool wide, cudaStream_t stream) {
+  const T* xt = static_cast<const T*>(x);
+  T* ot = static_cast<T*>(out);
+  if (wide) {
+    long long blocks = (P + kWideThreads - 1) / kWideThreads;
+    if (blocks > (1LL << 20)) blocks = 1LL << 20;
+    dim3 grid((unsigned)blocks, (unsigned)batch);
+    seg_wide_pass<T, kOp><<<grid, kWideThreads, 0, stream>>>(xt, ot, dist,
+                                                             P, ds.d[0]);
+    return (int)cudaGetLastError();
+  }
+  const int elems = 2 * tile;
+  const size_t smem = (size_t)elems * sizeof(T);
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        seg_window_pass<T, kOp>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)(kMaxTile * 2 * sizeof(T)));
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  const int threads = elems >= kThreads ? kThreads : ((elems + 31) / 32) * 32;
+  dim3 grid((unsigned)(P / tile), (unsigned)batch);
+  seg_window_pass<T, kOp><<<grid, threads, smem, stream>>>(
+      xt, ot, dist, P, tile, n_stages, ds);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch(int op, const void* x, void* out, const int* dist, long long P,
+           long long batch, int tile, int n_stages, const Dists& ds,
+           bool wide, cudaStream_t stream) {
+  switch (op) {
+    case kSum:
+      return launch_op<T, kSum>(x, out, dist, P, batch, tile, n_stages, ds,
+                                wide, stream);
+    case kMin:
+      return launch_op<T, kMin>(x, out, dist, P, batch, tile, n_stages, ds,
+                                wide, stream);
+    case kMax:
+      return launch_op<T, kMax>(x, out, dist, P, batch, tile, n_stages, ds,
+                                wide, stream);
+    case kFill:
+      return launch_op<T, kFill>(x, out, dist, P, batch, tile, n_stages, ds,
+                                 wide, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// op: 0 scan-sum, 1 scan-min, 2 scan-max, 3 fill.  dtype: 0 float32,
+// 1 float64, 2 int32.  x, out: batch * P values; dist: P int32 words.
+// wide = 0: a window pass of n_stages (<= 32) stages at the host array
+// dists (each < 2 * tile); wide = 1: one stage at dists[0] (< P).
+// Returns the cudaError_t of the launch.
+extern "C" int seg_scan(int op, int dtype, const void* x, void* out,
+                        const void* dist, long long P, long long batch,
+                        long long tile, int n_stages, const int* dists,
+                        int wide, void* stream) {
+  if (P <= 0 || batch <= 0 || batch > 65535 || tile <= 0 ||
+      (tile & (tile - 1)) || P % tile || tile > kMaxTile || n_stages < 1 ||
+      n_stages > kMaxStages || (wide && n_stages != 1))
+    return (int)cudaErrorInvalidValue;
+  Dists ds = {};
+  const long long limit = wide ? P : 2 * tile;
+  for (int j = 0; j < n_stages; ++j) {
+    if (dists[j] <= 0 || dists[j] >= limit) return (int)cudaErrorInvalidValue;
+    ds.d[j] = dists[j];
+  }
+  const int* dp = static_cast<const int*>(dist);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch<float>(op, x, out, dp, P, batch, (int)tile, n_stages, ds,
+                         wide != 0, s);
+  if (dtype == 1)
+    return launch<double>(op, x, out, dp, P, batch, (int)tile, n_stages, ds,
+                          wide != 0, s);
+  if (dtype == 2)
+    return launch<int>(op, x, out, dp, P, batch, (int)tile, n_stages, ds,
+                       wide != 0, s);
+  return (int)cudaErrorInvalidValue;
+}

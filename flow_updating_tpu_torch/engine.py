@@ -1,17 +1,21 @@
-"""Engine façade — the S4U-shaped driver API over the node-collapsed kernel.
+"""Engine façade — the S4U-shaped simulation API over the round kernels.
 
-Counterpart of ``flow_updating_tpu/engine.py`` for the node kernel:
+Counterpart of ``flow_updating_tpu/engine.py`` on one device:
 ``Engine(argv, config)`` -> ``load_platform`` -> ``register_actor`` ->
 ``load_deployment`` -> ``build`` -> ``run_rounds`` / ``run_until`` (with
 the watcher) -> ``estimates`` / ``convergence_report`` / ``global_values``.
-The deployment resolves to a :class:`Topology`, the state is one
-:class:`~flow_updating_tpu_torch.models.sync.NodeSyncState`, and rounds run
+The deployment resolves to a :class:`Topology`; ``kernel='edge'`` (the
+default, the general per-edge round of ``models/rounds.py``) keeps a
+:class:`~flow_updating_tpu_torch.models.state.FlowUpdatingState`,
+``kernel='node'`` the node-collapsed
+:class:`~flow_updating_tpu_torch.models.sync.NodeSyncState`.  Rounds run
 on the engine's device — the CUDA card unless ``device='cpu'`` is given.
 
-What the JAX engine does beyond the node kernel raises
-``NotImplementedError`` naming its ROADMAP item: ``kernel='edge'`` (the JAX
-default), ``mesh``/``multichip``, ``plan='auto'``, ``host_actors``,
-``adversary``, custom actors and event logs.
+What the JAX engine does beyond that raises ``NotImplementedError``
+naming its ROADMAP item: ``mesh``/``multichip``, ``plan='auto'``,
+``host_actors``, ``adversary``, custom actors, event logs, and the edge
+kernel's robust modes, contention and streamed runner.  Checkpoints and
+fault injection (ROADMAP A7) have no methods here yet.
 
 Simulated-time convention: one round == ``TICK_INTERVAL`` (1.0) simulated
 seconds, the reference peers' loop cadence.
@@ -26,7 +30,9 @@ from collections.abc import Callable
 
 import numpy as np
 
+from flow_updating_tpu_torch.models import rounds
 from flow_updating_tpu_torch.models.config import RoundConfig
+from flow_updating_tpu_torch.models.state import init_state
 from flow_updating_tpu_torch.models.sync import NodeKernel, _node_sample
 from flow_updating_tpu_torch.topology.deployment import (
     Deployment,
@@ -70,9 +76,7 @@ class _NetzoneShim:
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is the ROADMAP item '{item}', not ported yet; this "
-        "package's Engine runs the node-collapsed kernel "
-        "(RoundConfig.fast(kernel='node'))")
+        f"{what} is the ROADMAP item '{item}', not ported yet")
 
 
 class Engine:
@@ -101,16 +105,13 @@ class Engine:
                               "observability twins and manifests (A9)")
         self.argv = list(argv) if argv else []
         self.config = self._apply_argv_cfg(config or RoundConfig.fast())
-        if self.config.kernel != "node":
-            raise _not_ported(
-                f"kernel={self.config.kernel!r} (the general per-edge "
-                "round)", "edge kernel (A2/A3)")
         self.device = resolve_device(device)
         self.platform: Platform | None = None
         self.deployment: Deployment | None = None
         self.topology: Topology | None = None
         self.state = None
         self._node_kernel: NodeKernel | None = None
+        self._topo_arrays = None
         self._registered: dict = {}
         self._watchers: list = []
         self._clock = 0.0
@@ -209,18 +210,33 @@ class Engine:
 
     def build(self, latency_scale: float = 0.0, seed: int = 0) -> Engine:
         """Resolve deployment(+platform) into topology + kernel + fresh
-        state.  ``seed`` feeds the edge kernel's PRNG in the JAX package;
-        the node kernel draws nothing."""
-        del seed
+        state.  ``seed`` keys the edge kernel's message-loss draws."""
         self._resolve_topology(latency_scale)
-        if latency_scale > 0.0 or self.topology.max_delay > 1:
-            raise ValueError(
-                "latency-warped rounds need per-edge delivery state; the "
-                "node-collapsed kernel is unit-delay only — use "
-                "kernel='edge' with latency_scale")
-        self._node_kernel = NodeKernel(self.topology, self.config,
-                                       device=self.device)
-        self.state = self._node_kernel.init_state()
+        if self.config.kernel == "node":
+            if latency_scale > 0.0 or self.topology.max_delay > 1:
+                raise ValueError(
+                    "latency-warped rounds need per-edge delivery state; "
+                    "the node-collapsed kernel is unit-delay only — use "
+                    "kernel='edge' with latency_scale")
+            self._node_kernel = NodeKernel(self.topology, self.config,
+                                           device=self.device)
+            self.state = self._node_kernel.init_state()
+            return self
+        rounds.check_ported(self.config)
+        if latency_scale > 0.0:
+            depth = max(self.config.delay_depth, self.topology.max_delay)
+            if depth != self.config.delay_depth:
+                self.config = dataclasses.replace(self.config,
+                                                  delay_depth=depth)
+        cfg = self.config
+        self._topo_arrays = self.topology.device_arrays(
+            coloring=cfg.needs_coloring,
+            segment_ell=cfg.use_segment_ell,
+            segment_benes=cfg.segment_benes_mode,
+            delivery_benes=cfg.delivery_benes_mode,
+            device=self.device)
+        self.state = init_state(self.topology, cfg, seed=seed,
+                                device=self.device)
         return self
 
     # ---- observability ---------------------------------------------------
@@ -250,8 +266,12 @@ class Engine:
             return {}
         names = self.topology.names or tuple(
             str(i) for i in range(self.topology.num_nodes))
-        value = self.topology.values
-        last_avg = self._node_kernel.last_avg(self.state)
+        if self.config.kernel == "node":
+            value = self.topology.values
+            last_avg = self._node_kernel.last_avg(self.state)
+        else:
+            value = self.state.value.cpu().numpy()
+            last_avg = self.state.last_avg.cpu().numpy()
         return {
             "value": dict(zip(names, value.tolist())),
             "last_avg": dict(zip(names, last_avg.tolist())),
@@ -260,22 +280,35 @@ class Engine:
     def estimates(self) -> np.ndarray:
         if self.state is None:
             raise RuntimeError("engine not built")
-        return self._node_kernel.estimates(self.state)
+        if self.config.kernel == "node":
+            return self._node_kernel.estimates(self.state)
+        return rounds.node_estimates(self.state,
+                                     self._topo_arrays).cpu().numpy()
 
     def convergence_report(self) -> dict:
-        """Convergence + invariant metrics for the current state."""
+        """Convergence + invariant metrics for the current state (the edge
+        kernel adds the flow antisymmetry residual)."""
         est = self.estimates()
         mean = self.topology.true_mean
-        return {
+        report = {
             "t": int(self.state.t),
             "rmse": rmse(est, mean),
             "max_abs_err": float(np.max(np.abs(est - mean))),
             "mass_residual": mass_residual(est, self.topology.values),
         }
+        if self.config.kernel == "edge":
+            flow = self.state.flow.cpu().numpy()
+            report["antisymmetry_residual"] = float(
+                np.max(np.abs(flow + flow[self.topology.rev])))
+        return report
 
     # ---- execution -------------------------------------------------------
     def _advance(self, n: int) -> None:
-        self.state = self._node_kernel.run(self.state, n)
+        if self.config.kernel == "node":
+            self.state = self._node_kernel.run(self.state, n)
+        else:
+            self.state = rounds.run_rounds(self.state, self._topo_arrays,
+                                           self.config, n)
 
     def run_rounds(self, n: int) -> Engine:
         if self.state is None:
@@ -318,6 +351,9 @@ class Engine:
         line."""
         if n % observe_every:
             raise ValueError("num_rounds must be a multiple of observe_every")
+        if self.config.kernel == "edge":
+            raise _not_ported("run_streamed on the edge kernel",
+                              "observability twins and manifests (A9)")
         if self.state is None:
             self.build()
         emit = emit or _log_stream_sample

@@ -42,6 +42,7 @@ SIGNATURES = {
                     _P, _P, _I, _LL, _P, _P, _P, _P, _P),
     "benes_pass": (_I, _I, _P, _P, _P, _LL, _LL, _LL, _I, _P, _LL, _LL,
                    _P),
+    "seg_scan": (_I, _I, _P, _P, _P, _LL, _LL, _LL, _I, _P, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -146,10 +147,13 @@ def stream_ptr(tensor) -> int:
 
 
 def dtype_code(tensor) -> int:
+    """0 float32, 1 float64, 2 int32.  An entry point refuses a code its
+    kernel does not take (``cudaErrorInvalidValue``, raised by
+    :func:`check`)."""
     import torch
 
-    if tensor.dtype == torch.float32:
-        return 0
-    if tensor.dtype == torch.float64:
-        return 1
-    raise KernelError(f"kernels take float32 or float64, got {tensor.dtype}")
+    codes = {torch.float32: 0, torch.float64: 1, torch.int32: 2}
+    if tensor.dtype not in codes:
+        raise KernelError(f"kernels take float32, float64 or int32, got "
+                          f"{tensor.dtype}")
+    return codes[tensor.dtype]

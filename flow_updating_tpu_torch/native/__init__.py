@@ -1,7 +1,8 @@
 """ctypes bindings for the port's C++ host runtime (``src/funative.cpp``).
 
 The library holds the exact Erdős–Rényi and Barabási–Albert generators,
-the big-graph builder and the Beneš router — the same algorithms as the
+the big-graph builder, the Beneš router and the greedy edge coloring —
+the same algorithms as the
 JAX package's native runtime, so both packages build the same graphs and
 route the same networks from the same seed.  It is compiled on first use
 with ``g++ -O3 -std=c++17 -fPIC -shared`` into
@@ -91,6 +92,9 @@ def get_lib() -> ctypes.CDLL:
                                            i32p]
             lib.fu_benes_route.restype = i64
             lib.fu_benes_route.argtypes = [i64, i64p, u8p]
+            lib.fu_edge_coloring.restype = i64
+            lib.fu_edge_coloring.argtypes = [i64, i64, i32p, i32p, i32p,
+                                             i32p]
             _lib = lib
     return _lib
 
@@ -160,3 +164,22 @@ def benes_route(perm: np.ndarray) -> list:
                           _ptr(out, ctypes.c_uint8)) < 0:
         raise ValueError("not a permutation")
     return [out[s] for s in range(stages)]
+
+
+def edge_coloring(topo) -> tuple[np.ndarray, int]:
+    """Greedy proper edge coloring (hubs first, the smallest color free at
+    both endpoints; both directions of an edge share it): ``(color (E,)
+    int32, number of colors)``."""
+    lib = get_lib()
+    E = topo.num_edges
+    src = np.ascontiguousarray(topo.src, np.int32)
+    dst = np.ascontiguousarray(topo.dst, np.int32)
+    rev = np.ascontiguousarray(topo.rev, np.int32)
+    color = np.full(E, -1, np.int32)
+    c = lib.fu_edge_coloring(topo.num_nodes, E, _ptr(src, ctypes.c_int32),
+                             _ptr(dst, ctypes.c_int32),
+                             _ptr(rev, ctypes.c_int32),
+                             _ptr(color, ctypes.c_int32))
+    if c < 0:
+        raise ValueError("malformed edge list")
+    return color, int(c)

@@ -11,7 +11,9 @@
 //  * the symmetrize/dedup/sort/reverse-permutation graph builder (two
 //    million declared pairs and more);
 //  * the Benes network router (networks of 2^14 elements and more; the
-//    k=160 fat tree's neighbor-sum network is 2^23 wide).
+//    k=160 fat tree's neighbor-sum network is 2^23 wide);
+//  * the greedy proper edge coloring of the fast synchronous pairwise
+//    mode (graphs of 50,000 directed edges and more).
 //
 // Plain C ABI for ctypes; built with g++ -O3 -std=c++17 -fPIC -shared on
 // first use by flow_updating_tpu_torch/native/__init__.py.
@@ -213,6 +215,67 @@ int64_t fu_benes_route(int64_t n, const int64_t* perm, uint8_t* out) {
     mid[start + 1] = sw;
   }
   return 0;
+}
+
+// ---------------------------------------------------------------------------
+// Greedy proper edge coloring (undirected; both directions share a color).
+//
+// Host-side prerequisite of the fast synchronous pairwise mode (one color
+// class fires per round).  Edges are processed hubs-first (descending
+// max-endpoint-degree): each takes the smallest color unused at both
+// endpoints, found by merge-scanning the endpoints' sorted used-color
+// lists.  Hubs-first keeps the color count near the trivial lower bound
+// maxdeg (the numpy matching extractor achieves exactly maxdeg but costs
+// O(colors * E) full passes — ~17 s at BA-100k vs well under a second
+// here).  Directed inputs must be the framework's sorted symmetric edge
+// list; color_out gets the shared color on BOTH directions.  Returns the
+// number of colors, or -1 on malformed input.
+// ---------------------------------------------------------------------------
+
+int64_t fu_edge_coloring(int64_t n, int64_t E, const int32_t* src,
+                         const int32_t* dst, const int32_t* rev,
+                         int32_t* color_out) {
+  std::vector<int64_t> und;
+  und.reserve((size_t)E / 2);
+  std::vector<int64_t> deg(n, 0);
+  for (int64_t e = 0; e < E; ++e) {
+    if (src[e] < 0 || src[e] >= n || dst[e] < 0 || dst[e] >= n) return -1;
+    if (rev[e] < 0 || rev[e] >= E) return -1;  // color_out[rev[e]] writes
+    deg[src[e]]++;
+    if (src[e] < dst[e]) und.push_back(e);
+  }
+  std::sort(und.begin(), und.end(), [&](int64_t a, int64_t b) {
+    int64_t da = std::max(deg[src[a]], deg[dst[a]]);
+    int64_t db = std::max(deg[src[b]], deg[dst[b]]);
+    if (da != db) return da > db;
+    return a < b;
+  });
+  std::vector<std::vector<int32_t>> used(n);  // sorted per-node color lists
+  for (int64_t v = 0; v < n; ++v) used[v].reserve((size_t)deg[v]);
+  int32_t num_colors = 0;
+  for (int64_t e : und) {
+    const std::vector<int32_t>& a = used[src[e]];
+    const std::vector<int32_t>& b = used[dst[e]];
+    // smallest c >= 0 absent from both sorted lists
+    int32_t c = 0;
+    size_t i = 0, j = 0;
+    while (true) {
+      while (i < a.size() && a[i] < c) ++i;
+      while (j < b.size() && b[j] < c) ++j;
+      bool ina = (i < a.size() && a[i] == c);
+      bool inb = (j < b.size() && b[j] == c);
+      if (!ina && !inb) break;
+      ++c;
+    }
+    color_out[e] = c;
+    color_out[rev[e]] = c;
+    auto& av = used[src[e]];
+    av.insert(std::lower_bound(av.begin(), av.end(), c), c);
+    auto& bv = used[dst[e]];
+    bv.insert(std::lower_bound(bv.begin(), bv.end(), c), c);
+    num_colors = std::max(num_colors, (int32_t)(c + 1));
+  }
+  return num_colors;
 }
 
 }  // extern "C"

@@ -29,6 +29,11 @@ elements; a row roll inside it is a flat roll), and a wrapper
 launches kernel **B3** (``csrc/benes_pass.cu``) for a CUDA tensor,
 counting each launch in its ``launches``.  :func:`apply_fused` runs a
 whole plan and is bit-exact to ``apply_stages`` (pure data movement).
+
+The module also holds kernel **B4**'s wrappers (``csrc/seg_scan.cu``),
+:func:`segscan_pass` and :func:`fill_pass`: the segmented scan and the
+fill-forward of the edge kernel's segment networks, whose stage masks
+derive from a dist plane instead of stored bits (see the B4 section).
 """
 
 from __future__ import annotations
@@ -398,3 +403,198 @@ def pass_min_bytes(ps: PassSpec, geom: Geometry, batch: int,
     read once, the output written once."""
     mask_bytes = 4 if ps.kind in ("local", "window") else 1
     return int(geom.P * (2 * batch * dtype_bytes + mask_bytes))
+
+
+# ---------------------------------------------------------------------------
+# kernel B4: the segmented scan and fill-forward passes over a dist plane
+# ---------------------------------------------------------------------------
+#
+# The segment networks of the edge kernel (ops/seg_benes.py) run stages at
+# d = 1, 2, 4, ... whose masks derive from one static int32 plane ``dist``
+# (each edge's rank in its CSR row): ``dist >= d`` for the scan, bit ``d``
+# of ``dist`` for the fill.  JAX runs them as one Pallas call while their
+# halo fits its 2,048-row block and as an XLA stage loop otherwise; here
+# :func:`plan_dist_passes` splits any stage list into consecutive window
+# passes while the halo fits the card's tile, then one elementwise 'wide'
+# pass per stage whose distance passes the tile.  The stages and their
+# order are the loop's, so the result is the same.
+
+SCAN_OPS = ("sum", "min", "max")
+_B4_OP = {"sum": 0, "min": 1, "max": 2, "fill": 3}
+#: the scan ops' combine functions (torch.minimum/maximum: a NaN wins)
+_COMB = {"sum": torch.add, "min": torch.minimum, "max": torch.maximum,
+         "all": torch.logical_and}
+
+
+@dataclasses.dataclass(frozen=True)
+class DistPass:
+    """One B4 launch: ``kind`` 'window' (stages on ``[prev; own]``) or
+    'wide' (one stage against ``x[p - d]``)."""
+
+    kind: str
+    dists: tuple
+
+
+def plan_dist_passes(dists, geom: Geometry) -> tuple:
+    """Split ascending stage distances into B4 passes (see above): a
+    window pass holds stages while their :func:`halo_rows` fits the
+    tile's ``block_rows`` (and at most 32 of them); a stage that alone
+    passes it is a wide pass."""
+    R = geom.block_rows
+    passes, cur = [], []
+    for d in dists:
+        if halo_rows((d,)) > R or d >= geom.tile:
+            if cur:
+                passes.append(DistPass("window", tuple(cur)))
+                cur = []
+            passes.append(DistPass("wide", (d,)))
+            continue
+        if cur and (halo_rows(cur + [d]) > R
+                    or len(cur) >= MAX_STAGES_PER_PASS):
+            passes.append(DistPass("window", tuple(cur)))
+            cur = []
+        cur.append(d)
+    if cur:
+        passes.append(DistPass("window", tuple(cur)))
+    return tuple(passes)
+
+
+def scan_identity(op: str, dtype: torch.dtype):
+    """0 for sum; the dtype's largest (min) or lowest (max) finite value —
+    the JAX kernel's identities; True for the boolean 'all'."""
+    if op == "sum":
+        return 0
+    if op == "all":
+        return True
+    info = (torch.finfo(dtype) if dtype.is_floating_point
+            else torch.iinfo(dtype))
+    return info.max if op == "min" else info.min
+
+
+def dist_stage(w, src, dv, d: int, op: str):
+    """One stage of the segmented scan or the fill: ``src`` is ``w`` rolled
+    by ``d``; ``op`` is 'sum', 'min', 'max', 'all' or 'fill'.  A scan
+    combines the source where ``dv >= d`` (the identity elsewhere); the
+    fill takes it where bit ``d`` of ``dv`` is set."""
+    if op == "fill":
+        return torch.where((dv & d) != 0, src, w)
+    ident = torch.tensor(scan_identity(op, w.dtype), dtype=w.dtype,
+                         device=w.device)
+    return _COMB[op](w, torch.where(dv >= d, src, ident))
+
+
+def dist_pass_plain(x: torch.Tensor, dist: torch.Tensor, dp: DistPass,
+                    op: str, geom: Geometry) -> torch.Tensor:
+    """One B4 pass in plain torch; ``x`` is ``(B, P)``, ``dist`` ``(P,)``.
+    A window pass rolls circularly inside ``[prev; own]`` (tile 0's window
+    repeats tile 0) and keeps the own half, as the JAX kernel; a wide
+    pass rolls the whole row."""
+    if dp.kind == "wide":
+        d = dp.dists[0]
+        return dist_stage(x, torch.roll(x, d, -1), dist, d, op)
+    T = geom.tile
+    x3 = x.reshape(x.shape[0], geom.grid, T)
+    dt = _tiles(dist, geom)
+    w = torch.cat([_prev_tiles(x3, 1), x3], -1)
+    dw = torch.cat([_prev_tiles(dt, 0), dt], -1)
+    for d in dp.dists:
+        w = dist_stage(w, torch.roll(w, d, -1), dw, d, op)
+    return w[..., T:].reshape(x.shape)
+
+
+def _launch_dist(x: torch.Tensor, dist: torch.Tensor, dp: DistPass,
+                 op: str, geom: Geometry, what: str) -> torch.Tensor:
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    if x.dim() != 2 or x.shape[1] != geom.P or not x.is_contiguous():
+        raise ValueError(f"{what}: expected a contiguous (B, {geom.P}) "
+                         f"tensor, got {tuple(x.shape)}")
+    if (dist.device != x.device or dist.dtype != torch.int32
+            or dist.numel() != geom.P or not dist.is_contiguous()):
+        raise ValueError(f"{what}: the dist plane must be a contiguous "
+                         f"({geom.P},) int32 tensor on the payload's device")
+    if geom.tile > MAX_TILE:
+        raise ValueError(f"{what}: tile of {geom.tile} elements exceeds the "
+                         f"kernel's {MAX_TILE}")
+    code = kernels.dtype_code(x)
+    out = torch.empty_like(x)
+    dists = (ctypes.c_int * len(dp.dists))(*dp.dists)
+    fn = kernels.library("seg_scan").seg_scan
+    kernels.check(fn(_B4_OP[op], code, x.data_ptr(), out.data_ptr(),
+                     dist.data_ptr(), geom.P, x.shape[0], geom.tile,
+                     len(dp.dists), dists, int(dp.kind == "wide"),
+                     kernels.stream_ptr(x)), what)
+    return out
+
+
+def _run_dist_passes(x, dist, dists, op, geom, launch, what):
+    lead = x.shape[:-1]
+    if x.shape[-1] != geom.P:
+        raise ValueError(f"{what}: last axis {x.shape[-1]}, network width "
+                         f"{geom.P}")
+    x2 = x.reshape(-1, geom.P)
+    for dp in plan_dist_passes(dists, geom):
+        x2 = launch(x2, dist, dp, op, geom)
+    return x2.reshape(*lead, geom.P)
+
+
+def segscan_pass_plain(x, dist, dists: tuple, op: str,
+                       geom: Geometry) -> torch.Tensor:
+    """The segmented scan of ``x`` (``(..., P)``) over the stages
+    ``dists`` in plain torch, pass by pass as B4 runs it."""
+    return _run_dist_passes(x, dist, dists, op, geom, dist_pass_plain,
+                            "segscan_pass_plain")
+
+
+def fill_pass_plain(x, dist, dists: tuple, geom: Geometry) -> torch.Tensor:
+    """Fill-forward of ``x`` (``(..., P)``) in plain torch, as B4 runs it."""
+    return _run_dist_passes(x, dist, dists, "fill", geom, dist_pass_plain,
+                            "fill_pass_plain")
+
+
+def segscan_pass(x, dist, dists: tuple, op: str,
+                 geom: Geometry) -> torch.Tensor:
+    """Kernel B4's scan: for each ``d`` in ``dists`` (ascending powers of
+    two), ``x = comb(x, where(dist >= d, x[p - d], identity))`` over the
+    last axis, ``comb`` in {sum, min, max}; leading batch dims share
+    ``dist``.  The plain version on a CPU tensor; on a CUDA tensor one
+    B4 launch per pass, each counted in ``segscan_pass.launches``."""
+    if op not in SCAN_OPS:
+        raise ValueError(f"segscan_pass: unknown op {op!r}")
+    if x.device.type == "cpu":
+        return segscan_pass_plain(x, dist, dists, op, geom)
+
+    def launch(x2, dist, dp, op, geom):
+        out = _launch_dist(x2, dist, dp, op, geom, "segscan_pass")
+        segscan_pass.launches += 1
+        return out
+
+    return _run_dist_passes(x, dist, dists, op, geom, launch,
+                            "segscan_pass")
+
+
+def fill_pass(x, dist, dists: tuple, geom: Geometry) -> torch.Tensor:
+    """Kernel B4's fill-forward: for each ``d`` in ``dists``, ``x =
+    where(dist & d, x[p - d], x)``.  The plain version on a CPU tensor;
+    on a CUDA tensor one B4 launch per pass, counted in
+    ``fill_pass.launches``."""
+    if x.device.type == "cpu":
+        return fill_pass_plain(x, dist, dists, geom)
+
+    def launch(x2, dist, dp, op, geom):
+        out = _launch_dist(x2, dist, dp, op, geom, "fill_pass")
+        fill_pass.launches += 1
+        return out
+
+    return _run_dist_passes(x, dist, dists, "fill", geom, launch,
+                            "fill_pass")
+
+
+segscan_pass.launches = 0
+fill_pass.launches = 0
+
+
+def dist_pass_min_bytes(geom: Geometry, batch: int, dtype_bytes: int) -> int:
+    """The least bytes one B4 pass must move: x read once, the dist plane
+    read once, the output written once."""
+    return int(geom.P * (2 * batch * dtype_bytes + 4))

@@ -219,6 +219,31 @@ class PaddedPermPlan:
         return self.stages.to(device)
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class FusedPaddedPermPlan:
+    """:class:`PaddedPermPlan` whose stages run as fused passes
+    (``delivery='benes_fused'``; kernel B3 on the card)."""
+
+    n: int
+    stages: StagePlan
+    fused: object        # fused_passes.FusedPlan
+
+    @classmethod
+    def from_plan(cls, base: PaddedPermPlan) -> FusedPaddedPermPlan:
+        """Plan ``base``'s routed stages for the fused executor (at every
+        width: the card's tile shrinks to the network)."""
+        from flow_updating_tpu_torch.ops.fused_passes import plan_fused
+
+        return cls(n=base.n, stages=base.stages,
+                   fused=plan_fused(base.stages))
+
+    def to(self, device) -> tuple:
+        """The fused passes' mask planes, on ``device``."""
+        from flow_updating_tpu_torch.ops.fused_passes import mask_planes
+
+        return mask_planes(self.stages, self.fused, device)
+
+
 def padded_perm_plan(perm: np.ndarray) -> PaddedPermPlan:
     """Beneš plan for ``y = x[perm]`` with arbitrary (non-power-of-two)
     length; the network is padded to the next power of two."""
@@ -229,14 +254,21 @@ def padded_perm_plan(perm: np.ndarray) -> PaddedPermPlan:
     return PaddedPermPlan(n=n, stages=benes_plan(full))
 
 
-def apply_padded_perm(x: torch.Tensor, plan: PaddedPermPlan,
-                      masks) -> torch.Tensor:
-    """Apply over the last axis (``masks`` from :meth:`PaddedPermPlan.to`);
-    pads to the network width and slices back."""
+def apply_padded_perm(x: torch.Tensor, plan, masks) -> torch.Tensor:
+    """Apply over the last axis (``masks`` from the plan's ``to``); pads to
+    the network width and slices back.  A :class:`FusedPaddedPermPlan`
+    runs the fused passes, a :class:`PaddedPermPlan` the per-stage
+    executor."""
     pad = plan.stages.n - plan.n
     if pad:
         x = torch.cat([x, x.new_zeros(x.shape[:-1] + (pad,))], dim=-1)
-    return apply_stages(x, plan.stages, masks)[..., : plan.n]
+    if isinstance(plan, FusedPaddedPermPlan):
+        from flow_updating_tpu_torch.ops.fused_passes import apply_fused
+
+        y = apply_fused(x, plan.fused, masks)
+    else:
+        y = apply_stages(x, plan.stages, masks)
+    return y[..., : plan.n]
 
 
 def apply_stages(x: torch.Tensor, plan: StagePlan, masks) -> torch.Tensor:

@@ -185,6 +185,12 @@ def neighbor_sum_benes(x: torch.Tensor, plan, masks) -> torch.Tensor:
         if w == 0:
             parts.append(x.new_zeros(rows))
         else:
-            parts.append(z[off: off + rows * w].reshape(rows, w).sum(dim=1))
+            # sum a fresh (rows, w) tensor, as the gather route sums its
+            # freshly gathered bucket: the card's reduction picks its
+            # vector width from the data pointer's alignment, so the sum
+            # of a view into the network's output can add in another
+            # order (.contiguous() would return the view unchanged)
+            parts.append(
+                z[off: off + rows * w].reshape(rows, w).clone().sum(dim=1))
             off += rows * w
     return torch.cat(parts) if len(parts) > 1 else parts[0]

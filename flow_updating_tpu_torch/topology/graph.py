@@ -13,9 +13,11 @@ missing reverse edges are added at load time and reported through
 :func:`build_topology`'s ``adopted`` output.
 
 Everything here is host-side numpy; the node kernel (``models/sync.py``)
-moves what it needs onto its device.  As in the JAX package, a generator's
-graph of two million declared pairs or more is symmetrized, sorted and
-paired with its reverse edges by the C++ builder
+moves what it needs onto its device, and :meth:`Topology.device_arrays`
+gives the edge kernel (``models/rounds.py``) its :class:`EdgeArrays`.
+As in the JAX package, a generator's graph of two million declared pairs
+or more is symmetrized, sorted and paired with its reverse edges by the
+C++ builder
 (:mod:`flow_updating_tpu_torch.native`), which gives the same arrays.
 """
 
@@ -26,6 +28,7 @@ import logging
 from collections.abc import Mapping, Sequence
 
 import numpy as np
+import torch
 
 from flow_updating_tpu_torch import native
 
@@ -140,6 +143,187 @@ class Topology:
     def neighbors(self, node: int) -> np.ndarray:
         lo, hi = self.row_start[node], self.row_start[node + 1]
         return self.dst[lo:hi]
+
+    def edge_coloring(self) -> tuple[np.ndarray, int]:
+        """Proper edge coloring (undirected: both directions share a
+        color), ``(color (E,) int32, number of colors)``, cached on the
+        object.  The fast synchronous pairwise mode fires one color class
+        per round, so concurrent 2-party averages are disjoint.
+
+        From 50,000 directed edges the C++ greedy coloring (hubs first,
+        the smallest color free at both endpoints); below that repeated
+        maximal-matching extraction (each pass gives the next color to
+        every edge that is the lowest-indexed uncolored edge at both of
+        its endpoints, until no such edge is left) — the JAX package's two
+        routes at its threshold, so both give the same colors."""
+        cached = getattr(self, "_edge_coloring", None)
+        if cached is not None:
+            return cached
+        E = self.num_edges
+        if E >= 50_000:
+            out = native.edge_coloring(self)
+            object.__setattr__(self, "_edge_coloring", out)
+            return out
+        und = np.where(self.src < self.dst)[0]
+        u = self.src[und].astype(np.int64)
+        v = self.dst[und].astype(np.int64)
+        M = len(und)
+        color = np.full(M, -1, np.int32)
+        uncolored = np.ones(M, bool)
+        idx = np.arange(M, dtype=np.int64)
+        c = 0
+        while uncolored.any():
+            # grow one maximal matching: repeat the picks until no
+            # uncolored edge has both endpoints free
+            free = np.ones(self.num_nodes, bool)
+            this = np.zeros(M, bool)
+            avail = uncolored.copy()
+            while True:
+                eid = np.where(avail, idx, M)
+                first = np.full(self.num_nodes, M, dtype=np.int64)
+                np.minimum.at(first, u, eid)
+                np.minimum.at(first, v, eid)
+                pick = avail & (first[u] == idx) & (first[v] == idx)
+                if not pick.any():
+                    break
+                this |= pick
+                free[u[pick]] = False
+                free[v[pick]] = False
+                avail &= ~pick & free[u] & free[v]
+            color[this] = c
+            uncolored &= ~this
+            c += 1
+        full = np.full(E, -1, np.int32)
+        full[und] = color
+        full[self.rev[und]] = color
+        object.__setattr__(self, "_edge_coloring", (full, c))
+        return full, c
+
+    def _network(self, which: str, fused: bool):
+        """The edge kernel's planned networks — ``'segments'`` (the
+        segment plan and its dist plane) or ``'rev'`` (the reverse-edge
+        permutation) — for the per-stage or the fused executor.  The
+        Beneš routing is the costly part (seconds at 2^23 elements), so
+        the routed stages are cached on the object and both executors
+        share them."""
+        from flow_updating_tpu_torch.ops import permute, seg_benes
+
+        cache = getattr(self, "_networks", None)
+        if cache is None:
+            cache = {}
+            object.__setattr__(self, "_networks", cache)
+        if which not in cache:
+            if which == "segments":
+                cache[which] = seg_benes.plan_segments(
+                    self.row_start, self.out_deg, self.edge_rank)
+            else:
+                cache[which] = permute.padded_perm_plan(self.rev)
+        base = cache[which]
+        if not fused:
+            return base
+        if which == "segments":
+            plan, dist = base
+            return seg_benes.SegmentedPlan.from_plan(plan, fused=True), dist
+        return permute.FusedPaddedPermPlan.from_plan(base)
+
+    def device_arrays(self, coloring: bool = False,
+                      segment_ell: bool = False, delivery_benes=False,
+                      segment_benes=False, device=None) -> EdgeArrays:
+        """The arrays the edge kernel consumes, on ``device`` (the card
+        unless ``'cpu'`` is given).
+
+        ``coloring`` adds the edge coloring (fast synchronous pairwise);
+        ``segment_ell`` the degree-bucketed out-edge ELL matrices
+        (``segment_impl='ell'``).  ``segment_benes`` and ``delivery_benes``
+        are tri-state, as in the JAX package: ``True`` plans the segment
+        networks (``segment_impl='benes'``) or the reverse-edge
+        permutation (``delivery='benes'``) for the per-stage executor,
+        ``"fused"`` for the fused passes (kernels B3 and B4), ``False``
+        neither.  The link-model fields stay unset: contention is a later
+        port item."""
+        from flow_updating_tpu_torch.utils.device import resolve_device
+
+        dev = resolve_device(device)
+
+        def t(a, dtype):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+        edge_color, num_colors = None, 0
+        if coloring:
+            col, num_colors = self.edge_coloring()
+            edge_color = t(col, torch.int32)
+        ell_edge_mats = ell_inv_perm = None
+        if segment_ell:
+            ell = self.ell_buckets()
+            ell_edge_mats = tuple(t(m, torch.int64) for m in ell.edge_mats)
+            ell_inv_perm = t(ell.inv_perm, torch.int64)
+        seg_plan = seg_dist = None
+        seg_extract_masks = seg_place_masks = ()
+        if segment_benes:
+            seg_plan, dist = self._network("segments",
+                                           segment_benes == "fused")
+            seg_dist = t(dist, torch.int32)
+            seg_extract_masks, seg_place_masks = seg_plan.to(dev)
+        rev_plan = delay_rev = None
+        rev_masks = ()
+        if delivery_benes:
+            rev_plan = self._network("rev", delivery_benes == "fused")
+            rev_masks = rev_plan.to(dev)
+            delay_rev = t(self.delay[self.rev], torch.int32)
+        return EdgeArrays(
+            src=t(self.src, torch.int64), dst=t(self.dst, torch.int64),
+            rev=t(self.rev, torch.int64),
+            out_deg=t(self.out_deg, torch.int32),
+            row_start=t(self.row_start, torch.int64),
+            edge_rank=t(self.edge_rank, torch.int32),
+            delay=t(self.delay, torch.int32),
+            deg_e=t(self.out_deg[self.src], torch.int32),
+            drop_perm=(None if self.drop_perm is None
+                       else t(self.drop_perm, torch.int64)),
+            edge_color=edge_color, num_colors=num_colors,
+            ell_edge_mats=ell_edge_mats, ell_inv_perm=ell_inv_perm,
+            rev_plan=rev_plan, rev_masks=rev_masks, delay_rev=delay_rev,
+            seg_plan=seg_plan, seg_dist=seg_dist,
+            seg_extract_masks=seg_extract_masks,
+            seg_place_masks=seg_place_masks)
+
+
+@dataclasses.dataclass(frozen=True)
+class EdgeArrays:
+    """The edge kernel's per-topology tensors on one device (JAX
+    ``TopoArrays``).  Index arrays are int64, the rest int32."""
+
+    src: torch.Tensor
+    dst: torch.Tensor
+    rev: torch.Tensor
+    out_deg: torch.Tensor
+    row_start: torch.Tensor
+    edge_rank: torch.Tensor
+    delay: torch.Tensor
+    deg_e: torch.Tensor              # (E,) out_deg[src]: the drain's
+    #                                  priority modulus, a topology constant
+    drop_perm: torch.Tensor | None = None   # plan edge -> original edge
+    edge_color: torch.Tensor | None = None  # fast pairwise coloring
+    num_colors: int = 0
+    ell_edge_mats: tuple | None = None  # segment_impl='ell'
+    ell_inv_perm: torch.Tensor | None = None
+    # gather-free delivery (delivery='benes'|'benes_fused')
+    rev_plan: object = None          # PaddedPermPlan / FusedPaddedPermPlan
+    rev_masks: tuple = ()
+    delay_rev: torch.Tensor | None = None   # delay[rev] (static)
+    # gather/scatter-free segment ops (segment_impl='benes'|'benes_fused')
+    seg_plan: object = None          # ops/seg_benes.SegmentedPlan
+    seg_dist: torch.Tensor | None = None    # (P,) int32 edge_rank padded
+    seg_extract_masks: tuple = ()
+    seg_place_masks: tuple = ()
+
+    @property
+    def num_nodes(self) -> int:
+        return int(self.out_deg.shape[0])
+
+    @property
+    def num_edges(self) -> int:
+        return int(self.src.shape[0])
 
 
 @dataclasses.dataclass(frozen=True)

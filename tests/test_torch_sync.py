@@ -214,8 +214,10 @@ def test_cli_refuses_unported_flags():
         port_main([*base, "--telemetry"])
     with pytest.raises(SystemExit, match="A12"):
         port_main([*base, "--shards", "2"])
-    with pytest.raises(SystemExit, match="edge kernel"):
-        port_main(["run", "--device", "cpu", "--generator", "ring:16"])
+    # the edge kernel runs; what it does not run yet still exits
+    with pytest.raises(SystemExit, match="A3"):
+        port_main(["run", "--device", "cpu", "--generator", "ring:16",
+                   "--contention"])
     with pytest.raises(SystemExit, match="invalid flag combination"):
         port_main([*base, "--drop-rate", "0.1"])
 
@@ -234,8 +236,11 @@ def test_unported_configs_raise_naming_their_item():
     with pytest.raises(ValueError, match="vector payloads"):
         NodeKernel(topo, RoundConfig.fast(kernel="node", spmv="pallas"),
                    values=np.ones((16, 2)), device="cpu")
-    with pytest.raises(NotImplementedError, match="edge kernel"):
-        Engine(device="cpu")
+    # Engine() builds the edge kernel; its robust modes are still A3
+    assert Engine(device="cpu").config.kernel == "edge"
+    with pytest.raises(NotImplementedError, match="A3"):
+        Engine(config=RoundConfig.fast(robust="clip", robust_clip=1.0),
+               device="cpu").set_topology(topo).build()
     node = RoundConfig.fast(kernel="node")
     with pytest.raises(NotImplementedError, match="plan='auto'"):
         Engine(config=node, plan="auto", device="cpu")
