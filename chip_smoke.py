@@ -7,7 +7,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 It builds the hand-written CUDA kernels from ``flow_updating_tpu_torch/csrc``,
 holds each kernel against its plain PyTorch version at the shapes of the
-main paths, drives the three main paths through the public entry points,
+main paths, drives the main paths through the public entry points,
 and prints one JSON line per phase:
 
 1. ``device``  — the card (``torch.cuda.get_device_name``) and the
@@ -54,10 +54,24 @@ and prints one JSON line per phase:
    ``'segment'``/``'gather'`` twin; then fast pairwise with
    ``segment_impl='benes_fused'`` (the native edge coloring) for 50 rounds,
    ``torch.equal`` to its ``'benes'`` twin;
-11. ``profile`` — ``torch.profiler`` over a few more rounds of each path:
+11. ``k5``    — kernel B5 (the per-shard banded round) vs its plain
+   version at 4 shards on ``ring(1_000_000, 2)`` (path B's plan: 8 band
+   lanes, W = 1) and on ``grid2d(1000, 1000)`` (a remainder-heavy plan),
+   float32 and float64: fire and merge ``torch.equal`` over whole shards
+   and over the split schedule's row ranges; device ms per launch (fire,
+   interior, boundary apart) on the ring;
+12. ``path_e`` — the sharded round: ``Engine`` with ``spmv='banded_fused'``
+   over ``make_mesh(4)`` (all four shards on the one card) and
+   ``halo='overlap'`` on the ring: ms/round, B5 launches == rounds x shards
+   x launches per shard-round, halo bytes per round, estimates
+   ``torch.equal`` to a ``halo='ppermute'`` twin and to path B's
+   single-device run of the same rounds, a falling rmse;
+13. ``profile`` — ``torch.profiler`` over a few more rounds of each path:
    device time per round, the device's busy share of the wall time, the
    time of each hand-written kernel and the kernels that take the most;
-12. the ``{"kernels": [...]}`` line (launches from the main paths; times,
+   for path E also the union of the busy intervals of its streams and the
+   share of the halo copies' time that another stream's kernel overlaps;
+14. the ``{"kernels": [...]}`` line (launches from the main paths; times,
     errors and bounds measured in this run), then the nvidia-smi line,
     then ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -68,7 +82,8 @@ events around ``REPS`` back-to-back calls, host launch gaps included.
 B3's yardstick is ``torch.index_select`` with the pass's own source index
 (the pass applied to ``arange(P)``); the fill's is ``index_select`` with
 each position's run head; no single library call computes a segmented
-scan.
+scan.  A B5 call is one shard's round (fire, interior merge and the two
+boundary merges).
 
 Any failure raises and exits non-zero.  Without a CUDA device it exits
 with code 2 and prints no result.  It takes no options: the sizes below
@@ -97,6 +112,8 @@ EDGE_ROUNDS = 150       # path D: timed rounds after the bootstrap
 TWIN_ROUNDS = 60        # path D: rounds before the twin comparisons
 PAIRWISE_ROUNDS = 50    # path D: fast pairwise rounds
 STAR_HUB = 5000         # k4: the hub degree that splits B4's passes
+SHARDS = 4              # k5, path E: shards of the mesh (all on one card)
+GRID_SIDE = 1000        # k5: grid2d(1000, 1000), the remainder-heavy plan
 #: path D's float32 estimates against the 'segment'/'gather' twin, whose
 #: per-node sums add in another order (sequential rows vs the scan tree)
 EDGE_TWIN_ATOL = 1e-4
@@ -192,7 +209,9 @@ B4_FLAVOURS = (("scan", "segscan_pass", 475), ("fill", "fill_pass", 513))
 #: the hand-written kernels' CUDA function names, by kernel (profile)
 KERNEL_FAMILIES = {"K1": ("spmv_ell_",), "K2": ("fused_round_kernel",),
                    "B3": ("::staged_pass<", "::wide_pass<", "::wide2_pass<"),
-                   "B4": ("::seg_window_pass<", "::seg_wide_pass<")}
+                   "B4": ("::seg_window_pass<", "::seg_wide_pass<"),
+                   "B5": ("::sharded_fire_kernel<",
+                          "::sharded_merge_kernel<")}
 
 
 def b3_family(kind: str) -> str:
@@ -201,12 +220,14 @@ def b3_family(kind: str) -> str:
 
 
 def reset_counts() -> None:
-    from flow_updating_tpu_torch.ops import fused_passes
+    from flow_updating_tpu_torch.ops import fused_passes, sharded_round
     from flow_updating_tpu_torch.ops.fused_round import fused_banded_round
     from flow_updating_tpu_torch.ops.spmv import neighbor_sum_ell
 
     neighbor_sum_ell.launches = 0
     fused_banded_round.launches = 0
+    sharded_round.sharded_fire.launches = 0
+    sharded_round.sharded_round.launches = 0
     for _, wrapper, _, _ in B3_FLAVOURS:
         getattr(fused_passes, wrapper).launches = 0
     for _, wrapper, _ in B4_FLAVOURS:
@@ -225,6 +246,13 @@ def b4_launches() -> dict:
 
     return {name: getattr(fused_passes, wrapper).launches
             for name, wrapper, _ in B4_FLAVOURS}
+
+
+def b5_launches() -> dict:
+    from flow_updating_tpu_torch.ops import sharded_round
+
+    return {"fire": sharded_round.sharded_fire.launches,
+            "merge": sharded_round.sharded_round.launches}
 
 
 def round_network_calls(cfg) -> dict:
@@ -981,6 +1009,294 @@ def phase_path_d(topo, eng, plan_s):
             "pairwise_fast": pairwise, **rep}
 
 
+def _b5_inputs(kernel, rng, dt, dev):
+    """Random round inputs of every shard of ``kernel`` on the card."""
+    import torch
+
+    spec = kernel.spec
+    draw = lambda n: torch.from_numpy(  # noqa: E731
+        rng.uniform(-1.0, 1.0, n)).to(dev, dt)
+    return [{"S": draw(spec.local), "G": draw(spec.local),
+             "avg_prev": draw(spec.local), "A_prev": draw(spec.local),
+             "lo": draw(spec.halo), "hi": draw(spec.halo),
+             "value": sh.value.to(dt), "inv": sh.inv_depp1.to(dt),
+             "deg": sh.deg.to(dt)} for sh in kernel._shards]
+
+
+def _b5_shard_round(sh, x, spec, ranges):
+    """One shard's B5 launches: fire, then the merges of ``ranges``."""
+    import torch
+
+    from flow_updating_tpu_torch.ops.sharded_round import (
+        sharded_fire,
+        sharded_round,
+    )
+
+    avg = sharded_fire(x["value"], x["S"], x["A_prev"], x["inv"],
+                       sh.leaves, spec)
+    out = [torch.empty_like(avg) for _ in range(3)]
+    for rb, re in ranges:
+        sharded_round(x["S"], x["G"], x["avg_prev"], x["A_prev"], x["deg"],
+                      avg, x["lo"], x["hi"], sh.leaves, spec, rb, re, out)
+    return avg, out
+
+
+def _b5_check(kernel, rng, dev, out):
+    """B5 vs plain on every shard, float32 and float64, over a whole shard
+    and over the overlapped schedule's ranges; ``torch.equal`` or raise."""
+    import torch
+
+    from flow_updating_tpu_torch.ops.sharded_round import (
+        row_ranges,
+        sharded_fire_plain,
+        sharded_round_plain,
+    )
+
+    spec = kernel.spec
+    before, after = row_ranges(spec, "pallas")
+    schedules = {"whole": ((0, spec.local_rows),),
+                 "overlapped": before + after}
+    for name, dt in (("float32", torch.float32), ("float64", torch.float64)):
+        for sh, x in zip(kernel._shards, _b5_inputs(kernel, rng, dt, dev)):
+            want_avg = sharded_fire_plain(x["value"], x["S"], x["A_prev"],
+                                          x["inv"])
+            want = sharded_round_plain(
+                x["S"], x["G"], x["avg_prev"], x["A_prev"], x["deg"],
+                want_avg, x["lo"], x["hi"], sh.leaves, spec, 0,
+                spec.local_rows)
+            for sched, ranges in schedules.items():
+                avg, got = _b5_shard_round(sh, x, spec, ranges)
+                torch.cuda.synchronize()
+                for g, w, what in zip((avg, *got), (want_avg, *want),
+                                      ("avg", "S'", "G'", "A")):
+                    err = float((g - w).abs().max())
+                    out["max_abs_err"] = max(out["max_abs_err"], err)
+                    if not torch.equal(g, w):
+                        raise AssertionError(
+                            f"B5 {name}/{sched}: {what} differs from the "
+                            f"plain version (max {err})")
+
+
+def phase_k5(ring_topo, dev):
+    """B5 vs plain at SHARDS shards on the ring and on the grid; times on
+    the ring (one shard's round, float32)."""
+    import numpy as np
+    import torch
+
+    from flow_updating_tpu_torch import RoundConfig
+    from flow_updating_tpu_torch.ops.sharded_round import (
+        row_ranges,
+        sharded_fire_plain,
+        sharded_round_min_bytes,
+        sharded_round_plain,
+    )
+    from flow_updating_tpu_torch.parallel.banded_sharded import (
+        ShardedBandedKernel,
+    )
+    from flow_updating_tpu_torch.parallel.mesh import make_mesh
+    from flow_updating_tpu_torch.plan import compile_topology
+    from flow_updating_tpu_torch.topology.generators import grid2d
+
+    cfg = RoundConfig.fast(kernel="node", spmv="banded_fused")
+    rng = np.random.default_rng(SEED + 5)
+    out = {"shards": SHARDS, "max_abs_err": 0.0}
+    t0 = time.perf_counter()
+    grid = grid2d(GRID_SIDE, GRID_SIDE)
+    out["grid_topology_s"] = time.perf_counter() - t0
+    for label, topo in (("ring", ring_topo), ("grid", grid)):
+        t0 = time.perf_counter()
+        plan = compile_topology(topo, remainder="gather")
+        plan_s = time.perf_counter() - t0
+        k = ShardedBandedKernel(topo, cfg, make_mesh(SHARDS), plan=plan)
+        spec = k.spec
+        out[label] = {"nodes": topo.num_nodes, "plan_s": plan_s,
+                      "bandwidth": plan.stats["bandwidth_after"],
+                      "lanes": len(spec.offsets),
+                      "remainder_edges": plan.spmv.remainder_edges,
+                      "rem_route": spec.rem_route,
+                      "rem_width": spec.rem_width, "P": spec.P,
+                      "local": spec.local, "halo": spec.halo,
+                      "row_ranges": row_ranges(spec, "pallas")}
+        _b5_check(k, rng, dev, out)
+        out[label]["exact"] = True
+        if label != "ring":
+            del k
+            continue
+        sh, x = k._shards[0], _b5_inputs(k, rng, torch.float32, dev)[0]
+        before, after = row_ranges(spec, "pallas")
+        avg, outs = _b5_shard_round(sh, x, spec, before + after)
+        from flow_updating_tpu_torch.ops.sharded_round import (
+            sharded_fire,
+            sharded_round,
+        )
+
+        merge = lambda ranges: [  # noqa: E731
+            sharded_round(x["S"], x["G"], x["avg_prev"], x["A_prev"],
+                          x["deg"], avg, x["lo"], x["hi"], sh.leaves, spec,
+                          rb, re, outs) for rb, re in ranges]
+        out["fire_ms"] = device_ms(lambda: sharded_fire(
+            x["value"], x["S"], x["A_prev"], x["inv"], sh.leaves, spec))
+        out["interior_ms"] = device_ms(lambda: merge(before))
+        out["boundary_ms_per_launch"] = device_ms(
+            lambda: merge(after)) / len(after)
+        call = lambda: _b5_shard_round(  # noqa: E731
+            sh, x, spec, before + after)
+        out["ms"] = device_ms(call)
+        out["call_ms"] = cuda_ms(call)
+
+        def plain():
+            a = sharded_fire_plain(x["value"], x["S"], x["A_prev"], x["inv"])
+            return sharded_round_plain(
+                x["S"], x["G"], x["avg_prev"], x["A_prev"], x["deg"], a,
+                x["lo"], x["hi"], sh.leaves, spec, 0, spec.local_rows)
+
+        out["plain_ms"] = device_ms(plain)
+        out["library_ms"] = None   # no single PyTorch call computes it
+        # per node: fire 3, one add per kept diagonal and remainder slot,
+        # the remainder add, merge 8
+        ops = spec.local * (12 + len(spec.offsets) + spec.rem_width)
+        out.update(bound(sharded_round_min_bytes(spec, dtype_bytes=4), ops))
+        del k
+    del grid
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_path_e(ring_topo, engine_b):
+    """The sharded round on SHARDS shards of the one card, overlapped
+    exchange, against its serialized twin and path B."""
+    import numpy as np
+    import torch
+
+    from flow_updating_tpu_torch import Engine, RoundConfig
+    from flow_updating_tpu_torch.ops.sharded_round import (
+        launches_per_shard_round,
+    )
+    from flow_updating_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = RoundConfig.fast(kernel="node", spmv="banded_fused")
+    t0 = time.perf_counter()
+    eng = Engine(config=cfg, mesh=make_mesh(SHARDS), halo="overlap")
+    eng.set_topology(ring_topo).build()
+    build_s = time.perf_counter() - t0
+    kern = eng._node_kernel
+    if kern.exchange != "pallas":
+        raise AssertionError("halo='overlap' did not pick the overlapped "
+                             "exchange")
+    rmse0 = eng.convergence_report()["rmse"]
+    eng.run_rounds(WARMUP)
+    per_shard = launches_per_shard_round(kern.spec, "pallas")
+    reset_counts()
+    ms = _timed_rounds(eng, ROUNDS)
+    got = b5_launches()
+    if sum(got.values()) != ROUNDS * SHARDS * per_shard or \
+            got["fire"] != ROUNDS * SHARDS:
+        raise AssertionError(f"B5 launched {got} in {ROUNDS} rounds of "
+                             f"{SHARDS} shards, expected {per_shard} per "
+                             "shard-round (one fire)")
+    rep = eng.convergence_report()
+    est = eng.estimates()
+    n = ring_topo.num_nodes
+    if est.shape != (n,) or not np.isfinite(est).all():
+        raise AssertionError("path E estimates are not finite (N,) values")
+    if not rep["rmse"] < rmse0:
+        raise AssertionError("path E did not reduce the rmse")
+    twin = Engine(config=cfg, mesh=make_mesh(SHARDS), halo="ppermute")
+    twin.set_topology(ring_topo).build()
+    twin.run_rounds(WARMUP)
+    twin_ms = _timed_rounds(twin, ROUNDS)
+    if twin._node_kernel.exchange != "ppermute":
+        raise AssertionError("halo='ppermute' did not pick the serialized "
+                             "exchange")
+    mine = torch.cat([v.cpu() for v in eng.state.G])
+    other = torch.cat([v.cpu() for v in twin.state.G])
+    if not torch.equal(mine, other):
+        raise AssertionError("path E's overlapped exchange differs from its "
+                             "serialized twin")
+    if engine_b.state.t != eng.state.t:
+        raise AssertionError("path B's engine is not at path E's round")
+    single = engine_b.estimates()
+    if not np.array_equal(est, single):
+        raise AssertionError(
+            "path E differs from path B's single-device banded_fused run "
+            f"(max {float(np.abs(est - single).max())})")
+    spec = kern.spec
+    dtype_bytes = torch.finfo(cfg.torch_dtype).bits // 8
+    del twin
+    return {"rounds": ROUNDS, "shards": SHARDS,
+            "devices": [str(d) for d in kern.mesh.devices],
+            "build_s": build_s,
+            "plan_reused_from_path_b": kern.plan is
+            engine_b._node_kernel.plan,
+            "ms_per_round": ms / ROUNDS, "rounds_per_s": ROUNDS / (ms / 1e3),
+            "ppermute_ms_per_round": twin_ms / ROUNDS,
+            "b5_launches": got, "launches_per_shard_round": per_shard,
+            "halo_elements": spec.halo,
+            "halo_bytes_per_round": 2 * spec.halo * SHARDS * dtype_bytes,
+            "equal_to_ppermute": True, "equal_to_path_b": True,
+            "rmse_initial": rmse0, **rep}, eng
+
+
+def _intervals_union(spans) -> float:
+    total, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def profile_overlap(engine, rounds: int) -> dict:
+    """Path E's streams from a ``torch.profiler`` trace (its Chrome
+    export): the union of the device's busy intervals over the wall time,
+    and how much of the halo copies' time another stream's kernel
+    overlaps."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.run_rounds(rounds)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    dev = [e for e in events if e.get("ph") == "X"
+           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    spans = [(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in dev]
+    kernels = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+                e.get("args", {}).get("stream")) for e in dev
+               if e["cat"] == "kernel"]
+    copies = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+               e.get("args", {}).get("stream")) for e in dev
+              if e["cat"] == "gpu_memcpy"]
+    copy_us = sum(b - a for a, b, _ in copies)
+    hidden = 0.0
+    for a, b, stream in copies:
+        over = [(max(a, ka), min(b, kb)) for ka, kb, ks in kernels
+                if ks != stream and ka < b and kb > a]
+        hidden += _intervals_union(over)
+    union = _intervals_union(spans)
+    return {"rounds": rounds, "wall_ms_per_round": wall_us / rounds / 1e3,
+            "busy_union_ms_per_round": union / rounds / 1e3,
+            "busy_share": union / wall_us if union else None,
+            "streams": len({s for _, _, s in kernels}),
+            "copies_per_round": len(copies) / rounds,
+            "copy_ms_per_round": copy_us / rounds / 1e3,
+            "copy_overlapped_share": hidden / copy_us if copy_us else None}
+
+
 def profile_rounds(engine, rounds: int) -> dict:
     """Where a round's time goes on the card: ``torch.profiler`` over
     ``rounds`` rounds, the device time of every CUDA-side event (kernels,
@@ -1062,6 +1378,14 @@ def main() -> int:
     torch.cuda.synchronize()
     emit({"phase": "path_b", "topology": f"ring:{RING_N}:2", **path_b})
 
+    k5 = phase_k5(ring_topo, dev)
+    torch.cuda.synchronize()
+    emit({"phase": "k5", **k5})
+
+    path_e, engine_e = phase_path_e(ring_topo, engine_b)
+    torch.cuda.synchronize()
+    emit({"phase": "path_e", "topology": f"ring:{RING_N}:2", **path_e})
+
     k3 = phase_k3(tree, dev)
     torch.cuda.synchronize()
     emit({"phase": "k3", **k3})
@@ -1083,7 +1407,9 @@ def main() -> int:
           "path_a": profile_rounds(engine_a, PROFILE_ROUNDS),
           "path_b": profile_rounds(engine_b, PROFILE_ROUNDS),
           "path_c": profile_rounds(engine_c, PROFILE_ROUNDS),
-          "path_d": profile_rounds(engine_d, PROFILE_ROUNDS)})
+          "path_d": profile_rounds(engine_d, PROFILE_ROUNDS),
+          "path_e": {**profile_rounds(engine_e, PROFILE_ROUNDS),
+                     "overlap": profile_overlap(engine_e, PROFILE_ROUNDS)}})
     torch.cuda.synchronize()
 
     emit({"kernels": [
@@ -1135,6 +1461,17 @@ def main() -> int:
            "bound_by": k4["flavours"][name]["bound_by"],
            "library_ms": k4["flavours"][name]["library_ms"]}
           for name, _, line in B4_FLAVOURS),
+        {"name": "sharded_round", "route": "cuda",
+         "source": "flow_updating_tpu_torch/csrc/sharded_round.cu",
+         "replaces": "flow_updating_tpu/ops/pallas_round.py:520",
+         "launches": sum(path_e["b5_launches"].values()),
+         "parity": "bit-exact (torch.equal), float32 and float64, whole "
+                   "shards and split rows; sharded ring == single device",
+         "max_abs_err": k5["max_abs_err"],
+         "ms": k5["ms"], "call_ms": k5["call_ms"],
+         "plain_ms": k5["plain_ms"],
+         "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
+         "library_ms": k5["library_ms"]},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -7,8 +7,10 @@ XML or a synthetic ``--generator``; watcher sampling every
 ``--observe-every`` simulated seconds until ``--until``, or exactly
 ``--rounds``, or ``--until-rmse``.  Prints one JSON convergence report.
 
-Flags whose machinery is not ported yet exit with a message naming the
-ROADMAP item.  ``--backend`` selects the JAX backend in the JAX package;
+``--shards N`` runs the node kernel's ``banded_fused`` round over an
+N-shard mesh (``--halo`` picks the exchange, as in the JAX CLI).  Flags
+whose machinery is not ported yet exit with a message naming the ROADMAP
+item.  ``--backend`` selects the JAX backend in the JAX package;
 it is accepted here for command-line compatibility and has no effect.
 """
 
@@ -98,10 +100,11 @@ def cmd_run(args) -> int:
         raise SystemExit("--contention/--fidelity is the ROADMAP item "
                          "'general edge round: contention (A3)', not "
                          "ported yet")
-    if args.shards or args.multichip != "auto":
-        raise SystemExit("--shards/--multichip is the ROADMAP item "
-                         "'multi-device execution (A12, B5, B6)', not "
-                         "ported yet")
+    if args.multichip != "auto":
+        raise SystemExit(f"--multichip {args.multichip} is the ROADMAP item "
+                         "'multi-device execution (A12)', not ported yet; "
+                         "--shards N runs the node kernel's banded_fused "
+                         "round over N shards")
     if args.latency_scale is None:
         args.latency_scale = 1.0 if args.fidelity and args.platform else 0.0
 
@@ -109,8 +112,15 @@ def cmd_run(args) -> int:
 
     cfg = _make_config(args)
     try:
-        engine = Engine(config=cfg, plan=args.plan, device=args.device)
-    except (NotImplementedError, RuntimeError) as err:
+        mesh = None
+        if args.shards:
+            from flow_updating_tpu_torch.parallel.mesh import make_mesh
+
+            mesh = make_mesh(args.shards, device=args.device)
+        engine = Engine(config=cfg, mesh=mesh, halo=args.halo,
+                        partition=args.partition, plan=args.plan,
+                        device=args.device)
+    except (NotImplementedError, RuntimeError, ValueError) as err:
         raise SystemExit(str(err)) from err
     engine.set_topology(_build_topology(args))
     try:
@@ -206,10 +216,17 @@ def build_parser() -> argparse.ArgumentParser:
                      choices=("auto", "halo", "pod"))
     run.add_argument("--halo", default="ppermute",
                      choices=("ppermute", "allgather", "overlap",
-                              "overlap_pallas", "auto"))
+                              "overlap_pallas", "auto"),
+                     help="halo exchange under --shards: 'ppermute' = the "
+                          "serialized schedule, any other = the copies "
+                          "overlapped with the interior merge")
     run.add_argument("--partition", default="bfs",
                      choices=("bfs", "contiguous"))
-    run.add_argument("--shards", type=int, default=0)
+    run.add_argument("--shards", type=int, default=0,
+                     help="run over an N-shard mesh (--kernel node --spmv "
+                          "banded_fused): shards go round-robin over the "
+                          "visible cards, or all on the host with --device "
+                          "cpu")
     run.add_argument("--kernel", default="edge", choices=("edge", "node"),
                      help="'edge' = the general per-edge round (every "
                           "dynamics; --segment and --delivery pick its "

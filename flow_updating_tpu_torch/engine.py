@@ -1,6 +1,6 @@
 """Engine façade — the S4U-shaped simulation API over the round kernels.
 
-Counterpart of ``flow_updating_tpu/engine.py`` on one device:
+Counterpart of ``flow_updating_tpu/engine.py``:
 ``Engine(argv, config)`` -> ``load_platform`` -> ``register_actor`` ->
 ``load_deployment`` -> ``build`` -> ``run_rounds`` / ``run_until`` (with
 the watcher) -> ``estimates`` / ``convergence_report`` / ``global_values``.
@@ -11,11 +11,18 @@ default, the general per-edge round of ``models/rounds.py``) keeps a
 :class:`~flow_updating_tpu_torch.models.sync.NodeSyncState`.  Rounds run
 on the engine's device — the CUDA card unless ``device='cpu'`` is given.
 
+``mesh=`` (a :class:`~flow_updating_tpu_torch.parallel.mesh.Mesh`) with
+``kernel='node'`` and ``spmv='banded_fused'`` runs the sharded banded round
+(:class:`~flow_updating_tpu_torch.parallel.banded_sharded.
+ShardedBandedKernel`): ``halo='ppermute'`` (the default) the serialized
+exchange, any other ``halo`` the overlapped one, as in the JAX engine.
+
 What the JAX engine does beyond that raises ``NotImplementedError``
-naming its ROADMAP item: ``mesh``/``multichip``, ``plan='auto'``,
-``host_actors``, ``adversary``, custom actors, event logs, and the edge
-kernel's robust modes, contention and streamed runner.  Checkpoints and
-fault injection (ROADMAP A7) have no methods here yet.
+naming its ROADMAP item: the other mesh paths, ``multichip='halo'`` and
+``'pod'``, ``plan='auto'``, ``host_actors``, ``adversary``, custom actors,
+event logs, and the edge kernel's robust modes, contention and streamed
+runner.  Checkpoints and fault injection (ROADMAP A7) have no methods here
+yet.
 
 Simulated-time convention: one round == ``TICK_INTERVAL`` (1.0) simulated
 seconds, the reference peers' loop cadence.
@@ -34,6 +41,7 @@ from flow_updating_tpu_torch.models import rounds
 from flow_updating_tpu_torch.models.config import RoundConfig
 from flow_updating_tpu_torch.models.state import init_state
 from flow_updating_tpu_torch.models.sync import NodeKernel, _node_sample
+from flow_updating_tpu_torch.parallel.mesh import Mesh
 from flow_updating_tpu_torch.topology.deployment import (
     Deployment,
     load_deployment,
@@ -50,6 +58,7 @@ from flow_updating_tpu_torch.utils.metrics import (
 logger = logging.getLogger("flow_updating_tpu_torch.engine")
 
 TICK_INTERVAL = 1.0  # simulated seconds per round
+HALO_MODES = ("ppermute", "allgather", "overlap", "overlap_pallas", "auto")
 
 
 def _log_stream_sample(m: dict) -> None:
@@ -80,7 +89,7 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 class Engine:
-    """Driver for one aggregation run on one device."""
+    """Driver for one aggregation run on one device or one mesh."""
 
     def __init__(self, argv=None, config: RoundConfig | None = None,
                  mesh=None, multichip: str = "auto",
@@ -89,10 +98,26 @@ class Engine:
                  plan="off", adversary=None, device=None):
         # the argument list mirrors the JAX Engine so call sites carry
         # over; what this package does not run yet is refused up front
-        if mesh is not None or multichip != "auto" or halo != "ppermute" \
-                or partition != "bfs":
-            raise _not_ported("multi-device execution (mesh/multichip/halo)",
-                              "multi-device execution (A12, B5, B6)")
+        if multichip not in ("auto", "halo", "pod"):
+            raise ValueError(f"unknown multichip mode {multichip!r}")
+        if halo not in HALO_MODES:
+            raise ValueError(
+                f"unknown halo mode {halo!r}: use 'ppermute', "
+                "'allgather', 'overlap', 'overlap_pallas', or 'auto'")
+        if multichip != "auto":
+            item = ("multi-device execution: the halo edge kernel with "
+                    "kernel B6 (A12, slice 5)" if multichip == "halo" else
+                    "multi-device execution: the pod-sharded stencil (A12)")
+            raise _not_ported(f"multichip={multichip!r}", item)
+        if partition != "bfs":
+            raise _not_ported(
+                f"partition={partition!r}",
+                "multi-device execution: the halo edge kernel (A12, "
+                "slice 5)")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(
+                "mesh= takes a flow_updating_tpu_torch.parallel.mesh.Mesh "
+                f"(make_mesh), got {type(mesh).__name__}")
         if plan not in ("off", None):
             raise _not_ported(f"plan={plan!r}",
                               "plan='auto' with the H100 cost model (A5)")
@@ -106,6 +131,13 @@ class Engine:
         self.argv = list(argv) if argv else []
         self.config = self._apply_argv_cfg(config or RoundConfig.fast())
         self.device = resolve_device(device)
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(
+                f"the mesh's shards are on {mesh.device_type} but the "
+                f"engine runs on {self.device}; build the mesh with "
+                f"make_mesh(n, device={self.device.type!r})")
+        self.mesh = mesh
+        self.halo = halo
         self.platform: Platform | None = None
         self.deployment: Deployment | None = None
         self.topology: Topology | None = None
@@ -218,10 +250,29 @@ class Engine:
                     "latency-warped rounds need per-edge delivery state; "
                     "the node-collapsed kernel is unit-delay only — use "
                     "kernel='edge' with latency_scale")
-            self._node_kernel = NodeKernel(self.topology, self.config,
-                                           device=self.device)
+            if self.mesh is not None and \
+                    self.config.spmv == "banded_fused":
+                from flow_updating_tpu_torch.parallel.banded_sharded import (
+                    ShardedBandedKernel,
+                )
+
+                # halo='ppermute' keeps the serialized schedule; every other
+                # wire setting overlaps the copies with the interior merge
+                self._node_kernel = ShardedBandedKernel(
+                    self.topology, self.config, self.mesh,
+                    exchange="ppermute" if self.halo == "ppermute"
+                    else "pallas", device=self.device)
+            else:
+                self._node_kernel = NodeKernel(self.topology, self.config,
+                                               device=self.device,
+                                               mesh=self.mesh)
             self.state = self._node_kernel.init_state()
             return self
+        if self.mesh is not None:
+            raise _not_ported(
+                "the edge kernel over a mesh",
+                "multi-device execution: GSPMD's edge path and the halo "
+                "edge kernel (A12)")
         rounds.check_ported(self.config)
         if latency_scale > 0.0:
             depth = max(self.config.delay_depth, self.topology.max_delay)
@@ -357,6 +408,12 @@ class Engine:
         if self.state is None:
             self.build()
         emit = emit or _log_stream_sample
+        if self.mesh is not None:
+            if not self._killed and n > 0:
+                self.state = self._node_kernel.run_streamed(
+                    self.state, n, observe_every, emit)
+            self._clock += n * TICK_INTERVAL
+            return self
         mean = self.topology.true_mean
         for _ in range(n // observe_every if not self._killed else 0):
             self._advance(observe_every)

@@ -120,6 +120,29 @@ def _ceil_to(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+def _refuse_mesh(cfg: RoundConfig) -> None:
+    """``NodeKernel`` runs on one device.  As in the JAX package, the
+    kernel-backed neighbor sums name their mesh path; 'xla', which JAX
+    partitions with GSPMD, has no torch counterpart yet."""
+    if cfg.spmv == "xla":
+        raise NotImplementedError(
+            "spmv='xla' over a mesh is GSPMD's node path in the JAX "
+            "package, the ROADMAP item 'multi-device execution (A12)', not "
+            "ported yet; spmv='banded_fused' runs over a mesh through "
+            "parallel.banded_sharded.ShardedBandedKernel")
+    if cfg.spmv == "banded_fused":
+        hint = ("use parallel.banded_sharded.ShardedBandedKernel (the "
+                "kernel-per-shard halo path)")
+    elif cfg.spmv == "benes_fused":
+        hint = ("use parallel.spmv_sharded.ShardedNodeKernel (the sharded "
+                "fused-circuit path, ROADMAP A12, not ported yet)")
+    else:
+        hint = ("use spmv='xla' with a mesh (GSPMD handles the collective; "
+                "ROADMAP A12, not ported yet)")
+    raise ValueError(f"spmv={cfg.spmv!r} has no GSPMD partitioning path; "
+                     + hint)
+
+
 class NodeKernel:
     """The node-collapsed fast kernel for one topology, on one device.
 
@@ -131,10 +154,13 @@ class NodeKernel:
     paths) supplies a compiled
     :class:`~flow_updating_tpu_torch.plan.compile.ExecutionPlan`;
     ``fused_tile`` pins the one-kernel round's tile height.  The
-    one-kernel round takes its remainder on the 'lanes' route."""
+    one-kernel round takes its remainder on the 'lanes' route.  A
+    ``mesh`` raises, as in the JAX package: the mesh path of
+    'banded_fused' is :class:`~flow_updating_tpu_torch.parallel.
+    banded_sharded.ShardedBandedKernel`."""
 
     def __init__(self, topo: Topology, cfg: RoundConfig, values=None,
-                 plan=None, fused_tile=None, device=None):
+                 plan=None, fused_tile=None, device=None, mesh=None):
         _check_cfg(cfg)
         self.device = resolve_device(device)
         self.topo = topo
@@ -150,6 +176,8 @@ class NodeKernel:
                 f"vector payloads run the node kernel with spmv='xla', "
                 f"'banded' or 'banded_fused' (spmv={cfg.spmv!r} is "
                 "scalar)")
+        if mesh is not None:
+            _refuse_mesh(cfg)
         if cfg.spmv in ("banded", "banded_fused"):
             self._init_banded(topo, plan, fused_tile)
             return

@@ -189,8 +189,10 @@ def compile_topology(topo: Topology, *, max_lanes: int = 96,
     ``features`` > 0 declares a vector payload (rolls broadcast over it,
     the remainder then gathers).  Plans are cached on (topology content,
     knobs)."""
-    key = (_topo_key(topo), max_lanes, float(min_fill), remainder,
-           bool(features))
+    # 'auto' builds exactly the 'gather' plan here (plan/banded.py), so
+    # both share one cache entry: the sharded round asks for 'gather'
+    key = (_topo_key(topo), max_lanes, float(min_fill),
+           "gather" if remainder == "auto" else remainder, bool(features))
     cached = _plan_cache.get(key)
     if cached is not None:
         return cached

@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
 Every test here needs an NVIDIA GPU with ``nvcc`` and skips without one
-(kernels K1, K2, the four flavours of B3 and B4's scan and fill, and the
-edge kernel's Beneš routes on the card).
+(kernels K1, K2, the four flavours of B3, B4's scan and fill, and B5; the
+edge kernel's Beneš routes and the sharded banded round on the card).
 This file imports no JAX, so it also runs where JAX is absent, without the
 suite's JAX-pinning conftest:
 
@@ -335,3 +335,108 @@ def test_edge_round_benes_fused_on_card_equals_benes(card, variant, maker):
     assert np.array_equal(est["benes_fused"], est["benes"])
     np.testing.assert_allclose(est["benes"], est["segment"], rtol=1e-9,
                                atol=1e-9)
+
+
+# ---- kernel B5: the sharded banded round ---------------------------------
+
+def _sharded_kernel(topo, shards, device, exchange="pallas", dtype="float64"):
+    from flow_updating_tpu_torch.parallel.banded_sharded import (
+        ShardedBandedKernel,
+    )
+    from flow_updating_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = RoundConfig.fast(kernel="node", spmv="banded_fused", dtype=dtype)
+    return ShardedBandedKernel(topo, cfg, make_mesh(shards, device=device),
+                               exchange=exchange)
+
+
+def test_mesh_places_shards_round_robin_with_own_streams(card):
+    from flow_updating_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(3)
+    count = torch.cuda.device_count()
+    assert mesh.devices == tuple(torch.device("cuda", s % count)
+                                 for s in range(3))
+    assert len({s.cuda_stream for s in mesh.streams}) == 3
+    assert all(s.device == d for s, d in zip(mesh.streams, mesh.devices))
+    assert make_mesh(2, device="cuda:0").devices == (torch.device(
+        "cuda", 0),) * 2
+
+
+@pytest.mark.parametrize("graph", ["ring", "grid"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_sharded_round_kernel_matches_plain(card, graph, dtype):
+    from flow_updating_tpu_torch.ops import sharded_round as sr
+    from flow_updating_tpu_torch.topology.generators import grid2d
+
+    topo = ring(20000, 2) if graph == "ring" else grid2d(64, 64)
+    k = _sharded_kernel(topo, 2, card, dtype=dtype)
+    spec, sh = k.spec, k._shards[1]
+    L, H, R = spec.local, spec.halo, spec.local_rows
+    rng = np.random.default_rng(5)
+    dt = getattr(torch, dtype)
+    vec = lambda n=L: torch.from_numpy(  # noqa: E731
+        rng.uniform(-1, 1, n)).to(card, dt)
+    S, G, avp, ap = (vec() for _ in range(4))
+    lo, hi = vec(H), vec(H)
+    before = sr.sharded_fire.launches
+    avg = sr.sharded_fire(sh.value, S, ap, sh.inv_depp1, sh.leaves, spec)
+    assert sr.sharded_fire.launches == before + 1
+    assert torch.equal(avg, sr.sharded_fire_plain(sh.value, S, ap,
+                                                  sh.inv_depp1))
+    want = sr.sharded_round_plain(S, G, avp, ap, sh.deg, avg, lo, hi,
+                                  sh.leaves, spec, 0, R)
+    for ranges in (((0, R),), ((0, 1), (1, R - 5), (R - 5, R)),
+                   sr.row_ranges(spec, "pallas")[0]
+                   + sr.row_ranges(spec, "pallas")[1]):
+        out = [torch.full((L,), float("nan"), dtype=dt, device=card)
+               for _ in range(3)]
+        before = sr.sharded_round.launches
+        for rb, re in ranges:
+            sr.sharded_round(S, G, avp, ap, sh.deg, avg, lo, hi, sh.leaves,
+                             spec, rb, re, out)
+        torch.cuda.synchronize()
+        assert sr.sharded_round.launches == before + len(ranges)
+        for g, w in zip(out, want):
+            assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="contiguous"):
+        sr.sharded_round(S, G.cpu(), avp, ap, sh.deg, avg, lo, hi,
+                         sh.leaves, spec, 0, R, out)
+    with pytest.raises(ValueError, match="contiguous"):
+        sr.sharded_round(S, G, avp, ap, sh.deg, avg, lo[:-1], hi,
+                         sh.leaves, spec, 0, R, out)
+
+
+@pytest.mark.parametrize("shards", [2, 3, 4])
+def test_sharded_exchanges_equal_on_one_card(card, shards):
+    from flow_updating_tpu_torch.ops import sharded_round as sr
+    from flow_updating_tpu_torch.topology.generators import grid2d
+
+    for topo in (ring(20000, 2), grid2d(64, 64), community(4000, 8, seed=0)):
+        est = {}
+        for exchange in ("ppermute", "pallas"):
+            k = _sharded_kernel(topo, shards, None, exchange)
+            before = sr.sharded_fire.launches + sr.sharded_round.launches
+            st = k.run(k.init_state(), 30)
+            launched = (sr.sharded_fire.launches + sr.sharded_round.launches
+                        - before)
+            assert launched == 30 * shards * sr.launches_per_shard_round(
+                k.spec, exchange)
+            est[exchange] = [torch.cat([t.cpu() for t in getattr(st, f)])
+                             for f in ("S", "G", "avg_prev", "A_prev")]
+        for a, b in zip(est["ppermute"], est["pallas"]):
+            assert torch.equal(a, b)
+
+
+def test_sharded_ring_equals_single_device_banded_fused_on_card(card):
+    topo = ring(20000, 2)
+    cfg = RoundConfig.fast(kernel="node", spmv="banded_fused")
+    single = NodeKernel(topo, cfg, device=card)
+    es = single.estimates(single.run(single.init_state(), 40))
+    for shards in (2, 4):
+        k = _sharded_kernel(topo, shards, None, "pallas", dtype="float32")
+        host = _sharded_kernel(topo, shards, "cpu", "pallas", "float32")
+        got = k.estimates(k.run(k.init_state(), 40))
+        assert np.array_equal(got, es)
+        assert np.array_equal(got, host.estimates(host.run(
+            host.init_state(), 40)))

@@ -6,7 +6,8 @@
    dotted names — ``flow_updating_tpu_torch`` itself starts with
    ``flow_updating_tpu`` and must not trip it.
 2. A subprocess with ``jax`` and ``flow_updating_tpu`` made unimportable
-   imports every port module and runs a small round on the CPU.
+   imports every port module and runs small rounds on the CPU, on one
+   device and over a three-shard host mesh.
 3. Without a CUDA card, every entry point called without ``device=``
    raises instead of running on the host.
 """
@@ -83,6 +84,12 @@ from flow_updating_tpu_torch.topology.generators import ring
 e = p.Engine(config=p.RoundConfig.fast(kernel="node", spmv="banded_fused"),
              device="cpu").set_topology(ring(64, 2)).build()
 e.run_rounds(200)
+from flow_updating_tpu_torch.parallel.mesh import make_mesh
+m = p.Engine(config=p.RoundConfig.fast(kernel="node", spmv="banded_fused"),
+             mesh=make_mesh(3, device="cpu"), halo="overlap",
+             device="cpu").set_topology(ring(64, 2)).build()
+m.run_rounds(200)
+assert (m.estimates() == e.estimates()).all()
 print(e.convergence_report()["rmse"])
 """
     env = {**os.environ, "PYTHONPATH": ROOT}
@@ -107,6 +114,14 @@ def test_entry_points_refuse_the_cpu_unless_asked(capsys):
     with pytest.raises(SystemExit, match="--device cpu"):
         main(["run", "--generator", "ring:16", "--kernel", "node",
               "--fire-policy", "every_round", "--rounds", "3"])
+    from flow_updating_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_mesh(2)
+    with pytest.raises(SystemExit, match="--device cpu"):
+        main(["run", "--generator", "ring:64:2", "--kernel", "node",
+              "--fire-policy", "every_round", "--spmv", "banded_fused",
+              "--shards", "2", "--rounds", "3"])
     # asked for explicitly, the host runs the plain versions
     k = NodeKernel(ring(16), cfg, device="cpu")
     assert k.arrays.value.device.type == "cpu"

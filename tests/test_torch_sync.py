@@ -25,6 +25,7 @@ from flow_updating_tpu.models.config import RoundConfig as JaxConfig
 from flow_updating_tpu.topology import generators as jgen
 from flow_updating_tpu_torch import Engine, NodeKernel, RoundConfig
 from flow_updating_tpu_torch.cli import main as port_main
+from flow_updating_tpu_torch.parallel.mesh import make_mesh
 from flow_updating_tpu_torch.topology import generators as pgen
 from flow_updating_tpu_torch.topology.graph import topology_from_arrays
 
@@ -212,8 +213,13 @@ def test_cli_refuses_unported_flags():
             "--kernel", "node", "--fire-policy", "every_round"]
     with pytest.raises(SystemExit, match="A9"):
         port_main([*base, "--telemetry"])
+    # --shards runs the sharded banded round; the other mesh paths exit
     with pytest.raises(SystemExit, match="A12"):
-        port_main([*base, "--shards", "2"])
+        port_main([*base, "--shards", "2", "--multichip", "halo"])
+    with pytest.raises(SystemExit, match="A12"):
+        port_main([*base, "--shards", "2", "--partition", "contiguous"])
+    with pytest.raises(SystemExit, match="A12"):
+        port_main([*base, "--shards", "2", "--spmv", "xla", "--rounds", "3"])
     # the edge kernel runs; what it does not run yet still exits
     with pytest.raises(SystemExit, match="A3"):
         port_main(["run", "--device", "cpu", "--generator", "ring:16",
@@ -244,8 +250,15 @@ def test_unported_configs_raise_naming_their_item():
     node = RoundConfig.fast(kernel="node")
     with pytest.raises(NotImplementedError, match="plan='auto'"):
         Engine(config=node, plan="auto", device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        Engine(config=node, mesh=object(), device="cpu")
+    # a mesh runs spmv='banded_fused'; GSPMD's 'xla' path and the halo
+    # edge kernel's partitions still raise, naming multi-device execution
+    mesh = make_mesh(2, device="cpu")
+    with pytest.raises(NotImplementedError, match="multi-device.*A12"):
+        Engine(config=node, mesh=mesh, device="cpu").set_topology(
+            topo).build()
+    with pytest.raises(NotImplementedError, match="multi-device.*A12"):
+        Engine(config=node, mesh=mesh, partition="contiguous",
+               device="cpu")
     with pytest.raises(NotImplementedError, match="host actors"):
         Engine(config=node, host_actors=True, device="cpu")
     e = Engine(argv=["--cfg=spmv:banded"], config=node, device="cpu")
