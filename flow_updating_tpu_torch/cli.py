@@ -8,7 +8,11 @@ XML or a synthetic ``--generator``; watcher sampling every
 ``--rounds``, or ``--until-rmse``.  Prints one JSON convergence report.
 
 ``--shards N`` runs the node kernel's ``banded_fused`` round over an
-N-shard mesh (``--halo`` picks the exchange, as in the JAX CLI).  Flags
+N-shard mesh (``--halo`` picks the exchange, as in the JAX CLI);
+``--shards N --multichip halo`` the edge kernel's halo round
+(``--halo ppermute|allgather|overlap|overlap_pallas|auto``,
+``--partition bfs|contiguous``), whose exchange decision the report
+carries under ``halo``.  Flags
 whose machinery is not ported yet exit with a message naming the ROADMAP
 item.  ``--backend`` selects the JAX backend in the JAX package;
 it is accepted here for command-line compatibility and has no effect.
@@ -100,11 +104,14 @@ def cmd_run(args) -> int:
         raise SystemExit("--contention/--fidelity is the ROADMAP item "
                          "'general edge round: contention (A3)', not "
                          "ported yet")
-    if args.multichip != "auto":
-        raise SystemExit(f"--multichip {args.multichip} is the ROADMAP item "
-                         "'multi-device execution (A12)', not ported yet; "
-                         "--shards N runs the node kernel's banded_fused "
-                         "round over N shards")
+    if args.multichip in ("halo", "pod") and not args.shards:
+        raise SystemExit(
+            f"--multichip {args.multichip} needs --shards N (it is a "
+            "multi-chip distribution strategy)")
+    if args.multichip == "pod":
+        raise SystemExit("--multichip pod is the ROADMAP item "
+                         "'multi-device execution: the pod-sharded stencil "
+                         "(A12)', not ported yet")
     if args.latency_scale is None:
         args.latency_scale = 1.0 if args.fidelity and args.platform else 0.0
 
@@ -117,7 +124,8 @@ def cmd_run(args) -> int:
             from flow_updating_tpu_torch.parallel.mesh import make_mesh
 
             mesh = make_mesh(args.shards, device=args.device)
-        engine = Engine(config=cfg, mesh=mesh, halo=args.halo,
+        engine = Engine(config=cfg, mesh=mesh, multichip=args.multichip,
+                        halo=args.halo,
                         partition=args.partition, plan=args.plan,
                         device=args.device)
     except (NotImplementedError, RuntimeError, ValueError) as err:
@@ -160,6 +168,8 @@ def cmd_run(args) -> int:
     report["spmv"] = engine.config.spmv
     report["device"] = str(engine.device)
     report["run_s"] = run_s
+    if engine.halo_report() is not None:
+        report["halo"] = engine.halo_report()
     print(json.dumps(report))
     return 0
 
@@ -213,20 +223,26 @@ def build_parser() -> argparse.ArgumentParser:
                           "benes (permutation networks), benes_fused (the "
                           "same through CUDA kernels B3 and B4)")
     run.add_argument("--multichip", default="auto",
-                     choices=("auto", "halo", "pod"))
+                     choices=("auto", "halo", "pod"),
+                     help="under --shards: 'auto' = the node kernel's "
+                          "sharded banded round; 'halo' = the edge "
+                          "kernel's halo round (cut-edge exchange, "
+                          "--halo, --partition); 'pod' is not ported")
     run.add_argument("--halo", default="ppermute",
                      choices=("ppermute", "allgather", "overlap",
                               "overlap_pallas", "auto"),
-                     help="halo exchange under --shards: 'ppermute' = the "
-                          "serialized schedule, any other = the copies "
-                          "overlapped with the interior merge")
+                     help="exchange under --shards: 'ppermute' = the "
+                          "serialized schedule; the banded round overlaps "
+                          "its copies for any other value; the halo round "
+                          "takes each mode as named ('overlap_pallas' = "
+                          "CUDA kernel B6, 'auto' = ranked by wire bytes)")
     run.add_argument("--partition", default="bfs",
                      choices=("bfs", "contiguous"))
     run.add_argument("--shards", type=int, default=0,
                      help="run over an N-shard mesh (--kernel node --spmv "
-                          "banded_fused): shards go round-robin over the "
-                          "visible cards, or all on the host with --device "
-                          "cpu")
+                          "banded_fused, or --multichip halo): shards go "
+                          "round-robin over the visible cards, or all on "
+                          "the host with --device cpu")
     run.add_argument("--kernel", default="edge", choices=("edge", "node"),
                      help="'edge' = the general per-edge round (every "
                           "dynamics; --segment and --delivery pick its "

@@ -16,13 +16,18 @@ on the engine's device — the CUDA card unless ``device='cpu'`` is given.
 (:class:`~flow_updating_tpu_torch.parallel.banded_sharded.
 ShardedBandedKernel`): ``halo='ppermute'`` (the default) the serialized
 exchange, any other ``halo`` the overlapped one, as in the JAX engine.
+``mesh=`` with ``multichip='halo'`` runs the edge kernel's halo round
+(:mod:`~flow_updating_tpu_torch.parallel.sharded`): ``halo`` picks the
+cut-edge exchange ('ppermute', 'allgather', 'overlap', 'overlap_pallas'
+with kernel B6, or 'auto', ranked by ``plan.select.select_halo_mode`` and
+recorded in :meth:`Engine.halo_report`), ``partition`` the node order
+('bfs' or 'contiguous').
 
 What the JAX engine does beyond that raises ``NotImplementedError``
-naming its ROADMAP item: the other mesh paths, ``multichip='halo'`` and
-``'pod'``, ``plan='auto'``, ``host_actors``, ``adversary``, custom actors,
-event logs, and the edge kernel's robust modes, contention and streamed
-runner.  Checkpoints and fault injection (ROADMAP A7) have no methods here
-yet.
+naming its ROADMAP item: GSPMD's mesh paths, ``multichip='pod'``,
+``plan='auto'``, ``host_actors``, ``adversary``, custom actors, event
+logs, the edge kernel's robust modes, contention and streamed runner, and
+checkpoints and fault injection (A7).
 
 Simulated-time convention: one round == ``TICK_INTERVAL`` (1.0) simulated
 seconds, the reference peers' loop cadence.
@@ -104,16 +109,10 @@ class Engine:
             raise ValueError(
                 f"unknown halo mode {halo!r}: use 'ppermute', "
                 "'allgather', 'overlap', 'overlap_pallas', or 'auto'")
-        if multichip != "auto":
-            item = ("multi-device execution: the halo edge kernel with "
-                    "kernel B6 (A12, slice 5)" if multichip == "halo" else
-                    "multi-device execution: the pod-sharded stencil (A12)")
-            raise _not_ported(f"multichip={multichip!r}", item)
-        if partition != "bfs":
+        if multichip == "pod":
             raise _not_ported(
-                f"partition={partition!r}",
-                "multi-device execution: the halo edge kernel (A12, "
-                "slice 5)")
+                "multichip='pod'",
+                "multi-device execution: the pod-sharded stencil (A12)")
         if mesh is not None and not isinstance(mesh, Mesh):
             raise TypeError(
                 "mesh= takes a flow_updating_tpu_torch.parallel.mesh.Mesh "
@@ -137,7 +136,13 @@ class Engine:
                 f"engine runs on {self.device}; build the mesh with "
                 f"make_mesh(n, device={self.device.type!r})")
         self.mesh = mesh
+        self.multichip = multichip
         self.halo = halo
+        self.partition = partition
+        self._halo_plan = None
+        self._halo_arrays = None
+        self._halo_resolved = None  # halo='auto' resolution (set at build)
+        self.halo_decision = None   # select_halo_mode evidence when 'auto'
         self.platform: Platform | None = None
         self.deployment: Deployment | None = None
         self.topology: Topology | None = None
@@ -200,6 +205,79 @@ class Engine:
                 overrides[key] = val.strip()
         return dataclasses.replace(cfg, **overrides) if overrides else cfg
 
+    # ---- the halo kernel ---------------------------------------------------
+    @property
+    def _halo_mode(self) -> bool:
+        return self.mesh is not None and self.multichip == "halo"
+
+    @property
+    def _ledger_dtype_bytes(self) -> int:
+        """Bytes per ledger element on the halo wire — shared by the
+        halo='auto' ranking and halo_report()'s evidence."""
+        return 8 if self.config.dtype == "float64" else 4
+
+    @property
+    def _halo_wire(self) -> str:
+        """The exchange the halo kernel dispatches with (``halo='auto'``
+        resolves at build; before it, the serialized default)."""
+        if self._halo_resolved is not None:
+            return self._halo_resolved
+        return "ppermute" if self.halo == "auto" else self.halo
+
+    def halo_report(self) -> dict | None:
+        """The halo exchange decision: requested and resolved modes, the
+        schedule the rounds execute (``'overlap'`` may resolve to
+        ``'overlap_full'`` on fat frontiers), the plan's wire bytes, and
+        ``select_halo_mode``'s evidence when 'auto' chose.  None off the
+        halo path."""
+        if not self._halo_mode or self._halo_plan is None:
+            return None
+        from flow_updating_tpu_torch.parallel import overlap
+
+        out = {"requested": self.halo, "resolved": self._halo_wire,
+               "schedule": overlap.resolve_mode(self._halo_plan,
+                                                self._halo_wire),
+               "partition": self.partition,
+               **self._halo_plan.collective_bytes_per_round(
+                   self._ledger_dtype_bytes)}
+        if self.halo_decision is not None:
+            out["decision"] = self.halo_decision
+        return out
+
+    def _build_halo(self, latency_scale: float, seed: int) -> None:
+        """The halo kernel's plan, device tables and fresh state."""
+        from flow_updating_tpu_torch.parallel import sharded
+
+        if self.config.kernel == "node":
+            raise ValueError(
+                "multichip='halo' drives the edge kernel (per-edge state "
+                "partitioned by source shard); the node kernel "
+                "distributes via the sharded banded round — use "
+                "multichip='auto'")
+        if latency_scale > 0.0 or self.config.contention:
+            raise NotImplementedError(
+                "the halo kernel runs unit-delay/static-delay rounds; "
+                "latency-warped + contention fidelity runs are "
+                "single-device (platform-scale)")
+        rounds.check_ported(self.config)
+        self._halo_plan = sharded.plan_sharding(
+            self.topology, self.mesh.size, partition=self.partition,
+            coloring=self.config.needs_coloring)
+        if self.halo == "auto":
+            from flow_updating_tpu_torch.plan.select import select_halo_mode
+
+            self.halo_decision = select_halo_mode(
+                self._halo_plan, backend=self.device.type,
+                dtype_bytes=self._ledger_dtype_bytes)
+            self._halo_resolved = self.halo_decision["halo"]
+            logger.info("halo auto: %s", self.halo_decision["reason"])
+        else:
+            self._halo_resolved = self.halo
+        self._halo_arrays = sharded.plan_device_arrays(
+            self._halo_plan, self.mesh, halo=self._halo_resolved)
+        self.state = sharded.init_plan_state(
+            self._halo_plan, self.config, self.mesh, seed=seed)
+
     # ---- setup -----------------------------------------------------------
     @property
     def clock(self) -> float:
@@ -244,6 +322,9 @@ class Engine:
         """Resolve deployment(+platform) into topology + kernel + fresh
         state.  ``seed`` keys the edge kernel's message-loss draws."""
         self._resolve_topology(latency_scale)
+        if self._halo_mode:
+            self._build_halo(latency_scale, seed)
+            return self
         if self.config.kernel == "node":
             if latency_scale > 0.0 or self.topology.max_delay > 1:
                 raise ValueError(
@@ -270,9 +351,9 @@ class Engine:
             return self
         if self.mesh is not None:
             raise _not_ported(
-                "the edge kernel over a mesh",
-                "multi-device execution: GSPMD's edge path and the halo "
-                "edge kernel (A12)")
+                "the edge kernel over a mesh with multichip='auto'",
+                "multi-device execution: GSPMD's edge path (A12); "
+                "multichip='halo' runs the halo edge kernel")
         rounds.check_ported(self.config)
         if latency_scale > 0.0:
             depth = max(self.config.delay_depth, self.topology.max_delay)
@@ -317,7 +398,13 @@ class Engine:
             return {}
         names = self.topology.names or tuple(
             str(i) for i in range(self.topology.num_nodes))
-        if self.config.kernel == "node":
+        if self._halo_mode:
+            from flow_updating_tpu_torch.parallel import sharded
+
+            value = self.topology.values
+            last_avg = sharded.gather_node_array(
+                [st.last_avg for st in self.state.shards], self._halo_plan)
+        elif self.config.kernel == "node":
             value = self.topology.values
             last_avg = self._node_kernel.last_avg(self.state)
         else:
@@ -331,6 +418,10 @@ class Engine:
     def estimates(self) -> np.ndarray:
         if self.state is None:
             raise RuntimeError("engine not built")
+        if self._halo_mode:
+            from flow_updating_tpu_torch.parallel import sharded
+
+            return sharded.gather_estimates(self.state, self._halo_plan)
         if self.config.kernel == "node":
             return self._node_kernel.estimates(self.state)
         return rounds.node_estimates(self.state,
@@ -347,15 +438,53 @@ class Engine:
             "max_abs_err": float(np.max(np.abs(est - mean))),
             "mass_residual": mass_residual(est, self.topology.values),
         }
-        if self.config.kernel == "edge":
+        if self._halo_mode:
+            # edge flows live in per-shard slots; pair them through the
+            # plan's reverse routing (tshard/tlocal), across shards too
+            pl = self._halo_plan
+            flow = np.stack([st.flow.cpu().numpy()
+                             for st in self.state.shards])
+            ts, tl = pl.arrays.tshard, pl.arrays.tlocal
+            real = tl < pl.Eb
+            report["antisymmetry_residual"] = float(
+                np.max(np.abs(flow[real] + flow[ts[real], tl[real]])))
+        elif self.config.kernel == "edge":
             flow = self.state.flow.cpu().numpy()
             report["antisymmetry_residual"] = float(
                 np.max(np.abs(flow + flow[self.topology.rev])))
         return report
 
+    # ---- fault injection and checkpoints (A7) ----------------------------
+    def _a7(self, what: str):
+        return _not_ported(f"{what}", "engine checkpoints and faults (A7)")
+
+    def kill_nodes(self, nodes) -> Engine:
+        raise self._a7("kill_nodes")
+
+    def revive_nodes(self, nodes) -> Engine:
+        raise self._a7("revive_nodes")
+
+    def fail_links(self, links) -> Engine:
+        raise self._a7("fail_links")
+
+    def restore_links(self, links) -> Engine:
+        raise self._a7("restore_links")
+
+    def save_checkpoint(self, path: str) -> Engine:
+        raise self._a7("save_checkpoint")
+
+    def restore_checkpoint(self, path: str) -> Engine:
+        raise self._a7("restore_checkpoint")
+
     # ---- execution -------------------------------------------------------
     def _advance(self, n: int) -> None:
-        if self.config.kernel == "node":
+        if self._halo_mode:
+            from flow_updating_tpu_torch.parallel import sharded
+
+            self.state = sharded.run_rounds_sharded(
+                self.state, self._halo_plan, self.config, self.mesh, n,
+                arrays=self._halo_arrays, halo=self._halo_wire)
+        elif self.config.kernel == "node":
             self.state = self._node_kernel.run(self.state, n)
         else:
             self.state = rounds.run_rounds(self.state, self._topo_arrays,

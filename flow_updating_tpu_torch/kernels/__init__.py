@@ -46,6 +46,8 @@ SIGNATURES = {
     "sharded_round": (_I, _I, _LL, _LL, _I, _LL, _LL, _I, _P, _P,
                       _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                       _P, _I, _P, _P, _P, _P),
+    "halo_exchange": (_I, _I, _P, _P, _P, _LL, _LL, _I,
+                      _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
 }
 
 _lock = threading.Lock()

@@ -91,13 +91,20 @@ def check_ported(cfg: RoundConfig, params=None) -> None:
 
 # ---- per-node reductions and node->edge broadcasts --------------------------
 
+def _rows(x, topo):
+    """The slots the CSR rows cover: all of them, or the real prefix of a
+    shard's padded slots (``topo.seg_len``; the padding belongs to an
+    empty dead row, so its reduction is the identity)."""
+    return x if topo.seg_len is None else x[: topo.seg_len]
+
+
 def _seg_sum(x, topo):
     if topo.seg_plan is not None:
         return seg_reduce(x, "sum", topo.seg_plan, topo.seg_dist,
                           topo.seg_extract_masks)
     if topo.ell_edge_mats is not None:
         return ell_segment_sum(x, topo.ell_edge_mats, topo.ell_inv_perm)
-    return segment_sum(x, topo.out_deg)
+    return segment_sum(_rows(x, topo), topo.out_deg)
 
 
 def _seg_min(x, topo, identity):
@@ -107,7 +114,7 @@ def _seg_min(x, topo, identity):
     if topo.ell_edge_mats is not None:
         return ell_segment_min(x, topo.ell_edge_mats, topo.ell_inv_perm,
                                identity)
-    return segment_min(x, topo.out_deg)
+    return segment_min(_rows(x, topo), topo.out_deg)
 
 
 def _seg_max(x, topo, identity):
@@ -117,7 +124,7 @@ def _seg_max(x, topo, identity):
     if topo.ell_edge_mats is not None:
         return ell_segment_max(x, topo.ell_edge_mats, topo.ell_inv_perm,
                                identity)
-    return segment_max(x, topo.out_deg)
+    return segment_max(_rows(x, topo), topo.out_deg)
 
 
 def _seg_all(pred, topo):
@@ -127,7 +134,7 @@ def _seg_all(pred, topo):
     if topo.ell_edge_mats is not None:
         return ell_segment_all(pred, topo.ell_edge_mats, topo.ell_inv_perm,
                                topo.out_deg)
-    return segment_all(pred, topo.out_deg)
+    return segment_all(_rows(pred, topo), topo.out_deg)
 
 
 def _bcast(x, topo):

@@ -1,6 +1,8 @@
 from flow_updating_tpu_torch.topology.graph import (
     Topology,
     build_topology,
+    locality_order,
+    reorder_topology,
     topology_from_arrays,
 )
 from flow_updating_tpu_torch.topology.platform import Platform, load_platform
@@ -12,6 +14,8 @@ from flow_updating_tpu_torch.topology.deployment import (
 __all__ = [
     "Topology",
     "build_topology",
+    "locality_order",
+    "reorder_topology",
     "topology_from_arrays",
     "Platform",
     "load_platform",

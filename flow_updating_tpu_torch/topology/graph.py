@@ -316,6 +316,9 @@ class EdgeArrays:
     seg_dist: torch.Tensor | None = None    # (P,) int32 edge_rank padded
     seg_extract_masks: tuple = ()
     seg_place_masks: tuple = ()
+    # a shard's local view (parallel/sharded.py): the CSR rows cover the
+    # first seg_len slots; the rest is padding owned by the dead dummy row
+    seg_len: int | None = None
 
     @property
     def num_nodes(self) -> int:
@@ -541,3 +544,99 @@ def topology_from_arrays(num_nodes: int, src, dst, rev, out_deg, row_start,
         raise ValueError("row_start/out_deg do not describe the CSR rows "
                          "of src")
     return topo
+
+
+def locality_order(topo: Topology, start: int = 0) -> np.ndarray:
+    """BFS node ordering for locality-aware partitioning (JAX
+    ``topology/graph.py::locality_order``).
+
+    Contiguous-block sharding (``parallel.sharded.plan_sharding``) cuts
+    every edge whose endpoints land in different blocks; renumbering nodes
+    by BFS layers first keeps neighborhoods together.  Returns ``order``
+    with ``order[new_id] = old_id``, covering all components (a new BFS
+    starts at the lowest unvisited node)."""
+    N = topo.num_nodes
+    visited = np.zeros(N, bool)
+    order = np.empty(N, np.int64)
+    pos = 0
+    frontier = np.array([start], np.int64) if N else np.empty(0, np.int64)
+    visited[frontier] = True
+    while pos < N:
+        if frontier.size == 0:
+            nxt = int(np.argmax(~visited))  # lowest unvisited node
+            frontier = np.array([nxt], np.int64)
+            visited[nxt] = True
+        order[pos: pos + frontier.size] = frontier
+        pos += frontier.size
+        # all neighbors of the frontier, deduped, unvisited only
+        lo = topo.row_start[frontier]
+        counts = topo.row_start[frontier + 1] - lo
+        total = int(counts.sum())
+        if total:
+            seg = np.repeat(np.arange(frontier.size), counts)
+            within = np.arange(total) - np.repeat(
+                np.cumsum(counts) - counts, counts)
+            idx = topo.dst[lo[seg] + within].astype(np.int64)
+        else:
+            idx = np.empty(0, np.int64)
+        idx = np.unique(idx)
+        idx = idx[~visited[idx]]
+        visited[idx] = True
+        frontier = idx.astype(np.int64)
+    return order
+
+
+def reorder_topology(topo: Topology, order: np.ndarray) -> Topology:
+    """Renumber nodes by ``order`` (``order[new_id] = old_id``), rebuilding
+    the ``(src, dst)``-sorted edge list, the reverse permutation and the
+    CSR rows (JAX ``topology/graph.py::reorder_topology``).  Per-edge
+    attributes follow their edges, per-node ones their nodes; ``adopted``
+    is dropped.  A cached edge coloring is carried through, so a
+    reordered partition fires the same matching sequence as the original
+    topology."""
+    N, E = topo.num_nodes, topo.num_edges
+    order = np.asarray(order, np.int64)
+    inv = np.empty(N, np.int64)
+    inv[order] = np.arange(N, dtype=np.int64)
+    new_src = inv[topo.src]
+    new_dst = inv[topo.dst]
+    e_order = np.lexsort((new_dst, new_src))
+    e_pos = np.empty(E, np.int64)
+    e_pos[e_order] = np.arange(E, dtype=np.int64)
+    src = new_src[e_order].astype(np.int32)
+    dst = new_dst[e_order].astype(np.int32)
+    rev = e_pos[topo.rev[e_order]].astype(np.int32)
+    out_deg = topo.out_deg[order]
+    row_start = np.zeros(N + 1, np.int64)
+    np.cumsum(out_deg, out=row_start[1:])
+    edge_rank = (np.arange(E, dtype=np.int64)
+                 - row_start[src]).astype(np.int32)
+    pick_e = lambda a: None if a is None else a[e_order]  # noqa: E731
+    out = dataclasses.replace(
+        topo,
+        src=src,
+        dst=dst,
+        rev=rev,
+        out_deg=out_deg,
+        row_start=row_start,
+        edge_rank=edge_rank,
+        delay=topo.delay[e_order],
+        values=topo.values[order],
+        names=(tuple(topo.names[i] for i in order)
+               if topo.names is not None else None),
+        speeds=None if topo.speeds is None else topo.speeds[order],
+        bandwidth=pick_e(topo.bandwidth),
+        latency_s=pick_e(topo.latency_s),
+        adopted=None,
+        edge_links=pick_e(topo.edge_links),
+        lat_rounds=pick_e(topo.lat_rounds),
+        membership=(None if topo.membership is None
+                    else topo.membership[order].astype(np.int32)),
+        bridge_edges=(None if topo.bridge_edges is None
+                      else np.sort(e_pos[topo.bridge_edges])),
+    )
+    cached = getattr(topo, "_edge_coloring", None)
+    if cached is not None:
+        col, c = cached
+        object.__setattr__(out, "_edge_coloring", (col[e_order], c))
+    return out

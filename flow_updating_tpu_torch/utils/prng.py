@@ -11,6 +11,8 @@ mode (the default of the JAX releases this repo runs):
 
 * ``prng_key(seed)`` — the key ``(seed >> 32, seed & 0xFFFFFFFF)``;
 * ``split(key, n)`` — key ``i`` is ``threefry(key, (0, i))``;
+* ``fold_in(key, data)`` — ``threefry(key, (0, data mod 2^32))`` (the
+  halo kernel gives shard ``s`` the key ``fold_in(PRNGKey(seed), s)``);
 * ``bernoulli(key, p, n, dtype)`` — counter ``i`` hashes to ``(b1, b2)``;
   a float32 draw takes the word ``b1 ^ b2``, a float64 draw
   ``b1 << 32 | b2``; the mantissa bits become a uniform in [0, 1), and the
@@ -74,6 +76,16 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     hi, lo = _counters(num, key.device)
     a, b = threefry2x32(key[0], key[1], hi, lo)
     return torch.stack([a, b], dim=1)
+
+
+def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)``: the key hashed with the counter
+    pair ``(0, data)``, ``data`` taken as a uint32; ``(2,)`` int64."""
+    x1 = torch.zeros(1, dtype=torch.int64, device=key.device)
+    x2 = torch.full((1,), int(data) & _M32, dtype=torch.int64,
+                    device=key.device)
+    a, b = threefry2x32(key[0], key[1], x1, x2)
+    return torch.cat([a, b])
 
 
 def uniform(key: torch.Tensor, n: int,

@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
 Every test here needs an NVIDIA GPU with ``nvcc`` and skips without one
-(kernels K1, K2, the four flavours of B3, B4's scan and fill, and B5; the
-edge kernel's Beneš routes and the sharded banded round on the card).
+(kernels K1, K2, the four flavours of B3, B4's scan and fill, B5 and B6;
+the edge kernel's Beneš routes, the sharded banded round and the halo
+edge round on the card).
 This file imports no JAX, so it also runs where JAX is absent, without the
 suite's JAX-pinning conftest:
 
@@ -440,3 +441,104 @@ def test_sharded_ring_equals_single_device_banded_fused_on_card(card):
         assert np.array_equal(got, es)
         assert np.array_equal(got, host.estimates(host.run(
             host.init_state(), 40)))
+
+
+# ---- kernel B6: the halo block pull and its fused merge -------------------
+
+def _halo_blocks(rng, S, offsets, rows, dt, device, hd=(7, 300, 5)):
+    """Random per-shard payload blocks: shard s, offset i -> (rows, Hd_i)."""
+    return [[torch.from_numpy(rng.uniform(-1, 1, (rows, hd[i % len(hd)])))
+             .to(device, dt) for i in range(len(offsets))]
+            for _ in range(S)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nf", [1, 3])
+@pytest.mark.parametrize("D", [1, 3])
+def test_halo_exchange_kernel_matches_plain(card, dtype, nf, D):
+    from flow_updating_tpu_torch.ops import halo_exchange as hx
+
+    rng = np.random.default_rng(11)
+    S, offsets, Eb = 4, (1, 2, 3), 5000
+    feat = (nf,) if nf > 1 else ()
+    blocks = _halo_blocks(rng, S, offsets, 2 * nf + 1, dtype, card)
+    draw = lambda shape: torch.from_numpy(  # noqa: E731
+        rng.uniform(-1, 1, shape)).to(card, dtype)
+    hit = torch.from_numpy(rng.random((D, Eb)) < 0.3).to(card)
+    valid = torch.from_numpy(rng.random((D, Eb)) < 0.5).to(card)
+    merge = (hit, draw((Eb,) + feat), draw((Eb,) + feat),
+             draw((D, Eb) + feat), draw((D, Eb) + feat), valid)
+    for me in range(S):
+        before = (hx.fused_exchange_merge.launches,
+                  hx.remote_block_exchange.launches)
+        got = hx.fused_exchange_merge(blocks, offsets, me, *merge)
+        pull = hx.remote_block_exchange(blocks, offsets, me)
+        torch.cuda.synchronize()
+        assert (hx.fused_exchange_merge.launches,
+                hx.remote_block_exchange.launches) == (before[0] + 1,
+                                                       before[1] + 1)
+        want = hx.fused_exchange_merge_plain(blocks, offsets, me, *merge)
+        for g, p, w in zip(got[0], pull, want[0]):
+            assert torch.equal(g, w) and torch.equal(p, w)
+        for g, w in zip(got[1:], want[1:]):
+            assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="mix of devices"):
+        hx.fused_exchange_merge(blocks, offsets, 0, hit.cpu(), *merge[1:])
+
+
+def test_halo_overlap_pallas_equals_ppermute_on_card(card):
+    import dataclasses
+
+    from flow_updating_tpu_torch.ops import halo_exchange as hx
+    from flow_updating_tpu_torch.parallel import sharded
+    from flow_updating_tpu_torch.parallel.mesh import make_mesh
+    from flow_updating_tpu_torch.topology.generators import erdos_renyi
+
+    topo = erdos_renyi(3000, 6.0, seed=2)
+    mesh = make_mesh(4)
+    for cfg in (dataclasses.replace(RoundConfig.reference(delay_depth=2),
+                                    drop_rate=0.2),
+                RoundConfig.fast("pairwise", dtype="float64")):
+        plan = sharded.plan_sharding(topo, 4, partition="bfs",
+                                     coloring=cfg.needs_coloring)
+        out = {}
+        for halo in ("ppermute", "allgather", "overlap", "overlap_pallas"):
+            before = (hx.fused_exchange_merge.launches
+                      + hx.remote_block_exchange.launches)
+            st = sharded.init_plan_state(plan, cfg, mesh, seed=1)
+            out[halo] = sharded.run_rounds_sharded(st, plan, cfg, mesh, 120,
+                                                   halo=halo).numpy()
+            launched = (hx.fused_exchange_merge.launches
+                        + hx.remote_block_exchange.launches - before)
+            assert launched == (120 * 4 if halo == "overlap_pallas" else 0)
+        for halo in ("allgather", "overlap", "overlap_pallas"):
+            for name, leaf in out["ppermute"].items():
+                assert np.array_equal(leaf, out[halo][name]), (halo, name)
+        host = sharded.init_plan_state(plan, cfg, make_mesh(4, device="cpu"),
+                                       seed=1)
+        host = sharded.run_rounds_sharded(host, plan, cfg,
+                                          make_mesh(4, device="cpu"), 120,
+                                          halo="overlap_pallas").numpy()
+        np.testing.assert_allclose(host["flow"], out["ppermute"]["flow"],
+                                   rtol=1e-6, atol=1e-6)
+
+
+def test_engine_halo_every_mode_on_card(card):
+    from flow_updating_tpu_torch.parallel.mesh import make_mesh
+    from flow_updating_tpu_torch.topology.generators import erdos_renyi
+
+    topo = erdos_renyi(2000, 6.0, seed=5)
+    for cfg in (RoundConfig.reference(dtype="float64"),
+                RoundConfig.fast("pairwise", dtype="float64")):
+        for partition in ("bfs", "contiguous"):
+            est = {}
+            for halo in ("ppermute", "allgather", "overlap",
+                         "overlap_pallas", "auto"):
+                e = Engine(config=cfg, mesh=make_mesh(4), multichip="halo",
+                           halo=halo, partition=partition)
+                e.set_topology(topo).build().run_rounds(60)
+                assert e.state.shards[0].flow.device.type == "cuda"
+                est[halo] = e.estimates()
+                assert e.halo_report()["resolved"] != "auto"
+            for halo, got in est.items():
+                assert np.array_equal(got, est["ppermute"]), halo

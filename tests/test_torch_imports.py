@@ -90,6 +90,10 @@ m = p.Engine(config=p.RoundConfig.fast(kernel="node", spmv="banded_fused"),
              device="cpu").set_topology(ring(64, 2)).build()
 m.run_rounds(200)
 assert (m.estimates() == e.estimates()).all()
+h = p.Engine(mesh=make_mesh(3, device="cpu"), multichip="halo",
+             halo="overlap_pallas", device="cpu").set_topology(ring(64, 2))
+h.build().run_rounds(20)
+assert h.convergence_report()["t"] == 20
 print(e.convergence_report()["rmse"])
 """
     env = {**os.environ, "PYTHONPATH": ROOT}

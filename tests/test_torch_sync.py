@@ -213,11 +213,12 @@ def test_cli_refuses_unported_flags():
             "--kernel", "node", "--fire-policy", "every_round"]
     with pytest.raises(SystemExit, match="A9"):
         port_main([*base, "--telemetry"])
-    # --shards runs the sharded banded round; the other mesh paths exit
+    # --shards runs the sharded banded round (and, with --multichip halo,
+    # the edge kernel's halo round); the other mesh paths exit
     with pytest.raises(SystemExit, match="A12"):
+        port_main([*base, "--shards", "2", "--multichip", "pod"])
+    with pytest.raises(SystemExit, match="drives the edge kernel"):
         port_main([*base, "--shards", "2", "--multichip", "halo"])
-    with pytest.raises(SystemExit, match="A12"):
-        port_main([*base, "--shards", "2", "--partition", "contiguous"])
     with pytest.raises(SystemExit, match="A12"):
         port_main([*base, "--shards", "2", "--spmv", "xla", "--rounds", "3"])
     # the edge kernel runs; what it does not run yet still exits
@@ -250,15 +251,18 @@ def test_unported_configs_raise_naming_their_item():
     node = RoundConfig.fast(kernel="node")
     with pytest.raises(NotImplementedError, match="plan='auto'"):
         Engine(config=node, plan="auto", device="cpu")
-    # a mesh runs spmv='banded_fused'; GSPMD's 'xla' path and the halo
-    # edge kernel's partitions still raise, naming multi-device execution
+    # a mesh runs spmv='banded_fused'; GSPMD's 'xla' path and the pod
+    # stencil still raise, naming multi-device execution; the halo round
+    # refuses the node kernel, as in JAX
     mesh = make_mesh(2, device="cpu")
     with pytest.raises(NotImplementedError, match="multi-device.*A12"):
         Engine(config=node, mesh=mesh, device="cpu").set_topology(
             topo).build()
     with pytest.raises(NotImplementedError, match="multi-device.*A12"):
-        Engine(config=node, mesh=mesh, partition="contiguous",
-               device="cpu")
+        Engine(config=node, mesh=mesh, multichip="pod", device="cpu")
+    with pytest.raises(ValueError, match="drives the edge kernel"):
+        Engine(config=node, mesh=mesh, multichip="halo",
+               device="cpu").set_topology(topo).build()
     with pytest.raises(NotImplementedError, match="host actors"):
         Engine(config=node, host_actors=True, device="cpu")
     e = Engine(argv=["--cfg=spmv:banded"], config=node, device="cpu")
