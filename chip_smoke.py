@@ -31,8 +31,9 @@ and prints one JSON line per phase:
    network) on the fat tree's network (P = 2^23): the routing time, the
    passes per flavour, each flavour on a real pass of the plan
    ``torch.equal`` to its plain version in float32 and float64 (and with a
-   batch of 3), and the whole plan ``torch.equal`` to the per-stage
-   executor;
+   batch of 3), the local flavour also at every tile from 2 to 4,096 on
+   random stage lists, and the whole plan ``torch.equal`` to the
+   per-stage executor;
 8. ``path_c``  — ``Engine`` with ``spmv='benes_fused'`` on the fat tree:
    ms/round, B3 launches == rounds x passes (per flavour too), rmse,
    estimates ``torch.equal`` to ``spmv='benes'`` and ``spmv='xla'`` runs
@@ -41,9 +42,10 @@ and prints one JSON line per phase:
    kernel's segment networks) on the fat tree's segment plan (P = 2^23):
    scan sum (float32, float64), min and max (float32), min (int32) and fill
    (float32, int32) at batch 1 and 3, each ``torch.equal`` to its plain
-   version; a star with a hub of degree 5,000 (the split into several
-   launches) too; the whole ``seg_reduce`` and ``broadcast`` against
-   ``torch.segment_reduce`` and ``index_select``;
+   version, the fill also on a random (non-rank) dist plane; a star with
+   a hub of degree 5,000 (the split into several launches) too; the whole
+   ``seg_reduce`` and ``broadcast`` against ``torch.segment_reduce`` and
+   ``index_select``;
 10. ``path_d`` — the general edge round: ``Engine`` with
    ``RoundConfig.reference('collectall', segment_impl='benes_fused',
    delivery='benes_fused')`` on the fat tree: routing time, the timeout
@@ -105,7 +107,9 @@ A kernel's ``ms``, ``plain_ms`` and ``library_ms`` are device time per
 call: the profiler's sum over the call's CUDA kernels, averaged over
 ``REPS`` calls — each kernel's mean duration times its launches per call,
 since a trace drops some of its device events — the largest of
-``TRACES`` traces.  ``call_ms`` is the wrapper's time per call from CUDA
+``TRACES`` traces; a measurement whose traces all came back empty is
+timed with CUDA events instead and named in the ``timing`` line before
+the kernels line.  ``call_ms`` is the wrapper's time per call from CUDA
 events around ``REPS`` back-to-back calls, host launch gaps included.
 B3's yardstick is ``torch.index_select`` with the pass's own source index
 (the pass applied to ``arange(P)``); the fill's is ``index_select`` with
@@ -209,11 +213,19 @@ def _device_rows(prof, n: int, only: str | None = None) -> list:
     return rows
 
 
+#: measurements whose every profiler trace held no device time, so that
+#: :func:`device_ms` timed them with CUDA events (``phase`` and kernel)
+EVENT_TIMED = []
+
+
 def device_ms(fn, only: str | None = None) -> float:
     """Mean device milliseconds per call of ``fn`` from ``torch.profiler``
     over ``REPS`` calls (the kernels whose name contains ``only``, when
     given; :func:`_device_rows` makes up for dropped events): the largest
-    of ``TRACES`` traces; raises when every trace holds none."""
+    of ``TRACES`` traces.  When every trace holds none (the profiler can
+    drop all of a short kernel's events on the H100 machine), the call is
+    timed with CUDA events instead (:func:`cuda_ms`, host launch gaps
+    included) and listed in :data:`EVENT_TIMED`."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -230,8 +242,11 @@ def device_ms(fn, only: str | None = None) -> float:
         best = max(best, sum(us for _, us, _ in _device_rows(prof, REPS,
                                                               only)))
     if best <= 0:
-        raise AssertionError(f"the profiler saw no device time for "
-                             f"{only or 'the call'} in {TRACES} traces")
+        label = f"{sys._getframe(1).f_code.co_name}: {only or 'call'}"
+        print(f"chip_smoke: the profiler saw no device time in {TRACES} "
+              f"traces ({label}); timed with CUDA events", file=sys.stderr)
+        EVENT_TIMED.append(label)
+        return cuda_ms(fn)
     return best / 1e3
 
 
@@ -247,7 +262,7 @@ def bound(nbytes: int, ops: int) -> dict:
 
 #: B3's flavours: (row name, wrapper in ops/fused_passes.py, CUDA kernel
 #: name, line of the TPU kernel in flow_updating_tpu/ops/pallas_fused.py)
-B3_FLAVOURS = (("local", "local_pass", "staged_pass", 292),
+B3_FLAVOURS = (("local", "local_pass", "butterfly_pass", 292),
                ("window", "window_pass", "staged_pass", 323),
                ("wide", "wide_pass", "wide_pass", 356),
                ("wide2", "wide2_pass", "wide2_pass", 387))
@@ -260,8 +275,10 @@ B4_FLAVOURS = (("scan", "segscan_pass", 475), ("fill", "fill_pass", 513))
 
 #: the hand-written kernels' CUDA function names, by kernel (profile)
 KERNEL_FAMILIES = {"K1": ("spmv_ell_",), "K2": ("fused_round_kernel",),
-                   "B3": ("::staged_pass<", "::wide_pass<", "::wide2_pass<"),
-                   "B4": ("::seg_window_pass<", "::seg_wide_pass<"),
+                   "B3": ("::butterfly_pass<", "::staged_pass<",
+                          "::wide_pass<", "::wide2_pass<"),
+                   "B4": ("::seg_window_pass<", "::fill_walk_pass<",
+                          "::seg_wide_pass<"),
                    "B5": ("::sharded_fire_kernel<",
                           "::sharded_merge_kernel<"),
                    "B6": ("::exchange_kernel<",)}
@@ -608,6 +625,11 @@ def phase_k3(topo, dev):
         # pure data movement: no arithmetic to bound by
         row.update(bound(fp.pass_min_bytes(ps, geom, 1, 4), 0))
         out["flavours"][name] = row
+    local = fused.passes[out["flavours"]["local"]["pass"]]
+    sched = fp.plan_local_schedule(local.dists, geom.tile)
+    out["flavours"]["local"]["schedule"] = {
+        "segment_ends": list(sched.seg_end), "exchanges": sched.exchanges}
+    out["local_tiles"] = local_tile_sweep(rng, dev)
     # the whole network: every pass against the per-stage executor
     masks = stages.to(dev)
     for dt in (torch.float32, torch.float64):
@@ -635,6 +657,39 @@ def phase_k3(topo, dev):
     del masks
     torch.cuda.empty_cache()
     return out
+
+
+def local_tile_sweep(rng, dev) -> list:
+    """B3's local kernel at every tile from 2 to 4,096 elements (four
+    tiles, one below a row of 128) on a random list of 32 stages and on a
+    one-stage list, random mask words, float32 and float64 at batch 3,
+    each ``torch.equal`` to its plain version; returns the tiles."""
+    import numpy as np
+    import torch
+
+    from flow_updating_tpu_torch.ops import fused_passes as fp
+
+    tiles = []
+    for n in range(1, 13):
+        tile = 1 << n
+        geom = (fp.geometry(tile) if tile < 128
+                else fp.geometry(4 * tile, block_rows=tile // 128))
+        for k in (1, fp.MAX_STAGES_PER_PASS):
+            dists = tuple(1 << int(b) for b in rng.integers(0, n, size=k))
+            ps = fp.PassSpec(kind="local", dists=dists, block_dist=0)
+            plane = torch.from_numpy(rng.integers(
+                -2**31, 2**31, geom.P, dtype=np.int64).astype(np.int32)
+            ).to(dev)
+            for dt in (torch.float32, torch.float64):
+                x = torch.from_numpy(rng.uniform(
+                    -1.0, 1.0, (3, geom.grid, tile))).to(dev, dt)
+                if not torch.equal(fp.local_pass(x, plane, ps, geom),
+                                   fp.local_pass_plain(x, plane, ps, geom)):
+                    raise AssertionError(f"B3 local ({dt}) differs from its "
+                                         f"plain version at tile {tile}, "
+                                         f"stages {dists}")
+        tiles.append(tile)
+    return tiles
 
 
 def _timed_rounds(engine, rounds: int) -> float:
@@ -891,6 +946,11 @@ def phase_k4(topo, arrays, dev):
         row.update(bound(len(passes) * fp.dist_pass_min_bytes(geom, 1, 4),
                          ops))
         out["flavours"][name] = row
+    # the fill on a dist plane that is no rank plane (random words)
+    noise = torch.from_numpy(rng.integers(-2**31, 2**31, P, dtype=np.int64)
+                             .astype(np.int32)).to(dev)
+    out["fill_random_plane"] = {"max_abs_err": _b4_cases(
+        plan, noise, dev, rng, (("fill", f32), ("fill", i32)))}
     # the split path: a star whose hub has STAR_HUB out-edges
     star = build_topology(STAR_HUB + 1,
                           [(0, i) for i in range(1, STAR_HUB + 1)],
@@ -1813,6 +1873,7 @@ def main() -> int:
                                                      PROFILE_ROUNDS)}})
     torch.cuda.synchronize()
 
+    emit({"phase": "timing", "timed_by_cuda_events": EVENT_TIMED})
     emit({"kernels": [
         {"name": "spmv_ell", "route": "cuda",
          "source": "flow_updating_tpu_torch/csrc/spmv_ell.cu",

@@ -32,9 +32,27 @@
 // card: a NaN operand wins, otherwise ::min / ::max.
 //
 // What bounds it on an H100: bytes.  A pass reads x and the dist plane
-// once and writes x once; the window pass stages its two tiles in shared
-// memory (64 KiB for float64) and keeps each thread's values and dist
-// words in registers, two __syncthreads() per stage.  Offsets are 64-bit.
+// once and writes x once.  Offsets are 64-bit.
+//
+//  * scan window pass (seg_window_pass): stages its two tiles in shared
+//    memory (64 KiB for float64) and keeps each thread's values and dist
+//    words in registers, two __syncthreads() per stage.
+//  * fill window pass (fill_walk_pass).  The fill only moves data, so
+//    each output has exactly one source, and the kernel finds it first:
+//    from w = tile + (p mod tile), for the stages from last to first,
+//    w = (w - d) mod 2*tile where dist at window position w has bit d.
+//    Then out[b, p] = x[b, g(w)] for every batch row b, g mapping a
+//    window position to its global index.  That is the stage loop read
+//    backwards, so it is exact on any dist plane, tile 0 and the wrap
+//    inside the window included.  Staging both tiles of x and dist and
+//    running every stage over the whole window cost 5 words per output
+//    and two barriers per stage; here a block of 256 threads owns 1,024
+//    outputs, only the dist words their walks can reach (the chunk plus
+//    sum(d) words below it) go to shared memory, the batch rows share
+//    one walk, and each row costs one read of x (mostly run heads, which
+//    L2 serves) and one write.  Small blocks keep many of them resident,
+//    so one block's loads overlap another's walk.
+//  * wide passes (seg_wide_pass) select elementwise against x[p - d].
 //
 // Plain C interface, loaded with ctypes (flow_updating_tpu_torch/kernels).
 
@@ -49,6 +67,8 @@ constexpr int kThreads = 512;
 constexpr int kMaxPer = 16;                              // words per thread
 constexpr long long kMaxTile = kThreads * kMaxPer / 2;   // 4096 elements
 constexpr int kWideThreads = 256;
+constexpr int kFillThreads = 256;
+constexpr int kFillPer = 4;                              // outputs per thread
 
 enum Op { kSum = 0, kMin = 1, kMax = 2, kFill = 3 };
 
@@ -92,7 +112,6 @@ __device__ __forceinline__ T comb(T a, T b) {
 
 template <typename T, int kOp>
 __device__ __forceinline__ T stage(T cur, T src, int dv, int d) {
-  if (kOp == kFill) return (dv & d) ? src : cur;
   return comb<T, kOp>(cur, dv >= d ? src : identity<T, kOp>());
 }
 
@@ -148,6 +167,63 @@ seg_window_pass(const T* __restrict__ x, T* __restrict__ out,
   }
 }
 
+// The fill's window pass: each output's source found by walking the
+// stages backwards (see the header).  A block owns a chunk of one tile's
+// outputs and keeps in shared memory the dist words of the window
+// positions its walks can reach: the chunk and the `reach` = sum(d)
+// positions below it when that sum is below the tile (kWrap false: no
+// walk then leaves the range or wraps), else the whole window [prev; own].
+template <typename T, bool kWrap>
+__global__ void __launch_bounds__(kFillThreads)
+fill_walk_pass(const T* __restrict__ x, T* __restrict__ out,
+               const int* __restrict__ dist, long long P, long long batch,
+               int log2_tile, int chunk, int per, int n_stages, Dists ds,
+               int reach) {
+  extern __shared__ int sd[];
+  __shared__ int sdist[kMaxStages];
+  if (threadIdx.x == 0) {
+    // constant indices: a runtime index into the parameter would make
+    // every thread copy it to local memory
+#pragma unroll
+    for (int j = 0; j < kMaxStages; ++j) sdist[j] = ds.d[j];
+  }
+  const int tile = 1 << log2_tile;
+  const long long c0 = (long long)blockIdx.x * chunk;
+  const long long blk = c0 >> log2_tile;
+  const long long prev = blk > 0 ? blk - 1 : 0;
+  const int own = tile + (int)(c0 - blk * tile);  // window position of c0
+  const int lo = kWrap ? 0 : own - reach;
+  const int hi = kWrap ? 2 * tile : own + chunk;
+  for (int q = lo + threadIdx.x; q < hi; q += blockDim.x)
+    sd[q - lo] = dist[q < tile ? prev * tile + q : blk * tile + (q - tile)];
+  __syncthreads();
+  int w[kFillPer];  // window position - lo
+#pragma unroll
+  for (int k = 0; k < kFillPer; ++k)
+    w[k] = own + threadIdx.x + k * blockDim.x - lo;
+  for (int j = n_stages - 1; j >= 0; --j) {
+    const int d = sdist[j];
+#pragma unroll
+    for (int k = 0; k < kFillPer; ++k) {
+      if (k >= per || !(sd[w[k]] & d)) continue;
+      w[k] = kWrap ? (w[k] - d) & (2 * tile - 1) : w[k] - d;
+    }
+  }
+  long long src[kFillPer];
+#pragma unroll
+  for (int k = 0; k < kFillPer; ++k) {
+    const int q = w[k] + lo;
+    src[k] = q < tile ? prev * tile + q : blk * tile + (q - tile);
+  }
+  for (long long b = 0; b < batch; ++b) {
+    const T* xb = x + b * P;
+    T* ob = out + b * P + c0;
+#pragma unroll
+    for (int k = 0; k < kFillPer; ++k)
+      if (k < per) ob[threadIdx.x + k * blockDim.x] = xb[src[k]];
+  }
+}
+
 template <typename T, int kOp>
 __global__ void seg_wide_pass(const T* __restrict__ x,
                               T* __restrict__ out,
@@ -169,19 +245,24 @@ __global__ void seg_wide_pass(const T* __restrict__ x,
 }
 
 template <typename T, int kOp>
+int launch_wide(const T* x, T* out, const int* dist, long long P,
+                long long batch, int d, cudaStream_t stream) {
+  long long blocks = (P + kWideThreads - 1) / kWideThreads;
+  if (blocks > (1LL << 20)) blocks = 1LL << 20;
+  dim3 grid((unsigned)blocks, (unsigned)batch);
+  seg_wide_pass<T, kOp><<<grid, kWideThreads, 0, stream>>>(x, out, dist, P,
+                                                           d);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int kOp>
 int launch_op(const void* x, void* out, const int* dist, long long P,
               long long batch, int tile, int n_stages, const Dists& ds,
               bool wide, cudaStream_t stream) {
   const T* xt = static_cast<const T*>(x);
   T* ot = static_cast<T*>(out);
-  if (wide) {
-    long long blocks = (P + kWideThreads - 1) / kWideThreads;
-    if (blocks > (1LL << 20)) blocks = 1LL << 20;
-    dim3 grid((unsigned)blocks, (unsigned)batch);
-    seg_wide_pass<T, kOp><<<grid, kWideThreads, 0, stream>>>(xt, ot, dist,
-                                                             P, ds.d[0]);
-    return (int)cudaGetLastError();
-  }
+  if (wide)
+    return launch_wide<T, kOp>(xt, ot, dist, P, batch, ds.d[0], stream);
   const int elems = 2 * tile;
   const size_t smem = (size_t)elems * sizeof(T);
   static bool configured = false;
@@ -201,6 +282,35 @@ int launch_op(const void* x, void* out, const int* dist, long long P,
 }
 
 template <typename T>
+int launch_fill(const void* x, void* out, const int* dist, long long P,
+                long long batch, int tile, int n_stages, const Dists& ds,
+                bool wide, cudaStream_t stream) {
+  const T* xt = static_cast<const T*>(x);
+  T* ot = static_cast<T*>(out);
+  if (wide)
+    return launch_wide<T, kFill>(xt, ot, dist, P, batch, ds.d[0], stream);
+  long long sum = 0;
+  for (int j = 0; j < n_stages; ++j) sum += ds.d[j];
+  const bool wrap = sum >= tile;
+  const int chunk = tile < kFillThreads * kFillPer ? tile
+                                                   : kFillThreads * kFillPer;
+  const int threads = chunk < kFillThreads ? chunk : kFillThreads;
+  int log2_tile = 0;
+  while ((1 << log2_tile) < tile) ++log2_tile;
+  const size_t smem = (wrap ? 2 * (size_t)tile : chunk + sum) * sizeof(int);
+  const unsigned grid = (unsigned)(P / chunk);
+  if (wrap)
+    fill_walk_pass<T, true><<<grid, threads, smem, stream>>>(
+        xt, ot, dist, P, batch, log2_tile, chunk, chunk / threads, n_stages,
+        ds, 0);
+  else
+    fill_walk_pass<T, false><<<grid, threads, smem, stream>>>(
+        xt, ot, dist, P, batch, log2_tile, chunk, chunk / threads, n_stages,
+        ds, (int)sum);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
 int launch(int op, const void* x, void* out, const int* dist, long long P,
            long long batch, int tile, int n_stages, const Dists& ds,
            bool wide, cudaStream_t stream) {
@@ -215,8 +325,8 @@ int launch(int op, const void* x, void* out, const int* dist, long long P,
       return launch_op<T, kMax>(x, out, dist, P, batch, tile, n_stages, ds,
                                 wide, stream);
     case kFill:
-      return launch_op<T, kFill>(x, out, dist, P, batch, tile, n_stages, ds,
-                                 wide, stream);
+      return launch_fill<T>(x, out, dist, P, batch, tile, n_stages, ds, wide,
+                            stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

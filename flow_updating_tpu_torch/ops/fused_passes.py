@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -317,6 +318,119 @@ def wide2_pass_plain(x3: torch.Tensor, plane: torch.Tensor, ps: PassSpec,
 
 
 # ---------------------------------------------------------------------------
+# kernel B3's local schedule: bit roles
+# ---------------------------------------------------------------------------
+#
+# The local kernel holds a tile of 2^n words in registers.  A word's slot
+# is ``k | lane << r | warp << (r + l)``: r = 4 register bits (16 words a
+# thread), l = 5 lane bits, and the rest warp bits (fewer lanes and no
+# warp bits below a 1,024-element tile).  A layout gives each slot bit the
+# position bit it holds.  A stage at distance 2^b runs where b is a
+# register bit (a select between two registers) or a lane bit (a warp
+# shuffle), never a warp bit; between two layouts the words pass once
+# through shared memory.  Lane bits are always 5 consecutive position
+# bits, which keeps the kernel's swizzled shared-memory accesses free of
+# bank conflicts, and a layout whose lanes start at position 0 writes the
+# tile to device memory coalesced.
+
+REG_BITS = 4
+LANE_BITS = 5
+#: ints in the schedule array the kernel reads (benes_pass.cu, kSchedInts)
+SCHED_INTS = 1 + 2 * MAX_STAGES_PER_PASS + (MAX_STAGES_PER_PASS + 2) * 12
+
+
+@dataclasses.dataclass(frozen=True)
+class LocalSchedule:
+    """How B3's local kernel runs one stage list on a tile of ``2**n``
+    words: segments of stages, each run in one layout."""
+
+    n: int
+    reg_bits: int        # r: 2**r words per thread
+    lane_bits: int       # l: 2**l lanes; the remaining bits are warps
+    seg_end: tuple       # the first stage after each segment
+    slots: tuple         # per stage, the slot bit it runs on
+    layouts: tuple       # load, one per segment, store: for each slot bit
+    #                      (registers, lanes, warps) the position bit
+
+    @property
+    def exchanges(self) -> int:
+        """Passes of each batch row through shared memory."""
+        return sum(a != b for a, b in zip(self.layouts, self.layouts[1:]))
+
+    @functools.cached_property
+    def c_ints(self):
+        """The int array ``benes_pass`` takes for a local pass."""
+        a = (ctypes.c_int * SCHED_INTS)()
+        a[0] = len(self.seg_end)
+        a[1: 1 + len(self.seg_end)] = self.seg_end
+        base = 1 + MAX_STAGES_PER_PASS
+        a[base: base + len(self.slots)] = self.slots
+        for s, lay in enumerate(self.layouts):
+            at = 1 + 2 * MAX_STAGES_PER_PASS + 12 * s
+            a[at: at + self.n] = lay
+        return a
+
+
+def _fit_layout(bits, n: int, r: int, l: int):
+    """A layout in which every bit of ``bits`` is a register or a lane
+    bit, its lanes starting as low as they can; None if there is none.
+    Spare register bits take the highest free positions."""
+    for lo in range(n - l + 1):
+        lanes = list(range(lo, lo + l))
+        regs = sorted(set(bits).difference(lanes))
+        if len(regs) > r:
+            continue
+        free = [b for b in range(n - 1, -1, -1)
+                if b not in regs and not lo <= b < lo + l]
+        regs = sorted(regs + free[: r - len(regs)])
+        warps = [b for b in range(n) if b not in regs and not lo <= b < lo + l]
+        return tuple(regs + lanes + warps)
+    return None
+
+
+@functools.lru_cache(maxsize=256)
+def plan_local_schedule(dists: tuple, tile: int) -> LocalSchedule:
+    """Cut a local pass's stage list into segments, each as long as its
+    distinct bits fit one layout (greedy, so the fewest segments).  The
+    tile comes in through shared memory in the first segment's layout and
+    goes out to device memory in the last one's when that is coalesced
+    (lanes from position 0), else in a coalesced layout of its own."""
+    n = tile.bit_length() - 1
+    if tile < 2 or tile != 1 << n or tile > MAX_TILE:
+        raise ValueError(f"local pass: tile of {tile} elements is not a "
+                         f"power of two in [2, {MAX_TILE}]")
+    if not 1 <= len(dists) <= MAX_STAGES_PER_PASS:
+        raise ValueError(f"local pass: {len(dists)} stages, the kernel "
+                         f"takes 1 to {MAX_STAGES_PER_PASS}")
+    bits = []
+    for d in dists:
+        if d <= 0 or d >= tile or d & (d - 1):
+            raise ValueError(f"local stage distance {d} is not a power of "
+                             f"two below the tile ({tile})")
+        bits.append(d.bit_length() - 1)
+    r = min(REG_BITS, n)
+    l = min(LANE_BITS, n - r)
+    seg_end, segs = [], []
+    start = 0
+    while start < len(bits):
+        end = start + 1
+        while (end < len(bits)
+               and _fit_layout(bits[start: end + 1], n, r, l) is not None):
+            end += 1
+        seg_end.append(end)
+        segs.append(_fit_layout(bits[start:end], n, r, l))
+        start = end
+    slots = tuple(lay.index(b)
+                  for lay, lo, hi in zip(segs, [0] + seg_end, seg_end)
+                  for b in bits[lo:hi])
+    last = segs[-1]
+    if l and last[r] != 0:
+        last = _fit_layout((), n, r, l)
+    return LocalSchedule(n=n, reg_bits=r, lane_bits=l, seg_end=tuple(seg_end),
+                         slots=slots, layouts=(segs[0], *segs, last))
+
+
+# ---------------------------------------------------------------------------
 # kernel B3 wrappers
 # ---------------------------------------------------------------------------
 
@@ -342,13 +456,16 @@ def _launch(x3: torch.Tensor, plane: torch.Tensor, ps: PassSpec,
         raise ValueError(f"{what}: tile of {geom.tile} elements exceeds the "
                          f"kernel's {MAX_TILE}; plan with block_rows <= "
                          f"{MAX_TILE // LANE}")
+    sched = (plan_local_schedule(ps.dists, geom.tile).c_ints
+             if ps.kind == "local" else None)
     out = torch.empty_like(x3)
     dists = (ctypes.c_int * max(len(ps.dists), 1))(*ps.dists)
     fn = kernels.library("benes_pass").benes_pass
     kernels.check(fn(_KIND_CODE[ps.kind], x3.element_size(), x3.data_ptr(),
                      out.data_ptr(), plane.data_ptr(), geom.P, x3.shape[0],
                      geom.tile, len(ps.dists) if staged else 0, dists,
-                     ps.block_dist, ps.block_dist2, kernels.stream_ptr(x3)),
+                     ps.block_dist, ps.block_dist2, sched,
+                     kernels.stream_ptr(x3)),
                   what)
     return out
 

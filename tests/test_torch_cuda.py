@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
 Every test here needs an NVIDIA GPU with ``nvcc`` and skips without one
-(kernels K1, K2, the four flavours of B3, B4's scan and fill, B5 and B6;
+(kernels K1, K2, the four flavours of B3 — the local one at every tile —,
+B4's scan and fill, B5 and B6;
 the edge kernel's Beneš routes, the sharded banded round and the halo
 edge round on the card).
 This file imports no JAX, so it also runs where JAX is absent, without the
@@ -160,6 +161,40 @@ def test_benes_pass_kernel_matches_plain(card, flavour, dtype, batch):
     assert torch.equal(got, fp.PLAIN_FNS[flavour](x, plane, ps, geom))
 
 
+_K160_LOCAL = tuple(1 << b for b in [*range(11, -1, -1), *range(1, 12)])
+
+
+@pytest.mark.parametrize("log2_tile", range(1, 13))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.int32])
+@pytest.mark.parametrize("batch", [1, 3])
+def test_local_pass_kernel_every_tile(card, log2_tile, dtype, batch):
+    """B3's local kernel against local_pass_plain at every tile from 2 to
+    4,096 elements: random lists of 1 to 32 stages with repeats, random
+    mask words (any bit), and at 4,096 the k=160 list of 23 stages; one
+    launch per pass."""
+    from flow_updating_tpu_torch.ops import fused_passes as fp
+
+    tile = 1 << log2_tile
+    geom = (fp.geometry(tile) if tile < 128
+            else fp.geometry(4 * tile, block_rows=tile // 128))
+    rng = np.random.default_rng(log2_tile)
+    lists = [tuple(1 << int(b) for b in rng.integers(0, log2_tile, size=k))
+             for k in (1, 5, 17, 32)]
+    if tile == 4096:
+        lists.append(_K160_LOCAL)
+    for dists in lists:
+        ps = fp.PassSpec(kind="local", dists=dists, block_dist=0)
+        plane = torch.from_numpy(rng.integers(
+            -2**31, 2**31, geom.P, dtype=np.int64).astype(np.int32)).to(card)
+        x = torch.from_numpy(rng.normal(size=(batch, geom.grid, tile))
+                             * 1000).to(card, dtype)
+        before = fp.local_pass.launches
+        got = fp.local_pass(x, plane, ps, geom)
+        assert fp.local_pass.launches == before + 1
+        assert torch.equal(got, fp.local_pass_plain(x, plane, ps, geom))
+
+
 @pytest.mark.parametrize("log2n,block_rows", [(16, None), (13, 16),
                                               (6, None), (9, None)])
 def test_apply_fused_on_card_equals_apply_stages(card, log2n, block_rows):
@@ -269,6 +304,30 @@ def test_seg_scan_kernel_matches_plain(card, op, dtype, batch):
         ref = fp.segscan_pass_plain(x, dist, dists, op, geom)
         assert fp.segscan_pass.launches - before == 1
     assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.int32])
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("n_stages", [8, 13])
+def test_fill_kernel_on_a_random_plane(card, dtype, batch, n_stages):
+    """B4's fill on a dist plane that is no rank plane (random words, any
+    bit): equal to fill_pass_plain, one launch per pass (13 stages: two
+    window passes and a wide one)."""
+    from flow_updating_tpu_torch.ops import fused_passes as fp
+
+    rng = np.random.default_rng(7)
+    P = 1 << 16
+    geom = fp.geometry(P)
+    dist = torch.from_numpy(rng.integers(-2**31, 2**31, P, dtype=np.int64)
+                            .astype(np.int32)).to(card)
+    dists = tuple(1 << k for k in range(n_stages))
+    x = _payload(rng, (batch, P), dtype).to(card)
+    before = fp.fill_pass.launches
+    got = fp.fill_pass(x, dist, dists, geom)
+    assert (fp.fill_pass.launches - before
+            == len(fp.plan_dist_passes(dists, geom)))
+    assert torch.equal(got, fp.fill_pass_plain(x, dist, dists, geom))
 
 
 @pytest.mark.parametrize("op", ["sum", "min", "fill"])
