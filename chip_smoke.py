@@ -31,9 +31,11 @@ and prints one JSON line per phase:
    network) on the fat tree's network (P = 2^23): the routing time, the
    passes per flavour, each flavour on a real pass of the plan
    ``torch.equal`` to its plain version in float32 and float64 (and with a
-   batch of 3), the local flavour also at every tile from 2 to 4,096 on
-   random stage lists, and the whole plan ``torch.equal`` to the
-   per-stage executor;
+   batch of 3), the local, window and wide2 flavours also at every tile
+   from 2 to 4,096 on random stage lists and planes, the whole plan
+   ``torch.equal`` to the per-stage executor, and the device time of
+   every window pass of the plan and of its first wide2 passes (roll and
+   swap) at a batch of 3;
 8. ``path_c``  — ``Engine`` with ``spmv='benes_fused'`` on the fat tree:
    ms/round, B3 launches == rounds x passes (per flavour too), rmse,
    estimates ``torch.equal`` to ``spmv='benes'`` and ``spmv='xla'`` runs
@@ -260,12 +262,13 @@ def bound(nbytes: int, ops: int) -> dict:
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
-#: B3's flavours: (row name, wrapper in ops/fused_passes.py, CUDA kernel
-#: name, line of the TPU kernel in flow_updating_tpu/ops/pallas_fused.py)
+#: B3's flavours: (row name, wrapper in ops/fused_passes.py, what the
+#: names of its CUDA kernels hold, line of the TPU kernel in
+#: flow_updating_tpu/ops/pallas_fused.py)
 B3_FLAVOURS = (("local", "local_pass", "butterfly_pass", 292),
-               ("window", "window_pass", "staged_pass", 323),
+               ("window", "window_pass", "window_walk_pass", 323),
                ("wide", "wide_pass", "wide_pass", 356),
-               ("wide2", "wide2_pass", "wide2_pass", 387))
+               ("wide2", "wide2_pass", "wide2_", 387))
 
 
 #: B4's flavours: (row name, wrapper in ops/fused_passes.py, line of the
@@ -275,8 +278,9 @@ B4_FLAVOURS = (("scan", "segscan_pass", 475), ("fill", "fill_pass", 513))
 
 #: the hand-written kernels' CUDA function names, by kernel (profile)
 KERNEL_FAMILIES = {"K1": ("spmv_ell_",), "K2": ("fused_round_kernel",),
-                   "B3": ("::butterfly_pass<", "::staged_pass<",
-                          "::wide_pass<", "::wide2_pass<"),
+                   "B3": ("::butterfly_pass<", "::window_walk_pass<",
+                          "::wide_pass<", "::wide2_swap_group<",
+                          "::wide2_roll_chain<", "::wide2_roll_gather<"),
                    "B4": ("::seg_window_pass<", "::fill_walk_pass<",
                           "::seg_wide_pass<"),
                    "B5": ("::sharded_fire_kernel<",
@@ -629,7 +633,17 @@ def phase_k3(topo, dev):
     sched = fp.plan_local_schedule(local.dists, geom.tile)
     out["flavours"]["local"]["schedule"] = {
         "segment_ends": list(sched.seg_end), "exchanges": sched.exchanges}
+    out["window_passes"] = [
+        pass_timing(fused.passes[i], planes[i], i, geom, 1, rng, dev)
+        for i, ps in enumerate(fused.passes) if ps.kind == "window"]
+    out["wide2_batch3"] = [
+        pass_timing(fused.passes[i], planes[i], i, geom, 3, rng, dev)
+        for i in (next(i for i, ps in enumerate(fused.passes)
+                       if ps.kind == kind)
+                  for kind in ("wide_roll2", "wide_swap2"))]
     out["local_tiles"] = local_tile_sweep(rng, dev)
+    out["window_tiles"] = window_tile_sweep(rng, dev)
+    out["wide2_tiles"] = wide2_tile_sweep(rng, dev)
     # the whole network: every pass against the per-stage executor
     masks = stages.to(dev)
     for dt in (torch.float32, torch.float64):
@@ -657,6 +671,122 @@ def phase_k3(topo, dev):
     del masks
     torch.cuda.empty_cache()
     return out
+
+
+def pass_timing(ps, plane, i, geom, batch, rng, dev) -> dict:
+    """One B3 pass of the k=160 plan at ``batch`` float32 rows: ``ms``
+    (profiler device time of its kernel), ``call_ms``, ``library_ms``
+    (``index_select`` of every row with the pass's source index) and
+    ``bound_ms``, after ``torch.equal`` to its plain version."""
+    import torch
+
+    from flow_updating_tpu_torch.ops import fused_passes as fp
+
+    name = b3_family(ps.kind)
+    wrapper = fp.PASS_FNS[ps.kind]
+    kernel = next(k for n, _, k, _ in B3_FLAVOURS if n == name)
+    shape = (batch, geom.grid, geom.tile)
+    x = torch.from_numpy(rng.uniform(-1.0, 1.0, shape)).to(dev,
+                                                           torch.float32)
+    if not torch.equal(wrapper(x, plane, ps, geom),
+                       fp.PLAIN_FNS[ps.kind](x, plane, ps, geom)):
+        raise AssertionError(f"B3 {name} pass {i} (batch {batch}) differs "
+                             "from its plain version")
+    idx = torch.arange(geom.P, device=dev).reshape(1, *shape[1:])
+    src = wrapper(idx, plane, ps, geom).reshape(geom.P)
+    xf = x.reshape(batch, geom.P)
+    return {"pass": i, "kind": ps.kind, "stages": len(ps.dists),
+            "dists": list(ps.dists), "batch": batch,
+            "ms": device_ms(lambda: wrapper(x, plane, ps, geom), kernel),
+            "call_ms": cuda_ms(lambda: wrapper(x, plane, ps, geom)),
+            "library_ms": device_ms(
+                lambda: torch.index_select(xf, 1, src)),
+            **bound(fp.pass_min_bytes(ps, geom, batch, 4), 0)}
+
+
+def _tiles_geometry(tile: int, grid: int):
+    """``grid`` tiles of ``tile`` elements (below a row of 128 too: the
+    kernels take any power-of-two tile)."""
+    from flow_updating_tpu_torch.ops import fused_passes as fp
+
+    return fp.Geometry(P=grid * tile, rows=max(grid * tile // 128, 1),
+                       block_rows=max(tile // 128, 1), grid=grid)
+
+
+def window_tile_sweep(rng, dev) -> list:
+    """B3's window kernel at every tile from 2 to 4,096 elements (four
+    tiles) on random lists of 1 and 32 roll distances below the window,
+    random mask words, float32 and float64 at batch 1 and 3, each
+    ``torch.equal`` to its plain version; returns the tiles."""
+    import numpy as np
+    import torch
+
+    from flow_updating_tpu_torch.ops import fused_passes as fp
+
+    tiles = []
+    for n in range(1, 13):
+        tile = 1 << n
+        geom = _tiles_geometry(tile, 4)
+        for k in (1, fp.MAX_STAGES_PER_PASS):
+            dists = tuple(int(d) for d in rng.integers(1, 2 * tile, size=k))
+            ps = fp.PassSpec(kind="window", dists=dists, block_dist=0)
+            plane = torch.from_numpy(rng.integers(
+                -2**31, 2**31, geom.P, dtype=np.int64).astype(np.int32)
+            ).to(dev)
+            for dt in (torch.float32, torch.float64):
+                for batch in (1, 3):
+                    x = torch.from_numpy(rng.uniform(
+                        -1.0, 1.0, (batch, geom.grid, tile))).to(dev, dt)
+                    if not torch.equal(
+                            fp.window_pass(x, plane, ps, geom),
+                            fp.window_pass_plain(x, plane, ps, geom)):
+                        raise AssertionError(
+                            f"B3 window ({dt}, batch {batch}) differs from "
+                            f"its plain version at tile {tile}, stages "
+                            f"{dists}")
+        tiles.append(tile)
+    return tiles
+
+
+#: wide2 sweep cases (kind, D1, D2, tiles): roll chains, the general
+#: roll form, swap groups of four and of two tiles
+WIDE2_SWEEP = (("wide_roll2", 2, 1, 20), ("wide_roll2", 1, 2, 20),
+               ("wide_roll2", 3, 3, 20), ("wide_roll2", 7, 3, 20),
+               ("wide_swap2", 4, 1, 16), ("wide_swap2", 2, 2, 8))
+
+
+def wide2_tile_sweep(rng, dev) -> list:
+    """B3's wide2 kernels at every tile from 2 to 4,096 elements over
+    :data:`WIDE2_SWEEP`, random int8 mask planes, float32 and float64 at
+    batch 1 and 3, each ``torch.equal`` to its plain version; returns
+    the tiles."""
+    import numpy as np
+    import torch
+
+    from flow_updating_tpu_torch.ops import fused_passes as fp
+
+    tiles = []
+    for n in range(1, 13):
+        tile = 1 << n
+        for kind, d1, d2, grid in WIDE2_SWEEP:
+            geom = _tiles_geometry(tile, grid)
+            ps = fp.PassSpec(kind=kind, dists=(d1 * tile, d2 * tile),
+                             block_dist=d1, block_dist2=d2)
+            plane = torch.from_numpy(rng.integers(
+                -128, 128, geom.P).astype(np.int8)).to(dev)
+            for dt in (torch.float32, torch.float64):
+                for batch in (1, 3):
+                    x = torch.from_numpy(rng.uniform(
+                        -1.0, 1.0, (batch, grid, tile))).to(dev, dt)
+                    if not torch.equal(
+                            fp.wide2_pass(x, plane, ps, geom),
+                            fp.wide2_pass_plain(x, plane, ps, geom)):
+                        raise AssertionError(
+                            f"B3 {kind} ({dt}, batch {batch}) differs from "
+                            f"its plain version at tile {tile}, D1 {d1}, "
+                            f"D2 {d2}")
+        tiles.append(tile)
+    return tiles
 
 
 def local_tile_sweep(rng, dev) -> list:

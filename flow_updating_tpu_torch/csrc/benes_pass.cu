@@ -51,24 +51,59 @@
 //    instructions (a bit test and a select per word and stage, plus the
 //    shuffles), so the blocks are persistent and copy the next (tile,
 //    row) in with cp.async while they compute the current one.
-//  * window (staged_pass<T, true>) stages its window of 2*tile elements
-//    in shared memory and keeps each thread's mask words and current
-//    values in registers: one trip through HBM and two __syncthreads()
-//    per stage.  The template still carries the former local branch;
-//    only the window instantiation is launched.
-//  * wide, wide2 are coalesced elementwise kernels that read only the
-//    one source word each mask selects.
-//
+//  * window (window_walk_pass).  A window pass only moves data, so each
+//    output has exactly one source, and the kernel finds it first: from
+//    w = tile + (p mod tile), for the stages from last to first, w =
+//    (w - d_j) mod 2*tile where bit j of the mask word at window position
+//    w is set.  Then out[b, p] = x[b, g(w)] for every batch row b, g
+//    mapping a window position to its global index.  That is the stage
+//    loop read backwards, so it is exact on any mask plane and any list
+//    of distances below 2*tile, tile 0 and the wrap inside the window
+//    included.  Staging the window of x and running every stage over it
+//    costs a trip through shared memory and two barriers per stage; here
+//    the batch rows share one walk, each row costs one read of x at the
+//    walks' ends (scattered inside the window, served by L2; staging each
+//    row's window of x in shared memory instead measured slower, PERF.md)
+//    and one coalesced write, and the mask words go to shared memory once
+//    a tile: the blocks are persistent and walk consecutive tiles, so a
+//    tile's words serve its own outputs and then the next tile's [prev]
+//    half, and the next tile's come in by cp.async during this one's
+//    walk.  (B4's fill walks the same way, seg_scan.cu.)
+//  * wide (wide_pass) is a coalesced elementwise kernel that reads only
+//    the one source word its mask selects.
+//  * wide2.  One element a thread, with a dependent mask read and a
+//    dependent source read, leaves too few bytes in flight, and a warp's
+//    sources fall in up to four tiles.  So each thread moves 16
+//    bytes (a vector of N words; N = 1 below a 16-byte tile or on
+//    unaligned pointers) of consecutive offsets, reads each x and mask
+//    vector once, issues every load before it selects, and serves every
+//    batch row from one mask read:
+//    - swap kinds (wide2_swap_group): the tiles {i, i^D1, i^D2, i^D1^D2}
+//      are closed under both stages, so a thread owns the same offsets
+//      in all four (two when D1 == D2) and writes all of their outputs;
+//    - roll kinds (wide2_roll_chain): output tile i reads tiles i, i-D1,
+//      i-D2 and i-D1-D2 (clamped at tile 0), all on the chain of tiles
+//      congruent to i mod g = gcd(D1, D2).  A thread walks kWide2Seg
+//      steps of one chain with the last (D1 + D2)/g source vectors in
+//      registers, after loading the segment's predecessors (tile 0's only
+//      where a mask selects a clamped source), for D1 : D2 = 1 : 1, 1 : 2
+//      or 2 : 1 (what the planners make) with g below the tile count;
+//    - wide2_roll_gather, for the other rolls: one vector of outputs
+//      a thread, its own and its D2 partner's mask vectors read up front,
+//      then one load per element from the tile its bits select.
+
 // Plain C interface, loaded with ctypes (flow_updating_tpu_torch/kernels).
 
 #include <cuda_runtime.h>
+
+#include <mutex>
+#include <vector>
 
 namespace {
 
 constexpr int kMaxStages = 32;
 constexpr int kThreads = 512;
-constexpr int kMaxPer = 16;                      // window words per thread
-constexpr long long kMaxTile = kThreads * kMaxPer / 2;   // 4096 elements
+constexpr long long kMaxTile = 4096;             // elements
 constexpr int kWideThreads = 256;
 
 struct Dists {
@@ -83,65 +118,6 @@ enum Kind {
   kWideSwap2 = 4,
   kWideRoll2 = 5,
 };
-
-template <typename T, bool kIsWindow>
-__global__ void __launch_bounds__(kThreads)
-staged_pass(const T* __restrict__ x, T* __restrict__ out,
-            const unsigned* __restrict__ mask, long long P, int tile,
-            int n_stages, Dists ds) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* s = reinterpret_cast<T*>(smem_raw);
-  const int elems = kIsWindow ? 2 * tile : tile;
-  const int wrap = elems - 1;  // elems is a power of two
-  const long long blk = blockIdx.x;
-  const long long prev = blk > 0 ? blk - 1 : 0;
-  const T* xb = x + (long long)blockIdx.y * P;
-  T v[kMaxPer];
-  unsigned m[kMaxPer];
-#pragma unroll
-  for (int k = 0; k < kMaxPer; ++k) {
-    const int q = threadIdx.x + k * blockDim.x;
-    if (q < elems) {
-      long long g;
-      if (kIsWindow)
-        g = q < tile ? prev * tile + q : blk * tile + (q - tile);
-      else
-        g = blk * tile + q;
-      v[k] = xb[g];
-      m[k] = mask[g];
-      s[q] = v[k];
-    }
-  }
-  __syncthreads();
-  for (int j = 0; j < n_stages; ++j) {
-    const int d = ds.d[j];
-#pragma unroll
-    for (int k = 0; k < kMaxPer; ++k) {
-      const int q = threadIdx.x + k * blockDim.x;
-      if (q < elems && ((m[k] >> j) & 1u))
-        v[k] = kIsWindow ? s[(q - d) & wrap] : s[q ^ d];
-    }
-    if (j + 1 < n_stages) {
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < kMaxPer; ++k) {
-        const int q = threadIdx.x + k * blockDim.x;
-        if (q < elems) s[q] = v[k];
-      }
-      __syncthreads();
-    }
-  }
-  T* ob = out + (long long)blockIdx.y * P + blk * tile;
-#pragma unroll
-  for (int k = 0; k < kMaxPer; ++k) {
-    const int q = threadIdx.x + k * blockDim.x;
-    if (kIsWindow) {
-      if (q >= tile && q < elems) ob[q - tile] = v[k];
-    } else if (q < elems) {
-      ob[q] = v[k];
-    }
-  }
-}
 
 // ---- local: butterfly_pass -------------------------------------------------
 
@@ -426,6 +402,56 @@ bool parse_schedule(const int* in, int n, int n_stages, const int* dists,
   return j == n_stages;
 }
 
+// Persistent launches: as many blocks of `threads` as fit on the card
+// with `smem` bytes of dynamic shared memory each, at most one a tile.
+// The first launch of a shape on a device raises the kernel's
+// shared-memory limit to `max_smem` and queries the SM count and the
+// blocks per SM; later ones read them from this cache, so a launch makes
+// no device query.  Kernels, tiles and schedules are few, so the cache
+// stays small.
+struct GridShape {
+  int dev;
+  const void* kernel;
+  int threads;
+  size_t smem;
+  long long blocks;  // resident blocks on the card
+};
+
+int persistent_grid(const void* kernel, int threads, size_t smem,
+                    size_t max_smem, long long tiles, unsigned* grid) {
+  static std::mutex lock;
+  static std::vector<GridShape> cache;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  long long blocks = 0;
+  {
+    std::lock_guard<std::mutex> hold(lock);
+    for (const GridShape& c : cache)
+      if (c.dev == dev && c.kernel == kernel && c.threads == threads &&
+          c.smem == smem)
+        blocks = c.blocks;
+    if (blocks == 0) {
+      int sms = 0, per_sm = 0;
+      err = cudaFuncSetAttribute(kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)max_smem);
+      if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+      if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                            threads, smem);
+      if (err != cudaSuccess) return (int)err;
+      if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+      blocks = (long long)sms * per_sm;
+      cache.push_back({dev, kernel, threads, smem, blocks});
+    }
+  }
+  *grid = (unsigned)(tiles < blocks ? tiles : blocks);
+  return 0;
+}
+
 template <typename W, int R>
 int launch_butterfly_r(const void* x, void* out, const void* mask,
                        long long P, long long batch, int tile,
@@ -434,31 +460,15 @@ int launch_butterfly_r(const void* x, void* out, const void* mask,
   const size_t tiles_bytes = 2 * (2 * sizeof(W) + sizeof(unsigned));
   const size_t smem = (size_t)tile * tiles_bytes +
                       (size_t)(sc.n_seg + 3) * kBaseStride * sizeof(int);
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        butterfly_pass<W, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)(kMaxTile * tiles_bytes +
-              (kLayouts + 1) * kBaseStride * sizeof(int)));
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
-  }
-  // persistent: as many blocks as fit on the card, at most one a tile
   const int threads = tile >> R;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, butterfly_pass<W, R>, threads, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const long long tiles = P / tile;
-  const long long grid =
-      tiles < (long long)sms * per_sm ? tiles : (long long)sms * per_sm;
+  unsigned grid = 0;
+  if (int err = persistent_grid(
+          reinterpret_cast<const void*>(butterfly_pass<W, R>), threads, smem,
+          kMaxTile * tiles_bytes + (kLayouts + 1) * kBaseStride * sizeof(int),
+          P / tile, &grid))
+    return err;
   const unsigned lanes = threads < 32 ? (1u << threads) - 1 : 0xffffffffu;
-  butterfly_pass<W, R><<<(unsigned)grid, threads, smem, stream>>>(
+  butterfly_pass<W, R><<<grid, threads, smem, stream>>>(
       static_cast<const W*>(x), static_cast<W*>(out),
       static_cast<const unsigned*>(mask), P, batch, lanes, sc);
   return (int)cudaGetLastError();
@@ -475,6 +485,165 @@ int launch_butterfly(const void* x, void* out, const void* mask, long long P,
   if (sc.n == 3)
     return launch_butterfly_r<W, 3>(x, out, mask, P, batch, tile, sc, stream);
   return launch_butterfly_r<W, 4>(x, out, mask, P, batch, tile, sc, stream);
+}
+
+// ---- window: window_walk_pass ---------------------------------------------
+
+constexpr int kWalkThreads = 256;
+constexpr int kWalkMinBlocks = 2;   // resident blocks per SM (register cap)
+constexpr int kWalkPer = 16;        // outputs per thread: a 4,096-word tile
+constexpr int kRing = 4;            // mask tiles in shared memory
+
+template <int Pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
+}
+
+// Copies mask tile t (tile words) to `to`: 16-byte copies where the tile
+// and the plane allow (vec16), else 4-byte ones.
+__device__ __forceinline__ void fetch_tile(unsigned* to,
+                                           const unsigned* mask, long long t,
+                                           int tile, bool vec16) {
+  const unsigned* from = mask + t * tile;
+  if (vec16) {
+    for (int q = 4 * threadIdx.x; q < tile; q += 4 * blockDim.x)
+      cp_async<16>(to + q, from + q);
+  } else {
+    for (int q = threadIdx.x; q < tile; q += blockDim.x)
+      cp_async<4>(to + q, from + q);
+  }
+}
+
+// Persistent: block j walks the tiles [t0, t1) of an even split, in
+// order, one output per thread and e (per <= kWalkPer).  The mask tiles
+// sit in a ring of kRing tiles in shared memory, tile t0 + k in slot k
+// mod kRing, so tile i's window [prev; own] is contiguous there (mod the
+// ring): slot k - 1 holds tile i - 1 (tile 0 again when i = 0), which
+// tile i - 1's walk used as its own half.  cp.async copies tiles i + 1
+// and i + 2 in while tile i is walked and gathered; the gather reads x
+// from device memory (L2 serves the window).  kWrap: a walk may wrap
+// inside the window (sum(d) >= tile), so it runs in window positions mod
+// 2 * tile; else in ring positions, where it stays inside the window and
+// a move costs two fewer integer operations (measured faster on every
+// float32 window pass of the k=160 plan, PERF.md).
+template <typename W, bool kWrap>
+__global__ void __launch_bounds__(kWalkThreads, kWalkMinBlocks)
+window_walk_pass(const W* __restrict__ x, W* __restrict__ out,
+                 const unsigned* __restrict__ mask, long long P,
+                 long long batch, int log2_tile, int per, int n_stages,
+                 Dists ds, bool vec16) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int sdist[kMaxStages];
+  if (threadIdx.x == 0) {
+    // constant indices: a runtime index into the parameter would make
+    // every thread copy it to local memory
+#pragma unroll
+    for (int j = 0; j < kMaxStages; ++j) sdist[j] = ds.d[j];
+  }
+  const int tile = 1 << log2_tile;
+  const int ring = kRing * tile - 1;  // ring positions mod kRing * tile
+  const long long tiles = P >> log2_tile;
+  const long long t0 = tiles * blockIdx.x / gridDim.x;
+  const long long t1 = tiles * (blockIdx.x + 1) / gridDim.x;
+  unsigned* sm = reinterpret_cast<unsigned*>(smem_raw);
+  auto slot = [&](long long k) { return sm + (int)(k % kRing) * tile; };
+  // group 0: tile t0 and the one before it; group 1: tile t0 + 1
+  fetch_tile(slot(kRing - 1), mask, t0 > 0 ? t0 - 1 : 0, tile, vec16);
+  fetch_tile(slot(0), mask, t0, tile, vec16);
+  cp_async_commit();
+  if (t0 + 1 < t1) fetch_tile(slot(1), mask, t0 + 1, tile, vec16);
+  cp_async_commit();
+  for (long long i = t0, k = 0; i < t1; ++i, ++k) {
+    // slot k + 2 held tile i - 2, whose last reader (tile i - 1's walk)
+    // passed the barrier after it
+    if (i + 2 < t1) fetch_tile(slot(k + 2), mask, i + 2, tile, vec16);
+    cp_async_commit();
+    cp_async_wait<2>();  // tile i's group, and every one before it
+    __syncthreads();
+    // ring position of window position 0 (the prev half's first word)
+    const int base = (int)((k + kRing - 1) % kRing) * tile;
+    // each walk holds the mask word of its position and reads the next
+    // one only where it moves (fewer shared-memory reads, and fewer
+    // lanes to collide in a bank once small distances scatter them)
+    int w[kWalkPer];  // kWrap: window position; else ring position
+    unsigned word[kWalkPer];
+#pragma unroll
+    for (int e = 0; e < kWalkPer; ++e) {
+      const int q = tile + threadIdx.x + e * blockDim.x;
+      w[e] = kWrap ? q : (base + q) & ring;
+      word[e] = e < per ? sm[(base + q) & ring] : 0u;
+    }
+    for (int j = n_stages - 1; j >= 0; --j) {
+      const int d = sdist[j];
+      const unsigned bit = 1u << j;
+#pragma unroll
+      for (int e = 0; e < kWalkPer; ++e) {
+        if (!(word[e] & bit)) continue;
+        if (kWrap) {
+          w[e] = (w[e] - d) & (2 * tile - 1);
+          word[e] = sm[(base + w[e]) & ring];
+        } else {
+          w[e] = (w[e] - d) & ring;
+          word[e] = sm[w[e]];
+        }
+      }
+    }
+    __syncthreads();  // every walk is done with slot k - 1
+    // global index of window position q: (i - 1) * tile + q, or, for
+    // tile 0 (whose window repeats it), q mod tile
+    const long long row0 = i > 0 ? (i - 1) * tile : 0;
+    const int wrap0 = i > 0 ? 2 * tile - 1 : tile - 1;
+#pragma unroll
+    for (int e = 0; e < kWalkPer; ++e)
+      if (!kWrap) w[e] = (w[e] - base) & ring;
+    for (long long b = 0; b < batch; ++b) {
+      const W* xb = x + b * P;
+      W* ob = out + b * P + i * tile;
+      W v[kWalkPer];
+#pragma unroll
+      for (int e = 0; e < kWalkPer; ++e)
+        if (e < per) v[e] = xb[row0 + (w[e] & wrap0)];
+#pragma unroll
+      for (int e = 0; e < kWalkPer; ++e)
+        if (e < per) ob[threadIdx.x + e * blockDim.x] = v[e];
+    }
+  }
+}
+
+template <typename W, bool kWrap>
+int launch_window_as(const void* x, void* out, const void* mask, long long P,
+                     long long batch, int tile, int n_stages, const Dists& ds,
+                     cudaStream_t stream) {
+  const int threads = tile < kWalkThreads ? tile : kWalkThreads;
+  const size_t smem = kRing * (size_t)tile * sizeof(unsigned);
+  const size_t max_smem = kRing * (size_t)kMaxTile * sizeof(unsigned);
+  unsigned grid = 0;
+  if (int err = persistent_grid(
+          reinterpret_cast<const void*>(window_walk_pass<W, kWrap>), threads,
+          smem, max_smem, P / tile, &grid))
+    return err;
+  int log2_tile = 0;
+  while ((1 << log2_tile) < tile) ++log2_tile;
+  const bool vec16 =
+      tile % 4 == 0 && reinterpret_cast<size_t>(mask) % 16 == 0;
+  window_walk_pass<W, kWrap><<<grid, threads, smem, stream>>>(
+      static_cast<const W*>(x), static_cast<W*>(out),
+      static_cast<const unsigned*>(mask), P, batch, log2_tile,
+      tile / threads, n_stages, ds, vec16);
+  return (int)cudaGetLastError();
+}
+
+template <typename W>
+int launch_window(const void* x, void* out, const void* mask, long long P,
+                  long long batch, int tile, int n_stages, const Dists& ds,
+                  cudaStream_t stream) {
+  long long sum = 0;
+  for (int j = 0; j < n_stages; ++j) sum += ds.d[j];
+  if (sum >= tile)
+    return launch_window_as<W, true>(x, out, mask, P, batch, tile, n_stages,
+                                     ds, stream);
+  return launch_window_as<W, false>(x, out, mask, P, batch, tile, n_stages,
+                                    ds, stream);
 }
 
 // ---- wide, wide2 -----------------------------------------------------------
@@ -500,53 +669,299 @@ __global__ void wide_pass(const T* __restrict__ x, T* __restrict__ out,
   }
 }
 
-template <typename T, bool kSwap>
-__global__ void wide2_pass(const T* __restrict__ x, T* __restrict__ out,
-                           const signed char* __restrict__ mask, long long P,
-                           int shift, long long D1, long long D2) {
-  const T* xb = x + (long long)blockIdx.y * P;
-  T* ob = out + (long long)blockIdx.y * P;
-  const long long tmask = (1LL << shift) - 1;
-  for (long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       p < P; p += (long long)gridDim.x * blockDim.x) {
-    const long long i = p >> shift, t = p & tmask;
-    const signed char m = mask[p];
-    long long blk;
-    if (m & 2) {
-      // stage 2 takes stage 1's result at the D2 partner tile, whose own
-      // stage-1 bit decides between x there and x one more D1 away
-      const long long at2 = partner(i, D2, kSwap);
-      const bool m1_shift = (mask[(at2 << shift) | t] & 1) != 0;
-      blk = m1_shift ? (kSwap ? (i ^ D1 ^ D2) : partner(i, D1 + D2, false))
-                     : at2;
-    } else {
-      blk = (m & 1) ? partner(i, D1, kSwap) : i;
-    }
-    ob[p] = xb[(blk << shift) | t];
+// A thread's N consecutive words of one tile, moved as one load or store
+// (16 bytes, or N * sizeof(W) below that), and their N mask bytes.
+template <typename W, int N>
+struct alignas(N * sizeof(W)) Vec {
+  W w[N];
+};
+
+template <typename W, int N>
+__device__ __forceinline__ Vec<W, N> load_vec(const W* p) {
+  return *reinterpret_cast<const Vec<W, N>*>(p);
+}
+
+template <int N>
+__device__ __forceinline__ unsigned load_bytes(const signed char* p) {
+  if (N == 4) return *reinterpret_cast<const unsigned*>(p);
+  if (N == 2) return *reinterpret_cast<const unsigned short*>(p);
+  return *reinterpret_cast<const unsigned char*>(p);
+}
+
+// One output of a wide2 pass: m holds the own mask byte, m_at2 the D2
+// partner's (both in their low bits); own, at1, at2 and at12 the words
+// of the four source tiles at the output's offset.
+template <typename W>
+__device__ __forceinline__ W wide2_pick(unsigned m, unsigned m_at2, W own,
+                                        W at1, W at2, W at12) {
+  const W s1_own = (m & 1u) ? at1 : own;
+  const W s1_shift = (m_at2 & 1u) ? at12 : at2;
+  return (m & 2u) ? s1_shift : s1_own;
+}
+
+template <typename W, int N>
+__device__ __forceinline__ Vec<W, N> wide2_vec(unsigned m, unsigned m_at2,
+                                               const Vec<W, N>& own,
+                                               const Vec<W, N>& at1,
+                                               const Vec<W, N>& at2,
+                                               const Vec<W, N>& at12) {
+  Vec<W, N> o;
+#pragma unroll
+  for (int e = 0; e < N; ++e)
+    o.w[e] = wide2_pick(m >> (8 * e), m_at2 >> (8 * e), own.w[e], at1.w[e],
+                        at2.w[e], at12.w[e]);
+  return o;
+}
+
+// Thread t owns vector v = t mod (tile / N) of each tile of group t / (tile
+// / N): the group's lowest tile is the group number with zero bits
+// inserted at log2(D1) and log2(D2) (one bit when D1 == D2, kPair), its
+// members i0 ^ (k & 1 ? D1 : 0) ^ (k & 2 ? D2 : 0).
+template <typename W, int N, bool kPair>
+__global__ void __launch_bounds__(kWideThreads)
+wide2_swap_group(const W* __restrict__ x, W* __restrict__ out,
+                 const signed char* __restrict__ mask, long long P,
+                 long long batch, int log2_tile, int log2_vecs, int b1,
+                 int b2, long long total) {
+  constexpr int G = kPair ? 2 : 4;
+  constexpr int k2 = kPair ? 1 : 2;  // member of the D2 partner: k ^ k2
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= total) return;
+  const long long v = t & ((1LL << log2_vecs) - 1);
+  long long i0 = t >> log2_vecs;
+  const int lo_bit = b1 < b2 ? b1 : b2, hi_bit = b1 < b2 ? b2 : b1;
+  i0 = ((i0 >> lo_bit) << (lo_bit + 1)) | (i0 & ((1LL << lo_bit) - 1));
+  if (!kPair)
+    i0 = ((i0 >> hi_bit) << (hi_bit + 1)) | (i0 & ((1LL << hi_bit) - 1));
+  long long at[G];
+  unsigned m[G];
+#pragma unroll
+  for (int k = 0; k < G; ++k) {
+    const long long c = i0 ^ ((k & 1) ? 1LL << b1 : 0) ^
+                        ((k & 2) ? 1LL << b2 : 0);
+    at[k] = (c << log2_tile) + v * N;
+    m[k] = load_bytes<N>(mask + at[k]);
+  }
+  for (long long b = 0; b < batch; ++b) {
+    const W* xb = x + b * P;
+    W* ob = out + b * P;
+    Vec<W, N> xv[G];
+#pragma unroll
+    for (int k = 0; k < G; ++k) xv[k] = load_vec<W, N>(xb + at[k]);
+#pragma unroll
+    for (int k = 0; k < G; ++k)
+      *reinterpret_cast<Vec<W, N>*>(ob + at[k]) =
+          wide2_vec(m[k], m[k ^ k2], xv[k], xv[k ^ 1], xv[k ^ k2],
+                    xv[k ^ 1 ^ k2]);
   }
 }
 
-template <typename T, bool kIsWindow>
-int launch_staged(const void* x, void* out, const void* mask, long long P,
-                  long long batch, int tile, int n_stages, const Dists& ds,
-                  cudaStream_t stream) {
-  const int elems = kIsWindow ? 2 * tile : tile;
-  const size_t smem = (size_t)elems * sizeof(T);
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        staged_pass<T, kIsWindow>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)(kMaxTile * 2 * sizeof(T)));
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
+constexpr int kWide2Seg = 4;      // chain steps per thread, at most
+// (D1 + D2) / gcd(D1, D2), at most: the pairs (1, 1), (1, 2) and (2, 1).
+// The planners' distances are powers of two, and a roll plan's adjacent
+// stages differ by a factor of two; other pairs take the gather form.
+constexpr int kChainBudget = 3;
+constexpr int kChainBlocks = 3;   // resident blocks per SM (register cap)
+constexpr unsigned kLow = 0x01010101u;  // bit 0 of each mask byte
+
+// Roll kinds with D1 = A * g, D2 = B * g (g below the tile count): thread
+// t owns vector v = t mod (tile / N) of chain r = (t / (tile / N)) mod g
+// (the tiles r, r + g, r + 2g, ...) at the chain steps [s0, s0 + seg) of
+// segment (t / (tile / N)) / g.  Chain step s < 0 stands for tile 0,
+// where the roll clamps.  The x vectors of steps s0 - A - B .. s0 + seg -
+// 1 and the mask vectors of steps s0 - B .. s0 + seg - 1 at steps >= 0
+// are loaded before any is used, with compile-time register indices;
+// tile 0's x, which every chain's first steps would read, only where a
+// mask bit selects it.
+template <typename W, int N, int A, int B>
+__global__ void __launch_bounds__(kWideThreads, kChainBlocks)
+wide2_roll_chain(const W* __restrict__ x, W* __restrict__ out,
+                 const signed char* __restrict__ mask, long long P,
+                 long long batch, int log2_tile, int log2_vecs, unsigned g,
+                 unsigned grid_tiles, int seg, long long total) {
+  constexpr int H = A + B;
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= total) return;
+  const long long v = t & ((1LL << log2_vecs) - 1);
+  // tile counts fit 32 bits (the launch checks), whose divisions are
+  // much cheaper than 64-bit ones
+  const unsigned rest = (unsigned)(t >> log2_vecs);
+  const unsigned r = rest % g;
+  const int s0 = (int)(rest / g) * seg;
+  const int len = (int)((grid_tiles - r + g - 1) / g);  // steps of chain r
+  if (s0 >= len) return;
+  const int cnt = len - s0 < seg ? len - s0 : seg;
+  // offset of the vector at chain step s (tile 0 below step 0)
+  auto at = [&](int s) {
+    return ((long long)(s < 0 ? 0 : r + s * g) << log2_tile) + v * N;
+  };
+  unsigned m[B + kWide2Seg];
+#pragma unroll
+  for (int j = 0; j < B + kWide2Seg; ++j)
+    m[j] = j < B + cnt && s0 - B + j >= 0
+               ? load_bytes<N>(mask + at(s0 - B + j)) : 0u;
+  // Tile 0's x where a selected source clamps.  Where the D2 partner
+  // clamps, so does the D1 + D2 source, and stage 2 reads tile 0 whatever
+  // the partner's stage-1 bit: its mask vector (0 above) is never needed.
+  unsigned need0 = 0;
+#pragma unroll
+  for (int s = 0; s < kWide2Seg; ++s) {
+    if (s >= cnt || s0 + s >= H) continue;
+    const unsigned b0 = m[B + s] & kLow, b1 = (m[B + s] >> 1) & kLow;
+    const unsigned c0 = m[s] & kLow;
+    if (s0 + s < A) need0 |= b0 & ~b1;   // the D1 source
+    if (s0 + s < B) need0 |= b1 & ~c0;   // the D2 source
+    need0 |= b1 & c0;                    // the D1 + D2 source
   }
-  const int threads = elems >= kThreads ? kThreads : ((elems + 31) / 32) * 32;
-  dim3 grid((unsigned)(P / tile), (unsigned)batch);
-  staged_pass<T, kIsWindow><<<grid, threads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(out),
-      static_cast<const unsigned*>(mask), P, tile, n_stages, ds);
+  for (long long b = 0; b < batch; ++b) {
+    const W* xb = x + b * P;
+    W* ob = out + b * P;
+    Vec<W, N> xv[H + kWide2Seg];
+#pragma unroll
+    for (int j = 0; j < H + kWide2Seg; ++j)
+      if (j < H + cnt && s0 - H + j >= 0)
+        xv[j] = load_vec<W, N>(xb + at(s0 - H + j));
+    if (s0 < H) {
+      const Vec<W, N> zero = need0 ? load_vec<W, N>(xb + at(-1))
+                                   : Vec<W, N>{};
+#pragma unroll
+      for (int j = 0; j < H; ++j)
+        if (s0 - H + j < 0) xv[j] = zero;
+    }
+#pragma unroll
+    for (int s = 0; s < kWide2Seg; ++s)
+      if (s < cnt)
+        *reinterpret_cast<Vec<W, N>*>(ob + at(s0 + s)) =
+            wide2_vec(m[B + s], m[s], xv[H + s], xv[B + s], xv[A + s],
+                      xv[s]);
+  }
+}
+
+// Roll kinds whose chain window passes the budget: thread t owns vector
+// t mod (tile / N) of tile t / (tile / N); its own and its D2 partner's
+// mask vectors come first, then one load per word from the source tile
+// its bits select, all issued before the store.
+template <typename W, int N>
+__global__ void __launch_bounds__(kWideThreads)
+wide2_roll_gather(const W* __restrict__ x, W* __restrict__ out,
+                  const signed char* __restrict__ mask, long long P,
+                  long long batch, int log2_tile, int log2_vecs, long long D1,
+                  long long D2, long long total) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= total) return;
+  const long long v = t & ((1LL << log2_vecs) - 1);
+  const long long i = t >> log2_vecs;
+  const long long at1 = i >= D1 ? i - D1 : 0;
+  const long long at2 = i >= D2 ? i - D2 : 0;
+  const long long at12 = i >= D1 + D2 ? i - D1 - D2 : 0;
+  const long long off = (i << log2_tile) + v * N;
+  const unsigned m = load_bytes<N>(mask + off);
+  const unsigned m2 = load_bytes<N>(mask + (at2 << log2_tile) + v * N);
+  long long src[N];
+#pragma unroll
+  for (int e = 0; e < N; ++e) {
+    const unsigned me = m >> (8 * e), m2e = m2 >> (8 * e);
+    const long long blk =
+        (me & 2u) ? ((m2e & 1u) ? at12 : at2) : ((me & 1u) ? at1 : i);
+    src[e] = (blk << log2_tile) + v * N + e;
+  }
+  for (long long b = 0; b < batch; ++b) {
+    const W* xb = x + b * P;
+    Vec<W, N> o;
+#pragma unroll
+    for (int e = 0; e < N; ++e) o.w[e] = xb[src[e]];
+    *reinterpret_cast<Vec<W, N>*>(out + b * P + off) = o;
+  }
+}
+
+long long gcd(long long a, long long b) {
+  while (b) {
+    const long long t = a % b;
+    a = b;
+    b = t;
+  }
+  return a;
+}
+
+int launch_grid(long long total, unsigned* blocks) {
+  const long long n = (total + kWideThreads - 1) / kWideThreads;
+  if (n < 1 || n > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  *blocks = (unsigned)n;
+  return 0;
+}
+
+// g < grid_tiles < 2^31 (launch_wide2_n checks)
+template <typename W, int N, int A, int B>
+int launch_chain(const W* x, W* out, const signed char* mask, long long P,
+                 long long batch, int log2_tile, int log2_vecs, long long g,
+                 long long grid_tiles, cudaStream_t stream) {
+  const long long len = (grid_tiles + g - 1) / g;   // the longest chain
+  const int seg = len < kWide2Seg ? (int)len : kWide2Seg;
+  const long long total = ((len + seg - 1) / seg) * g << log2_vecs;
+  unsigned blocks = 0;
+  if (int err = launch_grid(total, &blocks)) return err;
+  wide2_roll_chain<W, N, A, B><<<blocks, kWideThreads, 0, stream>>>(
+      x, out, mask, P, batch, log2_tile, log2_vecs, (unsigned)g,
+      (unsigned)grid_tiles, seg, total);
   return (int)cudaGetLastError();
+}
+
+template <typename W, int N>
+int launch_wide2_n(bool swap, const W* x, W* out, const signed char* mask,
+                   long long P, long long batch, int log2_tile, long long d1,
+                   long long d2, cudaStream_t stream) {
+  const long long grid_tiles = P >> log2_tile;
+  int log2_vecs = log2_tile;
+  for (int n = N; n > 1; n >>= 1) --log2_vecs;
+  unsigned blocks = 0;
+  if (swap) {
+    int b1 = 0, b2 = 0;
+    while ((1LL << b1) < d1) ++b1;
+    while ((1LL << b2) < d2) ++b2;
+    const bool pair = d1 == d2;
+    const long long total = (grid_tiles >> (pair ? 1 : 2)) << log2_vecs;
+    if (int err = launch_grid(total, &blocks)) return err;
+    if (pair)
+      wide2_swap_group<W, N, true><<<blocks, kWideThreads, 0, stream>>>(
+          x, out, mask, P, batch, log2_tile, log2_vecs, b1, b2, total);
+    else
+      wide2_swap_group<W, N, false><<<blocks, kWideThreads, 0, stream>>>(
+          x, out, mask, P, batch, log2_tile, log2_vecs, b1, b2, total);
+    return (int)cudaGetLastError();
+  }
+  const long long g = gcd(d1, d2), a = d1 / g, b = d2 / g;
+  const bool chain = g < grid_tiles && grid_tiles < (1LL << 31);
+#define FU_CHAIN(A, B)                                                       \
+  if (chain && a == A && b == B)                                             \
+    return launch_chain<W, N, A, B>(x, out, mask, P, batch, log2_tile,       \
+                                    log2_vecs, g, grid_tiles, stream);
+  // every coprime (A, B) with A + B <= kChainBudget
+  FU_CHAIN(1, 1) FU_CHAIN(1, 2) FU_CHAIN(2, 1)
+#undef FU_CHAIN
+  const long long total = grid_tiles << log2_vecs;
+  if (int err = launch_grid(total, &blocks)) return err;
+  wide2_roll_gather<W, N><<<blocks, kWideThreads, 0, stream>>>(
+      x, out, mask, P, batch, log2_tile, log2_vecs, d1, d2, total);
+  return (int)cudaGetLastError();
+}
+
+// 16-byte vectors where the tile and the pointers allow, else one word.
+template <typename W>
+int launch_wide2(bool swap, const void* x, void* out, const void* mask,
+                 long long P, long long batch, int tile, int log2_tile,
+                 long long d1, long long d2, cudaStream_t stream) {
+  constexpr int kVec = 16 / sizeof(W);
+  const W* xt = static_cast<const W*>(x);
+  W* ot = static_cast<W*>(out);
+  const signed char* mt = static_cast<const signed char*>(mask);
+  const bool aligned = reinterpret_cast<size_t>(x) % 16 == 0 &&
+                       reinterpret_cast<size_t>(out) % 16 == 0 &&
+                       reinterpret_cast<size_t>(mask) % kVec == 0;
+  if (tile >= kVec && aligned)
+    return launch_wide2_n<W, kVec>(swap, xt, ot, mt, P, batch, log2_tile, d1,
+                                   d2, stream);
+  return launch_wide2_n<W, 1>(swap, xt, ot, mt, P, batch, log2_tile, d1, d2,
+                              stream);
 }
 
 template <typename T>
@@ -557,8 +972,11 @@ int launch(int kind, const void* x, void* out, const void* mask, long long P,
   if (kind == kLocal)
     return launch_butterfly<T>(x, out, mask, P, batch, tile, sc, stream);
   if (kind == kWindow)
-    return launch_staged<T, true>(x, out, mask, P, batch, tile, n_stages, ds,
-                                  stream);
+    return launch_window<T>(x, out, mask, P, batch, tile, n_stages, ds,
+                            stream);
+  if (kind == kWideSwap2 || kind == kWideRoll2)
+    return launch_wide2<T>(kind == kWideSwap2, x, out, mask, P, batch, tile,
+                           shift, d1, d2, stream);
   long long blocks = (P + kWideThreads - 1) / kWideThreads;
   if (blocks > (1LL << 20)) blocks = 1LL << 20;
   dim3 grid((unsigned)blocks, (unsigned)batch);
@@ -574,14 +992,6 @@ int launch(int kind, const void* x, void* out, const void* mask, long long P,
       wide_pass<T, false><<<grid, kWideThreads, 0, stream>>>(xt, ot, mt, P,
                                                              shift, d1);
       break;
-    case kWideSwap2:
-      wide2_pass<T, true><<<grid, kWideThreads, 0, stream>>>(xt, ot, mt, P,
-                                                             shift, d1, d2);
-      break;
-    case kWideRoll2:
-      wide2_pass<T, false><<<grid, kWideThreads, 0, stream>>>(xt, ot, mt, P,
-                                                              shift, d1, d2);
-      break;
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -594,7 +1004,8 @@ int launch(int kind, const void* x, void* out, const void* mask, long long P,
 // 5 wide_roll2.  elem_bytes: 4 or 8 (the words are moved, never read as
 // numbers).  x, out: batch * P words; mask: P int32 words (local, window)
 // or P int8 (wide).  dists: host array of n_stages element distances
-// (local, window); d1, d2: block distances (wide).  sched (local only):
+// (local, window); d1, d2: block distances (wide; wide2 swaps: powers of
+// two whose partner tiles lie on the grid).  sched (local only):
 // host array of kSchedInts ints from plan_local_schedule — the segment
 // count, 32 segment ends, 32 stage slot bits, then 34 layouts of 12
 // position bits each (load, one per segment, store).  Returns the
@@ -616,6 +1027,13 @@ extern "C" int benes_pass(int kind, int elem_bytes, const void* x, void* out,
   }
   int shift = 0;
   while ((1LL << shift) < tile) ++shift;
+  // wide2: the partner tiles lie on the grid (a swap's i ^ D for every i)
+  const long long grid_tiles = P / tile;
+  if ((kind == kWideSwap2 || kind == kWideRoll2) && (d1 < 1 || d2 < 1))
+    return (int)cudaErrorInvalidValue;
+  if (kind == kWideSwap2 && ((d1 & (d1 - 1)) || (d2 & (d2 - 1)) ||
+                             grid_tiles % (2 * d1) || grid_tiles % (2 * d2)))
+    return (int)cudaErrorInvalidValue;
   LocalSched sc = {};
   if (kind == kLocal &&
       (tile < 2 || sched == nullptr ||

@@ -53,8 +53,9 @@ MAX_STAGES_PER_PASS = 32
 #: the card's tile height in rows of 128: 4,096 elements, so a float64
 #: window (two tiles) takes 64 KiB of shared memory
 DEFAULT_BLOCK_ROWS = 32
-#: the kernel's largest tile (its window is 2 * MAX_TILE words: 512
-#: threads holding 16 each)
+#: the kernels' largest tile (the local schedule's 12 position bits; the
+#: window kernel's mask words of a whole window fit 32 KiB of shared
+#: memory)
 MAX_TILE = 4096
 
 _KIND_CODE = {"local": 0, "window": 1, "wide_swap": 2, "wide_roll": 3,
@@ -445,8 +446,8 @@ def _launch(x3: torch.Tensor, plane: torch.Tensor, ps: PassSpec,
     if x3.element_size() not in (4, 8):
         raise ValueError(f"{what}: the kernel moves 4- or 8-byte words, "
                          f"got {x3.dtype}")
-    staged = ps.kind in ("local", "window")
-    want = torch.int32 if staged else torch.int8
+    stage_bits = ps.kind in ("local", "window")   # an int32 bit per stage
+    want = torch.int32 if stage_bits else torch.int8
     if (plane.device != x3.device or plane.dtype != want
             or plane.numel() != geom.P or not plane.is_contiguous()):
         raise ValueError(f"{what}: the mask plane must be a contiguous "
@@ -463,7 +464,7 @@ def _launch(x3: torch.Tensor, plane: torch.Tensor, ps: PassSpec,
     fn = kernels.library("benes_pass").benes_pass
     kernels.check(fn(_KIND_CODE[ps.kind], x3.element_size(), x3.data_ptr(),
                      out.data_ptr(), plane.data_ptr(), geom.P, x3.shape[0],
-                     geom.tile, len(ps.dists) if staged else 0, dists,
+                     geom.tile, len(ps.dists) if stage_bits else 0, dists,
                      ps.block_dist, ps.block_dist2, sched,
                      kernels.stream_ptr(x3)),
                   what)

@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
 Every test here needs an NVIDIA GPU with ``nvcc`` and skips without one
-(kernels K1, K2, the four flavours of B3 — the local one at every tile —,
-B4's scan and fill, B5 and B6;
+(kernels K1, K2, the four flavours of B3 — local, window and wide2 at
+every tile —, B4's scan and fill, B5 and B6;
 the edge kernel's Beneš routes, the sharded banded round and the halo
 edge round on the card).
 This file imports no JAX, so it also runs where JAX is absent, without the
@@ -193,6 +193,89 @@ def test_local_pass_kernel_every_tile(card, log2_tile, dtype, batch):
         got = fp.local_pass(x, plane, ps, geom)
         assert fp.local_pass.launches == before + 1
         assert torch.equal(got, fp.local_pass_plain(x, plane, ps, geom))
+
+
+def _tiles_geometry(tile, grid):
+    """``grid`` tiles of ``tile`` elements (below a row of 128 too)."""
+    from flow_updating_tpu_torch.ops import fused_passes as fp
+
+    return fp.Geometry(P=grid * tile, rows=max(grid * tile // 128, 1),
+                       block_rows=max(tile // 128, 1), grid=grid)
+
+
+@pytest.mark.parametrize("log2_tile", range(1, 13))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.int32])
+@pytest.mark.parametrize("batch", [1, 3])
+def test_window_pass_kernel_every_tile(card, log2_tile, dtype, batch):
+    """B3's window kernel against window_pass_plain at every tile from 2
+    to 4,096 elements (four tiles): random lists of 1 to 32 roll
+    distances below the window, repeats allowed, a list whose sum stays
+    below the tile, random mask words (any bit); one launch per pass."""
+    from flow_updating_tpu_torch.ops import fused_passes as fp
+
+    tile = 1 << log2_tile
+    geom = _tiles_geometry(tile, 4)
+    rng = np.random.default_rng(40 + log2_tile)
+    lists = [tuple(int(d) for d in rng.integers(1, 2 * tile, size=k))
+             for k in (1, 6, 17, 32)]
+    lists.append(tuple(max(tile // 64, 1) for _ in range(min(tile // 2, 6))))
+    for dists in lists:
+        ps = fp.PassSpec(kind="window", dists=dists, block_dist=0)
+        plane = torch.from_numpy(rng.integers(
+            -2**31, 2**31, geom.P, dtype=np.int64).astype(np.int32)).to(card)
+        x = torch.from_numpy(rng.normal(size=(batch, geom.grid, tile))
+                             * 1000).to(card, dtype)
+        before = fp.window_pass.launches
+        got = fp.window_pass(x, plane, ps, geom)
+        assert fp.window_pass.launches == before + 1
+        assert torch.equal(got, fp.window_pass_plain(x, plane, ps, geom))
+
+
+#: (kind, D1, D2, tiles): roll chains (D1 = 2 D2, D2 = 2 D1, D1 = D2,
+#: several segments), the general roll form (past the register budget,
+#: distances past the grid), swap groups of four and two
+_WIDE2 = [("wide_roll2", 2, 1, 20), ("wide_roll2", 1, 2, 20),
+          ("wide_roll2", 3, 3, 20), ("wide_roll2", 8, 4, 16),
+          ("wide_roll2", 4, 2, 23), ("wide_roll2", 3, 2, 23),
+          ("wide_roll2", 1, 4, 20), ("wide_roll2", 5, 4, 20),
+          ("wide_roll2", 7, 3, 20), ("wide_roll2", 20, 40, 20),
+          ("wide_swap2", 1, 2, 8),
+          ("wide_swap2", 4, 1, 16), ("wide_swap2", 2, 2, 8)]
+
+
+@pytest.mark.parametrize("log2_tile", range(1, 13))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.int32])
+@pytest.mark.parametrize("batch", [1, 3])
+def test_wide2_pass_kernel_every_tile(card, log2_tile, dtype, batch):
+    """B3's wide2 kernels against wide2_pass_plain at every tile from 2
+    to 4,096 elements: swap groups, roll chains and the general roll
+    form, random int8 mask planes (any bit), and an unaligned payload
+    (the one-word form); one launch per pass."""
+    from flow_updating_tpu_torch.ops import fused_passes as fp
+
+    tile = 1 << log2_tile
+    rng = np.random.default_rng(60 + log2_tile)
+    for kind, d1, d2, grid in _WIDE2:
+        geom = _tiles_geometry(tile, grid)
+        ps = fp.PassSpec(kind=kind, dists=(d1 * tile, d2 * tile),
+                         block_dist=d1, block_dist2=d2)
+        plane = torch.from_numpy(rng.integers(
+            -128, 128, geom.P).astype(np.int8)).to(card)
+        x = torch.from_numpy(rng.normal(size=(batch, grid, tile))
+                             * 1000).to(card, dtype)
+        # the same words one element into a larger buffer: not 16-byte
+        # aligned
+        shifted = torch.empty(batch * geom.P + 1, dtype=dtype, device=card)
+        shifted[1:] = x.reshape(-1)
+        x_off = shifted[1:].view(batch, grid, tile)
+        want = fp.wide2_pass_plain(x, plane, ps, geom)
+        for payload in (x, x_off):
+            before = fp.wide2_pass.launches
+            got = fp.wide2_pass(payload, plane, ps, geom)
+            assert fp.wide2_pass.launches == before + 1
+            assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("log2n,block_rows", [(16, None), (13, 16),

@@ -1,6 +1,6 @@
-"""How kernel B3's local pass and kernel B4's fill run on the card, on the
-CPU: each kernel's algorithm transcribed into torch and held bit for bit
-against the plain version it must equal.
+"""How kernel B3's local, window and wide2 passes and kernel B4's fill run
+on the card, on the CPU: each kernel's algorithm transcribed into torch
+and held bit for bit against the plain version it must equal.
 
 * The local kernel (``csrc/benes_pass.cu``, ``butterfly_pass``) runs the
   schedule of :func:`plan_local_schedule`: words in register, lane and
@@ -14,9 +14,20 @@ against the plain version it must equal.
   source by walking the stages backwards; the transcription is held
   against ``fill_pass_plain`` on rank planes and on random planes, and
   against the JAX package's ``fill_pass`` in interpret mode.
+* The window kernel (``window_walk_pass``) walks the same way over mask
+  bits, on persistent blocks whose mask tiles rotate through a ring in
+  shared memory; the transcription (ring included) is held against
+  ``window_pass_plain`` at every tile and against the JAX package's
+  ``_window_pass`` in interpret mode.
+* The wide2 kernels (``wide2_swap_group``, ``wide2_roll_chain``,
+  ``wide2_roll_gather``) are transcribed thread by thread: which vectors
+  each thread owns and loads, and the selects; held against
+  ``wide2_pass_plain``.
 
 The kernels themselves run only on the card (``tests/test_torch_cuda.py``).
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -292,3 +303,344 @@ def test_fill_walk_equals_jax_interpret(plane, dtype):
     got = walk_fill(torch.from_numpy(x), dist, dists,
                     fp.geometry(P, block_rows=16))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+# ---- B3's window pass: the backward walk ------------------------------------
+
+def _many_tiles(tile: int, grid: int) -> fp.Geometry:
+    """``grid`` tiles of ``tile`` elements, below a row of 128 too (the
+    kernels take any power-of-two tile; the planner makes one tile of a
+    network that narrow)."""
+    return fp.Geometry(P=grid * tile, rows=max(grid * tile // LANE, 1),
+                       block_rows=max(tile // LANE, 1), grid=grid)
+
+
+#: mask tiles in the window kernel's shared-memory ring (benes_pass.cu,
+#: kRing)
+RING = 4
+
+
+def window_ring(tiles: int, blocks: int) -> dict:
+    """Where ``window_walk_pass`` finds each tile's window, block by block
+    over an even split of the tiles: ``{tile: (k, slots)}``, tile i the
+    block's k-th and ``slots`` the tile each ring slot holds while i is
+    walked.  Asserts that a copy never overwrites a tile that is still to
+    be read."""
+    out = {}
+    for j in range(blocks):
+        t0, t1 = tiles * j // blocks, tiles * (j + 1) // blocks
+        ring = [None] * RING
+        ring[RING - 1] = max(t0 - 1, 0)
+        ring[0] = t0
+        if t0 + 1 < t1:
+            ring[1] = t0 + 1
+        for k, i in enumerate(range(t0, t1)):
+            if i + 2 < t1:
+                # the slot of the tile before i - 1 (tile 0 standing in
+                # for tile -1)
+                assert ring[(k + 2) % RING] in (None, max(i - 2, 0))
+                ring[(k + 2) % RING] = i + 2
+            out[i] = (k, tuple(ring))
+    return out
+
+
+def walk_window(x3, plane, ps, geom, blocks: int):
+    """B3's window pass as ``window_walk_pass`` runs it on ``blocks``
+    persistent blocks: each output walks the stages backwards, in ring
+    positions (window positions mod 2 * tile where sum(d) reaches the
+    tile), reading each mask word from the ring slot that holds it, and
+    takes x at the window position it ends on."""
+    T, grid = geom.tile, geom.grid
+    wrap = sum(ps.dists) >= T
+    rings = window_ring(grid, blocks)
+    m = plane.reshape(grid, T)
+    k = torch.tensor([rings[i][0] for i in range(grid)])[:, None]
+    slots = torch.tensor([[-1 if t is None else t for t in rings[i][1]]
+                          for i in range(grid)])
+    base = (k + RING - 1) % RING * T             # ring position of the window
+    prev = torch.gather(slots, 1, (k + RING - 1) % RING)
+    own = torch.gather(slots, 1, k % RING)
+    assert torch.equal(own[:, 0], torch.arange(grid))
+    assert torch.equal(prev[:, 0], torch.clamp(torch.arange(grid) - 1, min=0))
+
+    def word(r):
+        """The mask word at ring position r: its slot must hold the
+        window's tiles."""
+        slot = r // T
+        tile_at = torch.gather(slots, 1, slot)
+        assert bool(((slot == k % RING) | (slot == (k + RING - 1) % RING))
+                    .all())
+        return m[tile_at, r % T]
+
+    q = T + torch.arange(T).expand(grid, T)
+    w = q if wrap else (base + q) % (RING * T)
+    for j in reversed(range(len(ps.dists))):
+        r = (base + w) % (RING * T) if wrap else w
+        take = ((word(r) >> j) & 1) != 0
+        w = torch.where(take, w - ps.dists[j], w)
+        w = w & (2 * T - 1) if wrap else w % (RING * T)
+    if not wrap:
+        w = (w - base) % (RING * T)
+    blk = torch.arange(grid)[:, None]
+    src = torch.where(blk > 0, (blk - 1) * T + w, w & (T - 1))
+    return x3.reshape(x3.shape[0], geom.P)[:, src.reshape(-1)].reshape(
+        x3.shape)
+
+
+def _roll_lists(tile: int, rng) -> list:
+    """Random roll distances below the window (2 * tile), 1, 6, 17 and 32
+    of them, repeats allowed."""
+    return [tuple(int(d) for d in rng.integers(1, 2 * tile, size=k))
+            for k in (1, 6, 17, 32)]
+
+
+@pytest.mark.parametrize("log2_tile", range(1, 13))
+@pytest.mark.parametrize("batch", [1, 3])
+def test_window_walk_equals_plain(log2_tile, batch):
+    tile = 1 << log2_tile
+    geom = _many_tiles(tile, 8)
+    rng = np.random.default_rng(300 + 10 * log2_tile + batch)
+    lists = _roll_lists(tile, rng)
+    # a sum below the tile: the walk runs in ring positions
+    lists.append(tuple(max(tile // 64, 1) for _ in range(min(tile // 2, 6))))
+    for blocks, dists in zip((1, 2, 3, 5, 8), lists):
+        ps = fp.PassSpec(kind="window", dists=dists, block_dist=0)
+        plane = _random_plane(rng, geom.P)
+        for dtype in (torch.float32, torch.int32):
+            x3 = _random_words(rng, (batch, geom.grid, tile), dtype)
+            assert torch.equal(walk_window(x3, plane, ps, geom, blocks),
+                               fp.window_pass_plain(x3, plane, ps, geom))
+
+
+def test_window_ring_holds_each_tile_and_its_predecessor():
+    """The mask ring of the persistent window kernel over every split of
+    up to 40 tiles and the card's (2,048 tiles on a few hundred blocks):
+    while tile i is walked its ring slots k - 1 and k hold tiles i - 1
+    (tile 0 for tile 0) and i."""
+    for tiles, blocks in [(t, b) for t in range(1, 41)
+                          for b in range(1, t + 1)] + [(2048, 396)]:
+        for i, (k, ring) in window_ring(tiles, blocks).items():
+            assert ring[k % RING] == i
+            assert ring[(k + RING - 1) % RING] == max(i - 1, 0)
+
+
+@pytest.mark.parametrize("n_stages", [1, 6, 17])
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+def test_window_walk_equals_jax_interpret(n_stages, dtype):
+    """The walk against the JAX package's _window_pass (one Pallas call,
+    interpret mode) at the JAX test geometry (64 rows of 128, tiles of
+    16 rows), on a random plane: distances below a row, or whole rows
+    below the window (the JAX body rolls rows for those)."""
+    P, R = 64 * LANE, 16
+    T = R * LANE
+    rng = np.random.default_rng(20 + n_stages)
+    small = rng.integers(1, LANE, size=n_stages)
+    rows = LANE * rng.integers(1, 2 * R, size=n_stages)
+    dists = tuple(int(d) for d in np.where(rng.integers(0, 2, n_stages),
+                                           small, rows))
+    plane = _random_plane(rng, P)
+    x = rng.normal(size=(3, P)).astype(dtype)
+    jps = jfused.PassSpec(kind="window", dists=dists, block_dist=0)
+    jplan = jfused.FusedPlan(geom=jfused.geometry(P, block_rows=R),
+                             passes=(jps,))
+    want = np.asarray(jfused._PASS_FNS["window"](
+        jnp.asarray(x).reshape(3, P // LANE, LANE),
+        jnp.asarray(plane.numpy().view(np.uint32).reshape(P // LANE, LANE)),
+        jps, jplan, True)).reshape(3, P)
+    geom = fp.geometry(P, block_rows=R)
+    assert geom.tile == T
+    ps = fp.PassSpec(kind="window", dists=dists, block_dist=0)
+    got = walk_window(torch.from_numpy(x).reshape(3, geom.grid, T), plane,
+                      ps, geom, blocks=3)
+    np.testing.assert_array_equal(got.reshape(3, P).numpy(), want)
+
+
+# ---- B3's wide2 pass: vectors, swap groups, roll chains ---------------------
+
+#: chain steps per thread and the largest (D1 + D2) / gcd of the chain
+#: form (benes_pass.cu, kWide2Seg and kChainBudget)
+WIDE2_SEG = 4
+CHAIN_BUDGET = 3
+
+
+def _pick(m, m_at2, own, at1, at2, at12):
+    """wide2_pick on source positions: the own and the D2 partner's
+    stage-1 bits, then the own stage-2 bit."""
+    s1_own = np.where(m & 1, at1, own)
+    s1_shift = np.where(m_at2 & 1, at12, at2)
+    return np.where(m & 2, s1_shift, s1_own)
+
+
+def emulate_wide2(x3, plane, ps, geom, aligned: bool = True):
+    """B3's wide2 kernels as they run, thread by thread (see
+    ``csrc/benes_pass.cu``): which vector of which tiles each thread
+    owns, the x and mask vectors it loads, the selects.  Every output is
+    written once, every x vector is loaded once per batch row but for a
+    roll chain segment's predecessors, and a roll chain reads tile 0
+    (where it clamps) only where a mask bit selects it: elsewhere its
+    vectors are poison, which no output may take.  Returns ``(out, form,
+    clamped)``, ``clamped`` the threads that read tile 0 for a clamped
+    source."""
+    T, grid, P = geom.tile, geom.grid, geom.P
+    vec = 16 // x3.element_size()
+    N = vec if T >= vec and aligned else 1
+    vecs = T // N
+    D1, D2 = ps.block_dist, ps.block_dist2
+    mask = plane.numpy().astype(np.int64)
+    src = np.full(P, -1, np.int64)
+    loaded = np.zeros(P, np.int64)     # x loads per word, predecessors apart
+    clamped = 0
+
+    def words(tile_idx, v):
+        """(threads, N) positions of vector v of each tile."""
+        return tile_idx[:, None] * T + v[:, None] * N + np.arange(N)
+
+    def write(dst, s):
+        assert (src[dst] == -1).all(), "an output written twice"
+        src[dst] = s
+
+    if ps.kind == "wide_swap2":
+        form = "swap_group"
+        b1, b2 = D1.bit_length() - 1, D2.bit_length() - 1
+        pair = D1 == D2
+        G, k2 = (2, 1) if pair else (4, 2)
+        t = np.arange((grid >> (1 if pair else 2)) * vecs)
+        v, i0 = t % vecs, t // vecs
+        lo, hi = min(b1, b2), max(b1, b2)
+        i0 = ((i0 >> lo) << (lo + 1)) | (i0 & ((1 << lo) - 1))
+        if not pair:
+            i0 = ((i0 >> hi) << (hi + 1)) | (i0 & ((1 << hi) - 1))
+        pos = [words(i0 ^ (D1 if k & 1 else 0) ^ (D2 if k & 2 else 0), v)
+               for k in range(G)]
+        m = [mask[q] for q in pos]
+        for q in pos:
+            np.add.at(loaded, q.ravel(), 1)
+        for k in range(G):
+            write(pos[k], _pick(m[k], m[k ^ k2], pos[k], pos[k ^ 1],
+                                pos[k ^ k2], pos[k ^ 1 ^ k2]))
+    else:
+        g = math.gcd(D1, D2)
+        A, B = D1 // g, D2 // g
+        if A + B <= CHAIN_BUDGET and g < grid:
+            form = "roll_chain"
+            H = A + B
+            longest = -(-grid // g)
+            seg = min(longest, WIDE2_SEG)
+            t = np.arange(-(-longest // seg) * g * vecs)
+            v, rest = t % vecs, t // vecs
+            r, s0 = rest % g, rest // g * seg
+            length = (grid - r + g - 1) // g
+            cnt = np.minimum(seg, length - s0)     # <= 0: the thread returns
+
+            def at(s, live):
+                """The vector at chain step s where the thread loads it;
+                off the grid only where it does not."""
+                tiles = r + s * g
+                assert (tiles[live & (s >= 0)] < grid).all()
+                return words(np.clip(tiles, 0, grid - 1), v)
+
+            zero = words(np.zeros_like(r), v)           # tile 0
+            # mask vectors at steps >= 0 (a clamped D2 partner's bit does
+            # not matter: both of its sources are tile 0)
+            mw = [np.where(((j < B + cnt) & (s0 - B + j >= 0))[:, None],
+                           mask[at(s0 - B + j, j < B + cnt)], 0)
+                  for j in range(B + WIDE2_SEG)]
+            # tile 0's x where a selected source clamps
+            need0 = np.zeros(len(t), bool)
+            for s in range(WIDE2_SEG):
+                live = ((s < cnt) & (s0 + s < H))[:, None]
+                m, m2 = mw[B + s], mw[s]
+                b0, b1, c0 = (m & 1) != 0, (m & 2) != 0, (m2 & 1) != 0
+                sel = (b1 & c0) | (((s0 + s < A)[:, None]) & b0 & ~b1) | (
+                    ((s0 + s < B)[:, None]) & b1 & ~c0)
+                need0 |= (live & sel).any(axis=1)
+            clamped = int(need0.sum())
+            poison = -1 - P                       # never a position
+            xw = []
+            for j in range(H + WIDE2_SEG):
+                step = s0 - H + j
+                live = j < H + cnt
+                pos = at(step, live)
+                if j >= H:
+                    np.add.at(loaded, pos[live & (step >= 0)].ravel(), 1)
+                neg = (step < 0)[:, None]
+                xw.append(np.where(neg, np.where(need0[:, None], zero,
+                                                 poison), pos))
+            for s in range(WIDE2_SEG):
+                live = s < cnt
+                got = _pick(mw[B + s], mw[s], xw[H + s], xw[B + s],
+                            xw[A + s], xw[s])
+                write(xw[H + s][live], got[live])
+        else:
+            form = "roll_gather"
+            t = np.arange(grid * vecs)
+            v, i = t % vecs, t // vecs
+            own = words(i, v)
+            at1 = words(np.maximum(i - D1, 0), v)
+            at2 = words(np.maximum(i - D2, 0), v)
+            at12 = words(np.maximum(i - D1 - D2, 0), v)
+            got = _pick(mask[own], mask[at2], own, at1, at2, at12)
+            np.add.at(loaded, got.ravel(), 1)
+            write(own, got)
+    assert (src >= 0).all(), "an output never written, or took poison"
+    if form != "roll_gather":
+        assert (loaded == 1).all(), "an x vector loaded twice"
+    xf = x3.reshape(x3.shape[0], P)
+    return xf[:, torch.from_numpy(src)].reshape(x3.shape), form, clamped
+
+
+#: (kind, D1, D2, tiles, form): the chain form (D1 = 2 D2, D2 = 2 D1,
+#: D1 = D2, chains of one and of several segments, chains of unequal
+#: length), the general form past the budget (every other ratio), swap
+#: groups of four and of two tiles
+WIDE2_CASES = {
+    "roll_2_1": ("wide_roll2", 2, 1, 20, "roll_chain"),
+    "roll_1_2": ("wide_roll2", 1, 2, 20, "roll_chain"),
+    "roll_eq": ("wide_roll2", 3, 3, 20, "roll_chain"),
+    "roll_8_4": ("wide_roll2", 8, 4, 20, "roll_chain"),
+    "roll_3_2": ("wide_roll2", 3, 2, 23, "roll_gather"),
+    "roll_4_2": ("wide_roll2", 4, 2, 23, "roll_chain"),
+    "roll_1_4": ("wide_roll2", 1, 4, 20, "roll_gather"),
+    "roll_k160": ("wide_roll2", 8, 4, 16, "roll_chain"),
+    "roll_5_4": ("wide_roll2", 5, 4, 20, "roll_gather"),
+    "roll_7_3": ("wide_roll2", 7, 3, 20, "roll_gather"),
+    "roll_far": ("wide_roll2", 30, 1, 20, "roll_gather"),
+    "roll_past_grid": ("wide_roll2", 20, 40, 20, "roll_gather"),
+    "swap_1_2": ("wide_swap2", 1, 2, 8, "swap_group"),
+    "swap_4_1": ("wide_swap2", 4, 1, 16, "swap_group"),
+    "swap_2_8": ("wide_swap2", 2, 8, 16, "swap_group"),
+    "swap_eq": ("wide_swap2", 2, 2, 8, "swap_group"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WIDE2_CASES))
+@pytest.mark.parametrize("log2_tile", [1, 2, 3, 5, 6, 7, 9, 12])
+def test_wide2_kernels_equal_plain(case, log2_tile):
+    """On a random plane (clamped sources selected) and on a planned one
+    (:func:`pack_masks` refuses a roll mask that selects a clamped source,
+    so no roll chain then reads tile 0 for one)."""
+    kind, D1, D2, grid, form = WIDE2_CASES[case]
+    tile = 1 << log2_tile
+    geom = _many_tiles(tile, grid)
+    ps = fp.PassSpec(kind=kind, dists=(D1 * tile, D2 * tile), block_dist=D1,
+                     block_dist2=D2)
+    rng = np.random.default_rng(100 * sorted(WIDE2_CASES).index(case)
+                                + log2_tile)
+    bits = rng.integers(-128, 128, geom.P).astype(np.int8)
+    planned = bits.copy()
+    if kind == "wide_roll2":
+        planned[: D1 * tile] &= ~1
+        planned[: D2 * tile] &= ~2
+    for plane, is_planned in ((bits, False), (planned, True)):
+        plane = torch.from_numpy(plane)
+        for batch in (1, 3):
+            for dtype in (torch.float32, torch.int32, torch.float64):
+                x3 = _random_words(rng, (batch, grid, tile), dtype)
+                want = fp.wide2_pass_plain(x3, plane, ps, geom)
+                for aligned in (True, False):
+                    got, used, clamped = emulate_wide2(x3, plane, ps, geom,
+                                                       aligned)
+                    assert used == form
+                    assert torch.equal(got, want)
+                    if is_planned and form == "roll_chain":
+                        assert clamped == 0
