@@ -31,11 +31,13 @@ and prints one JSON line per phase:
    network) on the fat tree's network (P = 2^23): the routing time, the
    passes per flavour, each flavour on a real pass of the plan
    ``torch.equal`` to its plain version in float32 and float64 (and with a
-   batch of 3), the local, window and wide2 flavours also at every tile
-   from 2 to 4,096 on random stage lists and planes, the whole plan
-   ``torch.equal`` to the per-stage executor, and the device time of
-   every window pass of the plan and of its first wide2 passes (roll and
-   swap) at a batch of 3;
+   batch of 3), the local, window, wide and wide2 flavours also at every
+   tile (2 to 4,096; the wide kernels from 1) on random stage lists and
+   planes, the whole plan ``torch.equal`` to the per-stage executor, and
+   the device time of every window pass of the plan, of its first wide2
+   passes (roll and swap) at a batch of 3, and of every wide pass of the
+   plan (batch 1) and of path D's three networks (extract at batch 3,
+   place at 2, rev at 3: the widest call of each in a round);
 8. ``path_c``  — ``Engine`` with ``spmv='benes_fused'`` on the fat tree:
    ms/round, B3 launches == rounds x passes (per flavour too), rmse,
    estimates ``torch.equal`` to ``spmv='benes'`` and ``spmv='xla'`` runs
@@ -45,9 +47,10 @@ and prints one JSON line per phase:
    scan sum (float32, float64), min and max (float32), min (int32) and fill
    (float32, int32) at batch 1 and 3, each ``torch.equal`` to its plain
    version, the fill also on a random (non-rank) dist plane; a star with
-   a hub of degree 5,000 (the split into several launches) too; the whole
-   ``seg_reduce`` and ``broadcast`` against ``torch.segment_reduce`` and
-   ``index_select``;
+   a hub of degree 5,000 (the split into several launches) too; the
+   device time of each scan op at path D's batches (1 and 2, float32) and
+   at float64 beside its bound; the whole ``seg_reduce`` and
+   ``broadcast`` against ``torch.segment_reduce`` and ``index_select``;
 10. ``path_d`` — the general edge round: ``Engine`` with
    ``RoundConfig.reference('collectall', segment_impl='benes_fused',
    delivery='benes_fused')`` on the fat tree: routing time, the timeout
@@ -97,7 +100,8 @@ and prints one JSON line per phase:
    hundred rounds in either numbering, so F1 reports its rmse);
 15. ``profile`` — ``torch.profiler`` over a few more rounds of each path:
    device time per round, the device's busy share of the wall time, the
-   time of each hand-written kernel and the kernels that take the most;
+   time of each hand-written kernel and of each flavour of B3 and B4, and
+   the kernels that take the most;
    for paths E and F also the union of the busy intervals of their
    streams and the share of the copies' time that another stream's
    kernel overlaps (path F: its ``'overlap'`` twin, whose wire is copies);
@@ -267,7 +271,7 @@ def bound(nbytes: int, ops: int) -> dict:
 #: flow_updating_tpu/ops/pallas_fused.py)
 B3_FLAVOURS = (("local", "local_pass", "butterfly_pass", 292),
                ("window", "window_pass", "window_walk_pass", 323),
-               ("wide", "wide_pass", "wide_pass", 356),
+               ("wide", "wide_pass", "::wide_pass_", 356),
                ("wide2", "wide2_pass", "wide2_", 387))
 
 
@@ -276,13 +280,25 @@ B3_FLAVOURS = (("local", "local_pass", "butterfly_pass", 292),
 B4_FLAVOURS = (("scan", "segscan_pass", 475), ("fill", "fill_pass", 513))
 
 
+#: the CUDA function names of B3's and B4's flavours (profile)
+FLAVOUR_KERNELS = {"B3 local": ("::butterfly_pass<",),
+                   "B3 window": ("::window_walk_pass<",),
+                   "B3 wide": ("::wide_pass_swap<", "::wide_pass_roll<"),
+                   "B3 wide2": ("::wide2_swap_group<", "::wide2_roll_chain<",
+                                "::wide2_roll_gather<"),
+                   "B4 scan": ("::scan_chunk_pass<",),
+                   "B4 fill": ("::fill_walk_pass<",),
+                   "B4 wide": ("::seg_wide_pass<",)}
+
+
+def _family(prefix: str) -> tuple:
+    return tuple(m for name, marks in FLAVOUR_KERNELS.items()
+                 if name.startswith(prefix) for m in marks)
+
+
 #: the hand-written kernels' CUDA function names, by kernel (profile)
 KERNEL_FAMILIES = {"K1": ("spmv_ell_",), "K2": ("fused_round_kernel",),
-                   "B3": ("::butterfly_pass<", "::window_walk_pass<",
-                          "::wide_pass<", "::wide2_swap_group<",
-                          "::wide2_roll_chain<", "::wide2_roll_gather<"),
-                   "B4": ("::seg_window_pass<", "::fill_walk_pass<",
-                          "::seg_wide_pass<"),
+                   "B3": _family("B3"), "B4": _family("B4"),
                    "B5": ("::sharded_fire_kernel<",
                           "::sharded_merge_kernel<"),
                    "B6": ("::exchange_kernel<",)}
@@ -550,8 +566,9 @@ def phase_k2(ring_topo, dev):
     return out
 
 
-def phase_k3(topo, dev):
-    """B3 vs plain on the fat tree's network, as path C plans it."""
+def phase_k3(topo, dev, d_arrays):
+    """B3 vs plain on the fat tree's network, as path C plans it; the
+    wide passes also on path D's networks (``d_arrays``)."""
     import numpy as np
     import torch
 
@@ -641,8 +658,19 @@ def phase_k3(topo, dev):
         for i in (next(i for i, ps in enumerate(fused.passes)
                        if ps.kind == kind)
                   for kind in ("wide_roll2", "wide_swap2"))]
+    out["wide_passes"] = [
+        {"network": "path_c", **pass_timing(ps, planes[i], i, geom, 1, rng,
+                                            dev)}
+        for i, ps in enumerate(fused.passes) if b3_family(ps.kind) == "wide"]
+    for net, d_fused, d_planes, batch in path_d_networks(d_arrays):
+        out["wide_passes"] += [
+            {"network": net, **pass_timing(ps, d_planes[i], i, d_fused.geom,
+                                           batch, rng, dev)}
+            for i, ps in enumerate(d_fused.passes)
+            if b3_family(ps.kind) == "wide"]
     out["local_tiles"] = local_tile_sweep(rng, dev)
     out["window_tiles"] = window_tile_sweep(rng, dev)
+    out["wide_tiles"] = wide_tile_sweep(rng, dev)
     out["wide2_tiles"] = wide2_tile_sweep(rng, dev)
     # the whole network: every pass against the per-stage executor
     masks = stages.to(dev)
@@ -671,6 +699,17 @@ def phase_k3(topo, dev):
     del masks
     torch.cuda.empty_cache()
     return out
+
+
+def path_d_networks(arrays) -> list:
+    """Path D's three networks: ``(name, fused plan, mask planes, batch)``,
+    the batch of each network's widest call in a round (the collect-all
+    extraction of the flow sum, the est sum and all-heard; the placement
+    of fire and avg; the delivery's flow, est and send lanes)."""
+    plan = arrays.seg_plan
+    return [("extract", plan.extract_fused, arrays.seg_extract_masks, 3),
+            ("place", plan.place_fused, arrays.seg_place_masks, 2),
+            ("rev", arrays.rev_plan.fused, arrays.rev_masks, 3)]
 
 
 def pass_timing(ps, plane, i, geom, batch, rng, dev) -> dict:
@@ -753,6 +792,46 @@ def window_tile_sweep(rng, dev) -> list:
 WIDE2_SWEEP = (("wide_roll2", 2, 1, 20), ("wide_roll2", 1, 2, 20),
                ("wide_roll2", 3, 3, 20), ("wide_roll2", 7, 3, 20),
                ("wide_swap2", 4, 1, 16), ("wide_swap2", 2, 2, 8))
+
+
+#: wide sweep cases (kind, D, tiles): swap pairs, roll chains of one
+#: tile, of unequal length (20 tiles mod 3) and past the tile count
+WIDE_SWEEP = (("wide_swap", 1, 8), ("wide_swap", 4, 16), ("wide_roll", 1, 20),
+              ("wide_roll", 3, 20), ("wide_roll", 25, 20))
+
+
+def wide_tile_sweep(rng, dev) -> list:
+    """B3's wide kernels at every tile from 1 to 4,096 elements over
+    :data:`WIDE_SWEEP`, random int8 mask planes with zeros and non-zero
+    bytes whose bit 0 is clear, float32 and float64 at batch 1 and 3,
+    each ``torch.equal`` to its plain version; returns the tiles."""
+    import numpy as np
+    import torch
+
+    from flow_updating_tpu_torch.ops import fused_passes as fp
+
+    tiles = []
+    for n in range(13):
+        tile = 1 << n
+        for kind, d, grid in WIDE_SWEEP:
+            geom = _tiles_geometry(tile, grid)
+            ps = fp.PassSpec(kind=kind, dists=(d * tile,), block_dist=d)
+            bits = rng.integers(-128, 128, geom.P).astype(np.int8)
+            bits[::3] = 0
+            bits[1::5] = 2
+            plane = torch.from_numpy(bits).to(dev)
+            for dt in (torch.float32, torch.float64):
+                for batch in (1, 3):
+                    x = torch.from_numpy(rng.uniform(
+                        -1.0, 1.0, (batch, grid, tile))).to(dev, dt)
+                    if not torch.equal(fp.wide_pass(x, plane, ps, geom),
+                                       fp.wide_pass_plain(x, plane, ps,
+                                                          geom)):
+                        raise AssertionError(
+                            f"B3 {kind} ({dt}, batch {batch}) differs from "
+                            f"its plain version at tile {tile}, D {d}")
+        tiles.append(tile)
+    return tiles
 
 
 def wide2_tile_sweep(rng, dev) -> list:
@@ -1076,6 +1155,25 @@ def phase_k4(topo, arrays, dev):
         row.update(bound(len(passes) * fp.dist_pass_min_bytes(geom, 1, 4),
                          ops))
         out["flavours"][name] = row
+    # each scan op at path D's batches (the batched sum of flow and est;
+    # the all-heard min and the drain's minima one plane each) and at
+    # float64
+    out["scan_timing"] = []
+    for op in fp.SCAN_OPS:
+        for dt, batch in ((f32, 1), (f32, 2), (f64, 1)):
+            x = _b4_payload(rng, (batch, P), dt, dev)
+            if not torch.equal(fp.segscan_pass(x, dist, dists, op, geom),
+                               fp.segscan_pass_plain(x, dist, dists, op,
+                                                     geom)):
+                raise AssertionError(f"B4 {op} ({dt}, batch {batch}) "
+                                     "differs from its plain version")
+            run = lambda: fp.segscan_pass(x, dist, dists, op, geom)
+            out["scan_timing"].append({
+                "op": op, "dtype": str(dt).replace("torch.", ""),
+                "batch": batch, "ms": device_ms(run), "call_ms": cuda_ms(run),
+                **bound(len(passes) * fp.dist_pass_min_bytes(
+                    geom, batch, x.element_size()),
+                    P * len(dists) * batch)})
     # the fill on a dist plane that is no rank plane (random words)
     noise = torch.from_numpy(rng.integers(-2**31, 2**31, P, dtype=np.int64)
                              .astype(np.int32)).to(dev)
@@ -1899,14 +1997,17 @@ def profile_rounds(engine, rounds: int) -> dict:
             best = (busy_us, wall_us, device)
     busy_us, wall_us, device = best
     device.sort(key=lambda row: -row[1])
-    families = {family: sum(us for k, us, _ in device
-                            if any(m in k for m in marks)) / 1e3
-                for family, marks in KERNEL_FAMILIES.items()}
+    def ms(groups):
+        return {name: sum(us for k, us, _ in device
+                          if any(m in k for m in marks)) / 1e3
+                for name, marks in groups.items()}
+
     return {"rounds": rounds, "wall_ms_per_round": wall_us / rounds / 1e3,
             "device_ms_per_round": busy_us / 1e3,
             "busy_share": busy_us * rounds / wall_us if busy_us else None,
             "device_launches_per_round": sum(c for _, _, c in device),
-            "kernel_ms_per_round": families,
+            "kernel_ms_per_round": ms(KERNEL_FAMILIES),
+            "flavour_ms_per_round": ms(FLAVOUR_KERNELS),
             "top": [{"kernel": k[:90], "ms_per_round": us / 1e3,
                      "calls_per_round": c}
                     for k, us, c in device[:10]]}
@@ -1964,7 +2065,8 @@ def main() -> int:
     torch.cuda.synchronize()
     emit({"phase": "path_e", "topology": f"ring:{RING_N}:2", **path_e})
 
-    k3 = phase_k3(tree, dev)
+    engine_d, plan_s = build_path_d(tree)
+    k3 = phase_k3(tree, dev, engine_d._topo_arrays)
     torch.cuda.synchronize()
     emit({"phase": "k3", **k3})
 
@@ -1972,7 +2074,6 @@ def main() -> int:
     torch.cuda.synchronize()
     emit({"phase": "path_c", "topology": f"fat_tree:{FAT_TREE_K}", **path_c})
 
-    engine_d, plan_s = build_path_d(tree)
     k4 = phase_k4(tree, engine_d._topo_arrays, dev)
     torch.cuda.synchronize()
     emit({"phase": "k4", **k4})

@@ -69,15 +69,18 @@
 //    tile's words serve its own outputs and then the next tile's [prev]
 //    half, and the next tile's come in by cp.async during this one's
 //    walk.  (B4's fill walks the same way, seg_scan.cu.)
-//  * wide (wide_pass) is a coalesced elementwise kernel that reads only
-//    the one source word its mask selects.
-//  * wide2.  One element a thread, with a dependent mask read and a
-//    dependent source read, leaves too few bytes in flight, and a warp's
-//    sources fall in up to four tiles.  So each thread moves 16
-//    bytes (a vector of N words; N = 1 below a 16-byte tile or on
-//    unaligned pointers) of consecutive offsets, reads each x and mask
+//  * wide and wide2.  One element a thread, with a dependent mask read
+//    and a dependent source read, leaves too few bytes in flight, a
+//    warp's sources fall in two (wide) or four (wide2) tiles, and each
+//    source tile is read again as another tile's own.  So each thread
+//    moves 16 bytes (a vector of N words; N = 1 below a 16-byte tile or
+//    on unaligned pointers) of consecutive offsets, reads each x and mask
 //    vector once, issues every load before it selects, and serves every
-//    batch row from one mask read:
+//    batch row from one mask read.  A wide pass is wide2's first stage
+//    alone and runs on the same code as its one-stage instance
+//    (wide_pass_swap: the pair {i, i^D}; wide_pass_roll: the chains of
+//    tiles mod D, D clamped to the tile count), selecting wherever its
+//    mask byte is non-zero, as the plain version does:
 //    - swap kinds (wide2_swap_group): the tiles {i, i^D1, i^D2, i^D1^D2}
 //      are closed under both stages, so a thread owns the same offsets
 //      in all four (two when D1 == D2) and writes all of their outputs;
@@ -648,27 +651,6 @@ int launch_window(const void* x, void* out, const void* mask, long long P,
 
 // ---- wide, wide2 -----------------------------------------------------------
 
-__device__ __forceinline__ long long partner(long long i, long long D,
-                                             bool swap) {
-  return swap ? (i ^ D) : (i >= D ? i - D : 0);
-}
-
-template <typename T, bool kSwap>
-__global__ void wide_pass(const T* __restrict__ x, T* __restrict__ out,
-                          const signed char* __restrict__ mask, long long P,
-                          int shift, long long D) {
-  const T* xb = x + (long long)blockIdx.y * P;
-  T* ob = out + (long long)blockIdx.y * P;
-  const long long tmask = (1LL << shift) - 1;
-  for (long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       p < P; p += (long long)gridDim.x * blockDim.x) {
-    long long src = p;
-    if (mask[p] != 0)
-      src = (partner(p >> shift, D, kSwap) << shift) | (p & tmask);
-    ob[p] = xb[src];
-  }
-}
-
 // A thread's N consecutive words of one tile, moved as one load or store
 // (16 bytes, or N * sizeof(W) below that), and their N mask bytes.
 template <typename W, int N>
@@ -699,30 +681,34 @@ __device__ __forceinline__ W wide2_pick(unsigned m, unsigned m_at2, W own,
   return (m & 2u) ? s1_shift : s1_own;
 }
 
-template <typename W, int N>
-__device__ __forceinline__ Vec<W, N> wide2_vec(unsigned m, unsigned m_at2,
-                                               const Vec<W, N>& own,
-                                               const Vec<W, N>& at1,
-                                               const Vec<W, N>& at2,
-                                               const Vec<W, N>& at12) {
+// One output vector.  kOne, a wide pass: word e takes at1 where byte e
+// of m is non-zero (any value, as the plain version and the TPU kernel
+// test it, not bit 0 alone); else wide2_pick on bits 0 and 1.
+template <bool kOne, typename W, int N>
+__device__ __forceinline__ Vec<W, N> pick_vec(unsigned m, unsigned m_at2,
+                                              const Vec<W, N>& own,
+                                              const Vec<W, N>& at1,
+                                              const Vec<W, N>& at2,
+                                              const Vec<W, N>& at12) {
   Vec<W, N> o;
 #pragma unroll
   for (int e = 0; e < N; ++e)
-    o.w[e] = wide2_pick(m >> (8 * e), m_at2 >> (8 * e), own.w[e], at1.w[e],
-                        at2.w[e], at12.w[e]);
+    o.w[e] = kOne ? (((m >> (8 * e)) & 0xffu) ? at1.w[e] : own.w[e])
+                  : wide2_pick(m >> (8 * e), m_at2 >> (8 * e), own.w[e],
+                               at1.w[e], at2.w[e], at12.w[e]);
   return o;
 }
 
 // Thread t owns vector v = t mod (tile / N) of each tile of group t / (tile
 // / N): the group's lowest tile is the group number with zero bits
 // inserted at log2(D1) and log2(D2) (one bit when D1 == D2, kPair), its
-// members i0 ^ (k & 1 ? D1 : 0) ^ (k & 2 ? D2 : 0).
-template <typename W, int N, bool kPair>
-__global__ void __launch_bounds__(kWideThreads)
-wide2_swap_group(const W* __restrict__ x, W* __restrict__ out,
-                 const signed char* __restrict__ mask, long long P,
-                 long long batch, int log2_tile, int log2_vecs, int b1,
-                 int b2, long long total) {
+// members i0 ^ (k & 1 ? D1 : 0) ^ (k & 2 ? D2 : 0).  kOne: the single
+// stage of a wide pass (a pair, D1 = D2 = D).
+template <typename W, int N, bool kPair, bool kOne>
+__device__ __forceinline__ void swap_group(
+    const W* __restrict__ x, W* __restrict__ out,
+    const signed char* __restrict__ mask, long long P, long long batch,
+    int log2_tile, int log2_vecs, int b1, int b2, long long total) {
   constexpr int G = kPair ? 2 : 4;
   constexpr int k2 = kPair ? 1 : 2;  // member of the D2 partner: k ^ k2
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -751,10 +737,31 @@ wide2_swap_group(const W* __restrict__ x, W* __restrict__ out,
 #pragma unroll
     for (int k = 0; k < G; ++k)
       *reinterpret_cast<Vec<W, N>*>(ob + at[k]) =
-          wide2_vec(m[k], m[k ^ k2], xv[k], xv[k ^ 1], xv[k ^ k2],
-                    xv[k ^ 1 ^ k2]);
+          pick_vec<kOne>(m[k], m[k ^ k2], xv[k], xv[k ^ 1], xv[k ^ k2],
+                         xv[k ^ 1 ^ k2]);
   }
 }
+
+#define FU_SWAP_ARGS                                                       \
+  const W* __restrict__ x, W* __restrict__ out,                            \
+      const signed char* __restrict__ mask, long long P, long long batch,  \
+      int log2_tile, int log2_vecs, int b1, int b2, long long total
+#define FU_SWAP_CALL \
+  x, out, mask, P, batch, log2_tile, log2_vecs, b1, b2, total
+
+template <typename W, int N, bool kPair>
+__global__ void __launch_bounds__(kWideThreads)
+wide2_swap_group(FU_SWAP_ARGS) {
+  swap_group<W, N, kPair, false>(FU_SWAP_CALL);
+}
+
+// A wide pass's swap: the pair {i, i ^ D}.
+template <typename W, int N>
+__global__ void __launch_bounds__(kWideThreads) wide_pass_swap(FU_SWAP_ARGS) {
+  swap_group<W, N, true, true>(FU_SWAP_CALL);
+}
+#undef FU_SWAP_ARGS
+#undef FU_SWAP_CALL
 
 constexpr int kWide2Seg = 4;      // chain steps per thread, at most
 // (D1 + D2) / gcd(D1, D2), at most: the pairs (1, 1), (1, 2) and (2, 1).
@@ -764,9 +771,10 @@ constexpr int kChainBudget = 3;
 constexpr int kChainBlocks = 3;   // resident blocks per SM (register cap)
 constexpr unsigned kLow = 0x01010101u;  // bit 0 of each mask byte
 
-// Roll kinds with D1 = A * g, D2 = B * g (g below the tile count): thread
-// t owns vector v = t mod (tile / N) of chain r = (t / (tile / N)) mod g
-// (the tiles r, r + g, r + 2g, ...) at the chain steps [s0, s0 + seg) of
+// Roll kinds with D1 = A * g, D2 = B * g (g at most the tile count; B = 0:
+// the single stage of a wide pass, D = g): thread t owns vector v = t mod
+// (tile / N) of chain r = (t / (tile / N)) mod g (the tiles r, r + g,
+// r + 2g, ...) at the chain steps [s0, s0 + seg) of
 // segment (t / (tile / N)) / g.  Chain step s < 0 stands for tile 0,
 // where the roll clamps.  The x vectors of steps s0 - A - B .. s0 + seg -
 // 1 and the mask vectors of steps s0 - B .. s0 + seg - 1 at steps >= 0
@@ -774,11 +782,11 @@ constexpr unsigned kLow = 0x01010101u;  // bit 0 of each mask byte
 // tile 0's x, which every chain's first steps would read, only where a
 // mask bit selects it.
 template <typename W, int N, int A, int B>
-__global__ void __launch_bounds__(kWideThreads, kChainBlocks)
-wide2_roll_chain(const W* __restrict__ x, W* __restrict__ out,
-                 const signed char* __restrict__ mask, long long P,
-                 long long batch, int log2_tile, int log2_vecs, unsigned g,
-                 unsigned grid_tiles, int seg, long long total) {
+__device__ __forceinline__ void roll_chain(
+    const W* __restrict__ x, W* __restrict__ out,
+    const signed char* __restrict__ mask, long long P, long long batch,
+    int log2_tile, int log2_vecs, unsigned g, unsigned grid_tiles, int seg,
+    long long total) {
   constexpr int H = A + B;
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= total) return;
@@ -807,6 +815,10 @@ wide2_roll_chain(const W* __restrict__ x, W* __restrict__ out,
 #pragma unroll
   for (int s = 0; s < kWide2Seg; ++s) {
     if (s >= cnt || s0 + s >= H) continue;
+    if (B == 0) {  // one stage: any non-zero byte takes the D source
+      need0 |= m[s];
+      continue;
+    }
     const unsigned b0 = m[B + s] & kLow, b1 = (m[B + s] >> 1) & kLow;
     const unsigned c0 = m[s] & kLow;
     if (s0 + s < A) need0 |= b0 & ~b1;   // the D1 source
@@ -832,10 +844,33 @@ wide2_roll_chain(const W* __restrict__ x, W* __restrict__ out,
     for (int s = 0; s < kWide2Seg; ++s)
       if (s < cnt)
         *reinterpret_cast<Vec<W, N>*>(ob + at(s0 + s)) =
-            wide2_vec(m[B + s], m[s], xv[H + s], xv[B + s], xv[A + s],
-                      xv[s]);
+            pick_vec<B == 0>(m[B + s], m[s], xv[H + s], xv[B + s],
+                             xv[A + s], xv[s]);
   }
 }
+
+#define FU_CHAIN_ARGS                                                      \
+  const W* __restrict__ x, W* __restrict__ out,                            \
+      const signed char* __restrict__ mask, long long P, long long batch,  \
+      int log2_tile, int log2_vecs, unsigned g, unsigned grid_tiles,       \
+      int seg, long long total
+#define FU_CHAIN_CALL                                                      \
+  x, out, mask, P, batch, log2_tile, log2_vecs, g, grid_tiles, seg, total
+
+template <typename W, int N, int A, int B>
+__global__ void __launch_bounds__(kWideThreads, kChainBlocks)
+wide2_roll_chain(FU_CHAIN_ARGS) {
+  roll_chain<W, N, A, B>(FU_CHAIN_CALL);
+}
+
+// A wide pass's roll: chains of tiles mod D.
+template <typename W, int N>
+__global__ void __launch_bounds__(kWideThreads, kChainBlocks)
+wide_pass_roll(FU_CHAIN_ARGS) {
+  roll_chain<W, N, 1, 0>(FU_CHAIN_CALL);
+}
+#undef FU_CHAIN_ARGS
+#undef FU_CHAIN_CALL
 
 // Roll kinds whose chain window passes the budget: thread t owns vector
 // t mod (tile / N) of tile t / (tile / N); its own and its D2 partner's
@@ -890,51 +925,67 @@ int launch_grid(long long total, unsigned* blocks) {
   return 0;
 }
 
-// g < grid_tiles < 2^31 (launch_wide2_n checks)
-template <typename W, int N, int A, int B>
-int launch_chain(const W* x, W* out, const signed char* mask, long long P,
-                 long long batch, int log2_tile, int log2_vecs, long long g,
+template <typename W>
+using SwapKernel = void (*)(const W*, W*, const signed char*, long long,
+                            long long, int, int, int, int, long long);
+template <typename W>
+using ChainKernel = void (*)(const W*, W*, const signed char*, long long,
+                             long long, int, int, unsigned, unsigned, int,
+                             long long);
+
+// g <= grid_tiles < 2^31 (launch_wide_n and the entry check)
+template <typename W>
+int launch_chain(ChainKernel<W> kernel, const W* x, W* out,
+                 const signed char* mask, long long P, long long batch,
+                 int log2_tile, int log2_vecs, long long g,
                  long long grid_tiles, cudaStream_t stream) {
   const long long len = (grid_tiles + g - 1) / g;   // the longest chain
   const int seg = len < kWide2Seg ? (int)len : kWide2Seg;
   const long long total = ((len + seg - 1) / seg) * g << log2_vecs;
   unsigned blocks = 0;
   if (int err = launch_grid(total, &blocks)) return err;
-  wide2_roll_chain<W, N, A, B><<<blocks, kWideThreads, 0, stream>>>(
+  kernel<<<blocks, kWideThreads, 0, stream>>>(
       x, out, mask, P, batch, log2_tile, log2_vecs, (unsigned)g,
       (unsigned)grid_tiles, seg, total);
   return (int)cudaGetLastError();
 }
 
 template <typename W, int N>
-int launch_wide2_n(bool swap, const W* x, W* out, const signed char* mask,
-                   long long P, long long batch, int log2_tile, long long d1,
-                   long long d2, cudaStream_t stream) {
+int launch_wide_n(int kind, const W* x, W* out, const signed char* mask,
+                  long long P, long long batch, int log2_tile, long long d1,
+                  long long d2, cudaStream_t stream) {
   const long long grid_tiles = P >> log2_tile;
   int log2_vecs = log2_tile;
   for (int n = N; n > 1; n >>= 1) --log2_vecs;
   unsigned blocks = 0;
-  if (swap) {
+  if (kind == kWideSwap || kind == kWideSwap2) {
+    const bool one = kind == kWideSwap;
     int b1 = 0, b2 = 0;
     while ((1LL << b1) < d1) ++b1;
     while ((1LL << b2) < d2) ++b2;
-    const bool pair = d1 == d2;
+    if (one) b2 = b1;
+    const bool pair = b1 == b2;
     const long long total = (grid_tiles >> (pair ? 1 : 2)) << log2_vecs;
     if (int err = launch_grid(total, &blocks)) return err;
-    if (pair)
-      wide2_swap_group<W, N, true><<<blocks, kWideThreads, 0, stream>>>(
-          x, out, mask, P, batch, log2_tile, log2_vecs, b1, b2, total);
-    else
-      wide2_swap_group<W, N, false><<<blocks, kWideThreads, 0, stream>>>(
-          x, out, mask, P, batch, log2_tile, log2_vecs, b1, b2, total);
+    const SwapKernel<W> kernel = one    ? wide_pass_swap<W, N>
+                                 : pair ? wide2_swap_group<W, N, true>
+                                        : wide2_swap_group<W, N, false>;
+    kernel<<<blocks, kWideThreads, 0, stream>>>(
+        x, out, mask, P, batch, log2_tile, log2_vecs, b1, b2, total);
     return (int)cudaGetLastError();
   }
+  if (kind == kWideRoll)  // every tile past the tile count clamps to 0
+    return launch_chain<W>(wide_pass_roll<W, N>, x, out, mask, P, batch,
+                           log2_tile, log2_vecs,
+                           d1 < grid_tiles ? d1 : grid_tiles, grid_tiles,
+                           stream);
   const long long g = gcd(d1, d2), a = d1 / g, b = d2 / g;
   const bool chain = g < grid_tiles && grid_tiles < (1LL << 31);
 #define FU_CHAIN(A, B)                                                       \
   if (chain && a == A && b == B)                                             \
-    return launch_chain<W, N, A, B>(x, out, mask, P, batch, log2_tile,       \
-                                    log2_vecs, g, grid_tiles, stream);
+    return launch_chain<W>(wide2_roll_chain<W, N, A, B>, x, out, mask, P,    \
+                           batch, log2_tile, log2_vecs, g, grid_tiles,       \
+                           stream);
   // every coprime (A, B) with A + B <= kChainBudget
   FU_CHAIN(1, 1) FU_CHAIN(1, 2) FU_CHAIN(2, 1)
 #undef FU_CHAIN
@@ -947,9 +998,9 @@ int launch_wide2_n(bool swap, const W* x, W* out, const signed char* mask,
 
 // 16-byte vectors where the tile and the pointers allow, else one word.
 template <typename W>
-int launch_wide2(bool swap, const void* x, void* out, const void* mask,
-                 long long P, long long batch, int tile, int log2_tile,
-                 long long d1, long long d2, cudaStream_t stream) {
+int launch_wide(int kind, const void* x, void* out, const void* mask,
+                long long P, long long batch, int tile, int log2_tile,
+                long long d1, long long d2, cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(W);
   const W* xt = static_cast<const W*>(x);
   W* ot = static_cast<W*>(out);
@@ -958,10 +1009,10 @@ int launch_wide2(bool swap, const void* x, void* out, const void* mask,
                        reinterpret_cast<size_t>(out) % 16 == 0 &&
                        reinterpret_cast<size_t>(mask) % kVec == 0;
   if (tile >= kVec && aligned)
-    return launch_wide2_n<W, kVec>(swap, xt, ot, mt, P, batch, log2_tile, d1,
-                                   d2, stream);
-  return launch_wide2_n<W, 1>(swap, xt, ot, mt, P, batch, log2_tile, d1, d2,
-                              stream);
+    return launch_wide_n<W, kVec>(kind, xt, ot, mt, P, batch, log2_tile, d1,
+                                  d2, stream);
+  return launch_wide_n<W, 1>(kind, xt, ot, mt, P, batch, log2_tile, d1, d2,
+                             stream);
 }
 
 template <typename T>
@@ -974,28 +1025,8 @@ int launch(int kind, const void* x, void* out, const void* mask, long long P,
   if (kind == kWindow)
     return launch_window<T>(x, out, mask, P, batch, tile, n_stages, ds,
                             stream);
-  if (kind == kWideSwap2 || kind == kWideRoll2)
-    return launch_wide2<T>(kind == kWideSwap2, x, out, mask, P, batch, tile,
-                           shift, d1, d2, stream);
-  long long blocks = (P + kWideThreads - 1) / kWideThreads;
-  if (blocks > (1LL << 20)) blocks = 1LL << 20;
-  dim3 grid((unsigned)blocks, (unsigned)batch);
-  const T* xt = static_cast<const T*>(x);
-  T* ot = static_cast<T*>(out);
-  const signed char* mt = static_cast<const signed char*>(mask);
-  switch (kind) {
-    case kWideSwap:
-      wide_pass<T, true><<<grid, kWideThreads, 0, stream>>>(xt, ot, mt, P,
-                                                            shift, d1);
-      break;
-    case kWideRoll:
-      wide_pass<T, false><<<grid, kWideThreads, 0, stream>>>(xt, ot, mt, P,
-                                                             shift, d1);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return launch_wide<T>(kind, x, out, mask, P, batch, tile, shift, d1, d2,
+                        stream);
 }
 
 }  // namespace
@@ -1004,8 +1035,8 @@ int launch(int kind, const void* x, void* out, const void* mask, long long P,
 // 5 wide_roll2.  elem_bytes: 4 or 8 (the words are moved, never read as
 // numbers).  x, out: batch * P words; mask: P int32 words (local, window)
 // or P int8 (wide).  dists: host array of n_stages element distances
-// (local, window); d1, d2: block distances (wide; wide2 swaps: powers of
-// two whose partner tiles lie on the grid).  sched (local only):
+// (local, window); d1, d2: block distances (d1 for wide, both for wide2,
+// each >= 1; swaps: powers of two whose partner tiles lie on the grid).  sched (local only):
 // host array of kSchedInts ints from plan_local_schedule — the segment
 // count, 32 segment ends, 32 stage slot bits, then 34 layouts of 12
 // position bits each (load, one per segment, store).  Returns the
@@ -1027,12 +1058,18 @@ extern "C" int benes_pass(int kind, int elem_bytes, const void* x, void* out,
   }
   int shift = 0;
   while ((1LL << shift) < tile) ++shift;
-  // wide2: the partner tiles lie on the grid (a swap's i ^ D for every i)
+  // wide, wide2: the partner tiles lie on the grid (a swap's i ^ D for
+  // every i); a wide roll's chains count tiles in 32 bits
   const long long grid_tiles = P / tile;
-  if ((kind == kWideSwap2 || kind == kWideRoll2) && (d1 < 1 || d2 < 1))
+  if (kind < kLocal || kind > kWideRoll2 ||
+      (kind >= kWideSwap && d1 < 1) ||
+      (kind >= kWideSwap2 && d2 < 1) ||
+      (kind == kWideRoll && grid_tiles >= (1LL << 31)))
     return (int)cudaErrorInvalidValue;
-  if (kind == kWideSwap2 && ((d1 & (d1 - 1)) || (d2 & (d2 - 1)) ||
-                             grid_tiles % (2 * d1) || grid_tiles % (2 * d2)))
+  if ((kind == kWideSwap || kind == kWideSwap2) &&
+      ((d1 & (d1 - 1)) || grid_tiles % (2 * d1)))
+    return (int)cudaErrorInvalidValue;
+  if (kind == kWideSwap2 && ((d2 & (d2 - 1)) || grid_tiles % (2 * d2)))
     return (int)cudaErrorInvalidValue;
   LocalSched sc = {};
   if (kind == kLocal &&

@@ -34,9 +34,33 @@
 // What bounds it on an H100: bytes.  A pass reads x and the dist plane
 // once and writes x once.  Offsets are 64-bit.
 //
-//  * scan window pass (seg_window_pass): stages its two tiles in shared
-//    memory (64 KiB for float64) and keeps each thread's values and dist
-//    words in registers, two __syncthreads() per stage.
+//  * scan window pass (scan_chunk_pass).  A scan needs every stage's
+//    values, not one source, so the stage loop stays, but only over what
+//    can still reach the output.  Staging both whole tiles of x and dist
+//    (64 KiB for float64) and running every stage over the whole window,
+//    two barriers a stage, one block per (tile, batch row), cost 6.4x the
+//    bytes' time.  Here a block owns a chunk of C = 1,024 outputs (the
+//    tile, if smaller) and stages only the window positions [own - L,
+//    own + C), L = sum(d) rounded up to whole packs: the halo below is
+//    what the stages can carry into the chunk.  Stage j runs only over
+//    [own - (d_{j+1} + ... + d_last), own + C), what the later stages
+//    still read, between two shared-memory buffers in turn, so one
+//    barrier a stage.  Once the stages were cheap in barriers and bytes,
+//    they were bound by instructions (one value a thread and stage: the
+//    loads, selects and index tests of each): so a thread holds packs of
+//    16 bytes of consecutive positions (one value below a 16-byte tile or
+//    on unaligned pointers) with their dist words in registers, and a
+//    stage costs it one vector load from shared memory (two where d is
+//    not a multiple of the pack; none where d is below it, the pack being
+//    its own), the selects and combines, and one vector store.  The dist
+//    words are read once for every batch row.  A thread holds as many
+//    packs as its registers take (8 positions): 160 threads hold path
+//    D's chunk and its halo.  Where L + C
+//    passes 2,048 positions (never on a planned pass of the card's tile,
+//    whose sum(d) stays below the tile) a block of up to 1,024 threads
+//    owns a whole tile, and where the halo reaches round the window
+//    (L + C >= 2 tile) it runs every stage over the whole window,
+//    circularly, as the plain version does.
 //  * fill window pass (fill_walk_pass).  The fill only moves data, so
 //    each output has exactly one source, and the kernel finds it first:
 //    from w = tile + (p mod tile), for the stages from last to first,
@@ -63,9 +87,10 @@
 namespace {
 
 constexpr int kMaxStages = 32;
-constexpr int kThreads = 512;
-constexpr int kMaxPer = 16;                              // words per thread
-constexpr long long kMaxTile = kThreads * kMaxPer / 2;   // 4096 elements
+constexpr long long kMaxTile = 4096;                     // elements
+constexpr int kScanChunk = 1024;                         // outputs per block
+constexpr int kScanPer = 8;      // window positions per thread, at most
+constexpr int kScanThreads = 1024;                       // at most
 constexpr int kWideThreads = 256;
 constexpr int kFillThreads = 256;
 constexpr int kFillPer = 4;                              // outputs per thread
@@ -110,60 +135,141 @@ __device__ __forceinline__ T comb(T a, T b) {
   return kOp == kMin ? ::min(a, b) : ::max(a, b);
 }
 
-template <typename T, int kOp>
-__device__ __forceinline__ T stage(T cur, T src, int dv, int d) {
-  return comb<T, kOp>(cur, dv >= d ? src : identity<T, kOp>());
+// E consecutive values (16 bytes, or one value on unaligned pointers or
+// below a 16-byte tile), moved as one load or store.
+template <typename T, int E>
+struct alignas(E * sizeof(T)) Pack {
+  T v[E];
+};
+
+// One stage over this thread's packs, R = d mod E: element e of pack q
+// takes position E q + e - d, element e - R of pack q - d / E (this
+// thread's own pack where d < E, still in registers) or, for e < R,
+// element E + e - R of the pack before it.  Pack indices wrap mod the
+// span: only where a read can wrap (the whole window), or for elements
+// below the stage's start, whose values no output reads.
+template <int R, int kOp, typename T, int E, int K>
+__device__ __forceinline__ void scan_stage(Pack<T, E> (&v)[K],
+                                           const Pack<int, E> (&dv)[K],
+                                           const Pack<T, E>* in,
+                                           Pack<T, E>* to, int packs,
+                                           int per, int lo, int d,
+                                           bool last) {
+  const int D = d / E;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int q = threadIdx.x + k * blockDim.x;
+    if (k >= per || q >= packs || q < lo) continue;
+    int qh = q - D;
+    if (qh < 0) qh += packs;
+    Pack<T, E> hi = v[k];
+    if (D) hi = in[qh];
+    Pack<T, E> below = hi;
+    if (R) below = in[qh > 0 ? qh - 1 : packs - 1];
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const T src = e >= R ? hi.v[(e - R) & (E - 1)]
+                           : below.v[(E + e - R) & (E - 1)];
+      // a stage always combines, with the identity where its mask is
+      // off, as the plain version
+      v[k].v[e] = comb<T, kOp>(v[k].v[e], dv[k].v[e] >= d
+                                              ? src : identity<T, kOp>());
+    }
+    if (!last) to[q] = v[k];
+  }
 }
 
-template <typename T, int kOp>
-__global__ void __launch_bounds__(kThreads)
-seg_window_pass(const T* __restrict__ x, T* __restrict__ out,
-                const int* __restrict__ dist, long long P, int tile,
-                int n_stages, Dists ds) {
+// The scan's window pass (see the header).  Block b owns the outputs
+// [c0, c0 + chunk) of one tile and the `span` window positions ending at
+// the chunk's end: local position p is window position (first + p) mod
+// 2 * tile.  A thread holds packs q = threadIdx.x + k * blockDim.x of E
+// positions (p = E q ...).  Stage j updates the packs from start[j] on,
+// reading from the buffer the stage before wrote.
+template <typename T, int kOp, int E>
+__global__ void __launch_bounds__(kScanThreads)
+scan_chunk_pass(const T* __restrict__ x, T* __restrict__ out,
+                const int* __restrict__ dist, long long P, long long batch,
+                int log2_tile, int chunk, int span, int per, int n_stages,
+                Dists ds, Dists start) {
+  constexpr int K = kScanPer / E;   // packs per thread, at most
+  using V = Pack<T, E>;
+  using I = Pack<int, E>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* s = reinterpret_cast<T*>(smem_raw);
-  const int elems = 2 * tile;
-  const int wrap = elems - 1;  // elems is a power of two
-  const long long blk = blockIdx.x;
-  const long long prev = blk > 0 ? blk - 1 : 0;
-  const T* xb = x + (long long)blockIdx.y * P;
-  T v[kMaxPer];
-  int dv[kMaxPer];
+  V* buf = reinterpret_cast<V*>(smem_raw);  // two buffers of span values
+  __shared__ int sdist[kMaxStages], sstart[kMaxStages];
+  if (threadIdx.x == 0) {
+    // constant indices: a runtime index into the parameter would make
+    // every thread copy it to local memory
 #pragma unroll
-  for (int k = 0; k < kMaxPer; ++k) {
-    const int q = threadIdx.x + k * blockDim.x;
-    if (q < elems) {
-      const long long g =
-          q < tile ? prev * tile + q : blk * tile + (q - tile);
-      v[k] = xb[g];
-      dv[k] = dist[g];
-      s[q] = v[k];
+    for (int j = 0; j < kMaxStages; ++j) {
+      sdist[j] = ds.d[j];
+      sstart[j] = start.d[j];
     }
   }
-  __syncthreads();
-  for (int j = 0; j < n_stages; ++j) {
-    const int d = ds.d[j];
+  const int tile = 1 << log2_tile;
+  const int packs = span / E;
+  const long long c0 = (long long)blockIdx.x * chunk;
+  const long long blk = c0 >> log2_tile;
+  // window position of local 0 (the chunk's outputs are the last `chunk`
+  // local positions), and the global index of window position w:
+  // row0 + (w & wrap0), (blk - 1) * tile + w mod 2 * tile, or for tile 0,
+  // whose window repeats it, w mod tile
+  const int first = tile + (int)(c0 - blk * tile) + chunk - span;
+  const long long row0 = blk > 0 ? (blk - 1) * tile : 0;
+  const int wrap0 = blk > 0 ? 2 * tile - 1 : tile - 1;
+  I dv[K];
 #pragma unroll
-    for (int k = 0; k < kMaxPer; ++k) {
+  for (int k = 0; k < K; ++k) {
+    const int q = threadIdx.x + k * blockDim.x;
+    if (k < per && q < packs)
+      dv[k] = *reinterpret_cast<const I*>(
+          dist + row0 + ((first + E * q) & wrap0));
+  }
+  const int lead = (span - chunk) / E;  // the first output pack
+  for (long long b = 0; b < batch; ++b) {
+    const T* xb = x + b * P;
+    V v[K];
+    // the row before may still read either buffer in its last stage
+    if (b > 0) __syncthreads();
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
       const int q = threadIdx.x + k * blockDim.x;
-      if (q < elems)
-        v[k] = stage<T, kOp>(v[k], s[(q - d) & wrap], dv[k], d);
-    }
-    if (j + 1 < n_stages) {
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < kMaxPer; ++k) {
-        const int q = threadIdx.x + k * blockDim.x;
-        if (q < elems) s[q] = v[k];
+      if (k < per && q < packs) {
+        v[k] = *reinterpret_cast<const V*>(
+            xb + row0 + ((first + E * q) & wrap0));
+        buf[q] = v[k];
       }
-      __syncthreads();
     }
-  }
-  T* ob = out + (long long)blockIdx.y * P + blk * tile;
+    __syncthreads();
+    for (int j = 0; j < n_stages; ++j) {
+      const int d = sdist[j], lo = sstart[j];
+      const V* in = buf + (j & 1) * packs;
+      V* to = buf + ((j + 1) & 1) * packs;
+      const bool last = j + 1 == n_stages;
+      switch (d & (E - 1)) {
+        case 0:
+          scan_stage<0, kOp>(v, dv, in, to, packs, per, lo, d, last);
+          break;
+        case 1:
+          scan_stage<(E > 1 ? 1 : 0), kOp>(v, dv, in, to, packs, per, lo,
+                                           d, last);
+          break;
+        case 2:
+          scan_stage<(E > 2 ? 2 : 0), kOp>(v, dv, in, to, packs, per, lo,
+                                           d, last);
+          break;
+        default:
+          scan_stage<(E > 3 ? 3 : 0), kOp>(v, dv, in, to, packs, per, lo,
+                                           d, last);
+      }
+      if (!last) __syncthreads();
+    }
+    V* ob = reinterpret_cast<V*>(out + b * P + c0);
 #pragma unroll
-  for (int k = 0; k < kMaxPer; ++k) {
-    const int q = threadIdx.x + k * blockDim.x;
-    if (q >= tile && q < elems) ob[q - tile] = v[k];
+    for (int k = 0; k < K; ++k) {
+      const int q = threadIdx.x + k * blockDim.x;
+      if (k < per && q < packs && q >= lead) ob[q - lead] = v[k];
+    }
   }
 }
 
@@ -255,6 +361,56 @@ int launch_wide(const T* x, T* out, const int* dist, long long P,
   return (int)cudaGetLastError();
 }
 
+// The scan's window pass: packs of E values (16 bytes where the tile and
+// the pointers allow), then chunk, span (see scan_chunk_pass) and block
+// size from the stages' reach, sum(d), rounded up to whole packs.
+template <typename T, int kOp, int E>
+int launch_scan(const T* x, T* out, const int* dist, long long P,
+                long long batch, int tile, int n_stages, const Dists& ds,
+                cudaStream_t stream) {
+  long long reach = 0;
+  for (int j = 0; j < n_stages; ++j) reach += ds.d[j];
+  const long long lead = (reach + E - 1) / E * E;
+  int chunk = tile < kScanChunk ? tile : kScanChunk;
+  long long span = lead + chunk < 2 * tile ? lead + chunk : 2 * tile;
+  if (span > 2 * kScanChunk) {
+    chunk = tile;
+    span = lead + tile < 2 * tile ? lead + tile : 2 * tile;
+  }
+  // every thread holds as many packs as its registers take (one pack a
+  // thread measured 1.4-2.5x slower, scripts/torch_b4_variants.py)
+  constexpr int K = kScanPer / E;
+  const int packs = (int)(span / E);
+  const int threads = (packs + K - 1) / K < kScanThreads
+                          ? ((packs + K - 1) / K + 31) / 32 * 32
+                          : kScanThreads;
+  // stage j runs from local position (span - chunk) - (d_{j+1} + ... +
+  // d_last) on, from the pack that holds it
+  Dists start = {};
+  long long later = 0;
+  for (int j = n_stages - 1; j >= 0; --j) {
+    const long long lo = span - chunk - later;
+    start.d[j] = lo > 0 ? (int)(lo / E) : 0;
+    later += ds.d[j];
+  }
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        scan_chunk_pass<T, kOp, E>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)(4 * kMaxTile * sizeof(T)));
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  int log2_tile = 0;
+  while ((1 << log2_tile) < tile) ++log2_tile;
+  scan_chunk_pass<T, kOp, E>
+      <<<(unsigned)(P / chunk), threads, 2 * (size_t)span * sizeof(T),
+         stream>>>(x, out, dist, P, batch, log2_tile, chunk, (int)span,
+                   (packs + threads - 1) / threads, n_stages, ds, start);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int kOp>
 int launch_op(const void* x, void* out, const int* dist, long long P,
               long long batch, int tile, int n_stages, const Dists& ds,
@@ -263,22 +419,15 @@ int launch_op(const void* x, void* out, const int* dist, long long P,
   T* ot = static_cast<T*>(out);
   if (wide)
     return launch_wide<T, kOp>(xt, ot, dist, P, batch, ds.d[0], stream);
-  const int elems = 2 * tile;
-  const size_t smem = (size_t)elems * sizeof(T);
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        seg_window_pass<T, kOp>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)(kMaxTile * 2 * sizeof(T)));
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
-  }
-  const int threads = elems >= kThreads ? kThreads : ((elems + 31) / 32) * 32;
-  dim3 grid((unsigned)(P / tile), (unsigned)batch);
-  seg_window_pass<T, kOp><<<grid, threads, smem, stream>>>(
-      xt, ot, dist, P, tile, n_stages, ds);
-  return (int)cudaGetLastError();
+  constexpr int kVec = 16 / sizeof(T);
+  const bool aligned = reinterpret_cast<size_t>(x) % 16 == 0 &&
+                       reinterpret_cast<size_t>(out) % 16 == 0 &&
+                       reinterpret_cast<size_t>(dist) % 16 == 0;
+  if (tile % kVec == 0 && aligned)
+    return launch_scan<T, kOp, kVec>(xt, ot, dist, P, batch, tile, n_stages,
+                                     ds, stream);
+  return launch_scan<T, kOp, 1>(xt, ot, dist, P, batch, tile, n_stages, ds,
+                                stream);
 }
 
 template <typename T>

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Design variants of kernel B3's window and wide2 passes, timed on one
-NVIDIA GPU (the PyTorch/CUDA port, ``flow_updating_tpu_torch``).
+"""Design variants of kernel B3's window, wide and wide2 passes, timed on
+one NVIDIA GPU (the PyTorch/CUDA port, ``flow_updating_tpu_torch``).
 
 Run from the repository root on a machine with one card:
 
@@ -10,14 +10,16 @@ It builds ``flow_updating_tpu_torch/csrc/benes_pass.cu`` as committed and
 in variants made by rewriting a few of its lines (the window kernel with
 each batch row's window of x staged in shared memory before the gather,
 with every walk in window positions mod 2 * tile, even where no walk can
-wrap, and with a cap of 3 resident blocks; the wide2 roll chain with 8
-steps per thread, and with a cap of 2 resident blocks), plus any other
+wrap, and with a cap of 3 resident blocks; the roll chain of wide2 and
+of its one-stage instance, the wide pass, with 8 steps per thread, and
+with a cap of 2 resident blocks), plus any other
 ``benes_pass.cu`` given with ``--source`` (an earlier revision, say),
 each with nvcc in parallel.  On
 the k=160 fat tree's neighbor-sum network (P = 2^23, as ``chip_smoke.py``
 plans it) it holds every variant against the plain version
-(``torch.equal``) on every window pass and on a roll and a swap wide2
-pass of each distance pair, and times it with CUDA events over 50
+(``torch.equal``) on every window pass, on a roll and a swap wide2 pass
+of each distance pair and on a wide pass of each kind and distance, and
+times it with CUDA events over 50
 back-to-back calls: float32 at batch 1 and 3, float64 at batch 1, beside
 ``torch.index_select`` with the pass's source index and the pass's byte
 bound (x read once, the mask plane read once, the output written once,
@@ -136,11 +138,13 @@ def k160_network(dev):
 
 
 def chosen_passes(fused) -> list:
-    """Every window pass, and the first wide2 pass of each (kind, D1, D2)."""
+    """Every window pass, and the first wide or wide2 pass of each (kind,
+    D1, D2)."""
     seen, out = set(), []
     for i, ps in enumerate(fused.passes):
         key = (ps.kind, ps.block_dist, ps.block_dist2)
-        if ps.kind == "window" or (ps.kind.endswith("2") and key not in seen):
+        if ps.kind == "window" or (ps.kind.startswith("wide")
+                                   and key not in seen):
             seen.add(key)
             out.append(i)
     return out

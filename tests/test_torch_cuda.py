@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
 Every test here needs an NVIDIA GPU with ``nvcc`` and skips without one
-(kernels K1, K2, the four flavours of B3 — local, window and wide2 at
-every tile —, B4's scan and fill, B5 and B6;
+(kernels K1, K2, the four flavours of B3 — local, window, wide and wide2
+at every tile —, B4's scan (every tile too) and fill, B5 and B6;
 the edge kernel's Beneš routes, the sharded banded round and the halo
 edge round on the card).
 This file imports no JAX, so it also runs where JAX is absent, without the
@@ -278,6 +278,48 @@ def test_wide2_pass_kernel_every_tile(card, log2_tile, dtype, batch):
             assert torch.equal(got, want)
 
 
+#: (kind, D, tiles): swap pairs; roll chains of one tile and of several,
+#: of unequal length (20 mod 3, 23 mod 5), up to and past the tile count
+_WIDE = [("wide_swap", 1, 8), ("wide_swap", 2, 8), ("wide_swap", 4, 16),
+         ("wide_swap", 8, 16), ("wide_roll", 1, 20), ("wide_roll", 3, 20),
+         ("wide_roll", 5, 23), ("wide_roll", 4, 16), ("wide_roll", 19, 20),
+         ("wide_roll", 25, 20)]
+
+
+@pytest.mark.parametrize("log2_tile", range(13))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.int32])
+@pytest.mark.parametrize("batch", [1, 3])
+def test_wide_pass_kernel_every_tile(card, log2_tile, dtype, batch):
+    """B3's wide kernels (wide2's one-stage instances) against
+    wide_pass_plain at every tile from 1 to 4,096 elements: swap pairs
+    and roll chains, random int8 mask planes with zeros and non-zero
+    bytes whose bit 0 is clear (any non-zero byte selects), and an
+    unaligned payload (the one-word form); one launch per pass."""
+    from flow_updating_tpu_torch.ops import fused_passes as fp
+
+    tile = 1 << log2_tile
+    rng = np.random.default_rng(80 + log2_tile)
+    for kind, d, grid in _WIDE:
+        geom = _tiles_geometry(tile, grid)
+        ps = fp.PassSpec(kind=kind, dists=(d * tile,), block_dist=d)
+        bits = rng.integers(-128, 128, geom.P).astype(np.int8)
+        bits[::3] = 0
+        bits[1::5] = 2
+        plane = torch.from_numpy(bits).to(card)
+        x = torch.from_numpy(rng.normal(size=(batch, grid, tile))
+                             * 1000).to(card, dtype)
+        shifted = torch.empty(batch * geom.P + 1, dtype=dtype, device=card)
+        shifted[1:] = x.reshape(-1)
+        x_off = shifted[1:].view(batch, grid, tile)
+        want = fp.wide_pass_plain(x, plane, ps, geom)
+        for payload in (x, x_off):
+            before = fp.wide_pass.launches
+            got = fp.wide_pass(payload, plane, ps, geom)
+            assert fp.wide_pass.launches == before + 1
+            assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("log2n,block_rows", [(16, None), (13, 16),
                                               (6, None), (9, None)])
 def test_apply_fused_on_card_equals_apply_stages(card, log2n, block_rows):
@@ -354,11 +396,31 @@ def _dist_plane(rng, P, max_deg):
     return dist
 
 
-def _payload(rng, shape, dtype):
+def _payload(rng, shape, dtype, special=False):
+    """Random values; ``special``: floats also -0.0 and NaN at a few
+    positions."""
     if dtype == torch.int32:
         return torch.from_numpy(rng.integers(-10**6, 10**6, shape,
                                              dtype=np.int32))
-    return torch.from_numpy(rng.uniform(-1, 1, shape)).to(dtype)
+    x = torch.from_numpy(rng.uniform(-1, 1, shape)).to(dtype)
+    if special:
+        flat = x.view(-1)
+        at = torch.from_numpy(rng.integers(0, flat.numel(),
+                                           2 * (flat.numel() // 64 + 1)))
+        flat[at[::2]] = -0.0
+        flat[at[1::2]] = float("nan")
+    return x
+
+
+def _same_values(a, b) -> bool:
+    """NaN at the same positions and every other word bit for bit (the
+    sign of zero included); a NaN's payload is not compared."""
+    if not a.dtype.is_floating_point:
+        return torch.equal(a, b)
+    nan = a.isnan()
+    word = torch.int32 if a.element_size() == 4 else torch.int64
+    return (torch.equal(nan, b.isnan())
+            and torch.equal(a[~nan].view(word), b[~nan].view(word)))
 
 
 @pytest.mark.parametrize("op,dtype", [
@@ -368,6 +430,9 @@ def _payload(rng, shape, dtype):
     ("fill", torch.float64)])
 @pytest.mark.parametrize("batch", [1, 3])
 def test_seg_scan_kernel_matches_plain(card, op, dtype, batch):
+    """Path D's 8 stages at the card's tile on a rank plane, with -0.0
+    and NaN in the float payloads (a stage adds 0 where its mask is off,
+    so -0.0 turns +0.0; a NaN operand wins min and max)."""
     from flow_updating_tpu_torch.ops import fused_passes as fp
 
     rng = np.random.default_rng(5)
@@ -375,7 +440,7 @@ def test_seg_scan_kernel_matches_plain(card, op, dtype, batch):
     geom = fp.geometry(P)
     dist = torch.from_numpy(_dist_plane(rng, P, 200)).to(card)
     dists = tuple(1 << k for k in range(8))
-    x = _payload(rng, (batch, P), dtype).to(card)
+    x = _payload(rng, (batch, P), dtype, special=True).to(card)
     if op == "fill":
         before = fp.fill_pass.launches
         got = fp.fill_pass(x, dist, dists, geom)
@@ -386,7 +451,45 @@ def test_seg_scan_kernel_matches_plain(card, op, dtype, batch):
         got = fp.segscan_pass(x, dist, dists, op, geom)
         ref = fp.segscan_pass_plain(x, dist, dists, op, geom)
         assert fp.segscan_pass.launches - before == 1
-    assert torch.equal(got, ref)
+    assert _same_values(got, ref)
+
+
+@pytest.mark.parametrize("log2_tile", range(13))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.int32])
+@pytest.mark.parametrize("batch", [1, 3])
+def test_seg_scan_window_kernel_every_tile(card, log2_tile, dtype, batch):
+    """B4's scan window kernel against dist_pass_plain at every tile from
+    1 to 4,096 elements (four tiles, tile 0 included), every op, random
+    dist planes, -0.0 and NaN in the float payloads, aligned (packs of 16
+    bytes) and unaligned (one value a pack): ascending powers of two
+    below the tile (a chunk and its halo) and random lists of 1, 8 and 32
+    distances below 2 tile (halos up to the whole window, which the C
+    entry takes though no plan makes them)."""
+    from flow_updating_tpu_torch.ops import fused_passes as fp
+
+    tile = 1 << log2_tile
+    geom = _tiles_geometry(tile, 4)
+    rng = np.random.default_rng(90 + log2_tile)
+    lists = [tuple(int(d) for d in rng.integers(1, 2 * tile, size=k))
+             for k in (1, 8, 32)]
+    if tile > 1:
+        lists.append(tuple(1 << k for k in range(log2_tile)))
+    for dists in lists:
+        dist = torch.from_numpy(rng.integers(-2**31, 2**31, geom.P,
+                                             dtype=np.int64)
+                                .astype(np.int32)).to(card)
+        dp = fp.DistPass("window", dists)
+        for op in fp.SCAN_OPS:
+            x = _payload(rng, (batch, geom.P), dtype, special=True).to(card)
+            want = fp.dist_pass_plain(x, dist, dp, op, geom)
+            shifted = torch.empty(batch * geom.P + 1, dtype=dtype,
+                                  device=card)
+            shifted[1:] = x.reshape(-1)
+            for payload in (x, shifted[1:].view(batch, geom.P)):
+                got = fp._launch_dist(payload, dist, dp, op, geom,
+                                      "segscan_pass")
+                assert _same_values(got, want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64,

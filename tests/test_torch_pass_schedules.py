@@ -20,9 +20,17 @@ and held bit for bit against the plain version it must equal.
   ``window_pass_plain`` at every tile and against the JAX package's
   ``_window_pass`` in interpret mode.
 * The wide2 kernels (``wide2_swap_group``, ``wide2_roll_chain``,
-  ``wide2_roll_gather``) are transcribed thread by thread: which vectors
-  each thread owns and loads, and the selects; held against
-  ``wide2_pass_plain``.
+  ``wide2_roll_gather``) and the wide kernels, their one-stage instances
+  (``wide_pass_swap``, ``wide_pass_roll``), are transcribed thread by
+  thread: which vectors each thread owns and loads, and the selects;
+  held against ``wide2_pass_plain`` and ``wide_pass_plain``, and the
+  wide pass against the JAX package's ``_wide_pass`` in interpret mode.
+* The scan (``scan_chunk_pass``) runs the stages over a chunk of outputs
+  and the halo below it, each stage over a shrinking range, between two
+  shared-memory buffers; the transcription (the launch arithmetic
+  included) is held against ``segscan_pass_plain`` and the window pass's
+  plain version at every tile, and against the JAX package's
+  ``segscan_pass`` in interpret mode.
 
 The kernels themselves run only on the card (``tests/test_torch_cuda.py``).
 """
@@ -455,7 +463,7 @@ def test_window_walk_equals_jax_interpret(n_stages, dtype):
     np.testing.assert_array_equal(got.reshape(3, P).numpy(), want)
 
 
-# ---- B3's wide2 pass: vectors, swap groups, roll chains ---------------------
+# ---- B3's wide and wide2 passes: vectors, swap groups, roll chains ---------
 
 #: chain steps per thread and the largest (D1 + D2) / gcd of the chain
 #: form (benes_pass.cu, kWide2Seg and kChainBudget)
@@ -471,21 +479,30 @@ def _pick(m, m_at2, own, at1, at2, at12):
     return np.where(m & 2, s1_shift, s1_own)
 
 
-def emulate_wide2(x3, plane, ps, geom, aligned: bool = True):
-    """B3's wide2 kernels as they run, thread by thread (see
+def _pick1(m, own, at1):
+    """A wide pass's select (pick_vec's kOne): any non-zero mask byte
+    takes the partner."""
+    return np.where(m != 0, at1, own)
+
+
+def emulate_wide(x3, plane, ps, geom, aligned: bool = True):
+    """B3's wide and wide2 kernels as they run, thread by thread (see
     ``csrc/benes_pass.cu``): which vector of which tiles each thread
-    owns, the x and mask vectors it loads, the selects.  Every output is
-    written once, every x vector is loaded once per batch row but for a
-    roll chain segment's predecessors, and a roll chain reads tile 0
-    (where it clamps) only where a mask bit selects it: elsewhere its
-    vectors are poison, which no output may take.  Returns ``(out, form,
-    clamped)``, ``clamped`` the threads that read tile 0 for a clamped
-    source."""
+    owns, the x and mask vectors it loads, the selects.  A wide pass runs
+    as the one-stage instance: a swap pair {i, i ^ D}, a roll chain of
+    tiles mod D (D clamped to the tile count).  Every output is written
+    once, every x vector is loaded once per batch row but for a roll
+    chain segment's predecessors, and a roll chain reads tile 0 (where it
+    clamps) only where a mask selects it: elsewhere its vectors are
+    poison, which no output may take.  Returns ``(out, form, clamped)``,
+    ``clamped`` the threads that read tile 0 for a clamped source."""
     T, grid, P = geom.tile, geom.grid, geom.P
     vec = 16 // x3.element_size()
     N = vec if T >= vec and aligned else 1
     vecs = T // N
-    D1, D2 = ps.block_dist, ps.block_dist2
+    one = ps.kind in ("wide_swap", "wide_roll")
+    D1 = ps.block_dist
+    D2 = D1 if one else ps.block_dist2
     mask = plane.numpy().astype(np.int64)
     src = np.full(P, -1, np.int64)
     loaded = np.zeros(P, np.int64)     # x loads per word, predecessors apart
@@ -499,8 +516,8 @@ def emulate_wide2(x3, plane, ps, geom, aligned: bool = True):
         assert (src[dst] == -1).all(), "an output written twice"
         src[dst] = s
 
-    if ps.kind == "wide_swap2":
-        form = "swap_group"
+    if ps.kind in ("wide_swap", "wide_swap2"):
+        form = "swap_pair" if one else "swap_group"
         b1, b2 = D1.bit_length() - 1, D2.bit_length() - 1
         pair = D1 == D2
         G, k2 = (2, 1) if pair else (4, 2)
@@ -516,12 +533,16 @@ def emulate_wide2(x3, plane, ps, geom, aligned: bool = True):
         for q in pos:
             np.add.at(loaded, q.ravel(), 1)
         for k in range(G):
-            write(pos[k], _pick(m[k], m[k ^ k2], pos[k], pos[k ^ 1],
-                                pos[k ^ k2], pos[k ^ 1 ^ k2]))
+            write(pos[k], _pick1(m[k], pos[k], pos[k ^ 1]) if one
+                  else _pick(m[k], m[k ^ k2], pos[k], pos[k ^ 1],
+                             pos[k ^ k2], pos[k ^ 1 ^ k2]))
     else:
-        g = math.gcd(D1, D2)
-        A, B = D1 // g, D2 // g
-        if A + B <= CHAIN_BUDGET and g < grid:
+        if one:     # B = 0: the single stage, D = g
+            g, A, B = min(D1, grid), 1, 0
+        else:
+            g = math.gcd(D1, D2)
+            A, B = D1 // g, D2 // g
+        if one or (A + B <= CHAIN_BUDGET and g < grid):
             form = "roll_chain"
             H = A + B
             longest = -(-grid // g)
@@ -550,9 +571,13 @@ def emulate_wide2(x3, plane, ps, geom, aligned: bool = True):
             for s in range(WIDE2_SEG):
                 live = ((s < cnt) & (s0 + s < H))[:, None]
                 m, m2 = mw[B + s], mw[s]
-                b0, b1, c0 = (m & 1) != 0, (m & 2) != 0, (m2 & 1) != 0
-                sel = (b1 & c0) | (((s0 + s < A)[:, None]) & b0 & ~b1) | (
-                    ((s0 + s < B)[:, None]) & b1 & ~c0)
+                if one:
+                    sel = m != 0
+                else:
+                    b0, b1, c0 = (m & 1) != 0, (m & 2) != 0, (m2 & 1) != 0
+                    sel = (b1 & c0) | (((s0 + s < A)[:, None]) & b0
+                                       & ~b1) | (
+                        ((s0 + s < B)[:, None]) & b1 & ~c0)
                 need0 |= (live & sel).any(axis=1)
             clamped = int(need0.sum())
             poison = -1 - P                       # never a position
@@ -568,8 +593,9 @@ def emulate_wide2(x3, plane, ps, geom, aligned: bool = True):
                                                  poison), pos))
             for s in range(WIDE2_SEG):
                 live = s < cnt
-                got = _pick(mw[B + s], mw[s], xw[H + s], xw[B + s],
-                            xw[A + s], xw[s])
+                got = (_pick1(mw[s], xw[H + s], xw[s]) if one
+                       else _pick(mw[B + s], mw[s], xw[H + s], xw[B + s],
+                                  xw[A + s], xw[s]))
                 write(xw[H + s][live], got[live])
         else:
             form = "roll_gather"
@@ -638,9 +664,300 @@ def test_wide2_kernels_equal_plain(case, log2_tile):
                 x3 = _random_words(rng, (batch, grid, tile), dtype)
                 want = fp.wide2_pass_plain(x3, plane, ps, geom)
                 for aligned in (True, False):
-                    got, used, clamped = emulate_wide2(x3, plane, ps, geom,
-                                                       aligned)
+                    got, used, clamped = emulate_wide(x3, plane, ps, geom,
+                                                      aligned)
                     assert used == form
                     assert torch.equal(got, want)
                     if is_planned and form == "roll_chain":
                         assert clamped == 0
+
+
+#: (kind, D, tiles, form): swap pairs {i, i ^ D}; roll chains of one tile
+#: (D = 1 on 20 tiles: five segments), of several, of unequal length (20
+#: tiles mod 3, 23 mod 5), the k=160 plan's shape, and distances up to
+#: and past the tile count (every source tile 0)
+WIDE_CASES = {
+    "swap_1": ("wide_swap", 1, 8, "swap_pair"),
+    "swap_2": ("wide_swap", 2, 8, "swap_pair"),
+    "swap_4": ("wide_swap", 4, 16, "swap_pair"),
+    "swap_half": ("wide_swap", 8, 16, "swap_pair"),
+    "roll_1": ("wide_roll", 1, 20, "roll_chain"),
+    "roll_2": ("wide_roll", 2, 20, "roll_chain"),
+    "roll_3": ("wide_roll", 3, 20, "roll_chain"),
+    "roll_5": ("wide_roll", 5, 23, "roll_chain"),
+    "roll_k160": ("wide_roll", 4, 16, "roll_chain"),
+    "roll_last": ("wide_roll", 19, 20, "roll_chain"),
+    "roll_past_grid": ("wide_roll", 25, 20, "roll_chain"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WIDE_CASES))
+@pytest.mark.parametrize("log2_tile", range(13))
+def test_wide_kernels_equal_plain(case, log2_tile):
+    """The wide pass as wide2's one-stage instance, at every tile from 1
+    to 4,096, on a plane of random bytes (any non-zero byte selects, not
+    bit 0 alone; clamped roll sources selected) and on a planned one
+    (no roll then reads tile 0 for a clamped source)."""
+    kind, D, grid, form = WIDE_CASES[case]
+    tile = 1 << log2_tile
+    geom = _many_tiles(tile, grid)
+    ps = fp.PassSpec(kind=kind, dists=(D * tile,), block_dist=D)
+    rng = np.random.default_rng(1000 + 100 * sorted(WIDE_CASES).index(case)
+                                + log2_tile)
+    bits = rng.integers(-128, 128, geom.P).astype(np.int8)
+    bits[::3] = 0
+    bits[1::5] = 2          # non-zero, bit 0 clear: selects
+    planned = bits.copy()
+    if kind == "wide_roll":
+        planned[: D * tile] = 0
+    for plane, is_planned in ((bits, False), (planned, True)):
+        plane = torch.from_numpy(plane)
+        for batch in (1, 3):
+            for dtype in (torch.float32, torch.int32, torch.float64):
+                x3 = _random_words(rng, (batch, grid, tile), dtype)
+                want = fp.wide_pass_plain(x3, plane, ps, geom)
+                for aligned in (True, False):
+                    got, used, clamped = emulate_wide(x3, plane, ps, geom,
+                                                      aligned)
+                    assert used == form
+                    assert torch.equal(got, want)
+                    if is_planned:
+                        assert clamped == 0
+
+
+@pytest.mark.parametrize("kind,D", [("wide_swap", 1), ("wide_swap", 2),
+                                    ("wide_roll", 1), ("wide_roll", 3)])
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+def test_wide_kernels_equal_jax_interpret(kind, D, dtype):
+    """The wide pass's transcription against the JAX package's _wide_pass
+    (one Pallas call, interpret mode) at the JAX test geometry (64 rows
+    of 128 in tiles of 16 rows), on a plane of random bytes."""
+    P, R = 64 * LANE, 16
+    rng = np.random.default_rng(40 + D)
+    plane = rng.integers(-128, 128, P).astype(np.int8)
+    x = rng.normal(size=(3, P)).astype(dtype)
+    jps = jfused.PassSpec(kind=kind, dists=(D * R * LANE,), block_dist=D)
+    jplan = jfused.FusedPlan(geom=jfused.geometry(P, block_rows=R),
+                             passes=(jps,))
+    want = np.asarray(jfused._PASS_FNS[kind](
+        jnp.asarray(x).reshape(3, P // LANE, LANE),
+        jnp.asarray(plane.reshape(P // LANE, LANE)), jps, jplan,
+        True)).reshape(3, P)
+    geom = fp.geometry(P, block_rows=R)
+    ps = fp.PassSpec(kind=kind, dists=(D * geom.tile,), block_dist=D)
+    got, _, _ = emulate_wide(torch.from_numpy(x).reshape(3, geom.grid,
+                                                         geom.tile),
+                             torch.from_numpy(plane), ps, geom)
+    np.testing.assert_array_equal(got.reshape(3, P).numpy(), want)
+
+
+# ---- B4's scan: a chunk and its halo, shrinking stage ranges -----------------
+
+#: B4's scan window kernel (seg_scan.cu: kScanChunk, kScanPer,
+#: kScanThreads) and an SM's shared memory for a block
+SCAN_CHUNK, SCAN_PER, SCAN_THREADS = 1024, 8, 1024
+SMEM_LIMIT = 232448
+
+
+def scan_launch(dists, tile: int, E: int):
+    """``launch_scan``'s arithmetic for a scan window pass in packs of
+    ``E`` values: ``(chunk, span, threads, per, starts)``: outputs per
+    block, window positions staged, threads, packs per thread, and the
+    first pack of each stage."""
+    lead = -(-sum(dists) // E) * E
+    chunk = min(tile, SCAN_CHUNK)
+    span = min(lead + chunk, 2 * tile)
+    if span > 2 * SCAN_CHUNK:
+        chunk = tile
+        span = min(lead + tile, 2 * tile)
+    packs = span // E
+    threads = min(-(-packs // (SCAN_PER // E) // 32) * 32, SCAN_THREADS)
+    starts, later = [0] * len(dists), 0
+    for j in reversed(range(len(dists))):
+        starts[j] = max(span - chunk - later, 0) // E
+        later += dists[j]
+    return chunk, span, threads, -(-packs // threads), starts
+
+
+def chunk_window(x2, dist, dists, op, tile: int, aligned: bool = True):
+    """B4's scan window pass as ``scan_chunk_pass`` runs it: block b owns
+    outputs [b C, (b + 1) C) and the ``span`` window positions ending at
+    them, in packs of E = 16 bytes (one value below a 16-byte tile or on
+    unaligned pointers); stage j updates the packs from ``starts[j]`` on,
+    each position reading position p - d (mod span, pack by pack) from
+    the buffer the stage before wrote, which must hold every source an
+    output depends on (asserted; the pack's own values come from
+    registers where d < E, so that pack must have been written too); the
+    chunk's outputs are the last C positions."""
+    B, P = x2.shape
+    vec = 16 // x2.element_size()
+    E = vec if tile % vec == 0 and aligned else 1
+    chunk, span, threads, per, starts = scan_launch(dists, tile, E)
+    assert per <= SCAN_PER // E and threads * per * E >= span
+    assert threads <= SCAN_THREADS and threads % 32 == 0
+    assert 2 * span * x2.element_size() <= SMEM_LIMIT
+    assert span % E == 0 and chunk % E == 0 and tile % chunk == 0
+    c0 = torch.arange(P // chunk, dtype=torch.int64) * chunk
+    blk = c0 // tile
+    first = tile + (c0 - blk * tile) + chunk - span
+    assert bool((first % E == 0).all())        # packs never straddle
+    row0 = torch.where(blk > 0, (blk - 1) * tile, 0)
+    wrap0 = torch.where(blk > 0, 2 * tile - 1, tile - 1)
+    p = torch.arange(span, dtype=torch.int64)
+    g = row0[:, None] + ((first[:, None] + p) & wrap0[:, None])
+    dv = dist[g]
+    v = x2[:, g]                              # (B, blocks, span)
+    bufs = [v.clone(), torch.zeros_like(v)]
+    fresh = [torch.ones(span, dtype=torch.bool),
+             torch.zeros(span, dtype=torch.bool)]
+    later = sum(dists)
+    for j, d in enumerate(dists):
+        later -= d
+        active = p // E >= starts[j]
+        # the positions an output depends on, and their sources
+        needed = p >= span - chunk - later
+        src = (p - d) % span
+        assert bool(needed[active].sum() == needed.sum())
+        assert span == 2 * tile or bool((p - d >= 0)[needed].all())
+        assert bool(fresh[j & 1][src[needed]].all())
+        if d < E:
+            assert bool(fresh[j & 1][active].all())
+        v = torch.where(active, fp.dist_stage(v, bufs[j & 1][..., src], dv,
+                                              d, op), v)
+        if j + 1 < len(dists):
+            k = (j + 1) & 1
+            bufs[k] = torch.where(active, v, bufs[k])
+            fresh[k] = active
+    lead = span - chunk
+    out = torch.empty_like(x2)
+    out[:, (c0[:, None] + torch.arange(chunk)).reshape(-1)] = \
+        v[..., lead:].reshape(B, -1)
+    return out
+
+
+def chunk_scan(x, dist, dists, op, geom):
+    """B4's scan as the kernels run it: a window pass as
+    :func:`chunk_window`, a wide pass as ``seg_wide_pass``'s select."""
+    P = geom.P
+    x2 = x.reshape(-1, P)
+    p = torch.arange(P, dtype=torch.int64)
+    for dp in fp.plan_dist_passes(dists, geom):
+        if dp.kind == "wide":
+            d = dp.dists[0]
+            x2 = fp.dist_stage(x2, x2[:, (p - d) % P], dist, d, op)
+        else:
+            x2 = chunk_window(x2, dist, dp.dists, op, geom.tile)
+    return x2.reshape(x.shape)
+
+
+def _scan_payload(rng, shape, dtype):
+    """Random words; for floats also -0.0 and NaN at a few positions (a
+    stage adds 0 where its mask is off, so -0.0 turns +0.0; a NaN operand
+    wins min and max)."""
+    x = _random_words(rng, shape, dtype)
+    if dtype.is_floating_point:
+        flat = x.view(-1)
+        at = torch.from_numpy(rng.integers(0, flat.numel(), 2 * (flat.numel()
+                                                                 // 64 + 1)))
+        flat[at[::2]] = -0.0
+        flat[at[1::2]] = float("nan")
+    return x
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """NaN at the same positions, every other word bit for bit (the sign
+    of zero included).  A NaN's payload bits are not compared: torch's
+    CPU minimum and maximum give one NaN in their vector loop and another
+    in its scalar tail."""
+    if not a.dtype.is_floating_point:
+        return torch.equal(a, b)
+    nan = a.isnan()
+    word = torch.int32 if a.element_size() == 4 else torch.int64
+    return (torch.equal(nan, b.isnan())
+            and torch.equal(a[~nan].view(word), b[~nan].view(word)))
+
+
+def test_scan_launch_of_path_d_and_the_split_passes():
+    """Path D's 8 stages at the card's tile, float32: chunks of 1,024
+    outputs with a halo of 255 positions (256: whole packs of 4), stage j
+    from the pack of prefix sum j on, 160 threads of two packs each; the
+    hub's window passes (sum(d) 2,047 and 2,048) run a whole tile per
+    block of 768 threads."""
+    dists = tuple(1 << k for k in range(8))
+    chunk, span, threads, per, starts = scan_launch(dists, 4096, 4)
+    assert (chunk, span, threads, per) == (1024, 1280, 160, 2)
+    assert starts == [(256 - 255 + int(c)) // 4 for c in np.cumsum(dists)]
+    geom = fp.geometry(1 << 15)
+    hub = fp.plan_dist_passes(tuple(1 << k for k in range(13)), geom)
+    assert [dp.kind for dp in hub] == ["window", "window", "wide"]
+    for dp in hub[:2]:
+        assert scan_launch(dp.dists, 4096, 4)[:4] == (4096, 6144, 768, 2)
+
+
+@pytest.mark.parametrize("name", sorted(FILL_GEOMETRIES))
+@pytest.mark.parametrize("plane", ["rank", "random"])
+@pytest.mark.parametrize("batch", [1, 3])
+def test_scan_chunk_equals_plain(name, plane, batch):
+    P, block_rows, n_stages = FILL_GEOMETRIES[name]
+    geom = fp.geometry(P, block_rows)
+    dists = tuple(1 << k for k in range(n_stages))
+    rng = np.random.default_rng(500 + len(name) + batch)
+    dist = (_rank_plane(rng, P, 1 << n_stages) if plane == "rank"
+            else _random_plane(rng, P))
+    for op in fp.SCAN_OPS:
+        for dtype in (torch.float32, torch.float64, torch.int32):
+            x = _scan_payload(rng, (batch, P), dtype)
+            assert _same_bits(chunk_scan(x, dist, dists, op, geom),
+                              fp.segscan_pass_plain(x, dist, dists, op,
+                                                    geom))
+
+
+@pytest.mark.parametrize("log2_tile", range(13))
+@pytest.mark.parametrize("batch", [1, 3])
+def test_scan_chunk_every_tile(log2_tile, batch):
+    """The window pass at every tile from 1 to 4,096 (four tiles, tile 0
+    included) on random planes, in packs of 16 bytes and of one value:
+    ascending powers of two whose sum stays below the tile (the halo
+    case), and random lists of 1, 8 and 32 distances below 2 tile whose
+    halo reaches round the window."""
+    tile = 1 << log2_tile
+    geom = _many_tiles(tile, 4)
+    rng = np.random.default_rng(700 + 10 * log2_tile + batch)
+    lists = [tuple(1 << k for k in range(log2_tile))]
+    lists += [tuple(int(d) for d in rng.integers(1, 2 * tile, size=k))
+              for k in (1, 8, 32)]
+    for dists in lists:
+        if not dists:
+            continue
+        dist = _random_plane(rng, geom.P)
+        dp = fp.DistPass("window", dists)
+        for op in fp.SCAN_OPS:
+            for dtype in (torch.float32, torch.float64, torch.int32):
+                x = _scan_payload(rng, (batch, geom.P), dtype)
+                want = fp.dist_pass_plain(x, dist, dp, op, geom)
+                for aligned in (True, False):
+                    assert _same_bits(
+                        chunk_window(x, dist, dists, op, tile, aligned),
+                        want)
+
+
+@pytest.mark.parametrize("op", fp.SCAN_OPS)
+@pytest.mark.parametrize("plane", ["rank", "random"])
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+def test_scan_chunk_equals_jax_interpret(op, plane, dtype):
+    """The transcription against the JAX package's segscan_pass (one
+    Pallas call, interpret mode) at the JAX test geometry (tile 2,048:
+    two chunks a tile), tile 0 included."""
+    P = 64 * LANE
+    rng = np.random.default_rng(len(op) + len(plane))
+    dist = (_rank_plane(rng, P, 50) if plane == "rank"
+            else _random_plane(rng, P))
+    dists = tuple(1 << k for k in range(6))
+    x = (rng.normal(size=(2, P)) * 1000).astype(dtype)
+    want = np.asarray(jfused.segscan_pass(jnp.asarray(x),
+                                          jnp.asarray(dist.numpy()), dists,
+                                          op, jfused.geometry(P,
+                                                              block_rows=16)))
+    got = chunk_scan(torch.from_numpy(x), dist, dists, op,
+                     fp.geometry(P, block_rows=16))
+    np.testing.assert_array_equal(got.numpy(), want)
