@@ -61,25 +61,37 @@ and prints one JSON line per phase:
    ``'segment'``/``'gather'`` twin; then fast pairwise with
    ``segment_impl='benes_fused'`` (the native edge coloring) for 50 rounds,
    ``torch.equal`` to its ``'benes'`` twin;
-11. ``k5``    — kernel B5 (the per-shard banded round) vs its plain
-   version at 4 shards on ``ring(1_000_000, 2)`` (path B's plan: 8 band
-   lanes, W = 1) and on ``grid2d(1000, 1000)`` (a remainder-heavy plan),
-   float32 and float64: fire and merge ``torch.equal`` over whole shards
-   and over the split schedule's row ranges; device ms per launch (fire,
-   interior, boundary apart) on the ring;
+11. ``k5``    — kernel B5 (the per-shard banded round, the next round's
+   fire folded into its merges) vs its plain version at 4 shards on
+   ``ring(1_000_000, 2)`` (path B's plan: 8 band lanes, W = 1) and on
+   ``grid2d(1000, 1000)`` (a remainder-heavy plan), float32 and float64:
+   the fire-only launch, and the folded merges (``S'``, ``G'``, ``A`` and
+   the next ``avg``) ``torch.equal`` over whole shards and over the split
+   schedule (the interior launch, then one launch over both boundary
+   ranges); device ms of a shard-round (interior plus boundary launch),
+   of each launch, and of the fire-only launch apart, on the ring; then a
+   stress run, ``ring(20000, 2)`` over 4 shards for 500 rounds, whose
+   ``'pallas'`` and ``'ppermute'`` exchanges equal each other and the
+   single-device ``banded_fused`` round bit for bit;
 12. ``path_e`` — the sharded round: ``Engine`` with ``spmv='banded_fused'``
    over ``make_mesh(4)`` (all four shards on the one card) and
    ``halo='overlap'`` on the ring: ms/round, B5 launches == rounds x shards
-   x launches per shard-round, halo bytes per round, estimates
-   ``torch.equal`` to a ``halo='ppermute'`` twin and to path B's
-   single-device run of the same rounds, a falling rmse;
+   x launches per shard-round (2) with no fire in the timed rounds, halo
+   bytes per round, estimates ``torch.equal`` to a ``halo='ppermute'``
+   twin and to path B's single-device run of the same rounds, a falling
+   rmse;
 13. ``k6``    — kernel B6 (the halo block pull and its fused ring-buffer
    merge) vs its plain version at path F's shard shapes (its ``Eb``, ``D``
    and offset blocks): float32 and float64, scalar and 3 feature lanes,
-   both entries, every receiving shard, ``torch.equal``; device ms of one
-   fused call, of the pull alone, of the plain version and of the
-   composition it replaces (three ``torch.where`` and the blocks'
-   ``copy_``); then a stress run of four shards on the card
+   both entries, every receiving shard, ``torch.equal``; and on odd
+   shapes (an ``Eb`` that is no multiple of the pack, three rows, blocks
+   of odd length, sources off the 16-byte grid); device ms of one
+   fused call, of the pull alone (on the same blocks, turning over four
+   sets so its reads come from HBM, beside its byte bound), of the plain
+   version and of the composition it replaces (three ``torch.where`` and the blocks'
+   ``copy_``), and the call's bytes counted in 32-byte sectors (a floor
+   below which no loads of whole sectors go; the bound stays the byte
+   count); then a stress run of four shards on the card
    (``erdos_renyi(4000, 6)``, faithful collect-all with message loss, 200
    rounds) whose ``'overlap_pallas'`` state equals ``'ppermute'``'s;
 14. ``path_f`` — the halo edge round: ``Engine(config=RoundConfig.
@@ -120,8 +132,9 @@ events around ``REPS`` back-to-back calls, host launch gaps included.
 B3's yardstick is ``torch.index_select`` with the pass's own source index
 (the pass applied to ``arange(P)``); the fill's is ``index_select`` with
 each position's run head; no single library call computes a segmented
-scan.  A B5 call is one shard's round (fire, interior merge and the two
-boundary merges); a B6 call one shard's fused pull and merge, whose
+scan.  A B5 call is one shard's round (the interior merge and the
+boundary merge, each firing the next round); a B6 call one shard's fused
+pull and merge, whose
 yardstick (``composition_ms``) is the tensor ops it replaces, since no
 one PyTorch call does both.
 
@@ -132,6 +145,7 @@ are the headline configurations, at full width.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import subprocess
@@ -157,6 +171,9 @@ GRID_SIDE = 1000        # k5: grid2d(1000, 1000), the remainder-heavy plan
 HALO_ROUNDS = 100       # path F: timed rounds after the twin comparison
 STRESS_NODES = 4000     # k6: the stress run's erdos_renyi(4000, 6)
 STRESS_ROUNDS = 200     # k6: the stress run's rounds
+RING_STRESS_N = 20000   # k5: the stress run's ring(20000, 2)
+RING_STRESS_ROUNDS = 500  # k5: the stress run's rounds
+PULL_SETS = 4           # k6: block sets the pull's timing turns over
 #: path D's float32 estimates against the 'segment'/'gather' twin, whose
 #: per-node sums add in another order (sequential rows vs the scan tree)
 EDGE_TWIN_ATOL = 1e-4
@@ -1379,52 +1396,75 @@ def _b5_inputs(kernel, rng, dt, dev):
              "deg": sh.deg.to(dt)} for sh in kernel._shards]
 
 
-def _b5_shard_round(sh, x, spec, ranges):
-    """One shard's B5 launches: fire, then the merges of ``ranges``."""
-    import torch
+def _b5_fire(sh, x, spec):
+    """B5's fire-only launch: the ``avg`` a new state carries."""
+    from flow_updating_tpu_torch.ops.sharded_round import sharded_fire
 
+    return sharded_fire(x["value"], x["S"], x["A_prev"], x["inv"],
+                        sh.leaves, spec)
+
+
+def _b5_shard_round(sh, x, avg, spec, launches, out):
+    """One shard-round of B5: one folded merge launch per entry of
+    ``launches`` (one or two row ranges each), into ``out = (S', G', A,
+    next avg)``."""
+    from flow_updating_tpu_torch.ops.sharded_round import sharded_round
+
+    for ranges in launches:
+        sharded_round(x["S"], x["G"], x["avg_prev"], x["A_prev"], x["deg"],
+                      avg, x["lo"], x["hi"], sh.leaves, spec, *ranges[0],
+                      out, rows2=ranges[1] if len(ranges) > 1 else None,
+                      fire=(x["value"], x["inv"]))
+    return out
+
+
+def _b5_plain(x, avg, sh, spec):
+    """The plain composition a folded shard-round replaces: the merge of
+    every row, then the next round's fire on what it wrote."""
     from flow_updating_tpu_torch.ops.sharded_round import (
-        sharded_fire,
-        sharded_round,
+        sharded_fire_plain,
+        sharded_round_plain,
     )
 
-    avg = sharded_fire(x["value"], x["S"], x["A_prev"], x["inv"],
-                       sh.leaves, spec)
-    out = [torch.empty_like(avg) for _ in range(3)]
-    for rb, re in ranges:
-        sharded_round(x["S"], x["G"], x["avg_prev"], x["A_prev"], x["deg"],
-                      avg, x["lo"], x["hi"], sh.leaves, spec, rb, re, out)
-    return avg, out
+    S_next, G_next, acc = sharded_round_plain(
+        x["S"], x["G"], x["avg_prev"], x["A_prev"], x["deg"], avg, x["lo"],
+        x["hi"], sh.leaves, spec, 0, spec.local_rows)
+    return S_next, G_next, acc, sharded_fire_plain(x["value"], S_next, acc,
+                                                   x["inv"])
 
 
 def _b5_check(kernel, rng, dev, out):
-    """B5 vs plain on every shard, float32 and float64, over a whole shard
-    and over the overlapped schedule's ranges; ``torch.equal`` or raise."""
+    """B5 vs plain on every shard, float32 and float64: the fire-only
+    launch, and the folded merges over a whole shard and over the
+    overlapped schedule (interior, then both boundary ranges in one
+    launch); ``torch.equal`` or raise."""
     import torch
 
     from flow_updating_tpu_torch.ops.sharded_round import (
         row_ranges,
         sharded_fire_plain,
-        sharded_round_plain,
     )
 
     spec = kernel.spec
     before, after = row_ranges(spec, "pallas")
-    schedules = {"whole": ((0, spec.local_rows),),
-                 "overlapped": before + after}
+    schedules = {"whole": [((0, spec.local_rows),)],
+                 "overlapped": ([before] if before else []) + [after]}
     for name, dt in (("float32", torch.float32), ("float64", torch.float64)):
         for sh, x in zip(kernel._shards, _b5_inputs(kernel, rng, dt, dev)):
+            avg = _b5_fire(sh, x, spec)
             want_avg = sharded_fire_plain(x["value"], x["S"], x["A_prev"],
                                           x["inv"])
-            want = sharded_round_plain(
-                x["S"], x["G"], x["avg_prev"], x["A_prev"], x["deg"],
-                want_avg, x["lo"], x["hi"], sh.leaves, spec, 0,
-                spec.local_rows)
-            for sched, ranges in schedules.items():
-                avg, got = _b5_shard_round(sh, x, spec, ranges)
+            want = _b5_plain(x, want_avg, sh, spec)
+            torch.cuda.synchronize()
+            pairs = [((avg,), (want_avg,), ("avg",), "fire")]
+            for sched, launches in schedules.items():
+                got = [torch.full_like(avg, float("nan")) for _ in range(4)]
+                _b5_shard_round(sh, x, avg, spec, launches, got)
                 torch.cuda.synchronize()
-                for g, w, what in zip((avg, *got), (want_avg, *want),
-                                      ("avg", "S'", "G'", "A")):
+                pairs.append((got, want, ("S'", "G'", "A", "next avg"),
+                              sched))
+            for gots, wants, whats, sched in pairs:
+                for g, w, what in zip(gots, wants, whats):
                     err = float((g - w).abs().max())
                     out["max_abs_err"] = max(out["max_abs_err"], err)
                     if not torch.equal(g, w):
@@ -1433,18 +1473,59 @@ def _b5_check(kernel, rng, dev, out):
                             f"plain version (max {err})")
 
 
+def _b5_stress(dev) -> dict:
+    """RING_STRESS_ROUNDS rounds of ring(RING_STRESS_N, 2) over SHARDS
+    shards: 'pallas' == 'ppermute' == the single-device banded_fused
+    round, every state leaf bit for bit."""
+    import numpy as np
+    import torch
+
+    from flow_updating_tpu_torch import NodeKernel, RoundConfig
+    from flow_updating_tpu_torch.parallel.banded_sharded import (
+        ShardedBandedKernel,
+    )
+    from flow_updating_tpu_torch.parallel.mesh import make_mesh
+    from flow_updating_tpu_torch.plan import compile_topology
+    from flow_updating_tpu_torch.topology.generators import ring
+
+    cfg = RoundConfig.fast(kernel="node", spmv="banded_fused")
+    topo = ring(RING_STRESS_N, 2)
+    plan = compile_topology(topo, remainder="gather")
+    single = NodeKernel(topo, cfg, plan=plan, device=dev)
+    want = single.estimates(single.run(single.init_state(),
+                                       RING_STRESS_ROUNDS))
+    states = {}
+    for exchange in ("pallas", "ppermute"):
+        k = ShardedBandedKernel(topo, cfg, make_mesh(SHARDS), plan=plan,
+                                exchange=exchange)
+        st = k.run(k.init_state(), RING_STRESS_ROUNDS)
+        torch.cuda.synchronize()
+        if not np.array_equal(k.estimates(st), want):
+            raise AssertionError(
+                f"k5 stress: '{exchange}' differs from the single-device "
+                f"banded_fused round after {RING_STRESS_ROUNDS} rounds")
+        states[exchange] = [torch.cat([t.cpu() for t in getattr(st, f)])
+                            for f in ("S", "G", "avg_prev", "A_prev",
+                                      "avg")]
+    if not all(torch.equal(a, b) for a, b in zip(states["pallas"],
+                                                  states["ppermute"])):
+        raise AssertionError("k5 stress: 'pallas' state differs from "
+                             f"'ppermute' after {RING_STRESS_ROUNDS} rounds")
+    return {"nodes": RING_STRESS_N, "shards": SHARDS,
+            "rounds": RING_STRESS_ROUNDS, "equal_to_ppermute": True,
+            "equal_to_single_device": True}
+
+
 def phase_k5(ring_topo, dev):
     """B5 vs plain at SHARDS shards on the ring and on the grid; times on
-    the ring (one shard's round, float32)."""
+    the ring (one shard's round, float32); the ring stress run."""
     import numpy as np
     import torch
 
     from flow_updating_tpu_torch import RoundConfig
     from flow_updating_tpu_torch.ops.sharded_round import (
         row_ranges,
-        sharded_fire_plain,
         sharded_round_min_bytes,
-        sharded_round_plain,
     )
     from flow_updating_tpu_torch.parallel.banded_sharded import (
         ShardedBandedKernel,
@@ -1480,41 +1561,28 @@ def phase_k5(ring_topo, dev):
             continue
         sh, x = k._shards[0], _b5_inputs(k, rng, torch.float32, dev)[0]
         before, after = row_ranges(spec, "pallas")
-        avg, outs = _b5_shard_round(sh, x, spec, before + after)
-        from flow_updating_tpu_torch.ops.sharded_round import (
-            sharded_fire,
-            sharded_round,
-        )
-
-        merge = lambda ranges: [  # noqa: E731
-            sharded_round(x["S"], x["G"], x["avg_prev"], x["A_prev"],
-                          x["deg"], avg, x["lo"], x["hi"], sh.leaves, spec,
-                          rb, re, outs) for rb, re in ranges]
-        out["fire_ms"] = device_ms(lambda: sharded_fire(
-            x["value"], x["S"], x["A_prev"], x["inv"], sh.leaves, spec))
-        out["interior_ms"] = device_ms(lambda: merge(before))
-        out["boundary_ms_per_launch"] = device_ms(
-            lambda: merge(after)) / len(after)
+        avg = _b5_fire(sh, x, spec)
+        res = [torch.empty_like(avg) for _ in range(4)]
+        out["fire_ms"] = device_ms(lambda: _b5_fire(sh, x, spec))
+        out["interior_ms"] = device_ms(lambda: _b5_shard_round(
+            sh, x, avg, spec, [before], res))
+        out["boundary_ms_per_launch"] = device_ms(lambda: _b5_shard_round(
+            sh, x, avg, spec, [after], res))
         call = lambda: _b5_shard_round(  # noqa: E731
-            sh, x, spec, before + after)
+            sh, x, avg, spec, [before, after], res)
+        out["launches_per_call"] = 2
         out["ms"] = device_ms(call)
         out["call_ms"] = cuda_ms(call)
-
-        def plain():
-            a = sharded_fire_plain(x["value"], x["S"], x["A_prev"], x["inv"])
-            return sharded_round_plain(
-                x["S"], x["G"], x["avg_prev"], x["A_prev"], x["deg"], a,
-                x["lo"], x["hi"], sh.leaves, spec, 0, spec.local_rows)
-
-        out["plain_ms"] = device_ms(plain)
+        out["plain_ms"] = device_ms(lambda: _b5_plain(x, avg, sh, spec))
         out["library_ms"] = None   # no single PyTorch call computes it
-        # per node: fire 3, one add per kept diagonal and remainder slot,
-        # the remainder add, merge 8
+        # per node: the fold's fire 3, one add per kept diagonal and
+        # remainder slot, the remainder add, merge 8
         ops = spec.local * (12 + len(spec.offsets) + spec.rem_width)
         out.update(bound(sharded_round_min_bytes(spec, dtype_bytes=4), ops))
         del k
     del grid
     torch.cuda.empty_cache()
+    out["stress"] = _b5_stress(dev)
     return out
 
 
@@ -1545,11 +1613,11 @@ def phase_path_e(ring_topo, engine_b):
     reset_counts()
     ms = _timed_rounds(eng, ROUNDS)
     got = b5_launches()
-    if sum(got.values()) != ROUNDS * SHARDS * per_shard or \
-            got["fire"] != ROUNDS * SHARDS:
+    if per_shard != 2 or got != {"fire": 0,
+                                 "merge": ROUNDS * SHARDS * per_shard}:
         raise AssertionError(f"B5 launched {got} in {ROUNDS} rounds of "
-                             f"{SHARDS} shards, expected {per_shard} per "
-                             "shard-round (one fire)")
+                             f"{SHARDS} shards, expected 2 merges per "
+                             "shard-round and no fire")
     rep = eng.convergence_report()
     est = eng.estimates()
     n = ring_topo.num_nodes
@@ -1665,6 +1733,53 @@ def _b6_inputs(rng, plan, rows, dt, nf, dev, D=1):
     return blocks, merge
 
 
+def _b6_odd_inputs(rng, shards, n_off, dt, nf, dev, D=3, Eb=100_003):
+    """B6 inputs at odd shapes: an Eb off every pack, D rows, blocks of
+    odd length whose sources start 1 element off the 16-byte grid."""
+    import torch
+
+    feat = (nf,) if nf > 1 else ()
+    draw = lambda shape: torch.from_numpy(  # noqa: E731
+        rng.uniform(-1.0, 1.0, shape)).to(dev, dt)
+
+    def block(rows, hd):
+        buf = draw(rows * hd + 1)
+        return buf[1:].view(rows, hd)
+
+    rows = 2 * nf + 1
+    blocks = [[block(rows, 4099 + 2 * i) for i in range(n_off)]
+              for _ in range(shards)]
+    merge = (torch.from_numpy(rng.random((D, Eb)) < 0.3).to(dev),
+             draw((Eb,) + feat), draw((Eb,) + feat), draw((D, Eb) + feat),
+             draw((D, Eb) + feat),
+             torch.from_numpy(rng.random((D, Eb)) < 0.5).to(dev))
+    return blocks, merge
+
+
+def _sector_bytes(hit, itemsize: int, block_bytes) -> int:
+    """The bytes a fused B6 call with scalar lanes moves when counted in
+    whole 32-byte sectors: each block read and written; ``hit``, the
+    valid flags read where a sector holds a miss, ``out_valid`` written;
+    the payload planes read where a sector holds a hit column, the ring
+    buffers where it holds a miss, the outputs written."""
+    import torch
+
+    def sectors(mask, per):
+        flat = mask.reshape(-1)
+        pad = (-flat.numel()) % per
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+        return int(flat.view(-1, per).any(1).sum())
+
+    every = torch.ones_like(hit)
+    miss = ~hit
+    per = 32 // itemsize
+    pull = sum(2 * 32 * -(-b // 32) for b in block_bytes)
+    flags = sectors(every, 32) + sectors(miss, 32) + sectors(every, 32)
+    vals = sectors(hit.any(0), per) * hit.shape[0] + sectors(miss, per) \
+        + sectors(every, per)
+    return pull + 32 * flags + 2 * 32 * vals
+
+
 def phase_k6(plan, cfg, dev):
     """B6 vs plain at path F's shard shapes; times of one fused call;
     the four-shard stress run."""
@@ -1715,6 +1830,25 @@ def phase_k6(plan, cfg, dev):
                                 f"differs from its plain version (max {err})")
                 out["cases"].append([mode, str(dt).replace("torch.", ""),
                                      nf])
+    # odd shapes: the pack's row tails, unaligned rows and sources
+    for dt in (torch.float32, torch.float64):
+        for nf in (1, 3):
+            blocks, merge = _b6_odd_inputs(rng, plan.num_shards,
+                                           len(offsets), dt, nf, dev)
+            for me in range(plan.num_shards):
+                got = hx.fused_exchange_merge(blocks, offsets, me, *merge)
+                pull = hx.remote_block_exchange(blocks, offsets, me)
+                want = hx.fused_exchange_merge_plain(blocks, offsets, me,
+                                                     *merge)
+                torch.cuda.synchronize()
+                pairs = (list(zip(got[0], want[0])) + list(zip(pull,
+                                                               want[0]))
+                         + list(zip(got[1:], want[1:])))
+                if not all(torch.equal(g, w) for g, w in pairs):
+                    raise AssertionError(
+                        f"B6 at odd shapes ({dt}, nf={nf}, shard {me}) "
+                        "differs from its plain version")
+            out["cases"].append(["odd", str(dt).replace("torch.", ""), nf])
     # one shard's fused call at the path's shapes, float32, scalar lanes
     blocks, merge = _b6_inputs(rng, plan, 3, torch.float32, 1, dev, D)
     call = lambda: hx.fused_exchange_merge(  # noqa: E731
@@ -1736,14 +1870,26 @@ def phase_k6(plan, cfg, dev):
         blocks, offsets, 0, *merge))
     out["composition_ms"] = device_ms(composition)
     out["library_ms"] = None   # no one PyTorch call does pull and merge
-    pull_blocks, _ = _b6_inputs(rng, plan, 2, torch.float32, 1, dev, D)
+    # the pull alone on the fused call's 3-row blocks, turning over sets
+    # that together outgrow the 50 MB L2, so its reads come from HBM as
+    # its byte bound counts them
+    pull_sets = [blocks] + [
+        _b6_inputs(rng, plan, 3, torch.float32, 1, dev, D)[0]
+        for _ in range(PULL_SETS - 1)]
+    turn = itertools.count()
     out["pull_ms"] = device_ms(lambda: hx.remote_block_exchange(
-        pull_blocks, offsets, 0), "exchange_kernel")
+        pull_sets[next(turn) % PULL_SETS], offsets, 0), "exchange_kernel")
+    out["pull_bound_ms"] = hx.halo_exchange_min_bytes(
+        [b.numel() for b in senders], 4) / HBM_BYTES_PER_S * 1e3
+    del pull_sets
     # pure data movement: no arithmetic to bound by
     out.update(bound(hx.halo_exchange_min_bytes(
         [b.numel() for b in senders], 4, D, plan.Eb, 1,
         hit_cells=int(hit.sum()), hit_columns=int(hit.any(0).sum())), 0))
     out["hit_share"] = float(hit.float().mean())
+    out["sector_bytes"] = _sector_bytes(hit, 4, [b.numel() * 4
+                                                 for b in senders])
+    out["sector_floor_ms"] = out["sector_bytes"] / HBM_BYTES_PER_S * 1e3
     # the stream order under load: four shards, small Eb, many rounds
     topo = erdos_renyi(STRESS_NODES, 6.0, seed=SEED + 6)
     scfg = dataclasses.replace(RoundConfig.reference("collectall",
@@ -2157,9 +2303,15 @@ def main() -> int:
         {"name": "sharded_round", "route": "cuda",
          "source": "flow_updating_tpu_torch/csrc/sharded_round.cu",
          "replaces": "flow_updating_tpu/ops/pallas_round.py:520",
-         "launches": sum(path_e["b5_launches"].values()),
-         "parity": "bit-exact (torch.equal), float32 and float64, whole "
-                   "shards and split rows; sharded ring == single device",
+         # shard-rounds, the unit of ms (each: launches_per_shard_round
+         # merge launches)
+         "launches": path_e["b5_launches"]["merge"]
+                     // path_e["launches_per_shard_round"],
+         "kernel_launches": sum(path_e["b5_launches"].values()),
+         "parity": "bit-exact (torch.equal), float32 and float64, the "
+                   "fire-only launch and the folded merges over whole "
+                   "shards and split rows; sharded ring == single device "
+                   "(500-round stress)",
          "max_abs_err": k5["max_abs_err"],
          "ms": k5["ms"], "call_ms": k5["call_ms"],
          "plain_ms": k5["plain_ms"],
@@ -2171,12 +2323,15 @@ def main() -> int:
          "launches": (path_f["b6_launches"]["fused"]
                       + path_f["pairwise_fast"]["b6_launches"]["pull"]),
          "parity": "bit-exact (torch.equal): float32 and float64, scalar "
-                   "and 3 lanes, pull and fused, every shard; path F "
-                   "'overlap_pallas' == 'ppermute', 'allgather', 'overlap'",
+                   "and 3 lanes, pull and fused, every shard, odd shapes; "
+                   "path F 'overlap_pallas' == 'ppermute', 'allgather', "
+                   "'overlap'",
          "max_abs_err": k6["max_abs_err"],
          "ms": k6["ms"], "call_ms": k6["call_ms"],
          "plain_ms": k6["plain_ms"],
          "composition_ms": k6["composition_ms"],
+         "pull_ms": k6["pull_ms"], "pull_bound_ms": k6["pull_bound_ms"],
+         "sector_floor_ms": k6["sector_floor_ms"],
          "bound_ms": k6["bound_ms"], "bound_by": k6["bound_by"],
          "library_ms": k6["library_ms"]},
     ]})

@@ -43,9 +43,9 @@ SIGNATURES = {
     "benes_pass": (_I, _I, _P, _P, _P, _LL, _LL, _LL, _I, _P, _LL, _LL,
                    _P, _P),
     "seg_scan": (_I, _I, _P, _P, _P, _LL, _LL, _LL, _I, _P, _I, _P),
-    "sharded_round": (_I, _I, _LL, _LL, _I, _LL, _LL, _I, _P, _P,
-                      _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                      _P, _I, _P, _P, _P, _P),
+    "sharded_round": (_I, _I, _LL, _LL, _LL, _LL, _I, _LL, _LL, _I, _P,
+                      _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                      _P, _I, _P, _P, _P, _P, _P),
     "halo_exchange": (_I, _I, _P, _P, _P, _LL, _LL, _I,
                       _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
 }

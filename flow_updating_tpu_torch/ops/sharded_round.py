@@ -1,5 +1,5 @@
-"""Per-shard banded round: fire, then band and remainder delivery and merge
-through a ring-halo window.
+"""Per-shard banded round: band and remainder delivery and merge through a
+ring-halo window, with the next round's fire folded in.
 
 Counterpart of ``flow_updating_tpu/ops/pallas_round.py:490-667``
 (``ShardedRoundSpec``, ``_sharded_round_kernel``, ``fused_sharded_round``).
@@ -10,16 +10,21 @@ first ``H`` of the right one each round.  A shard of ``L`` elements reads
 ``avg`` through the window ``[recv_lo; avg; recv_hi]`` of ``L + 2H``
 elements, whose origin is global element ``s*L - H``.
 
-Kernel **B5** (``csrc/sharded_round.cu``) has two modes, both over a range
-of one shard's tile-rows (128 elements each):
+Kernel **B5** (``csrc/sharded_round.cu``) has two modes, over ranges of one
+shard's tile-rows (128 elements each):
 
-* **fire** — ``avg = (value - S + A_prev) * inv``;
+* **fire** — ``avg = (value - S + A_prev) * inv``, over a whole shard;
+  it runs only where a state is made (``parallel/banded_sharded.py``);
 * **merge** — ``acc = acc + (bit_d ? window[H + p + d] : 0)`` for every
   kept diagonal in plan order (the bit planes pack 32 diagonals per
   ``uint32``), then the 'inline' remainder ``rs = rs + window[idx[p, j]]``
   over its W columns in index order (-1 = empty), ``acc = acc + rs``, and
   the ledger merge ``S' = -G - acc + deg*avg_prev``,
-  ``G' = -S - deg*avg + A_prev``, ``A = acc``.
+  ``G' = -S - deg*avg + A_prev``, ``A = acc`` — and, folded in, the next
+  round's fire on what it just wrote, ``avg_next = (value - S' + A) *
+  inv``, the same operations in the same order as :func:`sharded_fire_plain`
+  on the stored ``S'`` and ``A``.  One launch takes one range of rows or
+  two (the boundary rows at both ends of the shard).
 
 A row whose reads all stay on the shard (tile-rows ``[Hr, R - Hr)``, since
 every offset and remainder reach is at most the bandwidth, at most ``H``)
@@ -135,9 +140,11 @@ def row_ranges(spec: ShardedRoundSpec, exchange: str) -> tuple:
 
 
 def launches_per_shard_round(spec: ShardedRoundSpec, exchange: str) -> int:
-    """B5 launches one shard makes per round: the fire and the merges."""
+    """B5 launches one shard makes per round: the merge of the rows before
+    the wait, if any, and one launch for the rows after it (both boundary
+    ranges).  The fire is folded into the previous round's merges."""
     before, after = row_ranges(spec, exchange)
-    return 1 + len(before) + len(after)
+    return len(before) + (1 if after else 0)
 
 
 def sharded_fire_plain(value, S, A_prev, inv_depp1):
@@ -183,15 +190,16 @@ def _check(tensors, like, shape, what):
                 f"on {t.device}")
 
 
-def _launch(mode, spec, row_begin, row_end, leaves, ins, avg, recv_lo,
-            recv_hi, outs, like):
+def _launch(mode, spec, ranges, leaves, ins, avg, recv_lo, recv_hi, outs,
+            like):
     code = kernels.dtype_code(like)
     rem = leaves.rem_idx if spec.rem_route == "inline" else None
     fn = kernels.library("sharded_round").sharded_round
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    (rb, re), (rb2, re2) = (tuple(ranges) + ((0, 0),))[:2]
     with torch.cuda.device(like.device):
         kernels.check(fn(
-            code, _ROUTES[spec.rem_route], row_begin, row_end, mode,
+            code, _ROUTES[spec.rem_route], rb, re, rb2, re2, mode,
             spec.local, spec.halo, len(spec.offsets),
             leaves.offsets.data_ptr(), leaves.planes.data_ptr(),
             *(ptr(t) for t in ins), avg.data_ptr(), ptr(recv_lo),
@@ -217,20 +225,22 @@ def _check_leaves(leaves, spec, like, what):
 
 
 def sharded_fire(value, S, A_prev, inv_depp1, leaves: ShardedRoundLeaves,
-                 spec: ShardedRoundSpec):
-    """B5's fire over one whole shard; returns the new ``avg``.  CPU
-    tensors take :func:`sharded_fire_plain`; CUDA tensors launch the
-    kernel once (``sharded_fire.launches``)."""
+                 spec: ShardedRoundSpec, out=None):
+    """B5's fire over one whole shard; returns the new ``avg``, written
+    into ``out`` when given.  CPU tensors take :func:`sharded_fire_plain`;
+    CUDA tensors launch the kernel once (``sharded_fire.launches``)."""
     if S.device.type == "cpu":
-        return sharded_fire_plain(value, S, A_prev, inv_depp1)
+        avg = sharded_fire_plain(value, S, A_prev, inv_depp1)
+        return avg if out is None else out.copy_(avg)
     if S.device.type != "cuda":
         raise ValueError(f"sharded_fire: unsupported device {S.device}")
-    _check((value, S, A_prev, inv_depp1), S, (spec.local,), "sharded_fire")
+    avg = torch.empty_like(S) if out is None else out
+    _check((value, S, A_prev, inv_depp1, avg), S, (spec.local,),
+           "sharded_fire")
     _check_leaves(leaves, spec, S, "sharded_fire")
-    avg = torch.empty_like(S)
-    _launch(_FIRE, spec, 0, spec.local_rows, leaves,
+    _launch(_FIRE, spec, ((0, spec.local_rows),), leaves,
             (value, S, None, None, A_prev, inv_depp1, None), avg, None, None,
-            (None, None, None), S)
+            (None, None, None, None), S)
     sharded_fire.launches += 1
     return avg
 
@@ -240,30 +250,46 @@ sharded_fire.launches = 0
 
 def sharded_round(S, G, avg_prev, A_prev, deg, avg, recv_lo, recv_hi,
                   leaves: ShardedRoundLeaves, spec: ShardedRoundSpec,
-                  row_begin: int, row_end: int, out) -> None:
-    """B5's merge over tile-rows ``[row_begin, row_end)`` of one shard,
-    written into those rows of ``out = (S_next, G_next, A_cur)``.  CPU
-    tensors take :func:`sharded_round_plain`; CUDA tensors launch the
-    kernel once (``sharded_round.launches``)."""
-    if not 0 <= row_begin <= row_end <= spec.local_rows:
-        raise ValueError(f"sharded_round: rows [{row_begin}, {row_end}) "
-                         f"outside [0, {spec.local_rows})")
+                  row_begin: int, row_end: int, out, *, fire,
+                  rows2=None) -> None:
+    """B5's merge over tile-rows ``[row_begin, row_end)`` of one shard, and
+    over ``rows2 = (begin, end)`` too when given (one launch), written into
+    those rows of ``out = (S_next, G_next, A_cur, avg_next)``, where
+    ``avg_next`` receives the next round's fire from ``fire = (value,
+    inv_depp1)``, ``(value - S_next + A_cur) * inv``.  ``avg_next`` may be
+    ``avg_prev`` itself (each row reads its ``avg_prev`` before it writes
+    there).  CPU tensors take :func:`sharded_round_plain` and
+    :func:`sharded_fire_plain`; CUDA tensors launch the kernel once
+    (``sharded_round.launches``)."""
+    ranges = ((row_begin, row_end),) + ((tuple(rows2),) if rows2 else ())
+    for rb, re in ranges:
+        if not 0 <= rb <= re <= spec.local_rows:
+            raise ValueError(f"sharded_round: rows [{rb}, {re}) outside "
+                             f"[0, {spec.local_rows})")
+    if len(out) != 4:
+        raise ValueError("sharded_round: out is (S_next, G_next, A_cur, "
+                         "avg_next)")
+    value, inv = fire
     if S.device.type == "cpu":
-        b, e = row_begin * LANE, row_end * LANE
-        for o, r in zip(out, sharded_round_plain(
+        for rb, re in ranges:
+            b, e = rb * LANE, re * LANE
+            S_next, G_next, acc = sharded_round_plain(
                 S, G, avg_prev, A_prev, deg, avg, recv_lo, recv_hi, leaves,
-                spec, row_begin, row_end)):
-            o[b:e] = r
+                spec, rb, re)
+            out[3][b:e] = sharded_fire_plain(value[b:e], S_next, acc,
+                                             inv[b:e])
+            for o, r in zip(out, (S_next, G_next, acc)):
+                o[b:e] = r
         return
     if S.device.type != "cuda":
         raise ValueError(f"sharded_round: unsupported device {S.device}")
-    _check((S, G, avg_prev, A_prev, deg, avg, *out), S, (spec.local,),
-           "sharded_round")
+    _check((S, G, avg_prev, A_prev, deg, avg, value, inv, *out), S,
+           (spec.local,), "sharded_round")
     _check((recv_lo, recv_hi), S, (spec.halo,), "sharded_round")
     _check_leaves(leaves, spec, S, "sharded_round")
-    _launch(_MERGE, spec, row_begin, row_end, leaves,
-            (None, S, G, avg_prev, A_prev, None, deg), avg, recv_lo, recv_hi,
-            out, S)
+    _launch(_MERGE, spec, ranges, leaves,
+            (value, S, G, avg_prev, A_prev, inv, deg), avg, recv_lo,
+            recv_hi, out, S)
     sharded_round.launches += 1
 
 

@@ -7,27 +7,65 @@ RCM reordering the plan's bandwidth ``H`` bounds every edge's
 only ``H`` elements of ``avg`` from each ring neighbor per round.  Each
 shard keeps its constants and state on its own device (a
 :class:`~flow_updating_tpu_torch.parallel.mesh.Mesh`) and runs one round
-as B5 launches on its own stream (``ops/sharded_round.py``):
+as B5 launches on its own stream (``ops/sharded_round.py``).  A state
+carries the ``avg`` its round reads (:class:`ShardedNodeState`): the
+merges of each round fire the next one, and a fire-only launch runs where
+a state is made (:meth:`ShardedBandedKernel.init_state`,
+:meth:`~ShardedBandedKernel.state_from_numpy`).  A round:
 
-1. **fire** — ``avg = (value - S + A_prev) * inv``; an event is recorded;
+1. **ready** — an event on the shard's stream, after the launches that
+   wrote this round's ``avg``;
 2. **exchange** — on the shard's copy stream, after that event: its first
-   ``H`` elements go to the left neighbor's ``recv_hi``, its last ``H`` to
-   the right neighbor's ``recv_lo`` (a ring; the wrapped blocks are never
-   selected by a mask, but are copied so the window holds what the
-   oracle's window holds);
+   ``H`` elements of ``avg`` go to the left neighbor's ``recv_hi``, its
+   last ``H`` to the right neighbor's ``recv_lo`` (a ring; the wrapped
+   blocks are never selected by a mask, but are copied so the window
+   holds what the oracle's window holds);
 3. **interior** (``exchange='pallas'``) — the merge of tile-rows
    ``[Hr, R - Hr)``, whose reads stay on the shard, while the copies run;
-4. **boundary** — after waiting on the two incoming copies, the merge of
-   the remaining rows (``exchange='ppermute'``: all rows, the serialized
-   schedule).
+4. **boundary** — after waiting on the two incoming copies, one launch
+   over the remaining rows, both ends of the shard (``exchange=
+   'ppermute'``: all rows, the serialized schedule).
 
-The receive blocks are double-buffered by round parity.  Round ``r+2``'s
-copy into a block can only start after the sender fired round ``r+2``,
-which on the sender's stream follows its round ``r+1`` boundary merge,
-which waited on the receiver's round ``r+1`` copy, which followed the
-receiver's round ``r+1`` fire and so its round ``r`` boundary merge — the
-last reader of that block.  On the CPU both exchanges run the same
-schedule with the plain versions and ``copy_`` between host tensors.
+Each merge writes ``S'``, ``G'``, ``A`` and the next round's ``avg`` for
+its rows.  The shard's two ``avg`` buffers alternate by round parity:
+round ``r`` reads buffer ``r % 2`` and writes buffer ``(r + 1) % 2``,
+which holds round ``r - 1``'s ``avg`` — this round's ``avg_prev``, read
+by the same thread at the same rows before it is overwritten.  A state's
+``avg`` and ``avg_prev`` are those buffers, so a state is a value only
+until its kernel writes them again: running round ``t`` overwrites the
+``avg_prev`` of the state at round ``t``, and round ``t + 1`` its ``avg``.
+The kernel counts its writes into each buffer and every state records
+the counts it was made with, so :meth:`ShardedBandedKernel.run`,
+:meth:`~ShardedBandedKernel.last_avg` and
+:meth:`ShardedNodeState.to_numpy` raise on a state whose buffers have
+been written since, rather than read another round's values.
+
+The stream order, which no flag checks:
+
+* *Receive blocks*, double-buffered by round parity.  Round ``r+2``'s
+  copy into a block can only start after the sender's round ``r+2``
+  ready event, which on the sender's stream follows its round ``r+1``
+  boundary merge, which waited on the receiver's round ``r+1`` copy,
+  which followed the receiver's round ``r+1`` ready event and so its
+  round ``r`` boundary merge — the last reader of that block.
+* *The avg buffers* (write after read across streams).  Round ``r``'s
+  copies read the head and tail of buffer ``r % 2`` on the copy stream;
+  round ``r+1``'s merges write that buffer on the shard's stream.  The
+  interior merge writes neither the head nor the tail (its rows start and
+  end ``H`` from the shard's ends).  The boundary merge of round ``r+1``
+  waits on the neighbors' round ``r+1`` copies, which follow the
+  neighbors' round ``r+1`` ready events, which follow the neighbors'
+  round ``r`` boundary merges, which waited on this shard's round ``r``
+  copies.  So every write of the head and tail follows the copies that
+  read them, whatever the shard count (with two shards the left and the
+  right neighbor are one shard).
+* *Around a run.*  Every shard's stream first waits for the caller's
+  stream; at the end the caller's stream waits for every shard's stream,
+  whose boundary merges followed every copy.  The fire of a new state
+  runs on the caller's stream, so it follows the last run's copies too.
+
+On the CPU both exchanges run the same schedule with the plain versions
+and ``copy_`` between host tensors.
 
 Scope, as in the JAX package: the fast synchronous collect-all mode,
 scalar payloads, plans whose remainder is 'gather' (inlined per shard) or
@@ -66,16 +104,41 @@ EXCHANGES = ("pallas", "ppermute")
 @dataclasses.dataclass(frozen=True)
 class ShardedNodeState:
     """Per-shard node state: each field holds one ``(local,)`` tensor per
-    shard, on that shard's device (the JAX kernel's ``(S, L)`` leaves)."""
+    shard, on that shard's device — the JAX kernel's ``(S, L)`` leaves, and
+    ``avg``, the fire of ``S`` and ``A_prev`` that the next round reads
+    (one of the kernel's two ``avg`` buffers, see the module docstring)."""
 
     t: int
     S: tuple
     G: tuple
     avg_prev: tuple
     A_prev: tuple
+    avg: tuple
+    #: the kernel's count of writes into each of its two ``avg`` buffers
+    #: (shared with the kernel, which updates it)
+    writes: list = dataclasses.field(default_factory=lambda: [0, 0],
+                                     compare=False, repr=False)
+    #: for ``avg`` and ``avg_prev``: ``(buffer, writes[buffer])`` when this
+    #: state was made, or None where the state owns the tensor
+    held: tuple = dataclasses.field(default=(None, None), compare=False,
+                                    repr=False)
+
+    def require(self, names, what: str) -> None:
+        """Raise if a later write of the kernel has overwritten any of the
+        fields ``names`` (of ``'avg'``, ``'avg_prev'``)."""
+        for name, tag in zip(("avg", "avg_prev"), self.held):
+            if name in names and tag is not None \
+                    and self.writes[tag[0]] != tag[1]:
+                raise RuntimeError(
+                    f"{what}: the state at round {self.t} is stale — a "
+                    f"later round of its kernel has overwritten its {name} "
+                    "(a state's avg and avg_prev live in the kernel's two "
+                    "avg buffers); run on from the latest state, or read "
+                    "this one before running on")
 
     def to_numpy(self) -> dict:
         """The JAX ``NodeSyncState`` leaves: ``t`` and ``(S, L)`` arrays."""
+        self.require(("avg_prev",), "to_numpy")
         out = {"t": self.t}
         for name in ("S", "G", "avg_prev", "A_prev"):
             out[name] = np.stack([v.cpu().numpy()
@@ -95,7 +158,8 @@ class _Shard:
     deg: torch.Tensor
     leaves: ShardedRoundLeaves
     recv: tuple                 # per round parity: (recv_lo, recv_hi)
-    fired: object               # torch.cuda.Event | None
+    avg: tuple                  # per round parity: the avg that round reads
+    ready: object               # torch.cuda.Event | None
     copied: object
 
 
@@ -202,9 +266,13 @@ class ShardedBandedKernel:
                 recv=tuple(tuple(torch.zeros(spec.halo, dtype=self.dtype,
                                              device=dev) for _ in range(2))
                            for _ in range(2)),
-                fired=torch.cuda.Event() if card else None,
+                avg=tuple(torch.zeros(L, dtype=self.dtype, device=dev)
+                          for _ in range(2)),
+                ready=torch.cuda.Event() if card else None,
                 copied=torch.cuda.Event() if card else None))
         self._shards = tuple(shards)
+        # writes into each parity's avg buffers, shared with every state
+        self._writes = [0, 0]
 
     def _band_planes(self, spec: ShardedRoundSpec) -> list:
         """Global bitpacked band-mask planes, ``(P,)`` uint32 per group
@@ -236,7 +304,7 @@ class ShardedBandedKernel:
     def init_state(self) -> ShardedNodeState:
         z = tuple(torch.zeros(self.spec.local, dtype=self.dtype,
                               device=sh.device) for sh in self._shards)
-        return ShardedNodeState(t=0, S=z, G=z, avg_prev=z, A_prev=z)
+        return self._fired(0, dict(S=z, G=z, avg_prev=z, A_prev=z))
 
     def state_from_numpy(self, leaves: dict) -> ShardedNodeState:
         """A state from the JAX sharded kernel's ``NodeSyncState`` leaves
@@ -254,8 +322,24 @@ class ShardedBandedKernel:
             vecs[name] = tuple(
                 torch.tensor(arr[s], dtype=self.dtype, device=sh.device)
                 for s, sh in enumerate(self._shards))
-        return ShardedNodeState(t=int(np.asarray(leaves["t"]).ravel()[0]),
-                                **vecs)
+        return self._fired(int(np.asarray(leaves["t"]).ravel()[0]), vecs)
+
+    def _fired(self, t: int, vecs: dict) -> ShardedNodeState:
+        """The state at round ``t`` with its ``avg``: one fire-only launch
+        per shard, on the caller's stream, into buffer ``t % 2``."""
+        avg = tuple(
+            sharded_fire(sh.value, S, A_prev, sh.inv_depp1, sh.leaves,
+                         self.spec, out=sh.avg[t % 2])
+            for sh, S, A_prev in zip(self._shards, vecs["S"],
+                                     vecs["A_prev"]))
+        return ShardedNodeState(t=t, avg=avg, writes=self._writes,
+                                held=(self._wrote(t % 2), None), **vecs)
+
+    def _wrote(self, buffer: int) -> tuple:
+        """Count a write into the ``avg`` buffers of parity ``buffer``;
+        the tag of what they now hold."""
+        self._writes[buffer] += 1
+        return buffer, self._writes[buffer]
 
     # ---- rounds ------------------------------------------------------------
     def _on(self, stream):
@@ -266,58 +350,61 @@ class ShardedBandedKernel:
         spec, shards = self.spec, self._shards
         nsh, L, H = spec.num_shards, spec.local, spec.halo
         before, after = row_ranges(spec, self.exchange)
-        # 1. fire
-        avgs = []
-        for s, sh in enumerate(shards):
-            with self._on(sh.stream):
-                avgs.append(sharded_fire(sh.value, st.S[s], st.A_prev[s],
-                                         sh.inv_depp1, sh.leaves, spec))
-                if sh.fired is not None:
-                    sh.fired.record()
+        # 1. ready: this round's avg was written on the shard's stream
+        for sh in shards:
+            if sh.ready is not None:
+                sh.ready.record(sh.stream)
         # 2. exchange: my head -> left's recv_hi, my tail -> right's recv_lo
         for s, sh in enumerate(shards):
             left = shards[(s - 1) % nsh].recv[parity]
             right = shards[(s + 1) % nsh].recv[parity]
             with self._on(sh.copy_stream):
-                if sh.fired is not None:
-                    sh.copy_stream.wait_event(sh.fired)
-                    avgs[s].record_stream(sh.copy_stream)
-                left[1].copy_(avgs[s][:H], non_blocking=True)
-                right[0].copy_(avgs[s][L - H:], non_blocking=True)
+                if sh.ready is not None:
+                    sh.copy_stream.wait_event(sh.ready)
+                left[1].copy_(st.avg[s][:H], non_blocking=True)
+                right[0].copy_(st.avg[s][L - H:], non_blocking=True)
                 if sh.copied is not None:
                     sh.copied.record()
         # 3. the rows whose reads stay on the shard, while the copies run
         outs = []
         for s, sh in enumerate(shards):
             with self._on(sh.stream):
-                out = tuple(torch.empty_like(st.S[s]) for _ in range(3))
+                out = tuple(torch.empty_like(st.S[s]) for _ in range(3)) \
+                    + (sh.avg[1 - parity],)
                 for rb, re in before:
-                    self._merge(st, s, avgs[s], parity, rb, re, out)
+                    self._merge(st, s, parity, (rb, re), out=out)
                 outs.append(out)
-        # 4. wait for both incoming halos, then the remaining rows
+        # 4. wait for both incoming halos, then the remaining rows in one
+        #    launch
         for s, sh in enumerate(shards):
             with self._on(sh.stream):
                 if sh.stream is not None:
                     sh.stream.wait_event(shards[(s - 1) % nsh].copied)
                     sh.stream.wait_event(shards[(s + 1) % nsh].copied)
-                for rb, re in after:
-                    self._merge(st, s, avgs[s], parity, rb, re, outs[s])
+                if after:
+                    self._merge(st, s, parity, *after, out=outs[s])
         return ShardedNodeState(
             t=st.t + 1, S=tuple(o[0] for o in outs),
-            G=tuple(o[1] for o in outs), avg_prev=tuple(avgs),
-            A_prev=tuple(o[2] for o in outs))
+            G=tuple(o[1] for o in outs), avg_prev=st.avg,
+            A_prev=tuple(o[2] for o in outs), avg=tuple(o[3] for o in outs),
+            writes=self._writes, held=(self._wrote(1 - parity), st.held[0]))
 
-    def _merge(self, st, s, avg, parity, rb, re, out) -> None:
+    def _merge(self, st, s, parity, rows, rows2=None, *, out) -> None:
         sh = self._shards[s]
         lo, hi = sh.recv[parity]
         sharded_round(st.S[s], st.G[s], st.avg_prev[s], st.A_prev[s],
-                      sh.deg, avg, lo, hi, sh.leaves, self.spec, rb, re, out)
+                      sh.deg, st.avg[s], lo, hi, sh.leaves, self.spec,
+                      *rows, out, rows2=rows2,
+                      fire=(sh.value, sh.inv_depp1))
 
     def run(self, state: ShardedNodeState, num_rounds: int
             ) -> ShardedNodeState:
         """``num_rounds`` rounds.  On the card each shard's stream first
         waits for the caller's stream, and at the end the caller's stream
-        waits for every shard's, so what the caller reads next is final."""
+        waits for every shard's, so what the caller reads next is final.
+        Raises if a round run since ``state`` was made has overwritten
+        its ``avg`` or ``avg_prev`` (:meth:`ShardedNodeState.require`)."""
+        state.require(("avg", "avg_prev"), "run")
         cards = [(s, sh) for s, sh in enumerate(self._shards)
                  if sh.stream is not None]
         for _, sh in cards:
@@ -327,7 +414,7 @@ class ShardedBandedKernel:
         for s, sh in cards:
             caller = torch.cuda.current_stream(sh.device)
             caller.wait_stream(sh.stream)
-            for name in ("S", "G", "avg_prev", "A_prev"):
+            for name in ("S", "G", "A_prev"):
                 getattr(state, name)[s].record_stream(caller)
         return state
 
@@ -346,6 +433,7 @@ class ShardedBandedKernel:
             sh.value + g for sh, g in zip(self._shards, state.G)))
 
     def last_avg(self, state: ShardedNodeState) -> np.ndarray:
+        state.require(("avg_prev",), "last_avg")
         return self._unpermute(self._flat(state.avg_prev))
 
     def run_streamed(self, state: ShardedNodeState, num_rounds: int,

@@ -229,22 +229,29 @@ def test_plain_round_rows_compose(plans):
     vec = lambda n=L: torch.from_numpy(rng.uniform(-1, 1, n))  # noqa: E731
     S, G, avp, ap, avg = (vec() for _ in range(5))
     lo, hi = vec(H), vec(H)
-    whole = [torch.empty(L, dtype=torch.float64) for _ in range(3)]
+    fire = (sh.value, sh.inv_depp1)
+    whole = [torch.empty(L, dtype=torch.float64) for _ in range(4)]
     psr.sharded_round(S, G, avp, ap, sh.deg, avg, lo, hi, sh.leaves, spec,
-                      0, spec.local_rows, whole)
-    split = [torch.empty(L, dtype=torch.float64) for _ in range(3)]
+                      0, spec.local_rows, whole, fire=fire)
+    split = [torch.empty(L, dtype=torch.float64) for _ in range(4)]
     for rb, re in ((0, 3), (3, 11), (11, spec.local_rows)):
         psr.sharded_round(S, G, avp, ap, sh.deg, avg, lo, hi, sh.leaves,
-                          spec, rb, re, split)
+                          spec, rb, re, split, fire=fire)
     for a, b in zip(whole, split):
         assert torch.equal(a, b)
+    # the fourth output is the next round's fire on the three just written
+    assert torch.equal(whole[3], psr.sharded_fire_plain(
+        sh.value, whole[0], whole[2], sh.inv_depp1))
     before = psr.sharded_round.launches
     psr.sharded_round(S, G, avp, ap, sh.deg, avg, lo, hi, sh.leaves, spec,
-                      0, 1, split)
+                      0, 1, split, fire=fire)
     assert psr.sharded_round.launches == before   # the plain version
     with pytest.raises(ValueError, match="outside"):
         psr.sharded_round(S, G, avp, ap, sh.deg, avg, lo, hi, sh.leaves,
-                          spec, 0, spec.local_rows + 1, split)
+                          spec, 0, spec.local_rows + 1, split, fire=fire)
+    with pytest.raises(ValueError, match="avg_next"):
+        psr.sharded_round(S, G, avp, ap, sh.deg, avg, lo, hi, sh.leaves,
+                          spec, 0, 1, split[:3], fire=fire)
 
 
 def test_launch_schedule_and_bound(plans):
@@ -254,8 +261,10 @@ def test_launch_schedule_and_bound(plans):
     assert psr.row_ranges(spec, "ppermute") == ((), ((0, R),))
     assert psr.row_ranges(spec, "pallas") == (
         ((Hr, R - Hr),), ((0, Hr), (R - Hr, R)))
-    assert psr.launches_per_shard_round(spec, "ppermute") == 2
-    assert psr.launches_per_shard_round(spec, "pallas") == 4
+    # the fire is folded into the previous round's merges, and the two
+    # boundary ranges share one launch
+    assert psr.launches_per_shard_round(spec, "ppermute") == 1
+    assert psr.launches_per_shard_round(spec, "pallas") == 2
     # seven node planes read, four written; bit planes, offsets, the
     # remainder table and two halos read
     L = spec.local

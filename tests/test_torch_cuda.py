@@ -632,25 +632,45 @@ def test_sharded_round_kernel_matches_plain(card, graph, dtype):
                                                   sh.inv_depp1))
     want = sr.sharded_round_plain(S, G, avp, ap, sh.deg, avg, lo, hi,
                                   sh.leaves, spec, 0, R)
-    for ranges in (((0, R),), ((0, 1), (1, R - 5), (R - 5, R)),
-                   sr.row_ranges(spec, "pallas")[0]
-                   + sr.row_ranges(spec, "pallas")[1]):
-        out = [torch.full((L,), float("nan"), dtype=dt, device=card)
-               for _ in range(3)]
-        before = sr.sharded_round.launches
-        for rb, re in ranges:
-            sr.sharded_round(S, G, avp, ap, sh.deg, avg, lo, hi, sh.leaves,
-                             spec, rb, re, out)
-        torch.cuda.synchronize()
-        assert sr.sharded_round.launches == before + len(ranges)
-        for g, w in zip(out, want):
-            assert torch.equal(g, w)
+    # the folded fire: the next round's avg from the S' and A just written
+    want_next = sr.sharded_fire_plain(sh.value, want[0], want[2],
+                                      sh.inv_depp1)
+    inner, outer = sr.row_ranges(spec, "pallas")
+    # each schedule is a list of launches, each launch one or two ranges
+    for launches in ([((0, R),)], [((0, 1),), ((1, R - 5),), ((R - 5, R),)],
+                     [((0, 1), (1, R - 5)), ((R - 5, R),)],
+                     ([inner] if inner else []) + [outer]):
+        for alias in (False, True):
+            out = [torch.full((L,), float("nan"), dtype=dt, device=card)
+                   for _ in range(3)]
+            # avg_next in a buffer of its own, or written over avg_prev
+            nxt = avp.clone() if alias else torch.full_like(avp,
+                                                            float("nan"))
+            prev = nxt if alias else avp
+            before = sr.sharded_round.launches
+            for ranges in launches:
+                sr.sharded_round(S, G, prev, ap, sh.deg, avg, lo, hi,
+                                 sh.leaves, spec, *ranges[0], out + [nxt],
+                                 rows2=ranges[1] if len(ranges) > 1
+                                 else None, fire=(sh.value, sh.inv_depp1))
+            torch.cuda.synchronize()
+            assert sr.sharded_round.launches == before + len(launches)
+            for g, w in zip(out, want):
+                assert torch.equal(g, w)
+            assert torch.equal(nxt, want_next)
+    out = out + [nxt]
     with pytest.raises(ValueError, match="contiguous"):
         sr.sharded_round(S, G.cpu(), avp, ap, sh.deg, avg, lo, hi,
-                         sh.leaves, spec, 0, R, out)
+                         sh.leaves, spec, 0, R, out,
+                         fire=(sh.value, sh.inv_depp1))
     with pytest.raises(ValueError, match="contiguous"):
         sr.sharded_round(S, G, avp, ap, sh.deg, avg, lo[:-1], hi,
-                         sh.leaves, spec, 0, R, out)
+                         sh.leaves, spec, 0, R, out,
+                         fire=(sh.value, sh.inv_depp1))
+    with pytest.raises(ValueError, match="contiguous"):
+        sr.sharded_round(S, G, avp, ap, sh.deg, avg, lo, hi, sh.leaves,
+                         spec, 0, R, out, fire=(sh.value.cpu(),
+                                                sh.inv_depp1))
 
 
 @pytest.mark.parametrize("shards", [2, 3, 4])
@@ -666,8 +686,10 @@ def test_sharded_exchanges_equal_on_one_card(card, shards):
             st = k.run(k.init_state(), 30)
             launched = (sr.sharded_fire.launches + sr.sharded_round.launches
                         - before)
+            # the merges of every round, and one fire per shard where the
+            # state was made
             assert launched == 30 * shards * sr.launches_per_shard_round(
-                k.spec, exchange)
+                k.spec, exchange) + shards
             est[exchange] = [torch.cat([t.cpu() for t in getattr(st, f)])
                              for f in ("S", "G", "avg_prev", "A_prev")]
         for a, b in zip(est["ppermute"], est["pallas"]):
@@ -729,6 +751,45 @@ def test_halo_exchange_kernel_matches_plain(card, dtype, nf, D):
             assert torch.equal(g, w)
     with pytest.raises(ValueError, match="mix of devices"):
         hx.fused_exchange_merge(blocks, offsets, 0, hit.cpu(), *merge[1:])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nf", [1, 3])
+def test_halo_exchange_kernel_odd_shapes(card, dtype, nf):
+    """Row tails (Eb off every pack), rows off the 16-byte grid, one-cell
+    rows, blocks of odd length and of none, sources off the 16-byte grid
+    (a scalar head) and sources and destinations that disagree mod 16
+    (copied by element), 32 offsets in one launch."""
+    from flow_updating_tpu_torch.ops import halo_exchange as hx
+
+    rng = np.random.default_rng(13)
+    feat = (nf,) if nf > 1 else ()
+    draw = lambda shape: torch.from_numpy(  # noqa: E731
+        rng.uniform(-1, 1, shape)).to(card, dtype)
+
+    def block(rows, hd, skew):
+        buf = draw(rows * hd + skew)
+        return buf[skew:].view(rows, hd)
+
+    for D, Eb in ((1, 1), (2, 17), (3, 4099), (1, 100_003)):
+        offsets = tuple(range(1, 33)) if Eb == 17 else (1, 2, 3)
+        S = 33 if Eb == 17 else 4
+        rows = 2 * nf + 1
+        blocks = [[block(rows, (2 * i + 1) * (s % 3), (s + i) % 3)
+                   for i in range(len(offsets))] for s in range(S)]
+        merge = (torch.from_numpy(rng.random((D, Eb)) < 0.3).to(card),
+                 draw((Eb,) + feat), draw((Eb,) + feat),
+                 draw((D, Eb) + feat), draw((D, Eb) + feat),
+                 torch.from_numpy(rng.random((D, Eb)) < 0.5).to(card))
+        for me in (0, S - 1):
+            got = hx.fused_exchange_merge(blocks, offsets, me, *merge)
+            pull = hx.remote_block_exchange(blocks, offsets, me)
+            torch.cuda.synchronize()
+            want = hx.fused_exchange_merge_plain(blocks, offsets, me, *merge)
+            for g, p, w in zip(got[0], pull, want[0]):
+                assert torch.equal(g, w) and torch.equal(p, w)
+            for g, w in zip(got[1:], want[1:]):
+                assert torch.equal(g, w)
 
 
 def test_halo_overlap_pallas_equals_ppermute_on_card(card):
