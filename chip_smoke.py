@@ -61,7 +61,26 @@ and prints one JSON line per phase:
    ``'segment'``/``'gather'`` twin; then fast pairwise with
    ``segment_impl='benes_fused'`` (the native edge coloring) for 50 rounds,
    ``torch.equal`` to its ``'benes'`` twin;
-11. ``k5``    — kernel B5 (the per-shard banded round, the next round's
+11. ``path_g`` — the robust edge round on the fat tree, path D's config:
+   G1 faithful collect-all with ``robust='trim'`` (its extreme marks take
+   a float max and min and two int32 minima through B4's scans, and five
+   more broadcasts through B3), G2 fast pairwise with ``robust='clip'``;
+   the trim's armed nodes and the clip's edges at the clamp, ms/round, B3
+   and B4 launches against the plans, each ``torch.equal`` to its
+   ``'segment'``/``'gather'`` twin (estimates and flows);
+   ``path_h`` — contention: H1 the same-model contract on the repo's
+   small6 platform at two message sizes (rounds to rmse 1e-2 and 1e-3 of
+   the kernel with ``contention_backlog``, float64, on the card and on
+   the host, against the DES's backlog twin; collect-all equal to the
+   DES at 1e6 bytes, pairwise within 50 rounds at 1e5), H2
+   ``RoundConfig.fidelity`` against the dynamic max-min oracle, H3
+   ``edge_delays`` alone on the fat tree with a link model (a shared
+   host link per node, K = 2): device ms per call at ``contention_iters``
+   0 and 4 and with backlog, two runs ``torch.equal``;
+   ``des`` — the host DES on the fat tree (ticks per second at timeout
+   1 and 50, three repeats, the host CPU named), and the faithful edge
+   round on the card reaching the DES fixed point on ``ring(24, 2)``;
+12. ``k5``    — kernel B5 (the per-shard banded round, the next round's
    fire folded into its merges) vs its plain version at 4 shards on
    ``ring(1_000_000, 2)`` (path B's plan: 8 band lanes, W = 1) and on
    ``grid2d(1000, 1000)`` (a remainder-heavy plan), float32 and float64:
@@ -73,14 +92,14 @@ and prints one JSON line per phase:
    stress run, ``ring(20000, 2)`` over 4 shards for 500 rounds, whose
    ``'pallas'`` and ``'ppermute'`` exchanges equal each other and the
    single-device ``banded_fused`` round bit for bit;
-12. ``path_e`` — the sharded round: ``Engine`` with ``spmv='banded_fused'``
+13. ``path_e`` — the sharded round: ``Engine`` with ``spmv='banded_fused'``
    over ``make_mesh(4)`` (all four shards on the one card) and
    ``halo='overlap'`` on the ring: ms/round, B5 launches == rounds x shards
    x launches per shard-round (2) with no fire in the timed rounds, halo
    bytes per round, estimates ``torch.equal`` to a ``halo='ppermute'``
    twin and to path B's single-device run of the same rounds, a falling
    rmse;
-13. ``k6``    — kernel B6 (the halo block pull and its fused ring-buffer
+14. ``k6``    — kernel B6 (the halo block pull and its fused ring-buffer
    merge) vs its plain version at path F's shard shapes (its ``Eb``, ``D``
    and offset blocks): float32 and float64, scalar and 3 feature lanes,
    both entries, every receiving shard, ``torch.equal``; and on odd
@@ -94,7 +113,7 @@ and prints one JSON line per phase:
    count); then a stress run of four shards on the card
    (``erdos_renyi(4000, 6)``, faithful collect-all with message loss, 200
    rounds) whose ``'overlap_pallas'`` state equals ``'ppermute'``'s;
-14. ``path_f`` — the halo edge round: ``Engine(config=RoundConfig.
+15. ``path_f`` — the halo edge round: ``Engine(config=RoundConfig.
    reference('collectall'), mesh=make_mesh(4), multichip='halo',
    halo='overlap_pallas')`` on the fat tree (``partition='bfs'``, all four
    shards on the card): the plan (cut fraction, ``H``, offsets, wire
@@ -110,14 +129,17 @@ and prints one JSON line per phase:
    pull alone) for 50 rounds, equal to its ``'ppermute'`` twin, with a
    falling rmse (the faithful round's rmse swings for its first few
    hundred rounds in either numbering, so F1 reports its rmse);
-15. ``profile`` — ``torch.profiler`` over a few more rounds of each path:
+16. ``c1``    — path E's sharded states are values: a ``run(st, 1)``
+   loop against ``run(st, R)`` (device ms per round, the clones a
+   ``run`` call costs), both equal, and a retained state run twice;
+17. ``profile`` — ``torch.profiler`` over a few more rounds of each path:
    device time per round, the device's busy share of the wall time, the
    time of each hand-written kernel and of each flavour of B3 and B4, and
    the kernels that take the most;
    for paths E and F also the union of the busy intervals of their
    streams and the share of the copies' time that another stream's
    kernel overlaps (path F: its ``'overlap'`` twin, whose wire is copies);
-16. the ``{"kernels": [...]}`` line (launches from the main paths; times,
+18. the ``{"kernels": [...]}`` line (launches from the main paths; times,
     errors and bounds measured in this run), then the nvidia-smi line,
     then ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -174,6 +196,22 @@ STRESS_ROUNDS = 200     # k6: the stress run's rounds
 RING_STRESS_N = 20000   # k5: the stress run's ring(20000, 2)
 RING_STRESS_ROUNDS = 500  # k5: the stress run's rounds
 PULL_SETS = 4           # k6: block sets the pull's timing turns over
+ROBUST_TOL = 0.05       # path G1: the trim's arming spread
+ROBUST_CLIP = 0.01      # path G2: the ledger clamp
+ROBUST_ROUNDS = 40      # path G: timed rounds
+SMALL6_PLATFORM = "examples/platforms/small6.xml"
+SMALL6_ACTORS = "examples/deployments/small6_actors.xml"
+SMALL6_SCALE = 100.0    # path H1/H2: latency scale of small6
+#: path H1/H2 message sizes: at 1e5 bytes every delay rounds to 1 round,
+#: at 1e6 the delays reach 5 rounds and the contention binds
+SMALL6_MSG_BYTES = (1e5, 1e6)
+DES_TICKS = 1200        # path H1/H2: rounds (ticks) of each curve
+OBS = 10                # path H1/H2: the curves' sampling interval
+LINK_SER_ROUNDS = 0.01  # path H3: a message's serialization, in rounds
+DES_BASE_TICKS = 10     # des: ticks of each timed DES run (k=160)
+DES_REPEATS = 3         # des: timed runs per timeout
+DES_FIXED_TICKS = 2000  # des: ring(24, 2) rounds to the fixed point
+C1_ROUNDS = 20          # c1: rounds of path E per measurement
 #: path D's float32 estimates against the 'segment'/'gather' twin, whose
 #: per-node sums add in another order (sequential rows vs the scan tree)
 EDGE_TWIN_ATOL = 1e-4
@@ -185,7 +223,14 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries the seconds since the
+    script started (``elapsed_s``)."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -271,6 +316,24 @@ def device_ms(fn, only: str | None = None) -> float:
         EVENT_TIMED.append(label)
         return cuda_ms(fn)
     return best / 1e3
+
+
+def device_top(fn, n: int = 6) -> list:
+    """The ``n`` CUDA kernels (or copies) that take the most device time
+    in a call of ``fn``: ``torch.profiler`` over ``REPS`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(REPS):
+            fn()
+        torch.cuda.synchronize()
+    rows = sorted(_device_rows(prof, REPS), key=lambda r: -r[1])
+    return [{"kernel": k[:90], "ms_per_call": us / 1e3,
+             "launches_per_call": c} for k, us, c in rows[:n]]
 
 
 def bound(nbytes: int, ops: int) -> dict:
@@ -395,6 +458,15 @@ def round_network_calls(cfg) -> dict:
         places = 1
     else:
         raise ValueError("faithful pairwise is not a chip-smoke path")
+    if cfg.robust == "trim":
+        # the mark: est max and min, two int32 rank minima, and under
+        # collect-all the trimmed sum and count (one scan and one
+        # extraction each); broadcasts of the armed mask, the two
+        # extremes and the two picked ranks
+        extra = 6 if cfg.variant == "collectall" else 4
+        scans += extra
+        extracts += extra
+        places += 5
     return {"scan": scans, "fill": places, "extract": extracts,
             "place": places, "rev": int(cfg.delivery == "benes_fused")}
 
@@ -2057,6 +2129,393 @@ def phase_path_f(topo, eng, build_s, segment_est):
     return out, profile_twin
 
 
+# ---- slice 11: robust modes, contention, the DES and value states --------
+
+def _armed(eng) -> dict:
+    """Trim's marks in an edge engine's current state: marked edges and
+    the nodes that mark them (armed nodes)."""
+    import torch
+
+    from flow_updating_tpu_torch.models.rounds import _trim_extreme_edges
+
+    a = eng._topo_arrays
+    mark = _trim_extreme_edges(eng.state, a, eng.config,
+                               eng.config.torch_dtype)
+    return {"marked_edges": int(mark.sum()),
+            "armed_nodes": int(torch.unique(a.src[mark]).numel())}
+
+
+def _robust_run(topo, cfg, boot: int, rounds: int, twin_rounds: int,
+                what: str) -> tuple:
+    """One robust edge engine on the fat tree: ``boot`` rounds, ``rounds``
+    timed rounds with the B3/B4 counts set to 0 just before them (checked
+    against the plans), then its ``segment``/``gather`` twin at round
+    ``twin_rounds``, held bit for bit.  Returns ``(report, engine)``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from flow_updating_tpu_torch import Engine
+    from flow_updating_tpu_torch.models.rounds import node_estimates
+
+    t0 = time.perf_counter()
+    eng = Engine(config=cfg).set_topology(topo).build(seed=SEED)
+    build_s = time.perf_counter() - t0
+    rmse0 = eng.convergence_report()["rmse"]
+    eng.run_rounds(boot)
+    armed_first = _armed(eng) if cfg.robust == "trim" else None
+    per_round = planned_launches(eng._topo_arrays, cfg)
+    reset_counts()
+    ms = _timed_rounds(eng, twin_rounds - boot)
+    first = {**b3_launches(), **b4_launches()}
+    mine = node_estimates(eng.state, eng._topo_arrays)   # not counted
+    flow_at_twin = eng.state.flow.clone()
+    reset_counts()
+    ms += _timed_rounds(eng, rounds - (twin_rounds - boot))
+    got = {k: v + first[k] for k, v in {**b3_launches(),
+                                        **b4_launches()}.items()}
+    if got != {k: v * rounds for k, v in per_round.items()}:
+        raise AssertionError(f"{what} launches {got}, planned {per_round} "
+                             f"per round x {rounds}")
+    rep = eng.convergence_report()
+    est = eng.estimates()
+    if est.shape != (topo.num_nodes,) or not np.isfinite(est).all():
+        raise AssertionError(f"{what} estimates are not finite (N,) values")
+    twin_cfg = dataclasses.replace(cfg, segment_impl="segment",
+                                   delivery="gather")
+    twin = Engine(config=twin_cfg).set_topology(topo).build(seed=SEED)
+    twin_ms = _timed_rounds(twin, twin_rounds)
+    other = node_estimates(twin.state, twin._topo_arrays)
+    diff = float((mine - other).abs().max())
+    flow_equal = bool(torch.equal(flow_at_twin, twin.state.flow))
+    if diff != 0.0 or not flow_equal:
+        raise AssertionError(f"{what} differs from its segment/gather twin "
+                             f"at round {twin_rounds} (estimates max "
+                             f"{diff}, flows equal: {flow_equal})")
+    out = {"config": {k: getattr(cfg, k) for k in (
+               "variant", "fire_policy", "robust", "robust_tol",
+               "robust_clip", "segment_impl", "delivery", "dtype")},
+           "build_s": build_s, "rounds_timed": rounds, "after_round": boot,
+           "ms_per_round": ms / rounds, "rounds_per_s": rounds / (ms / 1e3),
+           "launches_per_round": per_round,
+           "b3_launches": {k: got[k] for k, _, _, _ in B3_FLAVOURS},
+           "b4_launches": {k: got[k] for k, _, _ in B4_FLAVOURS},
+           "twin_at_round": twin_rounds, "max_abs_diff_to_segment": diff,
+           "flow_equal_to_segment": flow_equal,
+           "segment_ms_per_round": twin_ms / twin_rounds,
+           "rmse_initial": rmse0, **rep}
+    if armed_first is not None:
+        out["armed_at_round"] = {str(boot): armed_first,
+                                 str(boot + rounds): _armed(eng)}
+    del twin, other
+    torch.cuda.empty_cache()
+    return out, eng
+
+
+def phase_path_g(topo) -> tuple:
+    """The robust faithful edge round at full width: G1, collect-all with
+    ``robust='trim'`` on path D's config (the trim's float max and min and
+    int32 min scans through B4, its broadcasts through B3); G2, fast
+    pairwise with ``robust='clip'`` on path D's pairwise config."""
+    from flow_updating_tpu_torch import RoundConfig
+
+    g1_cfg = RoundConfig.reference(
+        "collectall", segment_impl="benes_fused", delivery="benes_fused",
+        robust="trim", robust_tol=ROBUST_TOL)
+    g1, eng1 = _robust_run(topo, g1_cfg, EDGE_BOOT + 1, ROBUST_ROUNDS,
+                           EDGE_BOOT + 10, "path G1")
+    if not g1["armed_at_round"][str(EDGE_BOOT + 1)]["armed_nodes"]:
+        raise AssertionError("path G1: robust_tol armed no node")
+    g2_cfg = RoundConfig.fast("pairwise", segment_impl="benes_fused",
+                              robust="clip", robust_clip=ROBUST_CLIP)
+    g2, eng2 = _robust_run(topo, g2_cfg, 0, ROBUST_ROUNDS, 10, "path G2")
+    flow = eng2.state.flow.abs()
+    if float(flow.max()) > ROBUST_CLIP:
+        raise AssertionError("path G2: a ledger entry exceeds robust_clip")
+    g2["edges_at_clamp"] = int((flow == ROBUST_CLIP).sum())
+    if not g2["edges_at_clamp"]:
+        raise AssertionError("path G2: robust_clip bound no write")
+    g2["mass_residual_bound"] = "float32 noise (the clip is odd)"
+    return {"g1": g1, "g2": g2}, eng1, eng2
+
+
+def _rounds_to(curve, th, obs) -> int | None:
+    import numpy as np
+
+    below = np.asarray(curve) < th
+    return int((np.argmax(below) + 1) * obs) if below.any() else None
+
+
+def _small6(msg_bytes: float):
+    from flow_updating_tpu_torch.engine import TICK_INTERVAL
+    from flow_updating_tpu_torch.topology.deployment import load_deployment
+    from flow_updating_tpu_torch.topology.platform import load_platform
+
+    return load_deployment(os.path.join(ROOT, SMALL6_ACTORS)).to_topology(
+        platform=load_platform(os.path.join(ROOT, SMALL6_PLATFORM)),
+        tick_interval=TICK_INTERVAL, latency_scale=SMALL6_SCALE,
+        msg_bytes=msg_bytes)
+
+
+def _observed(topo, cfg, device) -> list:
+    """The rmse curve of ``DES_TICKS`` rounds, sampled every ``OBS``."""
+    from flow_updating_tpu_torch.models import rounds
+    from flow_updating_tpu_torch.models.state import init_state
+
+    _, m = rounds.run_rounds_observed(
+        init_state(topo, cfg, device=device),
+        topo.device_arrays(device=device), cfg, DES_TICKS, OBS,
+        topo.true_mean)
+    return m["rmse"].cpu().tolist()
+
+
+def _linked_fat_tree(topo):
+    """``topo`` with a link model through the public ``build_topology``:
+    one SHARED host link per node, each directed edge routed over its
+    source's and its destination's (K = 2, L = N), one round of latency
+    and ``LINK_SER_ROUNDS`` of serialization a message."""
+    import numpy as np
+
+    from flow_updating_tpu_torch.topology.graph import build_topology
+
+    pairs = np.stack([topo.src, topo.dst], 1)[topo.src < topo.dst]
+    keys = list(zip(pairs[:, 0].tolist(), pairs[:, 1].tolist()))
+    return build_topology(
+        topo.num_nodes, pairs, values=topo.values,
+        latency_s=dict.fromkeys(keys, 1.0), latency_scale=1.0,
+        msg_bytes=104.0, route_links={k: k for k in keys},
+        link_caps=np.full(topo.num_nodes, 104.0 / LINK_SER_ROUNDS),
+        link_shared=np.ones(topo.num_nodes, bool), warn_asymmetric=False)
+
+
+def phase_path_h(tree) -> dict:
+    """Contention where it exists.  H1: the same-model contract (the
+    kernel with ``contention_backlog`` against the DES's backlog twin) on
+    small6 at two message sizes, the card's float64 run equal to the
+    host's; H2: ``RoundConfig.fidelity`` against the dynamic max-min
+    oracle; H3: ``edge_delays`` alone on the k=160 fat tree with a link
+    model, device ms a call, two runs ``torch.equal``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from flow_updating_tpu_torch import Engine, RoundConfig, native
+    from flow_updating_tpu_torch.models import rounds
+
+    h1, h2 = {}, {}
+    for mb in SMALL6_MSG_BYTES:
+        topo = _small6(mb)
+        D = topo.contended_max_delay()
+        h1[f"{mb:g}"] = cells = {"delay_depth": D,
+                                 "max_static_delay": topo.max_delay}
+        for variant in ("collectall", "pairwise"):
+            cfg = RoundConfig.reference(variant, delay_depth=D,
+                                        contention=True,
+                                        contention_backlog=True,
+                                        dtype="float64")
+            card = _observed(topo, cfg, "cuda")
+            host = _observed(topo, cfg, "cpu")
+            des = native.des_run_contend(
+                topo, variant, timeout=50, ticks=DES_TICKS, obs_every=OBS,
+                clamp_d=D, backlog=True)[0]
+            got = {f"{th:g}": {"kernel": _rounds_to(card, th, OBS),
+                               "host": _rounds_to(host, th, OBS),
+                               "des": _rounds_to(des, th, OBS)}
+                   for th in (1e-2, 1e-3)}
+            for th, r in got.items():
+                if r["kernel"] is None or r["kernel"] != r["host"]:
+                    raise AssertionError(
+                        f"path H1 {variant} msg_bytes={mb:g} th={th}: the "
+                        f"card's rounds {r['kernel']} != the host's "
+                        f"{r['host']}")
+            cells[variant] = got
+        fid = {}
+        for variant in ("collectall", "pairwise"):
+            eng = Engine(config=RoundConfig.fidelity(variant,
+                                                     dtype="float64"))
+            eng.set_topology(topo).build(latency_scale=SMALL6_SCALE)
+            card = _observed(topo, eng.config, "cuda")
+            lmm = native.des_run_contend(
+                topo, variant, timeout=50, ticks=DES_TICKS, obs_every=OBS,
+                clamp_d=eng.config.delay_depth, lmm=True)[0]
+            fid[variant] = {
+                "delay_depth": eng.config.delay_depth,
+                "contention_iters": eng.config.contention_iters,
+                "contention_backlog": eng.config.contention_backlog,
+                **{f"{th:g}": {"kernel": _rounds_to(card, th, OBS),
+                               "lmm": _rounds_to(lmm, th, OBS)}
+                   for th in (1e-2, 1e-3)}}
+        h2[f"{mb:g}"] = fid
+    # the contract's gates, each where it holds (PERF.md: not general)
+    exact = h1[f"{SMALL6_MSG_BYTES[1]:g}"]["collectall"]
+    if any(r["kernel"] != r["des"] for r in exact.values()):
+        raise AssertionError(f"path H1: collect-all rounds {exact} differ "
+                             "from the DES's")
+    band = h1[f"{SMALL6_MSG_BYTES[0]:g}"]["pairwise"]
+    if any(abs(r["kernel"] - r["des"]) > 50 for r in band.values()):
+        raise AssertionError(f"path H1: pairwise rounds {band} are not "
+                             "within 50 of the DES's")
+
+    t0 = time.perf_counter()
+    linked = _linked_fat_tree(tree)
+    link_s = time.perf_counter() - t0
+    if not np.array_equal(linked.src, tree.src):
+        raise AssertionError("path H3: the linked fat tree's edges differ")
+    t0 = time.perf_counter()
+    arrays = linked.device_arrays()
+    torch.cuda.synchronize()
+    arrays_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    E = linked.num_edges
+    send = torch.from_numpy(rng.random(E) < 0.5).cuda()
+    inflight = torch.from_numpy(rng.integers(0, 3, E).astype(np.int32)).cuda()
+    base = RoundConfig.reference(contention=True,
+                                 delay_depth=linked.contended_max_delay())
+    h3 = {"links": int(linked.link_ser_rounds.shape[0]),
+          "route_slots": int(linked.edge_links.shape[1]),
+          "build_s": link_s, "device_arrays_s": arrays_s,
+          "delay_depth": base.delay_depth, "calls": {}}
+    for name, kw in (("iters0", {}), ("iters4", {"contention_iters": 4}),
+                     ("iters4_backlog", {"contention_iters": 4,
+                                         "contention_backlog": True})):
+        cfg = dataclasses.replace(base, **kw)
+
+        def call(cfg=cfg):
+            return rounds.edge_delays(arrays, cfg, send, inflight=inflight)
+
+        runs = [call(), call()]
+        torch.cuda.synchronize()
+        if not torch.equal(runs[0], runs[1]):
+            raise AssertionError(f"path H3 {name}: two runs of edge_delays "
+                                 "differ")
+        d = runs[0]
+        h3["calls"][name] = {
+            "device_ms": device_ms(call), "ms": cuda_ms(call),
+            "top": device_top(call), "equal_twice": True,
+            "delay_histogram": torch.bincount(d).cpu().tolist(),
+            "max_delay": int(d.max())}
+    del arrays, send, inflight
+    torch.cuda.empty_cache()
+    return {"h1": h1, "h2": h2, "h3": h3,
+            "small6": {"latency_scale": SMALL6_SCALE,
+                       "msg_bytes": list(SMALL6_MSG_BYTES),
+                       "ticks": DES_TICKS, "obs_every": OBS}}
+
+
+def host_cpu() -> dict:
+    """What the host says of its CPU: ``/proc/cpuinfo``'s first
+    ``model name``, vendor, family, model and MHz fields, and the cores
+    this process may use."""
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                key = key.strip().lower()
+                if key in ("model name", "vendor_id", "cpu family", "model",
+                           "cpu mhz") and key not in fields:
+                    fields[key] = value.strip()
+    except OSError:
+        pass
+    return {"model_name": fields.pop("model name", "unknown"), **fields,
+            "cores": len(os.sched_getaffinity(0))}
+
+
+def phase_des(tree) -> dict:
+    """The host baseline a round rate will be divided by: ``des_run`` on
+    the k=160 fat tree at ``timeout=1`` (every node fires every tick, the
+    fast round's work) and ``timeout=50`` (the faithful round's), ticks
+    per second over ``DES_REPEATS`` repeats; then the faithful edge round
+    on the card held to the DES fixed point on ``ring(24, 2)``."""
+    import numpy as np
+
+    from flow_updating_tpu_torch import Engine, RoundConfig, native
+    from flow_updating_tpu_torch.topology.generators import ring
+
+    rates = {}
+    for timeout in (1, 50):
+        samples, events = [], 0
+        for _ in range(DES_REPEATS):
+            t0 = time.perf_counter()
+            _, _, events = native.des_run(tree, "collectall",
+                                          timeout=timeout,
+                                          ticks=DES_BASE_TICKS)
+            samples.append(DES_BASE_TICKS / (time.perf_counter() - t0))
+        mean = sum(samples) / len(samples)
+        rates[f"timeout{timeout}"] = {
+            "rounds_per_s": mean, "rounds_per_s_min": min(samples),
+            "rounds_per_s_max": max(samples),
+            "spread_pct": 100 * (max(samples) - min(samples)) / mean,
+            "ticks": DES_BASE_TICKS, "repeats": DES_REPEATS,
+            "events": events}
+    small = ring(24, 2, seed=9)
+    fixed = {}
+    for variant in ("collectall", "pairwise"):
+        est, _, _ = native.des_run(small, variant, timeout=50,
+                                   ticks=DES_FIXED_TICKS)
+        eng = Engine(config=RoundConfig.reference(variant))
+        eng.set_topology(small).build().run_rounds(DES_FIXED_TICKS)
+        des_rmse = float(np.sqrt(np.mean((est - small.true_mean) ** 2)))
+        rmse = eng.convergence_report()["rmse"]
+        if not (des_rmse < 1e-3 and rmse < 1e-3):
+            raise AssertionError(f"des: {variant} on ring(24, 2) did not "
+                                 f"reach the fixed point (DES {des_rmse}, "
+                                 f"card {rmse})")
+        fixed[variant] = {"des_rmse": des_rmse, "card_rmse": rmse}
+    return {"host_cpu": host_cpu(), "topology": f"fat_tree:{FAT_TREE_K}",
+            "variant": "collectall", **rates,
+            "ring24_fixed_point": {"ticks": DES_FIXED_TICKS, **fixed}}
+
+
+def phase_c1(engine_e) -> dict:
+    """Value semantics of sharded node states on the card: path E's
+    kernel by ``run(st, 1)`` loops against ``run(st, R)`` (device ms a
+    round: the two clones a ``run`` call costs), and running twice from a
+    retained state."""
+    import torch
+
+    kern = engine_e._node_kernel
+    st0 = engine_e.state
+
+    def leaves(st):
+        return [torch.cat([t.cpu() for t in getattr(st, f)])
+                for f in ("S", "G", "avg_prev", "A_prev", "avg")]
+
+    a = kern.run(st0, C1_ROUNDS)
+    want = leaves(a)
+    kern.run(a, 3)
+    b = st0
+    for _ in range(C1_ROUNDS):
+        b = kern.run(b, 1)
+    if not all(torch.equal(x, y) for x, y in zip(leaves(b), want)):
+        raise AssertionError("c1: run(st, 1) x R differs from run(st, R)")
+    if not all(torch.equal(x, y) for x, y in zip(
+            leaves(kern.run(st0, C1_ROUNDS)), want)):
+        raise AssertionError("c1: a second run from the retained state "
+                             "differs")
+
+    def loop():
+        s = st0
+        for _ in range(C1_ROUNDS):
+            s = kern.run(s, 1)
+
+    def whole():
+        kern.run(st0, C1_ROUNDS)
+
+    one = device_ms(loop) / C1_ROUNDS
+    many = device_ms(whole) / C1_ROUNDS
+    return {"rounds": C1_ROUNDS, "shards": SHARDS,
+            "device_ms_per_round_run1_loop": one,
+            "device_ms_per_round_runR": many,
+            "copy_device_ms_per_run_call": (one - many) * C1_ROUNDS
+            / (C1_ROUNDS - 1),
+            "ms_per_round_run1_loop": cuda_ms(loop) / C1_ROUNDS,
+            "ms_per_round_runR": cuda_ms(whole) / C1_ROUNDS,
+            "retained_state_runs_equal": True}
+
+
 def _intervals_union(spans) -> float:
     total, end = 0.0, None
     for a, b in sorted(spans):
@@ -2228,6 +2687,19 @@ def main() -> int:
     torch.cuda.synchronize()
     emit({"phase": "path_d", "topology": f"fat_tree:{FAT_TREE_K}", **path_d})
 
+    path_g, engine_g1, engine_g2 = phase_path_g(tree)
+    torch.cuda.synchronize()
+    emit({"phase": "path_g", "topology": f"fat_tree:{FAT_TREE_K}", **path_g})
+
+    t0 = time.perf_counter()
+    path_h = phase_path_h(tree)
+    torch.cuda.synchronize()
+    emit({"phase": "path_h", "wall_s": time.perf_counter() - t0, **path_h})
+
+    t0 = time.perf_counter()
+    des = phase_des(tree)
+    emit({"phase": "des", "wall_s": time.perf_counter() - t0, **des})
+
     engine_f, f_build_s = build_path_f(tree)
     k6 = phase_k6(engine_f._halo_plan, engine_f.config, dev)
     torch.cuda.synchronize()
@@ -2237,11 +2709,17 @@ def main() -> int:
     torch.cuda.synchronize()
     emit({"phase": "path_f", "topology": f"fat_tree:{FAT_TREE_K}", **path_f})
 
+    c1 = phase_c1(engine_e)
+    torch.cuda.synchronize()
+    emit({"phase": "c1", **c1})
+
     emit({"phase": "profile",
           "path_a": profile_rounds(engine_a, PROFILE_ROUNDS),
           "path_b": profile_rounds(engine_b, PROFILE_ROUNDS),
           "path_c": profile_rounds(engine_c, PROFILE_ROUNDS),
           "path_d": profile_rounds(engine_d, PROFILE_ROUNDS),
+          "path_g1": profile_rounds(engine_g1, PROFILE_ROUNDS),
+          "path_g2": profile_rounds(engine_g2, PROFILE_ROUNDS),
           "path_e": {**profile_rounds(engine_e, PROFILE_ROUNDS),
                      "overlap": profile_overlap(engine_e, PROFILE_ROUNDS)},
           "path_f": {**profile_rounds(engine_f, PROFILE_ROUNDS),
@@ -2276,7 +2754,9 @@ def main() -> int:
            "source": "flow_updating_tpu_torch/csrc/benes_pass.cu",
            "replaces": f"flow_updating_tpu/ops/pallas_fused.py:{line}",
            "launches": (path_c["b3_launches"][name]
-                        + path_d["b3_launches"][name]),
+                        + path_d["b3_launches"][name]
+                        + path_g["g1"]["b3_launches"][name]
+                        + path_g["g2"]["b3_launches"][name]),
            "parity": "bit-exact (torch.equal), float32 and float64",
            "max_abs_err": k3["flavours"][name]["max_abs_err"],
            "ms": k3["flavours"][name]["ms"],
@@ -2289,7 +2769,9 @@ def main() -> int:
         *({"name": f"seg_scan.{name}", "route": "cuda",
            "source": "flow_updating_tpu_torch/csrc/seg_scan.cu",
            "replaces": f"flow_updating_tpu/ops/pallas_fused.py:{line}",
-           "launches": path_d["b4_launches"][name],
+           "launches": (path_d["b4_launches"][name]
+                        + path_g["g1"]["b4_launches"][name]
+                        + path_g["g2"]["b4_launches"][name]),
            "parity": "bit-exact (torch.equal): float32, float64, int32, "
                      "batch 1 and 3, the split passes",
            "max_abs_err": k4["flavours"][name]["max_abs_err"],

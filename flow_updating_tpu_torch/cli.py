@@ -1,21 +1,28 @@
-"""Command-line driver: the ``run`` subcommand.
+"""Command-line driver: the ``run`` and ``oracle`` subcommands.
 
-Counterpart of ``flow_updating_tpu/cli.py``'s ``run``.  It takes the same
-flags, so a JAX command line carries over, plus ``--device`` (``cuda``,
-the default, or ``cpu``).  Topology from ``--platform``/``--deployment``
-XML or a synthetic ``--generator``; watcher sampling every
-``--observe-every`` simulated seconds until ``--until``, or exactly
-``--rounds``, or ``--until-rmse``.  Prints one JSON convergence report.
+Counterpart of ``flow_updating_tpu/cli.py``'s ``run`` and ``oracle``.
+They take the same flags, so a JAX command line carries over, plus
+``--device`` (``cuda``, the default, or ``cpu``) for ``run``.  Topology
+from ``--platform``/``--deployment`` XML or a synthetic ``--generator``;
+watcher sampling every ``--observe-every`` simulated seconds until
+``--until``, or exactly ``--rounds``, or ``--until-rmse``.  Prints one
+JSON convergence report.
 
 ``--shards N`` runs the node kernel's ``banded_fused`` round over an
 N-shard mesh (``--halo`` picks the exchange, as in the JAX CLI);
 ``--shards N --multichip halo`` the edge kernel's halo round
 (``--halo ppermute|allgather|overlap|overlap_pallas|auto``,
 ``--partition bfs|contiguous``), whose exchange decision the report
-carries under ``halo``.  Flags
-whose machinery is not ported yet exit with a message naming the ROADMAP
-item.  ``--backend`` selects the JAX backend in the JAX package;
-it is accepted here for command-line compatibility and has no effect.
+carries under ``halo``.  ``--contention`` (``--contention-iters``,
+``--contention-backlog``) and ``--fidelity`` price shared links on a
+``--platform`` topology.  Flags whose machinery is not ported yet exit
+with a message naming the ROADMAP item.  ``--backend`` selects the JAX
+backend in the JAX package; it is accepted here for command-line
+compatibility and has no effect.
+
+``oracle`` runs the native discrete-event simulator on the host (the
+reference-style baseline; ``--lmm`` for the dynamic max-min network) and
+prints the JAX CLI's JSON keys.
 """
 
 from __future__ import annotations
@@ -100,10 +107,6 @@ def cmd_run(args) -> int:
         if getattr(args, flag) not in (None, False):
             raise SystemExit(f"--{flag.replace('_', '-')} is the ROADMAP "
                              f"item '{item}', not ported yet")
-    if args.contention or args.fidelity:
-        raise SystemExit("--contention/--fidelity is the ROADMAP item "
-                         "'general edge round: contention (A3)', not "
-                         "ported yet")
     if args.multichip in ("halo", "pod") and not args.shards:
         raise SystemExit(
             f"--multichip {args.multichip} needs --shards N (it is a "
@@ -174,6 +177,51 @@ def cmd_run(args) -> int:
     return 0
 
 
+def cmd_oracle(args) -> int:
+    import numpy as np
+
+    from flow_updating_tpu_torch import native
+
+    topo = _build_topology(args)
+    timeout = args.timeout if args.timeout is not None else 50
+    network = "unit-delay"
+    try:
+        if args.lmm:
+            if not topo.has_link_model:
+                raise SystemExit("--lmm needs a platform topology with a "
+                                 "link model (--platform + --latency-scale "
+                                 "> 0)")
+            _rmse, est, last_avg, events = native.des_run_contend(
+                topo, variant=args.variant, timeout=timeout,
+                ticks=args.ticks, clamp_d=0, lmm=True)
+            network = "dynamic max-min LMM"
+        else:
+            est, last_avg, events = native.des_run(
+                topo, variant=args.variant, timeout=timeout,
+                ticks=args.ticks)
+    except native.NativeError as err:
+        raise SystemExit(f"native runtime unavailable: {err}") from err
+    err = est - topo.true_mean
+    print(json.dumps({
+        "ticks": args.ticks,
+        "events": events,
+        "network": network,
+        "rmse": float(np.sqrt(np.mean(err * err))),
+        "max_abs_err": float(np.max(np.abs(err))),
+        "mass_residual": float(est.sum() - topo.values.sum()),
+        "true_mean": topo.true_mean,
+    }))
+    return 0
+
+
+def _add_topology_flags(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("--platform", help="SimGrid-style platform XML")
+    ap.add_argument("--deployment", help="SimGrid-style deployment XML")
+    ap.add_argument("--generator", help="synthetic topology, e.g. "
+                    "'erdos_renyi:10000', 'fat_tree:160', 'ring:100:2'")
+    ap.add_argument("--seed", type=int, default=0)
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="flow_updating_tpu_torch",
@@ -191,11 +239,7 @@ def build_parser() -> argparse.ArgumentParser:
                      help="JAX backend of the JAX package; accepted for "
                           "command-line compatibility, no effect here "
                           "(see --device)")
-    run.add_argument("--platform", help="SimGrid-style platform XML")
-    run.add_argument("--deployment", help="SimGrid-style deployment XML")
-    run.add_argument("--generator", help="synthetic topology, e.g. "
-                     "'erdos_renyi:10000', 'fat_tree:160', 'ring:100:2'")
-    run.add_argument("--seed", type=int, default=0)
+    _add_topology_flags(run)
     run.add_argument("--variant", default="collectall",
                      choices=("collectall", "pairwise"))
     run.add_argument("--fire-policy", default=None,
@@ -283,6 +327,25 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--save-checkpoint", metavar="PATH")
     run.add_argument("--resume", metavar="PATH")
     run.set_defaults(fn=cmd_run)
+
+    orc = sub.add_parser("oracle", help="native DES reference-style run "
+                         "(on the host)")
+    orc.add_argument("--backend", default="auto",
+                     choices=("auto", "cpu", "jax_tpu"),
+                     help="accepted for command-line compatibility with "
+                          "the JAX CLI; no effect")
+    _add_topology_flags(orc)
+    orc.add_argument("--variant", default="collectall",
+                     choices=("collectall", "pairwise"))
+    orc.add_argument("--timeout", type=int, default=None)
+    orc.add_argument("--ticks", type=int, default=1000)
+    orc.add_argument("--latency-scale", type=float, default=0.0)
+    orc.add_argument("--msg-bytes", type=float, default=104.0)
+    orc.add_argument("--lmm", action="store_true",
+                     help="dynamic max-min LMM network (SimGrid flow-"
+                          "model fidelity; needs --platform and "
+                          "--latency-scale > 0)")
+    orc.set_defaults(fn=cmd_oracle)
     return ap
 
 

@@ -23,11 +23,15 @@ with kernel B6, or 'auto', ranked by ``plan.select.select_halo_mode`` and
 recorded in :meth:`Engine.halo_report`), ``partition`` the node order
 ('bfs' or 'contiguous').
 
-What the JAX engine does beyond that raises ``NotImplementedError``
-naming its ROADMAP item: GSPMD's mesh paths, ``multichip='pod'``,
-``plan='auto'``, ``host_actors``, ``adversary``, custom actors, event
-logs, the edge kernel's robust modes, contention and streamed runner, and
-checkpoints and fault injection (A7).
+The edge kernel runs every config of the JAX engine's single-device edge
+path, robust clip/trim (on the halo round too) and shared-link contention
+(quasi-static, water-fill, backlog, ``RoundConfig.fidelity``) included;
+contention sizes ``delay_depth`` by ``Topology.contended_max_delay`` and
+is single-device, as in the JAX engine.  What the JAX engine does beyond
+that raises ``NotImplementedError`` naming its ROADMAP item: GSPMD's mesh
+paths, ``multichip='pod'``, ``plan='auto'``, ``host_actors``,
+``adversary``, custom actors, event logs, the edge kernel's streamed
+runner, and checkpoints and fault injection (A7).
 
 Simulated-time convention: one round == ``TICK_INTERVAL`` (1.0) simulated
 seconds, the reference peers' loop cadence.
@@ -259,7 +263,6 @@ class Engine:
                 "the halo kernel runs unit-delay/static-delay rounds; "
                 "latency-warped + contention fidelity runs are "
                 "single-device (platform-scale)")
-        rounds.check_ported(self.config)
         self._halo_plan = sharded.plan_sharding(
             self.topology, self.mesh.size, partition=self.partition,
             coloring=self.config.needs_coloring)
@@ -349,17 +352,18 @@ class Engine:
                                                mesh=self.mesh)
             self.state = self._node_kernel.init_state()
             return self
-        if self.mesh is not None:
-            raise _not_ported(
-                "the edge kernel over a mesh with multichip='auto'",
-                "multi-device execution: GSPMD's edge path (A12); "
-                "multichip='halo' runs the halo edge kernel")
-        rounds.check_ported(self.config)
         if latency_scale > 0.0:
             depth = max(self.config.delay_depth, self.topology.max_delay)
             if depth != self.config.delay_depth:
                 self.config = dataclasses.replace(self.config,
                                                   delay_depth=depth)
+        if self.config.contention:
+            self._size_contention()
+        if self.mesh is not None:
+            raise _not_ported(
+                "the edge kernel over a mesh with multichip='auto'",
+                "multi-device execution: GSPMD's edge path (A12); "
+                "multichip='halo' runs the halo edge kernel")
         cfg = self.config
         self._topo_arrays = self.topology.device_arrays(
             coloring=cfg.needs_coloring,
@@ -370,6 +374,38 @@ class Engine:
         self.state = init_state(self.topology, cfg, seed=seed,
                                 device=self.device)
         return self
+
+    def _size_contention(self) -> None:
+        """Refuse contention without a link model or on a mesh, and size
+        ``delay_depth`` to cover the worst contended delay (else the
+        clamp flattens contention back to the static profile)."""
+        if not self.topology.has_link_model:
+            raise ValueError(
+                "contention=True needs a platform-loaded topology with a "
+                "link model and a positive latency scale — pass --platform "
+                "with --latency-scale > 0 on the CLI (generators have no "
+                "links)")
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "contention is single-device (the per-round link flow "
+                "count is a global reduction; fidelity runs are "
+                "platform-scale)")
+        base = self.topology.contended_max_delay()
+        depth = max(self.config.delay_depth, base)
+        if self.config.contention_backlog:
+            # up to D standing messages per edge add load, which grows D:
+            # the smallest self-consistent depth, saturated at 4x the
+            # senders-only bound (no fixed point under overload; beyond
+            # it the clamp is the model's queue-capacity limit)
+            cap = max(4 * base, depth)
+            for _ in range(16):
+                nxt = min(cap, max(depth, self.topology.contended_max_delay(
+                    inflight_per_edge=depth)))
+                if nxt == depth:
+                    break
+                depth = nxt
+        if depth != self.config.delay_depth:
+            self.config = dataclasses.replace(self.config, delay_depth=depth)
 
     # ---- observability ---------------------------------------------------
     def add_watcher(self, run_until: float = 1000.0,

@@ -35,11 +35,21 @@ Delivery (``cfg.delivery``): ``'gather'`` (the receiver pulls through
 (the ``rev`` pull through the planned network, all payload lanes in one
 batched application).
 
+Robust aggregation (``cfg.robust``): ``'clip'`` clamps every flow-ledger
+write to ``+-robust_clip`` (fire and receive side), ``'trim'`` makes an
+armed node (degree >= 3, neighbor-estimate spread above ``robust_tol``)
+stand down along its single highest and single lowest neighbor-estimate
+edge.  Contention (``cfg.contention``): :func:`edge_delays` prices this
+round's sends on the topology's shared links, quasi-static or by the
+progressive-filling water-fill, with in-flight messages as standing load
+under ``contention_backlog``; its float sums run in a fixed per-link
+order (the link-major CSR of ``Topology.link_csr``), so two runs on the
+card give the same delays.
+
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item: ``robust='clip'|'trim'`` and ``contention`` (A3), the
-adversary masks, per-lane reduction modes and traced ``RoundParams``
-(A10), the chunked runners (A13), and the telemetry, field, observed and
-streamed runners (A9).
+ROADMAP item: the adversary masks, per-lane reduction modes and traced
+``RoundParams`` (A10), the chunked runners (A13), and the telemetry,
+field and streamed runners (A9).
 """
 
 from __future__ import annotations
@@ -78,13 +88,8 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 def check_ported(cfg: RoundConfig, params=None) -> None:
-    """Refuse what the edge kernel does not run yet, naming its item."""
-    if cfg.robust != "off":
-        raise _not_ported(f"robust={cfg.robust!r}",
-                          "general edge round: robust clip/trim (A3)")
-    if cfg.contention:
-        raise _not_ported("contention=True (shared-link delays)",
-                          "general edge round: contention (A3)")
+    """Refuse what the edge kernel does not run yet, naming its item:
+    traced ``RoundParams``."""
     if params is not None:
         raise _not_ported("traced RoundParams", "sweep and scenarios (A10)")
 
@@ -211,8 +216,12 @@ def deliver_phase(state: FlowUpdatingState, topo, cfg: RoundConfig):
             process = process | pick
             remaining = remaining & ~pick
 
-    flow = torch.where(_ex(process, state.flow), -pending_flow[0],
-                       state.flow)
+    recv_flow = pending_flow[0]
+    if cfg.robust == "clip":
+        # the receive-side half of the ledger clamp (see fire_core): the
+        # antisymmetry write honors the same +-robust_clip bound
+        recv_flow = torch.clamp(recv_flow, -cfg.robust_clip, cfg.robust_clip)
+    flow = torch.where(_ex(process, state.flow), -recv_flow, state.flow)
     est = torch.where(_ex(process, state.est), pending_est[0], state.est)
     recv = state.recv | process
 
@@ -258,12 +267,48 @@ def _draw_dtype(dt: torch.dtype) -> torch.dtype:
     return torch.float64 if dt == torch.float64 else torch.float32
 
 
+def _trim_extreme_edges(state: FlowUpdatingState, topo, cfg: RoundConfig,
+                        dt) -> torch.Tensor:
+    """The trimmed-mean mark (``robust='trim'``): a node of degree >= 3
+    whose neighbor-estimate spread exceeds ``cfg.robust_tol`` marks its
+    single highest and single lowest neighbor-estimate edge (ties broken
+    by the lowest edge rank).  Returns the ``(E,)`` marked-edge mask."""
+    fi = torch.finfo(dt)
+    est_hi = _seg_max(state.est, topo, fi.min)
+    est_lo = _seg_min(state.est, topo, fi.max)
+    tol = torch.tensor(cfg.robust_tol, dtype=dt, device=state.est.device)
+    can = (topo.out_deg >= 3) & (est_hi - est_lo > tol)
+    can_e = _bcast(can, topo)
+    at_hi = can_e & (state.est >= _bcast(est_hi, topo))
+    at_lo = can_e & (state.est <= _bcast(est_lo, topo))
+
+    def pick(at):
+        first = _seg_min(torch.where(at, topo.edge_rank, _I32_MAX), topo,
+                         _I32_MAX)
+        return at & (topo.edge_rank == _bcast(first, topo))
+
+    return pick(at_hi) | pick(at_lo)
+
+
+def _reject_vec_trim(vec: bool) -> None:
+    if vec:
+        raise ValueError(
+            "robust='trim' marks per-edge extreme ESTIMATES, a "
+            "control-plane (feature-free) decision; vector "
+            "payloads would need per-feature firing — use "
+            "robust='clip' for (N, D) payloads")
+
+
+def _clip_delta(flow, target, clip):
+    """The ledger move the ``+-clip`` clamp admits toward ``target``."""
+    return torch.clamp(flow + target, -clip, clip) - flow
+
+
 def fire_core(state: FlowUpdatingState, topo, cfg: RoundConfig, trigger):
     """Tick + averaging + ledger update; the outgoing messages are computed
     but not delivered.  Returns ``(state, msg_est, send_mask)``: edge e's
     message is ``(state.flow[e], msg_est[e])``, the sender's ledger after
     the update (``flowupdating-collectall.py:116-125``)."""
-    check_ported(cfg)
     E = topo.num_edges
     dt = state.flow.dtype
     t = state.t
@@ -300,9 +345,19 @@ def fire_core(state: FlowUpdatingState, topo, cfg: RoundConfig, trigger):
                 all_heard = _seg_all(recv, topo)
             fire_n = (all_heard | (ticks >= cfg.timeout)) & state.alive
         # the average over self and ALL neighbors' last-known estimates
-        # (unheard neighbors count as the reference's defaultdict 0.0)
-        avg = (estimate + est_sum) / _ex((topo.out_deg + 1).to(dt),
-                                         estimate)
+        # (unheard neighbors count as the reference's defaultdict 0.0);
+        # under trim, without the marked edges, which also move no flow
+        trim_edge = None
+        if cfg.robust == "trim":
+            _reject_vec_trim(vec)
+            trim_edge = _trim_extreme_edges(state, topo, cfg, dt)
+            t_sum = _seg_sum(torch.where(trim_edge, 0.0, state.est), topo)
+            t_cnt = topo.out_deg - _seg_sum(trim_edge.to(torch.int32),
+                                            topo)
+            avg = (estimate + t_sum) / _ex((t_cnt + 1).to(dt), estimate)
+        else:
+            avg = (estimate + est_sum) / _ex((topo.out_deg + 1).to(dt),
+                                             estimate)
         if topo.seg_plan is not None and not vec:
             fire_e, avg_e = broadcast_multi(
                 [fire_n, avg], topo.seg_plan, topo.seg_dist,
@@ -310,11 +365,22 @@ def fire_core(state: FlowUpdatingState, topo, cfg: RoundConfig, trigger):
         else:
             fire_e = _bcast(fire_n, topo)
             avg_e = _bcast(avg, topo)
-        fire_ex = _ex(fire_e, state.flow)
-        new_flow = torch.where(fire_ex, state.flow + avg_e - state.est,
-                               state.flow)
-        new_est = torch.where(fire_ex, avg_e, state.est)
-        msg_est = avg_e
+        # marked edges still send the unchanged ledger and the fresh
+        # average (silencing them deadlocks honest pairs)
+        act_e = fire_e if trim_edge is None else fire_e & ~trim_edge
+        fire_ex = _ex(act_e, state.flow)
+        if cfg.robust == "clip":
+            delta = _clip_delta(state.flow, avg_e - state.est,
+                                cfg.robust_clip)
+            clipped = state.est + delta
+            new_flow = torch.where(fire_ex, state.flow + delta, state.flow)
+            new_est = torch.where(fire_ex, clipped, state.est)
+            msg_est = clipped
+        else:
+            new_flow = torch.where(fire_ex, state.flow + avg_e - state.est,
+                                   state.flow)
+            new_est = torch.where(fire_ex, avg_e, state.est)
+            msg_est = avg_e
         send_mask = fire_e
         ticks = torch.where(fire_n, 0, ticks)
         recv = recv & ~fire_e
@@ -331,12 +397,26 @@ def fire_core(state: FlowUpdatingState, topo, cfg: RoundConfig, trigger):
         matched = ((topo.edge_color == t % topo.num_colors)
                    & state.alive[src] & state.alive[topo.dst]
                    & state.edge_ok & state.edge_ok[topo.rev])
+        if cfg.robust == "trim":
+            # an armed node refuses to match along its extreme edges (both
+            # ends stand down, so antisymmetry and mass are untouched)
+            _reject_vec_trim(vec)
+            trim_edge = _trim_extreme_edges(state, topo, cfg, dt)
+            matched = matched & ~trim_edge & ~trim_edge[topo.rev]
         x_u = estimate[src]
         x_v = estimate[topo.dst]
-        avg_e = (x_u + x_v) * 0.5
         m_ex = _ex(matched, state.flow)
-        new_flow = torch.where(m_ex, state.flow + (x_u - x_v) * 0.5,
-                               state.flow)
+        if cfg.robust == "clip":
+            # clip is odd and the flow antisymmetric, so delta[rev] ==
+            # -delta: mass is conserved exactly
+            delta = _clip_delta(state.flow, (x_u - x_v) * 0.5,
+                                cfg.robust_clip)
+            avg_e = x_u - delta
+            new_flow = torch.where(m_ex, state.flow + delta, state.flow)
+        else:
+            avg_e = (x_u + x_v) * 0.5
+            new_flow = torch.where(m_ex, state.flow + (x_u - x_v) * 0.5,
+                                   state.flow)
         new_est = torch.where(m_ex, avg_e, state.est)
         msg_est = avg_e
         send_mask = torch.zeros_like(matched)  # direct exchange, no messages
@@ -352,6 +432,11 @@ def fire_core(state: FlowUpdatingState, topo, cfg: RoundConfig, trigger):
         # segmented affine scan
         stale = stamp < (t - cfg.timeout)
         fire_e = (trigger | stale) & _bcast(state.alive, topo)
+        if cfg.robust == "trim":
+            # an armed node's extreme edges do not fire: no flow delta,
+            # no message
+            _reject_vec_trim(vec)
+            fire_e = fire_e & ~_trim_extreme_edges(state, topo, cfg, dt)
         fire_f = fire_e.to(dt)
         a = 1.0 - 0.5 * fire_f                       # 0.5 firing, 1 not
         b = torch.where(_ex(fire_e, state.est), state.est * 0.5, 0.0)
@@ -359,10 +444,20 @@ def fire_core(state: FlowUpdatingState, topo, cfg: RoundConfig, trigger):
         run_est = _ex(A, B) * _bcast(estimate, topo) + B
         avg_e = run_est                 # the 2-party average at firing e
         f_ex = _ex(fire_e, state.flow)
-        new_flow = torch.where(f_ex, state.flow + avg_e - state.est,
-                               state.flow)
-        new_est = torch.where(f_ex, avg_e, state.est)
-        msg_est = avg_e
+        if cfg.robust == "clip":
+            # the scan keeps the unclipped 2-party targets (the clamp is
+            # not affine); the write admits only the clamped delta
+            delta = _clip_delta(state.flow, avg_e - state.est,
+                                cfg.robust_clip)
+            clipped = state.est + delta
+            new_flow = torch.where(f_ex, state.flow + delta, state.flow)
+            new_est = torch.where(f_ex, clipped, state.est)
+            msg_est = clipped
+        else:
+            new_flow = torch.where(f_ex, state.flow + avg_e - state.est,
+                                   state.flow)
+            new_est = torch.where(f_ex, avg_e, state.est)
+            msg_est = avg_e
         send_mask = fire_e
         stamp = torch.where(fire_e, t, stamp)
         # last_avg = the running estimate at the row end (identity maps
@@ -393,11 +488,104 @@ def fire_core(state: FlowUpdatingState, topo, cfg: RoundConfig, trigger):
     return state, msg_est, send_mask
 
 
-def edge_delays(topo, cfg: RoundConfig) -> torch.Tensor:
-    """Per-edge delivery delay of this round's sends: the static
-    ``topo.delay`` (contention's per-round delays are A3)."""
-    check_ported(cfg)
-    return topo.delay
+def _link_sum(per_link, per_slot, topo):
+    """``per_link + sum of per_slot over each link's route slots``, the
+    slots added one after another in flat ``(e, k)`` order (JAX's
+    ``.at[edge_links].add`` on its CPU) — a gather into the link-major
+    CSR and one segment sum, the same order on every run of the card."""
+    data = torch.cat([per_link, per_slot])[topo.link_gather]
+    return torch.segment_reduce(data, "sum", lengths=topo.link_lengths)
+
+
+def _link_count(counts, topo, base=None):
+    """Per-link integer count of the ``(E,)`` ``counts`` over the route
+    slots (exact in any order); ``base`` adds a standing count."""
+    Lp = topo.link_ser_rounds.shape[0]
+    K = topo.edge_links.shape[1]
+    out = (torch.zeros(Lp, dtype=torch.int32, device=counts.device)
+           if base is None else base.clone())
+    return out.index_add_(0, topo.edge_links.reshape(-1),
+                          counts.to(torch.int32).repeat_interleave(K))
+
+
+def edge_delays(topo, cfg: RoundConfig, send_mask,
+                inflight=None) -> torch.Tensor:
+    """Per-edge delivery delay of this round's sends.
+
+    Static (``topo.delay``) unless ``cfg.contention``: then each SHARED
+    link's capacity is split across this round's concurrent sends
+    (bottleneck fair share, the quasi-static approximation of a max-min
+    network; FATPIPE links never share), and::
+
+        delay[e] = clamp(rint(lat_rounds[e] +
+                              max_{l in route(e)} load[l] * ser[l]),
+                         1, delay_depth)
+
+    with ``load[l]`` the number of concurrent sends crossing a shared
+    link (at least 1), 1 on FATPIPE.  ``cfg.contention_iters > 0``
+    replaces the local fair share by that many rounds of progressive
+    filling (fix the flows at the most contended link at their share,
+    release what they leave on their other links, repeat; leftovers take
+    their local share).  ``inflight`` ((E,) — messages still in the ring
+    buffer) counts as standing load under ``cfg.contention_backlog``.
+    All in float32 as in the JAX package; the float per-link sums run in
+    the fixed order of :func:`_link_sum`."""
+    if not cfg.contention:
+        return topo.delay
+    if topo.edge_links is None:
+        raise ValueError(
+            "cfg.contention needs a topology with a link model (platform-"
+            "loaded with latency_scale > 0; generators have no links)")
+    el = topo.edge_links
+    K = el.shape[1]
+    standing = None
+    if cfg.contention_backlog and inflight is not None:
+        standing = _link_count(inflight, topo)
+    flows = _link_count(send_mask, topo, standing)
+    lat_rounds = topo.lat_rounds
+    link_ser = topo.link_ser_rounds
+    D = cfg.delay_depth
+    if cfg.contention_iters == 0:
+        load = torch.where(topo.link_shared, torch.clamp(flows, min=1), 1)
+        ser = load.to(link_ser.dtype) * link_ser
+        worst = ser[el].amax(1)                    # the pad slot adds 0
+        dyn = torch.round(lat_rounds + worst).to(torch.int32)
+        return torch.clamp(dyn, 1, D)
+
+    f32 = torch.float32
+    inf = torch.tensor(float("inf"), dtype=f32, device=el.device)
+    ser0 = link_ser.to(f32)
+    constraining = topo.link_shared & (ser0 > 0)
+    cap_rem = torch.where(constraining,
+                          1.0 / torch.clamp(ser0, min=1e-30), inf)
+    nflow = flows.to(f32)
+    # per-flow full-rate bound from NON-shared ser > 0 links
+    own = torch.where(~topo.link_shared & (ser0 > 0),
+                      1.0 / torch.clamp(ser0, min=1e-30), inf)
+    own_cap = own[el].amin(1)
+    rate = torch.zeros(el.shape[0], dtype=f32, device=el.device)
+    fixed = ~send_mask
+
+    def shares():
+        fair = torch.where((nflow > 0.5) & constraining,
+                           cap_rem / torch.clamp(nflow, min=1.0), inf)
+        return torch.minimum(fair[el].amin(1), own_cap)
+
+    for _ in range(cfg.contention_iters):
+        share = shares()
+        m = torch.where(fixed, inf, share).amin()
+        newly = (~fixed) & torch.isfinite(share) & (share <= m * 1.000001)
+        rate = torch.where(newly, share, rate)
+        taken = torch.where(newly, share, 0.0).repeat_interleave(K)
+        cap_rem = torch.clamp(_link_sum(cap_rem, -taken, topo), min=0.0)
+        nflow = torch.clamp(
+            nflow - _link_count(newly, topo).to(f32), min=0.0)
+        fixed = fixed | newly
+    rate = torch.where(fixed, rate, shares())
+    transfer = torch.where(torch.isfinite(rate) & (rate > 0),
+                           1.0 / torch.clamp(rate, min=1e-30), 0.0)
+    dyn = torch.round(lat_rounds + transfer).to(torch.int32)
+    return torch.clamp(dyn, 1, D)
 
 
 def send_messages(state: FlowUpdatingState, topo, cfg: RoundConfig,
@@ -412,7 +600,12 @@ def send_messages(state: FlowUpdatingState, topo, cfg: RoundConfig,
     t = state.t
     D = cfg.delay_depth
     dev = state.flow.device
-    delay = edge_delays(topo, cfg)
+    # deliver_phase cleared this round's arrival slots, so the ring's
+    # valid slots are the messages still in flight; column r holds those
+    # sent along rev[r], whose route is rev[r]'s: gather through rev
+    inflight = (state.buf_valid.sum(0, dtype=torch.int32)[topo.rev]
+                if cfg.contention_backlog else None)
+    delay = edge_delays(topo, cfg, send_mask, inflight=inflight)
     wire_flow = state.flow
     if cfg.delivery in ("gather", "benes", "benes_fused"):
         if cfg.delivery != "gather":
@@ -420,23 +613,32 @@ def send_messages(state: FlowUpdatingState, topo, cfg: RoundConfig,
                 raise ValueError("delivery='benes' needs device_arrays("
                                  "delivery_benes=True)")
             dt = state.flow.dtype
+            # the delay lane carries whole rounds: at least float32
+            lane_dt = (torch.promote_types(dt, torch.float32)
+                       if cfg.contention else dt)
             nf = _feat(state.flow)
             vec = state.flow.dim() > 1
 
             def as_lanes(x):
-                return x.T.to(dt) if x.dim() > 1 else x.to(dt)[None]
+                return (x.T.to(lane_dt) if x.dim() > 1
+                        else x.to(lane_dt)[None])
 
-            lanes = torch.cat([as_lanes(wire_flow), as_lanes(msg_est),
-                               send_mask.to(dt)[None]])
-            moved = apply_padded_perm(lanes, topo.rev_plan, topo.rev_masks)
+            lanes = [as_lanes(wire_flow), as_lanes(msg_est),
+                     send_mask.to(lane_dt)[None]]
+            if cfg.contention:
+                lanes.append(delay.to(lane_dt)[None])
+            moved = apply_padded_perm(torch.cat(lanes), topo.rev_plan,
+                                      topo.rev_masks)
 
             def un_lanes(m):
-                return m.T if vec else m[0]
+                return (m.T if vec else m[0]).to(dt)
 
             pay_flow = un_lanes(moved[:nf])
             pay_est = un_lanes(moved[nf:2 * nf])
             sending = moved[2 * nf] > 0.5
-            slot_r = (t + topo.delay_rev) % D
+            delay_r = (moved[2 * nf + 1].to(torch.int32) if cfg.contention
+                       else topo.delay_rev)
+            slot_r = (t + delay_r) % D
         else:
             rf = topo.rev
             sending = send_mask[rf]
@@ -499,6 +701,45 @@ def run_rounds(state: FlowUpdatingState, topo, cfg: RoundConfig,
     return state
 
 
+def _observe_chunk(state: FlowUpdatingState, topo, cfg: RoundConfig,
+                   observe_every: int, mean: torch.Tensor):
+    """``observe_every`` rounds and one watcher sample over the alive
+    nodes: ``(t, rmse, max_abs_err, mass, fired_total)`` as 0-d tensors
+    on the state's device (no host read)."""
+    for _ in range(observe_every):
+        state = round_step(state, topo, cfg)
+    est = node_estimates(state, topo)
+    alive = _ex(state.alive, est)
+    cnt = (torch.clamp(state.alive.sum(), min=1) * _feat(est)).to(est.dtype)
+    err = torch.where(alive, est - mean, 0.0)
+    return state, (state.t, torch.sqrt((err * err).sum() / cnt),
+                   err.abs().max(), torch.where(alive, est, 0.0).sum(),
+                   state.fired.sum(dtype=torch.int64))
+
+
+def run_rounds_observed(state: FlowUpdatingState, topo, cfg: RoundConfig,
+                        num_rounds: int, observe_every: int, true_mean):
+    """Run rounds in chunks of ``observe_every``, one watcher sample per
+    chunk (reference ``flowupdating-collectall.py:139-142``).  Returns
+    ``(state, metrics)``: ``metrics`` maps ``t``, ``rmse``,
+    ``max_abs_err``, ``mass`` and ``fired_total`` to ``(chunks,)``
+    tensors on the state's device."""
+    if num_rounds % observe_every:
+        raise ValueError("num_rounds must be a multiple of observe_every")
+    mean = torch.tensor(true_mean, dtype=state.value.dtype,
+                        device=state.value.device)
+    rows = []
+    for _ in range(num_rounds // observe_every):
+        state, sample = _observe_chunk(state, topo, cfg, observe_every, mean)
+        rows.append(sample)
+    names = ("t", "rmse", "max_abs_err", "mass", "fired_total")
+    dtypes = (torch.int32, mean.dtype, mean.dtype, mean.dtype, torch.int64)
+    return state, {
+        name: (torch.stack([r[i] for r in rows]) if rows else
+               torch.zeros(0, dtype=dt, device=mean.device))
+        for i, (name, dt) in enumerate(zip(names, dtypes))}
+
+
 # ---- runners of later port items -------------------------------------------
 
 def _later_runner(name: str, item: str):
@@ -518,7 +759,5 @@ run_rounds_telemetry = _later_runner(
     "run_rounds_telemetry", "observability twins and manifests (A9)")
 run_rounds_fields = _later_runner(
     "run_rounds_fields", "observability twins and manifests (A9)")
-run_rounds_observed = _later_runner(
-    "run_rounds_observed", "observability twins and manifests (A9)")
 run_rounds_streamed = _later_runner(
     "run_rounds_streamed", "observability twins and manifests (A9)")

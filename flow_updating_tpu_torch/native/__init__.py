@@ -1,11 +1,15 @@
 """ctypes bindings for the port's C++ host runtime (``src/funative.cpp``).
 
 The library holds the exact Erdős–Rényi and Barabási–Albert generators,
-the big-graph builder, the Beneš router and the greedy edge coloring —
-the same algorithms as the
-JAX package's native runtime, so both packages build the same graphs and
-route the same networks from the same seed.  It is compiled on first use
-with ``g++ -O3 -std=c++17 -fPIC -shared`` into
+the big-graph builder, the Beneš router, the greedy edge coloring and the
+reference-style discrete-event simulator (:func:`des_run`,
+:func:`des_run_traj`, :func:`des_run_contend`) — the same algorithms as
+the JAX package's native runtime, so both packages build the same graphs,
+route the same networks and simulate the same events from the same
+inputs.  The simulator runs on the host: it is the baseline a round rate
+is divided by and the oracle the edge round's dynamics are held to.  The
+library is compiled on first use with ``g++ -O3 -march=native -std=c++17
+-fPIC -shared`` (the JAX package's flags) into
 ``flow_updating_tpu_torch/_build/`` under a name that hashes the source
 and the flags (an edited source rebuilds), then loaded with ``ctypes``.
 
@@ -28,7 +32,9 @@ import numpy as np
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(_HERE, "src", "funative.cpp")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
+#: the JAX package's flags: -march=native lets g++ contract the simulator's
+#: float sums into FMAs as it does there, so both give the same bits
+CXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-shared")
 
 _lock = threading.Lock()
 _lib = None
@@ -95,6 +101,18 @@ def get_lib() -> ctypes.CDLL:
             lib.fu_edge_coloring.restype = i64
             lib.fu_edge_coloring.argtypes = [i64, i64, i32p, i32p, i32p,
                                              i32p]
+            f64p = ctypes.POINTER(ctypes.c_double)
+            base = [i64, i64, i32p, i32p, i32p, i32p, i64p, f64p,
+                    ctypes.c_int32, i64, i64, f64p, f64p]
+            traj = base + [i64, ctypes.c_double, f64p]
+            contend = traj + [i64, i32p, i64, f64p, u8p, f64p, i64, i64]
+            for name, args in (("fu_des_run", base),
+                               ("fu_des_run_traj", traj),
+                               ("fu_des_run_contend", contend),
+                               ("fu_des_run_contend_backlog", contend),
+                               ("fu_des_run_lmm", contend)):
+                getattr(lib, name).restype = i64
+                getattr(lib, name).argtypes = args
             _lib = lib
     return _lib
 
@@ -183,3 +201,96 @@ def edge_coloring(topo) -> tuple[np.ndarray, int]:
     if c < 0:
         raise ValueError("malformed edge list")
     return color, int(c)
+
+
+# ---- the reference-style discrete-event simulator --------------------------
+
+def _des_args(topo, variant: str, timeout: int, ticks: int):
+    """The leading arguments every ``fu_des_run*`` entry takes, and the
+    estimate and last-average arrays it fills."""
+    if variant not in ("collectall", "pairwise"):
+        raise ValueError(f"unknown variant {variant!r}")
+    n = topo.num_nodes
+    arrays = [np.ascontiguousarray(getattr(topo, name), dt) for name, dt in
+              (("src", np.int32), ("dst", np.int32), ("rev", np.int32),
+               ("delay", np.int32))]
+    row_start = np.ascontiguousarray(topo.row_start, np.int64)
+    values = np.ascontiguousarray(topo.values, np.float64)
+    if values.ndim != 1:
+        raise ValueError("the DES takes scalar node values")
+    est = np.empty(n, np.float64)
+    last_avg = np.empty(n, np.float64)
+    args = [n, topo.num_edges,
+            *(_ptr(a, ctypes.c_int32) for a in arrays),
+            _ptr(row_start, ctypes.c_int64), _ptr(values, ctypes.c_double),
+            0 if variant == "collectall" else 1, timeout, ticks,
+            _ptr(est, ctypes.c_double), _ptr(last_avg, ctypes.c_double)]
+    # the arrays must outlive the call: keep them beside the pointers
+    return args, (arrays, row_start, values), est, last_avg
+
+
+def des_run(topo, variant: str = "collectall", timeout: int = 50,
+            ticks: int = 1000):
+    """The reference-style discrete-event simulator on a Topology:
+    per-actor FIFO mailbox, one message drained per tick, per-edge latency
+    ``topo.delay`` in whole ticks, collect-all or pairwise with its
+    timeout.  Returns ``(estimates (N,), last_avg (N,), events)``."""
+    args, keep, est, last_avg = _des_args(topo, variant, timeout, ticks)
+    events = int(get_lib().fu_des_run(*args))
+    del keep
+    return est, last_avg, events
+
+
+def des_run_traj(topo, variant: str = "collectall", timeout: int = 50,
+                 ticks: int = 1000, obs_every: int = 10):
+    """:func:`des_run` that also samples the RMSE against the true mean
+    every ``obs_every`` ticks.  Returns ``(rmse (ticks // obs_every,),
+    estimates, last_avg, events)``."""
+    args, keep, est, last_avg = _des_args(topo, variant, timeout, ticks)
+    rmse = np.empty(ticks // obs_every, np.float64)
+    events = int(get_lib().fu_des_run_traj(
+        *args, obs_every, float(topo.true_mean),
+        _ptr(rmse, ctypes.c_double)))
+    del keep
+    return rmse, est, last_avg, events
+
+
+def des_run_contend(topo, variant: str = "collectall", timeout: int = 50,
+                    ticks: int = 1000, obs_every: int = 10,
+                    clamp_d: int = 0, visit_seed: int = -1,
+                    lmm: bool = False, backlog: bool = False):
+    """:func:`des_run_traj` over the topology's link model.
+
+    ``lmm=False``: the quasi-static per-tick bottleneck fair share over
+    SHARED links (FATPIPE exempt), the model of
+    :func:`flow_updating_tpu_torch.models.rounds.edge_delays`.
+    ``lmm=True``: the dynamic max-min model — each transfer a continuous
+    flow whose rate is re-solved by progressive filling whenever one
+    starts or ends (the fidelity oracle).  ``backlog=True``
+    (quasi-static only) also counts messages still in flight as standing
+    load on their links, the twin of ``RoundConfig.contention_backlog``.
+    ``clamp_d`` mirrors the ring-buffer clamp of a ``delay_depth``-bounded
+    run (0: none); ``visit_seed >= 0`` reshuffles the within-tick visit
+    order every tick (mt19937), ``-1`` keeps the fixed order.  Returns
+    ``(rmse, estimates, last_avg, events)``."""
+    if lmm and backlog:
+        raise ValueError("backlog refines the quasi-static model; the "
+                         "dynamic LMM already carries in-flight load")
+    if topo.edge_links is None:
+        raise ValueError("topology has no link model (see build_topology)")
+    lib = get_lib()
+    args, keep, est, last_avg = _des_args(topo, variant, timeout, ticks)
+    links = np.ascontiguousarray(topo.edge_links, np.int32)
+    ser = np.ascontiguousarray(topo.link_ser_rounds, np.float64)
+    shared = np.ascontiguousarray(topo.link_shared, np.uint8)
+    lat = np.ascontiguousarray(topo.lat_rounds, np.float64)
+    rmse = np.empty(max(ticks // obs_every, 1), np.float64)
+    name = ("fu_des_run_lmm" if lmm else "fu_des_run_contend_backlog"
+            if backlog else "fu_des_run_contend")
+    events = int(getattr(lib, name)(
+        *args, obs_every, float(topo.true_mean), _ptr(rmse, ctypes.c_double),
+        links.shape[1], _ptr(links, ctypes.c_int32), len(ser),
+        _ptr(ser, ctypes.c_double), _ptr(shared, ctypes.c_uint8),
+        _ptr(lat, ctypes.c_double), clamp_d, int(visit_seed)))
+    del keep
+    return rmse[: ticks // obs_every], est, last_avg, events

@@ -28,17 +28,15 @@ a state is made (:meth:`ShardedBandedKernel.init_state`,
 
 Each merge writes ``S'``, ``G'``, ``A`` and the next round's ``avg`` for
 its rows.  The shard's two ``avg`` buffers alternate by round parity:
-round ``r`` reads buffer ``r % 2`` and writes buffer ``(r + 1) % 2``,
-which holds round ``r - 1``'s ``avg`` — this round's ``avg_prev``, read
-by the same thread at the same rows before it is overwritten.  A state's
-``avg`` and ``avg_prev`` are those buffers, so a state is a value only
-until its kernel writes them again: running round ``t`` overwrites the
-``avg_prev`` of the state at round ``t``, and round ``t + 1`` its ``avg``.
-The kernel counts its writes into each buffer and every state records
-the counts it was made with, so :meth:`ShardedBandedKernel.run`,
-:meth:`~ShardedBandedKernel.last_avg` and
-:meth:`ShardedNodeState.to_numpy` raise on a state whose buffers have
-been written since, rather than read another round's values.
+round ``r`` writes buffer ``(r + 1) % 2``, which holds round ``r - 1``'s
+``avg`` — this round's ``avg_prev``, read by the same thread at the same
+rows before it is overwritten — and the next round reads it.  States are
+values, as in the JAX package: :meth:`ShardedBandedKernel.run` reads the
+state's own ``avg`` and ``avg_prev`` in its first round (its merges write
+only the other buffer), and the state it returns owns clones of the last
+round's two buffers.  That is two ``L``-sized copies a shard per ``run``
+call and none per round, so a retained state runs again, reads back its
+own round and is never changed by a later run.
 
 The stream order, which no flag checks:
 
@@ -61,8 +59,11 @@ The stream order, which no flag checks:
   right neighbor are one shard).
 * *Around a run.*  Every shard's stream first waits for the caller's
   stream; at the end the caller's stream waits for every shard's stream,
-  whose boundary merges followed every copy.  The fire of a new state
-  runs on the caller's stream, so it follows the last run's copies too.
+  whose boundary merges followed every copy, and clones the last round's
+  ``avg`` buffers there.  So the first round of a run, which reads the
+  state's own tensors and writes buffer ``(t + 1) % 2``, follows every
+  read of an earlier run, and the fire of a new state (on the caller's
+  stream, into a tensor of its own) follows the last run's copies too.
 
 On the CPU both exchanges run the same schedule with the plain versions
 and ``copy_`` between host tensors.
@@ -105,8 +106,8 @@ EXCHANGES = ("pallas", "ppermute")
 class ShardedNodeState:
     """Per-shard node state: each field holds one ``(local,)`` tensor per
     shard, on that shard's device — the JAX kernel's ``(S, L)`` leaves, and
-    ``avg``, the fire of ``S`` and ``A_prev`` that the next round reads
-    (one of the kernel's two ``avg`` buffers, see the module docstring)."""
+    ``avg``, the fire of ``S`` and ``A_prev`` that the next round reads.
+    The state owns every tensor: no later round writes them."""
 
     t: int
     S: tuple
@@ -114,31 +115,9 @@ class ShardedNodeState:
     avg_prev: tuple
     A_prev: tuple
     avg: tuple
-    #: the kernel's count of writes into each of its two ``avg`` buffers
-    #: (shared with the kernel, which updates it)
-    writes: list = dataclasses.field(default_factory=lambda: [0, 0],
-                                     compare=False, repr=False)
-    #: for ``avg`` and ``avg_prev``: ``(buffer, writes[buffer])`` when this
-    #: state was made, or None where the state owns the tensor
-    held: tuple = dataclasses.field(default=(None, None), compare=False,
-                                    repr=False)
-
-    def require(self, names, what: str) -> None:
-        """Raise if a later write of the kernel has overwritten any of the
-        fields ``names`` (of ``'avg'``, ``'avg_prev'``)."""
-        for name, tag in zip(("avg", "avg_prev"), self.held):
-            if name in names and tag is not None \
-                    and self.writes[tag[0]] != tag[1]:
-                raise RuntimeError(
-                    f"{what}: the state at round {self.t} is stale — a "
-                    f"later round of its kernel has overwritten its {name} "
-                    "(a state's avg and avg_prev live in the kernel's two "
-                    "avg buffers); run on from the latest state, or read "
-                    "this one before running on")
 
     def to_numpy(self) -> dict:
         """The JAX ``NodeSyncState`` leaves: ``t`` and ``(S, L)`` arrays."""
-        self.require(("avg_prev",), "to_numpy")
         out = {"t": self.t}
         for name in ("S", "G", "avg_prev", "A_prev"):
             out[name] = np.stack([v.cpu().numpy()
@@ -159,6 +138,7 @@ class _Shard:
     leaves: ShardedRoundLeaves
     recv: tuple                 # per round parity: (recv_lo, recv_hi)
     avg: tuple                  # per round parity: the avg that round reads
+                                # (after a run's first round)
     ready: object               # torch.cuda.Event | None
     copied: object
 
@@ -271,8 +251,6 @@ class ShardedBandedKernel:
                 ready=torch.cuda.Event() if card else None,
                 copied=torch.cuda.Event() if card else None))
         self._shards = tuple(shards)
-        # writes into each parity's avg buffers, shared with every state
-        self._writes = [0, 0]
 
     def _band_planes(self, spec: ShardedRoundSpec) -> list:
         """Global bitpacked band-mask planes, ``(P,)`` uint32 per group
@@ -326,20 +304,13 @@ class ShardedBandedKernel:
 
     def _fired(self, t: int, vecs: dict) -> ShardedNodeState:
         """The state at round ``t`` with its ``avg``: one fire-only launch
-        per shard, on the caller's stream, into buffer ``t % 2``."""
+        per shard, on the caller's stream, into a tensor of the state's."""
         avg = tuple(
             sharded_fire(sh.value, S, A_prev, sh.inv_depp1, sh.leaves,
-                         self.spec, out=sh.avg[t % 2])
+                         self.spec, out=torch.empty_like(S))
             for sh, S, A_prev in zip(self._shards, vecs["S"],
                                      vecs["A_prev"]))
-        return ShardedNodeState(t=t, avg=avg, writes=self._writes,
-                                held=(self._wrote(t % 2), None), **vecs)
-
-    def _wrote(self, buffer: int) -> tuple:
-        """Count a write into the ``avg`` buffers of parity ``buffer``;
-        the tag of what they now hold."""
-        self._writes[buffer] += 1
-        return buffer, self._writes[buffer]
+        return ShardedNodeState(t=t, avg=avg, **vecs)
 
     # ---- rounds ------------------------------------------------------------
     def _on(self, stream):
@@ -386,8 +357,7 @@ class ShardedBandedKernel:
         return ShardedNodeState(
             t=st.t + 1, S=tuple(o[0] for o in outs),
             G=tuple(o[1] for o in outs), avg_prev=st.avg,
-            A_prev=tuple(o[2] for o in outs), avg=tuple(o[3] for o in outs),
-            writes=self._writes, held=(self._wrote(1 - parity), st.held[0]))
+            A_prev=tuple(o[2] for o in outs), avg=tuple(o[3] for o in outs))
 
     def _merge(self, st, s, parity, rows, rows2=None, *, out) -> None:
         sh = self._shards[s]
@@ -399,12 +369,13 @@ class ShardedBandedKernel:
 
     def run(self, state: ShardedNodeState, num_rounds: int
             ) -> ShardedNodeState:
-        """``num_rounds`` rounds.  On the card each shard's stream first
-        waits for the caller's stream, and at the end the caller's stream
-        waits for every shard's, so what the caller reads next is final.
-        Raises if a round run since ``state`` was made has overwritten
-        its ``avg`` or ``avg_prev`` (:meth:`ShardedNodeState.require`)."""
-        state.require(("avg", "avg_prev"), "run")
+        """``num_rounds`` rounds from ``state``, which stays as it was.  On
+        the card each shard's stream first waits for the caller's stream,
+        and at the end the caller's stream waits for every shard's and
+        clones the last round's ``avg`` buffers into the returned state,
+        so what the caller reads next is final and its own."""
+        if num_rounds <= 0:
+            return state
         cards = [(s, sh) for s, sh in enumerate(self._shards)
                  if sh.stream is not None]
         for _, sh in cards:
@@ -416,7 +387,9 @@ class ShardedBandedKernel:
             caller.wait_stream(sh.stream)
             for name in ("S", "G", "A_prev"):
                 getattr(state, name)[s].record_stream(caller)
-        return state
+        return dataclasses.replace(
+            state, avg=tuple(a.clone() for a in state.avg),
+            avg_prev=tuple(a.clone() for a in state.avg_prev))
 
     # ---- read-back ---------------------------------------------------------
     def _flat(self, parts) -> np.ndarray:
@@ -433,7 +406,6 @@ class ShardedBandedKernel:
             sh.value + g for sh, g in zip(self._shards, state.G)))
 
     def last_avg(self, state: ShardedNodeState) -> np.ndarray:
-        state.require(("avg_prev",), "last_avg")
         return self._unpermute(self._flat(state.avg_prev))
 
     def run_streamed(self, state: ShardedNodeState, num_rounds: int,

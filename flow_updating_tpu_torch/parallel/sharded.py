@@ -356,11 +356,21 @@ def _check_mesh(plan: ShardPlan, mesh: Mesh) -> None:
                          f"mesh {mesh.size}")
 
 
-def _check_coloring(plan: ShardPlan, cfg: RoundConfig) -> None:
+def _check_round_cfg(plan: ShardPlan, cfg: RoundConfig) -> None:
     if cfg.needs_coloring and plan.num_colors == 0:
         raise ValueError(
             "fast synchronous pairwise needs the edge coloring in the "
             "plan: build it with plan_sharding(..., coloring=True)")
+    if cfg.needs_coloring and cfg.robust != "off":
+        # the message modes run fire_core (robust included) on each
+        # shard's rows; the direct exchange of fast pairwise has its own
+        # fire, which the JAX package's halo round also runs without the
+        # robust mark — refuse rather than quietly drop it
+        raise ValueError(
+            f"robust={cfg.robust!r} on the halo round runs in the message "
+            "modes (collect-all, faithful pairwise); fast synchronous "
+            "pairwise exchanges directly and has no robust form there — "
+            "run it single-device")
 
 
 def init_plan_state(plan: ShardPlan, cfg: RoundConfig, mesh: Mesh,
@@ -370,7 +380,7 @@ def init_plan_state(plan: ShardPlan, cfg: RoundConfig, mesh: Mesh,
     caller's ORIGINAL node order (vector payloads: the payload leaves
     carry the trailing feature axis).  Shard ``s`` draws its message-loss
     bits from ``fold_in(PRNGKey(seed), s)``, as in JAX."""
-    _check_coloring(plan, cfg)
+    _check_round_cfg(plan, cfg)
     _check_mesh(plan, mesh)
     S, Nb, Eb, D = plan.num_shards, plan.Nb, plan.Eb, cfg.delay_depth
     Q = cfg.pending_depth
@@ -822,7 +832,7 @@ def run_rounds_sharded(state: ShardedState, plan: ShardPlan,
     the caller reads next is final."""
     from flow_updating_tpu_torch.parallel import overlap as _ovl
 
-    _check_coloring(plan, cfg)
+    _check_round_cfg(plan, cfg)
     _check_halo(halo, _internal=_internal)
     if cfg.contention:
         raise NotImplementedError(

@@ -55,8 +55,8 @@ class Topology:
     adopted: np.ndarray | None = None   # (A,2) int64 directed edges adopted
     #                                     at load to symmetrize a declared-
     #                                     asymmetric graph
-    # link-level contention model (platform-loaded topologies only; the
-    # edge kernel that consumes it is a later port item)
+    # link-level contention model (platform-loaded topologies, or
+    # build_topology's route_links; the edge kernel's edge_delays)
     edge_links: np.ndarray | None = None     # (E, K) int32 link ids, pad L
     link_ser_rounds: np.ndarray | None = None  # (L,) f64 one-message cost
     link_shared: np.ndarray | None = None    # (L,) bool — False = FATPIPE
@@ -77,6 +77,57 @@ class Topology:
     @property
     def max_delay(self) -> int:
         return int(self.delay.max()) if self.num_edges else 1
+
+    @property
+    def has_link_model(self) -> bool:
+        return self.edge_links is not None
+
+    def contended_max_delay(self, max_flows: int | None = None,
+                            inflight_per_edge: int = 0) -> int:
+        """Upper bound on the delay under contention: every edge's latency
+        plus its worst link serialization when every edge whose route
+        crosses that link sends at once (``max_flows`` caps the per-link
+        count) — the safe ``delay_depth`` of a ``cfg.contention`` run.
+        ``inflight_per_edge`` > 0 also counts that many standing in-flight
+        messages per crossing edge (``cfg.contention_backlog`` sizing)."""
+        if not self.has_link_model:
+            return self.max_delay
+        L = self.link_ser_rounds.shape[0]
+        cross = np.bincount(self.edge_links.reshape(-1),
+                            minlength=L + 1)[:L]
+        cross = cross * (1 + max(int(inflight_per_edge), 0))
+        if max_flows is not None:
+            cross = np.minimum(cross, max_flows)
+        ser = np.where(self.link_shared,
+                       self.link_ser_rounds * np.maximum(cross, 1),
+                       self.link_ser_rounds)
+        serp = np.concatenate([ser, [0.0]])
+        worst = serp[self.edge_links].max(axis=1)
+        return max(1, int(np.ceil((self.lat_rounds + worst).max())))
+
+    def link_csr(self) -> tuple[np.ndarray, np.ndarray]:
+        """The link-major order of the ``(E*K,)`` flattened route slots
+        (the pad link ``L`` included), for per-link float sums in a fixed
+        order: ``(gather, lengths)``, where link ``l``'s segment is a head
+        slot (index ``l`` into a ``(L + 1,)`` per-link array) followed by
+        the flat positions that cross it in increasing order (index
+        ``L + 1 + position`` into the per-slot updates).  Cached."""
+        cached = getattr(self, "_link_csr", None)
+        if cached is not None:
+            return cached
+        Lp = self.link_ser_rounds.shape[0] + 1
+        flat = self.edge_links.reshape(-1).astype(np.int64)
+        order = np.argsort(flat, kind="stable")
+        cnt = np.bincount(flat, minlength=Lp)
+        heads = np.concatenate([[0], np.cumsum(cnt)[:-1]]) + np.arange(Lp)
+        gather = np.empty(flat.size + Lp, np.int64)
+        body = np.ones(gather.size, bool)
+        body[heads] = False
+        gather[heads] = np.arange(Lp)
+        gather[body] = Lp + order
+        out = (gather, cnt + 1)
+        object.__setattr__(self, "_link_csr", out)
+        return out
 
     @property
     def true_mean(self) -> float:
@@ -239,8 +290,11 @@ class Topology:
         networks (``segment_impl='benes'``) or the reverse-edge
         permutation (``delivery='benes'``) for the per-stage executor,
         ``"fused"`` for the fused passes (kernels B3 and B4), ``False``
-        neither.  The link-model fields stay unset: contention is a later
-        port item."""
+        neither.  A topology with a link model also carries it, for
+        ``cfg.contention``: ``link_ser_rounds`` and ``lat_rounds`` as
+        float32 (so every ``rint`` decides as the JAX package's does),
+        the pad link ``L`` at serialization 0 and not shared, and the
+        link-major order of :meth:`Topology.link_csr`."""
         from flow_updating_tpu_torch.utils.device import resolve_device
 
         dev = resolve_device(device)
@@ -270,6 +324,18 @@ class Topology:
             rev_plan = self._network("rev", delivery_benes == "fused")
             rev_masks = rev_plan.to(dev)
             delay_rev = t(self.delay[self.rev], torch.int32)
+        link = {}
+        if self.has_link_model:
+            gather, lengths = self.link_csr()
+            link = dict(
+                edge_links=t(self.edge_links, torch.int64),
+                link_ser_rounds=t(np.concatenate([self.link_ser_rounds,
+                                                  [0.0]]), torch.float32),
+                link_shared=t(np.concatenate([self.link_shared, [False]]),
+                              torch.bool),
+                lat_rounds=t(self.lat_rounds, torch.float32),
+                link_gather=t(gather, torch.int64),
+                link_lengths=t(lengths, torch.int64))
         return EdgeArrays(
             src=t(self.src, torch.int64), dst=t(self.dst, torch.int64),
             rev=t(self.rev, torch.int64),
@@ -285,7 +351,7 @@ class Topology:
             rev_plan=rev_plan, rev_masks=rev_masks, delay_rev=delay_rev,
             seg_plan=seg_plan, seg_dist=seg_dist,
             seg_extract_masks=seg_extract_masks,
-            seg_place_masks=seg_place_masks)
+            seg_place_masks=seg_place_masks, **link)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -319,6 +385,13 @@ class EdgeArrays:
     # a shard's local view (parallel/sharded.py): the CSR rows cover the
     # first seg_len slots; the rest is padding owned by the dead dummy row
     seg_len: int | None = None
+    # link-level contention model (cfg.contention); pad link = L
+    edge_links: torch.Tensor | None = None       # (E, K) link ids
+    link_ser_rounds: torch.Tensor | None = None  # (L+1,) float32
+    link_shared: torch.Tensor | None = None      # (L+1,) bool
+    lat_rounds: torch.Tensor | None = None       # (E,) float32
+    link_gather: torch.Tensor | None = None      # Topology.link_csr()
+    link_lengths: torch.Tensor | None = None
 
     @property
     def num_nodes(self) -> int:
@@ -441,15 +514,9 @@ def build_topology(
     lat = None
     bw = None
     if latency_s is not None:
-        lat = np.zeros(E, dtype=np.float64)
-        for i in range(E):
-            key = (int(src[i]), int(dst[i]))
-            lat[i] = latency_s.get(key, latency_s.get((key[1], key[0]), 0.0))
+        lat = _edge_values(latency_s, src, dst, num_nodes)
     if bandwidth is not None:
-        bw = np.zeros(E, dtype=np.float64)
-        for i in range(E):
-            key = (int(src[i]), int(dst[i]))
-            bw[i] = bandwidth.get(key, bandwidth.get((key[1], key[0]), 0.0))
+        bw = _edge_values(bandwidth, src, dst, num_nodes)
 
     if latency_scale > 0.0 and lat is not None:
         transfer_s = lat.copy()
@@ -473,12 +540,13 @@ def build_topology(
                 "contention model"
             )
         L = len(link_caps)
-        K = max((len(v) for v in route_links.values()), default=1) or 1
-        edge_links_arr = np.full((E, K), L, np.int32)
-        for i in range(E):
-            key = (int(src[i]), int(dst[i]))
-            lks = route_links.get(key, route_links.get((key[1], key[0]), ()))
-            edge_links_arr[i, : len(lks)] = lks
+        routes = list(route_links.values())
+        K = max((len(v) for v in routes), default=1) or 1
+        table = np.full((len(routes) + 1, K), L, np.int32)   # last: none
+        for j, lks in enumerate(routes):
+            table[j, : len(lks)] = lks
+        edge_links_arr = table[_edge_lookup(route_links, src, dst,
+                                            num_nodes)]
         link_ser = (msg_bytes * latency_scale
                     / (tick_interval * np.asarray(link_caps, np.float64)))
         link_shared_arr = (np.ones(L, bool) if link_shared is None
@@ -505,6 +573,37 @@ def build_topology(
         link_shared=link_shared_arr,
         lat_rounds=lat_rounds,
     )
+
+
+def _edge_lookup(mapping: Mapping, src, dst, num_nodes: int) -> np.ndarray:
+    """For each directed edge ``(src[i], dst[i])``, the position among
+    ``mapping``'s items of that key, else of ``(dst[i], src[i])``, else
+    ``len(mapping)`` — the loop ``mapping.get(key, mapping.get(reversed,
+    default))`` over every edge, as sorted-code searches."""
+    n = len(mapping)
+    keys = np.array(list(mapping.keys()), dtype=np.int64).reshape(-1, 2)
+    pos = np.arange(n)
+    ok = ((keys >= 0) & (keys < num_nodes)).all(1)   # others match no edge
+    codes = keys[ok, 0] * num_nodes + keys[ok, 1]
+    order = np.argsort(codes, kind="stable")
+    codes, pos = codes[order], pos[ok][order]
+
+    def find(a, b):
+        want = a.astype(np.int64) * num_nodes + b.astype(np.int64)
+        if not len(codes):
+            return np.full(len(want), n)
+        at = np.minimum(np.searchsorted(codes, want), len(codes) - 1)
+        return np.where(codes[at] == want, pos[at], n)
+
+    fwd = find(src, dst)
+    return np.where(fwd < n, fwd, find(dst, src))
+
+
+def _edge_values(mapping: Mapping, src, dst, num_nodes: int) -> np.ndarray:
+    """Per-edge float64 value of a ``{(u, v): value}`` mapping (either
+    direction; 0.0 where neither is given)."""
+    vals = np.append(np.asarray(list(mapping.values()), np.float64), 0.0)
+    return vals[_edge_lookup(mapping, src, dst, num_nodes)]
 
 
 def topology_from_arrays(num_nodes: int, src, dst, rev, out_deg, row_start,

@@ -848,3 +848,89 @@ def test_engine_halo_every_mode_on_card(card):
                 assert e.halo_report()["resolved"] != "auto"
             for halo, got in est.items():
                 assert np.array_equal(got, est["ppermute"]), halo
+
+
+# ---- robust modes, contention and value states (slice 11) ----------------
+
+@pytest.mark.parametrize("variant,maker,knob", [
+    ("collectall", "reference", dict(robust="trim", robust_tol=0.05)),
+    ("collectall", "fast", dict(robust="clip", robust_clip=0.02)),
+    ("pairwise", "fast", dict(robust="clip", robust_clip=0.02)),
+    ("pairwise", "fast", dict(robust="trim", robust_tol=0.05))])
+def test_robust_edge_round_benes_fused_equals_its_twins_on_card(
+        card, variant, maker, knob):
+    """Path G at a small size: the robust round through B3 and B4 (the
+    trim's float max and min and int32 min scans) equals the per-stage
+    networks bit for bit and the segment/gather round to 1e-9."""
+    from flow_updating_tpu_torch.ops import fused_passes as fp
+
+    topo = barabasi_albert(3000, 4, seed=3)
+    est = {}
+    for seg, dlv in (("benes_fused", "benes_fused"), ("benes", "benes"),
+                     ("segment", "gather")):
+        cfg = getattr(RoundConfig, maker)(variant, segment_impl=seg,
+                                          delivery=dlv, dtype="float64",
+                                          timeout=10, **knob)
+        before = fp.segscan_pass.launches
+        eng = Engine(config=cfg).set_topology(topo).build(seed=3)
+        eng.run_rounds(40)
+        est[seg] = eng.estimates()
+        assert (fp.segscan_pass.launches > before) == (seg == "benes_fused")
+    assert np.array_equal(est["benes_fused"], est["benes"])
+    np.testing.assert_allclose(est["benes"], est["segment"], rtol=1e-9,
+                               atol=1e-9)
+
+
+def test_edge_delays_twice_equal_on_card(card):
+    """The water-fill's float sums run in the link-major CSR's order: two
+    runs give the same delays, and the card's equal the host's."""
+    from flow_updating_tpu_torch.models import rounds
+    from flow_updating_tpu_torch.topology.graph import build_topology
+
+    topo = fat_tree(8)
+    pairs = np.stack([topo.src, topo.dst], 1)[topo.src < topo.dst]
+    route = {(int(u), int(v)): (int(u), int(v)) for u, v in pairs}
+    linked = build_topology(
+        topo.num_nodes, pairs, values=topo.values,
+        latency_s={k: 1.0 for k in route}, latency_scale=1.0,
+        msg_bytes=104.0, route_links=route,
+        link_caps=np.full(topo.num_nodes, 104.0 / 0.05),
+        link_shared=np.ones(topo.num_nodes, bool))
+    rng = np.random.default_rng(0)
+    send = torch.from_numpy(rng.random(linked.num_edges) < 0.6)
+    inflight = torch.from_numpy(rng.integers(0, 3, linked.num_edges)
+                                .astype(np.int32))
+    arrays = {d: linked.device_arrays(device=d) for d in ("cpu", card)}
+    for iters in (0, 4):
+        cfg = RoundConfig.reference(delay_depth=64, contention=True,
+                                    contention_iters=iters,
+                                    contention_backlog=True)
+        runs = [rounds.edge_delays(arrays[card], cfg, send.to(card),
+                                   inflight=inflight.to(card))
+                for _ in range(2)]
+        assert torch.equal(runs[0], runs[1])
+        host = rounds.edge_delays(arrays["cpu"], cfg, send,
+                                  inflight=inflight)
+        assert torch.equal(runs[0].cpu(), host)
+
+
+def test_sharded_state_is_a_value_on_card(card):
+    """C1 on the card: running twice from a retained state gives equal
+    leaves, and an old state still reads back its own round."""
+    k = _sharded_kernel(ring(20000, 2), 4, None, "pallas", "float32")
+
+    def leaves(st):
+        return [torch.cat([t.cpu() for t in getattr(st, f)])
+                for f in ("S", "G", "avg_prev", "A_prev", "avg")]
+
+    st0 = k.init_state()
+    st5 = k.run(st0, 5)
+    want0, want5 = leaves(st0), leaves(st5)
+    k.run(st5, 7)
+    again = k.run(st0, 5)
+    for a, b in zip(leaves(again), want5):
+        assert torch.equal(a, b)
+    for a, b in zip(leaves(st0), want0):
+        assert torch.equal(a, b)
+    for a, b in zip(leaves(k.run(st5, 3)), leaves(k.run(st0, 8))):
+        assert torch.equal(a, b)

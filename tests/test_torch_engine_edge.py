@@ -99,12 +99,15 @@ def test_cli_edge_kernel_runs_match_jax(capsys, extra):
     assert prep["device"] == "cpu"
 
 
-def test_cli_refuses_contention_and_fidelity():
-    base = ["run", "--device", "cpu", "--platform", SMALL6[0],
-            "--deployment", SMALL6[1]]
-    for flag in ("--contention", "--fidelity"):
-        with pytest.raises(SystemExit, match="A3"):
-            port_main([*base, flag])
+def test_cli_refuses_contention_and_fidelity(capsys):
+    """``--contention`` and ``--fidelity`` used to exit naming A3; they
+    run now and print JAX's report (the README's small6 run with each)."""
+    base = ["--platform", SMALL6[0], "--deployment", SMALL6[1],
+            "--rounds", "200"]
+    for flag in (["--contention", "--latency-scale", "100"],
+                 ["--fidelity"]):
+        jrep, prep = _both(capsys, [*base, *flag], atol=16 * ULP30)
+        assert prep["t"] == 200
 
 
 def test_engine_small6_faithful_matches_jax():

@@ -239,19 +239,39 @@ def test_vector_columns_match_scalar_runs(graphs, variant, mode):
 
 
 def test_unported_items_raise_naming_them(graphs):
-    _, pt = graphs
+    """What the edge kernel does not run yet raises naming its item.  The
+    A3 configs that used to raise here now run: robust clip and trim
+    match JAX's round at 1e-9, and contention on a generator graph (no
+    link model) raises JAX's ValueError; ``run_rounds_observed`` (ported)
+    samples the loop's own states."""
+    jt, pt = graphs
     arrays = pt.device_arrays(device="cpu")
     cfg = RoundConfig.reference("collectall")
     state = init_state(pt, cfg, device="cpu")
-    for bad, item in (
-            (RoundConfig.reference("collectall", robust="clip",
-                                   robust_clip=1.0), "A3"),
-            (RoundConfig.reference("pairwise", robust="trim"), "A3"),
-            (RoundConfig.reference("collectall", contention=True), "A3")):
-        with pytest.raises(NotImplementedError, match=item):
-            rounds.run_rounds(init_state(pt, bad, device="cpu"), arrays, bad, 1)
-        with pytest.raises(NotImplementedError, match=item):
-            Engine(config=bad, device="cpu").set_topology(pt).build()
+    for variant, knob in (("collectall", dict(robust="clip",
+                                              robust_clip=0.05)),
+                          ("pairwise", dict(robust="trim",
+                                            robust_tol=0.05))):
+        jc, pc = _cfgs(variant, "reference", **knob)
+        js, ja = _jax_run(jt, jc, ROUNDS)
+        ps, pa = _port_run(pt, pc, ROUNDS)
+        np.testing.assert_allclose(rounds.node_estimates(ps, pa).numpy(),
+                                   np.asarray(jax_estimates(js, ja)), **TOL)
+        eng = Engine(config=pc, device="cpu").set_topology(pt).build()
+        eng.run_rounds(ROUNDS)
+        np.testing.assert_allclose(eng.estimates(),
+                                   np.asarray(jax_estimates(js, ja)), **TOL)
+    bad = RoundConfig.reference("collectall", contention=True)
+    with pytest.raises(ValueError, match="link model"):
+        rounds.run_rounds(init_state(pt, bad, device="cpu"), arrays, bad, 1)
+    with pytest.raises(ValueError, match="link model"):
+        Engine(config=bad, device="cpu").set_topology(pt).build()
+    looped = rounds.run_rounds(state, arrays, cfg, 20)
+    observed, m = rounds.run_rounds_observed(state, arrays, cfg, 20, 10,
+                                             pt.true_mean)
+    assert torch.equal(observed.flow, looped.flow)
+    assert m["t"].tolist() == [10, 20]
+    assert m["fired_total"][-1] == looped.fired.sum()
     with pytest.raises(NotImplementedError, match="A10"):
         rounds.run_rounds(state, arrays, cfg, 1, params=object())
     with pytest.raises(NotImplementedError, match="A10"):
@@ -260,7 +280,6 @@ def test_unported_items_raise_naming_them(graphs):
                          (rounds.init_chunked_state, "A13"),
                          (rounds.run_rounds_telemetry, "A9"),
                          (rounds.run_rounds_fields, "A9"),
-                         (rounds.run_rounds_observed, "A9"),
                          (rounds.run_rounds_streamed, "A9")):
         with pytest.raises(NotImplementedError, match=item):
             runner(state, arrays, cfg, 1)
@@ -323,19 +342,22 @@ def _count_launches(monkeypatch, topo, cfg, n_rounds):
     return counts, eng
 
 
-@pytest.mark.parametrize("variant,maker", [("collectall", "reference"),
-                                           ("pairwise", "fast")])
-def test_chip_smoke_launch_derivation(monkeypatch, variant, maker):
-    """chip_smoke.py holds path D's B3/B4 launches to a count derived from
-    the plans and the round's calls; the derivation must match what a
-    round actually calls."""
+@pytest.mark.parametrize("variant,maker,robust", [
+    ("collectall", "reference", {}), ("pairwise", "fast", {}),
+    ("collectall", "reference", dict(robust="trim", robust_tol=0.05)),
+    ("pairwise", "fast", dict(robust="trim", robust_tol=0.05)),
+    ("pairwise", "fast", dict(robust="clip", robust_clip=0.01))])
+def test_chip_smoke_launch_derivation(monkeypatch, variant, maker, robust):
+    """chip_smoke.py holds path D's and path G's B3/B4 launches to a count
+    derived from the plans and the round's calls; the derivation must
+    match what a round actually calls."""
     import chip_smoke
 
     topo = pgen.barabasi_albert(300, m=3, seed=2)
     cfg = getattr(RoundConfig, maker)(variant, segment_impl="benes_fused",
                                       delivery=("benes_fused"
                                                 if maker == "reference"
-                                                else "gather"))
+                                                else "gather"), **robust)
     counts, eng = _count_launches(monkeypatch, topo, cfg, 3)
     planned = chip_smoke.planned_launches(eng._topo_arrays, cfg)
     assert counts == {k: 3 * v for k, v in planned.items()}

@@ -221,8 +221,9 @@ def test_cli_refuses_unported_flags():
         port_main([*base, "--shards", "2", "--multichip", "halo"])
     with pytest.raises(SystemExit, match="A12"):
         port_main([*base, "--shards", "2", "--spmv", "xla", "--rounds", "3"])
-    # the edge kernel runs; what it does not run yet still exits
-    with pytest.raises(SystemExit, match="A3"):
+    # the edge kernel runs --contention (A3); a generator graph has no
+    # link model, so it exits naming that, as the JAX CLI does
+    with pytest.raises(SystemExit, match="link model"):
         port_main(["run", "--device", "cpu", "--generator", "ring:16",
                    "--contention"])
     with pytest.raises(SystemExit, match="invalid flag combination"):
@@ -243,11 +244,12 @@ def test_unported_configs_raise_naming_their_item():
     with pytest.raises(ValueError, match="vector payloads"):
         NodeKernel(topo, RoundConfig.fast(kernel="node", spmv="pallas"),
                    values=np.ones((16, 2)), device="cpu")
-    # Engine() builds the edge kernel; its robust modes are still A3
+    # Engine() builds the edge kernel, robust modes included (A3)
     assert Engine(device="cpu").config.kernel == "edge"
-    with pytest.raises(NotImplementedError, match="A3"):
-        Engine(config=RoundConfig.fast(robust="clip", robust_clip=1.0),
-               device="cpu").set_topology(topo).build()
+    clip = Engine(config=RoundConfig.fast(robust="clip", robust_clip=1.0),
+                  device="cpu").set_topology(topo).build()
+    clip.run_rounds(5)
+    assert clip.state.flow.abs().max() <= 1.0
     node = RoundConfig.fast(kernel="node")
     with pytest.raises(NotImplementedError, match="plan='auto'"):
         Engine(config=node, plan="auto", device="cpu")
