@@ -42,6 +42,12 @@ and prints one JSON line per phase:
    ms/round, B3 launches == rounds x passes (per flavour too), rmse,
    estimates ``torch.equal`` to ``spmv='benes'`` and ``spmv='xla'`` runs
    on the card;
+   ``a6``     — the on-disk plan cache on path C's network: with
+   ``FU_PLAN_CACHE`` at a new temporary directory (everywhere else the
+   script sets it to ``0``, so no earlier run's file warms a phase), a
+   cold build routes and saves, a second build after the in-process cache
+   is cleared loads from disk; build seconds of both, the file's bytes,
+   the stages equal, 20 rounds of each ``torch.equal``;
 9. ``k4``      — kernel B4 (the segmented scan and fill-forward of the edge
    kernel's segment networks) on the fat tree's segment plan (P = 2^23):
    scan sum (float32, float64), min and max (float32), min (int32) and fill
@@ -132,6 +138,25 @@ and prints one JSON line per phase:
 16. ``c1``    — path E's sharded states are values: a ``run(st, 1)``
    loop against ``run(st, R)`` (device ms per round, the clones a
    ``run`` call costs), both equal, and a retained state run twice;
+   ``path_i`` — checkpoints and faults at full size: I1 path D's engine
+   saved (bytes, seconds), restored into a new engine on a new fat tree
+   object (restore seconds split into the archive's load and
+   ``_prepare_arrays``, which routes the networks again) and run 20
+   rounds, every leaf ``torch.equal`` to the uninterrupted engine; I2 1%
+   of the hosts killed (by name and by id) and 1,000 links failed after
+   60 rounds, 30 rounds, revived and repaired, 60 rounds: dead nodes do
+   not fire, nothing crosses a failed link, every revived node fires
+   again (the rmse at the fault and at the end is reported: the faithful
+   round's rmse swings for hundreds of rounds on a fat tree), every leaf
+   equal to a ``'benes'`` twin and the estimates
+   within ``EDGE_TWIN_ATOL`` of a ``'segment'``/``'gather'`` twin through
+   the same sequence; fast pairwise never matches a failed link; I3 path
+   F's halo state through ``gather_full_state`` -> ``scatter_full_state``
+   (every leaf on the real slots), saved, resumed in a new halo engine
+   (equal in the canonical layout, keys aside) and in a single-device
+   engine (estimates at the restore within ``EDGE_TWIN_ATOL``); I4 path
+   E's sharded state resumed on the mesh (B5 launches counted, every leaf
+   equal), refused by the single-device kernel;
 17. ``profile`` — ``torch.profiler`` over a few more rounds of each path:
    device time per round, the device's busy share of the wall time, the
    time of each hand-written kernel and of each flavour of B3 and B4, and
@@ -172,6 +197,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -212,6 +238,13 @@ DES_BASE_TICKS = 10     # des: ticks of each timed DES run (k=160)
 DES_REPEATS = 3         # des: timed runs per timeout
 DES_FIXED_TICKS = 2000  # des: ring(24, 2) rounds to the fixed point
 C1_ROUNDS = 20          # c1: rounds of path E per measurement
+RESUME_ROUNDS = 20      # path I: rounds after each restore
+FAULT_BOOT = 60         # I2: rounds before the faults (past the timeout)
+FAULT_ROUNDS = 30       # I2: rounds with the faults in place
+HEAL_ROUNDS = 60        # I2: rounds after the revival and the repair
+KILL_SHARE = 0.01       # I2: share of the fat tree's hosts killed
+FAILED_LINKS = 1000     # I2: undirected links failed
+A6_ROUNDS = 20          # a6: rounds of each engine
 #: path D's float32 estimates against the 'segment'/'gather' twin, whose
 #: per-node sums add in another order (sequential rows vs the scan tree)
 EDGE_TWIN_ATOL = 1e-4
@@ -2516,6 +2549,427 @@ def phase_c1(engine_e) -> dict:
             "retained_state_runs_equal": True}
 
 
+def _restore_timed(engine, path) -> dict:
+    """``engine.restore_checkpoint(path)``, its seconds split into the
+    kernel's preparation (``_prepare_arrays``: networks, plans, tables)
+    and the rest (the archive's read and checks, the copy to the card)."""
+    import torch
+
+    spans = {}
+    prepare = engine._prepare_arrays
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        prepare(*args, **kwargs)
+        torch.cuda.synchronize()
+        spans["prepare_s"] = time.perf_counter() - t0
+
+    engine._prepare_arrays = timed
+    t0 = time.perf_counter()
+    try:
+        engine.restore_checkpoint(path)
+        torch.cuda.synchronize()
+    finally:
+        del engine._prepare_arrays
+    total = time.perf_counter() - t0
+    return {"restore_s": total, "prepare_s": spans["prepare_s"],
+            "load_s": total - spans["prepare_s"]}
+
+
+def _save_timed(engine, path) -> dict:
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.save_checkpoint(path)
+    return {"save_s": time.perf_counter() - t0,
+            "archive_bytes": os.path.getsize(path)}
+
+
+def _edge_leaves_equal(a, b) -> list:
+    """The names of the leaves where two edge states differ."""
+    import dataclasses
+
+    import torch
+
+    return [f.name for f in dataclasses.fields(a)
+            if not torch.equal(getattr(a, f.name), getattr(b, f.name))]
+
+
+def _named_fat_tree():
+    """A new fat tree k=160 with a name per vertex (``v<id>``): a second
+    process's topology (nothing routed on it yet), whose nodes can be
+    killed by name.  Names are not part of the fingerprint."""
+    import dataclasses
+
+    from flow_updating_tpu_torch.topology.generators import fat_tree
+
+    topo = fat_tree(FAT_TREE_K)
+    return dataclasses.replace(
+        topo, names=tuple(f"v{i}" for i in range(topo.num_nodes)))
+
+
+def phase_path_i1(engine_d, topo, tmp) -> dict:
+    """I1: path D's engine saved, restored into a new engine on a new
+    topology object (the networks routed again, as in a second process)
+    and run on; every leaf equal to the uninterrupted engine's."""
+    from flow_updating_tpu_torch import Engine
+
+    path = os.path.join(tmp, "path_d.npz")
+    at = engine_d.state.t
+    out = {"saved_at_round": int(at), **_save_timed(engine_d, path)}
+    state_bytes = sum(v.nbytes for v in engine_d.state.numpy().values())
+    fresh = Engine().set_topology(topo)
+    if fresh.state is not None:
+        raise AssertionError("a fresh engine holds a state")
+    out.update(_restore_timed(fresh, path))
+    if fresh.clock != engine_d.clock or fresh.config != engine_d.config:
+        raise AssertionError("I1: the restore lost the clock or config")
+    if any(getattr(fresh.state, f).device != engine_d.state.flow.device
+           for f in ("flow", "pending_flow", "key")):
+        raise AssertionError("I1: the restored state is not on the card")
+    expected = {k: v * RESUME_ROUNDS for k, v in
+                planned_launches(fresh._topo_arrays, fresh.config).items()}
+    reset_counts()
+    ms = _timed_rounds(fresh, RESUME_ROUNDS)
+    got = {**b3_launches(), **b4_launches()}
+    if got != expected:
+        raise AssertionError(f"I1 launches {got}, planned {expected}")
+    engine_d.run_rounds(RESUME_ROUNDS)
+    diff = _edge_leaves_equal(engine_d.state, fresh.state)
+    if diff:
+        raise AssertionError(f"I1: the resumed run differs in {diff}")
+    del fresh
+    return {**out, "state_bytes": state_bytes,
+            "compression": out["archive_bytes"] / state_bytes,
+            "rounds_after_restore": RESUME_ROUNDS,
+            "ms_per_round": ms / RESUME_ROUNDS, "launches": got,
+            "every_leaf_equal": True}
+
+
+def phase_path_i2(topo) -> dict:
+    """I2: faults on path D's configuration — 1% of the hosts killed (by
+    name and by id) and 1,000 links failed after the timeout bootstrap,
+    then revived and repaired — against 'benes' and 'segment'/'gather'
+    twins run through the same sequence; then fast pairwise with failed
+    links.  The faithful round's rmse swings for hundreds of rounds on a
+    fat tree, faults or none, so it is reported; the healing gate is
+    that every revived node fires again within the timeout."""
+    import numpy as np
+    import torch
+
+    from flow_updating_tpu_torch import Engine, RoundConfig
+
+    rng = np.random.default_rng(SEED)
+    n_host = FAT_TREE_K ** 3 // 4
+    killed = np.sort(rng.choice(n_host, int(KILL_SHARE * n_host),
+                                replace=False))
+    nodes = ([topo.names[i] for i in killed[::2]]
+             + [int(i) for i in killed[1::2]])
+    und = np.flatnonzero(topo.src < topo.dst)
+    links = [(int(topo.src[e]), int(topo.dst[e]))
+             for e in rng.choice(und, FAILED_LINKS, replace=False)]
+    kill_t = torch.from_numpy(killed).cuda()
+
+    def drive(eng, observe):
+        obs = {}
+        eng.run_rounds(FAULT_BOOT)
+        t0 = time.perf_counter()
+        eng.kill_nodes(nodes).fail_links(links)
+        torch.cuda.synchronize()
+        obs["fault_s"] = time.perf_counter() - t0
+        failed = torch.from_numpy(eng._edge_ids(links)).cuda()
+        if observe:
+            fired = eng.state.fired[kill_t].clone()
+            queued = int(eng.state.pending_valid[:, failed].sum())
+            reset_counts()
+        eng.run_rounds(FAULT_ROUNDS)
+        if observe:
+            # the counts before any read-back (estimates run the networks)
+            obs["launches"] = {**b3_launches(), **b4_launches()}
+            st = eng.state
+            if not torch.equal(st.fired[kill_t], fired):
+                raise AssertionError("I2: a dead node fired")
+            if bool(st.alive[kill_t].any()) or \
+                    int(st.alive.sum()) != topo.num_nodes - len(killed):
+                raise AssertionError("I2: the alive mask is not the kill")
+            if bool(st.buf_valid[:, failed].any()) or \
+                    int(st.pending_valid[:, failed].sum()) > queued:
+                raise AssertionError("I2: a message crossed a failed link")
+            obs["rmse_dead"] = eng.convergence_report()["rmse"]
+            obs["pending_on_failed_at_fault"] = queued
+        eng.revive_nodes(nodes).restore_links(links)
+        if observe:
+            reset_counts()
+        eng.run_rounds(HEAL_ROUNDS)
+        if observe:
+            heal = {**b3_launches(), **b4_launches()}
+            obs["launches"] = {k: v + heal[k]
+                               for k, v in obs["launches"].items()}
+            obs["rmse_healed"] = eng.convergence_report()["rmse"]
+            # HEAL_ROUNDS passes the timeout: every revived node fires
+            if not bool((eng.state.fired[kill_t] > fired).all()):
+                raise AssertionError("I2: a revived node did not fire")
+        return obs
+
+    cfg = RoundConfig.reference("collectall", segment_impl="benes_fused",
+                                delivery="benes_fused")
+    eng = Engine(config=cfg).set_topology(topo).build(seed=SEED)
+    obs = drive(eng, True)
+    per_round = planned_launches(eng._topo_arrays, cfg)
+    want = {k: v * (FAULT_ROUNDS + HEAL_ROUNDS) for k, v in
+            per_round.items()}
+    if obs["launches"] != want:
+        raise AssertionError(f"I2 launches {obs['launches']}, planned "
+                             f"{want}")
+    twins = {}
+    for seg, dlv in (("benes", "benes"), ("segment", "gather")):
+        twin = Engine(config=RoundConfig.reference(
+            "collectall", segment_impl=seg, delivery=dlv))
+        twin.set_topology(topo).build(seed=SEED)
+        drive(twin, False)
+        mine, other = _edge_estimates(eng), _edge_estimates(twin)
+        twins[seg] = {"leaves_differing": _edge_leaves_equal(eng.state,
+                                                             twin.state),
+                      "max_abs_diff": float((mine - other).abs().max())}
+        del twin, other
+        torch.cuda.empty_cache()
+    if twins["benes"]["leaves_differing"]:
+        raise AssertionError("I2: benes_fused differs from its 'benes' twin "
+                             f"in {twins['benes']['leaves_differing']}")
+    if not twins["segment"]["max_abs_diff"] <= EDGE_TWIN_ATOL:
+        raise AssertionError("I2: not within the 'segment' twin's "
+                             f"tolerance ({twins['segment']})")
+    del eng
+    torch.cuda.empty_cache()
+    # fast pairwise: a failed link is never matched, so its flow stays 0
+    pcfg = RoundConfig.fast("pairwise", segment_impl="benes_fused")
+    pw = Engine(config=pcfg).set_topology(topo).build(seed=SEED)
+    pw.fail_links(links)
+    failed = torch.from_numpy(pw._edge_ids(links)).cuda()
+    rmse0 = pw.convergence_report()["rmse"]
+    reset_counts()
+    pw.run_rounds(PAIRWISE_ROUNDS)
+    pw_launches = {**b3_launches(), **b4_launches()}
+    want = {k: v * PAIRWISE_ROUNDS for k, v in
+            planned_launches(pw._topo_arrays, pcfg).items()}
+    if pw_launches != want:
+        raise AssertionError(f"I2 pairwise launches {pw_launches}, planned "
+                             f"{want}")
+    if bool(pw.state.flow[failed].any()):
+        raise AssertionError("I2: fast pairwise matched a failed link")
+    rep = pw.convergence_report()
+    if not rep["rmse"] < rmse0:
+        raise AssertionError("I2: fast pairwise with failed links did not "
+                             "reduce the rmse")
+    del pw
+    torch.cuda.empty_cache()
+    return {"killed": len(killed), "killed_by_name": len(killed[::2]),
+            "failed_links": FAILED_LINKS,
+            "rounds": [FAULT_BOOT, FAULT_ROUNDS, HEAL_ROUNDS],
+            **obs, "equal_to_benes": True,
+            "max_abs_diff_to_segment": twins["segment"]["max_abs_diff"],
+            "segment_atol": EDGE_TWIN_ATOL,
+            "pairwise": {"rounds": PAIRWISE_ROUNDS, "launches": pw_launches,
+                         "failed_flows_zero": True, "rmse_initial": rmse0,
+                         "rmse": rep["rmse"],
+                         "mass_residual": rep["mass_residual"]}}
+
+
+def phase_path_i3(engine_f, topo, tmp) -> dict:
+    """I3: path F's halo engine — gather -> scatter returns its state on
+    the real slots (keys aside), and its archive resumes in a new halo
+    engine (equal to the uninterrupted run in the canonical layout, keys
+    aside) and in a single-device engine (estimates equal at the restore
+    up to the summation order; its next rounds reported)."""
+    import numpy as np
+    import torch
+
+    from flow_updating_tpu_torch import Engine
+    from flow_updating_tpu_torch.parallel import sharded
+    from flow_updating_tpu_torch.parallel.mesh import make_mesh
+
+    plan, cfg, mesh = engine_f._halo_plan, engine_f.config, engine_f.mesh
+    t0 = time.perf_counter()
+    canon = sharded.gather_full_state(engine_f.state, plan, topo)
+    gather_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = sharded.scatter_full_state(canon, plan, topo, cfg, mesh)
+    torch.cuda.synchronize()
+    scatter_s = time.perf_counter() - t0
+    real = torch.from_numpy(plan.alive0)
+    for s, (x, y) in enumerate(zip(engine_f.state.shards, back.shards)):
+        for name, a in vars(x).items():
+            b = getattr(y, name)
+            if name == "key":
+                continue
+            if name in ("value", "ticks", "last_avg", "fired", "alive"):
+                a, b = a[real[s].cuda()], b[real[s].cuda()]
+            if not torch.equal(a, b):
+                raise AssertionError(f"I3: gather -> scatter changed {name} "
+                                     f"on shard {s}")
+    del back
+    path = os.path.join(tmp, "path_f.npz")
+    out = {"saved_at_round": engine_f.state.t, "gather_s": gather_s,
+           "scatter_s": scatter_s, **_save_timed(engine_f, path)}
+    halo_est = engine_f.estimates()
+    fresh = Engine(mesh=make_mesh(SHARDS), multichip="halo",
+                   halo="overlap_pallas", partition="bfs")
+    fresh.set_topology(topo)
+    out.update(_restore_timed(fresh, path))
+    reset_counts()
+    ms = _timed_rounds(fresh, RESUME_ROUNDS)
+    launches = b6_launches()
+    if launches != {"fused": RESUME_ROUNDS * SHARDS, "pull": 0}:
+        raise AssertionError(f"I3: B6 launched {launches} in "
+                             f"{RESUME_ROUNDS} rounds")
+    engine_f.run_rounds(RESUME_ROUNDS)
+    a = sharded.gather_full_state(engine_f.state, plan, topo).numpy()
+    b = sharded.gather_full_state(fresh.state, fresh._halo_plan,
+                                  topo).numpy()
+    diff = [k for k in a if k != "key" and not np.array_equal(a[k], b[k])]
+    if diff:
+        raise AssertionError(f"I3: the resumed halo run differs in {diff}")
+    del fresh, a, b
+    single = Engine().set_topology(topo)
+    out["single_device"] = _restore_timed(single, path)
+    single_est = single.estimates()
+    gap = float(np.abs(single_est - halo_est).max())
+    if not gap <= EDGE_TWIN_ATOL:
+        raise AssertionError(f"I3: the single-device restore's estimates "
+                             f"are {gap} from the halo's")
+    single.run_rounds(RESUME_ROUNDS)
+    out["single_device"].update({
+        "max_abs_diff_at_restore": gap,
+        "rmse_after_rounds": single.convergence_report()["rmse"],
+        "rounds": RESUME_ROUNDS})
+    del single, canon
+    torch.cuda.empty_cache()
+    return {**out, "rounds_after_restore": RESUME_ROUNDS,
+            "ms_per_round": ms / RESUME_ROUNDS, "b6_launches": launches,
+            "gather_scatter_returns_state": True,
+            "equal_to_uninterrupted": True}
+
+
+def phase_path_i4(engine_e, ring_topo, tmp) -> dict:
+    """I4: path E's sharded banded state saved and restored on the mesh
+    (B5 launches of the resumed rounds counted, every leaf equal to the
+    uninterrupted engine's); the single-device banded_fused engine
+    refuses the layout."""
+    import torch
+
+    from flow_updating_tpu_torch import Engine
+    from flow_updating_tpu_torch.parallel.mesh import make_mesh
+
+    path = os.path.join(tmp, "path_e.npz")
+    out = {"saved_at_round": engine_e.state.t,
+           **_save_timed(engine_e, path)}
+    fresh = Engine(mesh=make_mesh(SHARDS), halo="overlap")
+    fresh.set_topology(ring_topo)
+    out.update(_restore_timed(fresh, path))
+    reset_counts()
+    ms = _timed_rounds(fresh, RESUME_ROUNDS)
+    launches = b5_launches()
+    if launches != {"fire": 0, "merge": RESUME_ROUNDS * SHARDS * 2}:
+        raise AssertionError(f"I4: B5 launched {launches} in "
+                             f"{RESUME_ROUNDS} rounds of {SHARDS} shards")
+    engine_e.run_rounds(RESUME_ROUNDS)
+    for name in ("S", "G", "avg_prev", "A_prev", "avg"):
+        for x, y in zip(getattr(engine_e.state, name),
+                        getattr(fresh.state, name)):
+            if not torch.equal(x, y):
+                raise AssertionError(f"I4: the resumed mesh run differs in "
+                                     f"{name}")
+    del fresh
+    try:
+        Engine().set_topology(ring_topo).restore_checkpoint(path)
+    except ValueError as err:
+        if "interchangeable" not in str(err) and "node axis" not in str(err):
+            raise
+        refusal = str(err)
+    else:
+        raise AssertionError("I4: a single-device engine restored the "
+                             "sharded layout")
+    torch.cuda.empty_cache()
+    return {**out, "rounds_after_restore": RESUME_ROUNDS,
+            "ms_per_round": ms / RESUME_ROUNDS, "b5_launches": launches,
+            "equal_to_uninterrupted": True, "single_device_refusal": refusal}
+
+
+def phase_a6(topo) -> dict:
+    """A6: path C's network through the disk plan cache, pointed at a new
+    temporary directory: a cold build routes and saves, then, the
+    in-process cache cleared, a second build loads the routing from disk;
+    the two plans' stages equal and their runs ``torch.equal``."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from flow_updating_tpu_torch import Engine, RoundConfig
+    from flow_updating_tpu_torch.ops import spmv_benes
+
+    cfg = RoundConfig.fast(kernel="node", spmv="benes_fused")
+    cache = tempfile.mkdtemp(prefix="fu_plan_cache_")
+    before = os.environ.get("FU_PLAN_CACHE")
+    os.environ["FU_PLAN_CACHE"] = cache
+    try:
+        engines, build_s = [], []
+        for _ in range(2):
+            spmv_benes._plan_cache.clear()
+            t0 = time.perf_counter()
+            engines.append(Engine(config=cfg).set_topology(topo).build())
+            torch.cuda.synchronize()
+            build_s.append(time.perf_counter() - t0)
+            if len(engines) == 1:
+                files = os.listdir(cache)
+        cold, warm = (e._node_kernel.arrays.ns_plan for e in engines)
+        if len(files) != 1 or cold is warm:
+            raise AssertionError(f"a6: cache files {files}; the second "
+                                 "plan was not loaded afresh")
+        a, b = cold.base.stages, warm.base.stages
+        if (a.n, a.dists, a.kinds) != (b.n, b.dists, b.kinds) or not all(
+                np.array_equal(x, y) for x, y in zip(a.masks, b.masks)):
+            raise AssertionError("a6: the loaded stages differ")
+        if [dataclasses.astuple(p) for p in cold.fused.passes] != \
+                [dataclasses.astuple(p) for p in warm.fused.passes]:
+            raise AssertionError("a6: the fused passes differ")
+        file_bytes = os.path.getsize(os.path.join(cache, files[0]))
+        t0 = time.perf_counter()
+        key0 = spmv_benes._mats_key(
+            tuple(m.cpu().numpy() for m in engines[0]._node_kernel.arrays
+                  .mats), cold.m1)
+        spmv_benes._disk_save(key0, cold.base)
+        save_s = time.perf_counter() - t0
+        reset_counts()
+        for e in engines:
+            e.run_rounds(A6_ROUNDS)
+        launches = b3_launches()
+        per_round = len(cold.fused.passes)
+        if sum(launches.values()) != 2 * A6_ROUNDS * per_round:
+            raise AssertionError(f"a6: B3 launched {launches}")
+        if not torch.equal(_estimate_tensor(engines[0]),
+                           _estimate_tensor(engines[1])):
+            raise AssertionError("a6: the loaded plan's run differs")
+    finally:
+        spmv_benes._plan_cache.clear()
+        if before is None:
+            os.environ.pop("FU_PLAN_CACHE", None)
+        else:
+            os.environ["FU_PLAN_CACHE"] = before
+        shutil.rmtree(cache, ignore_errors=True)
+    del engines
+    torch.cuda.empty_cache()
+    return {"cold_build_s": build_s[0], "warm_build_s": build_s[1],
+            "warm_over_cold": build_s[1] / build_s[0],
+            "disk_save_s": save_s, "file_bytes": file_bytes,
+            "P": cold.P, "stages": len(a.dists), "rounds": A6_ROUNDS,
+            "b3_launches": launches, "stages_equal": True,
+            "equal_runs": True}
+
+
 def _intervals_union(spans) -> float:
     total, end = 0.0, None
     for a, b in sorted(spans):
@@ -2628,6 +3082,9 @@ def main() -> int:
     from flow_updating_tpu_torch import kernels
     from flow_updating_tpu_torch.topology.generators import fat_tree, ring
 
+    # no phase reads or writes a plan cache file but a6, which points the
+    # cache at a directory of its own
+    os.environ["FU_PLAN_CACHE"] = "0"
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
@@ -2679,6 +3136,9 @@ def main() -> int:
     torch.cuda.synchronize()
     emit({"phase": "path_c", "topology": f"fat_tree:{FAT_TREE_K}", **path_c})
 
+    a6 = phase_a6(tree)
+    emit({"phase": "a6", "topology": f"fat_tree:{FAT_TREE_K}", **a6})
+
     k4 = phase_k4(tree, engine_d._topo_arrays, dev)
     torch.cuda.synchronize()
     emit({"phase": "k4", **k4})
@@ -2712,6 +3172,30 @@ def main() -> int:
     c1 = phase_c1(engine_e)
     torch.cuda.synchronize()
     emit({"phase": "c1", **c1})
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        t0 = time.perf_counter()
+        named = _named_fat_tree()
+        named_s = time.perf_counter() - t0
+        path_i = {"topology_s": named_s,
+                  "i1": phase_path_i1(engine_d, named, tmp)}
+        emit({"phase": "path_i", "part": "i1", **path_i["i1"]})
+        path_i["i2"] = phase_path_i2(named)
+        emit({"phase": "path_i", "part": "i2", **path_i["i2"]})
+        del named
+        path_i["i3"] = phase_path_i3(engine_f, tree, tmp)
+        emit({"phase": "path_i", "part": "i3", **path_i["i3"]})
+        path_i["i4"] = phase_path_i4(engine_e, ring_topo, tmp)
+        emit({"phase": "path_i", "part": "i4", **path_i["i4"]})
+    torch.cuda.synchronize()
+    emit({"phase": "path_i", "topology_s": named_s,
+          "wall_s": time.perf_counter() - t0})
+    i_b3 = {k: path_i["i1"]["launches"][k] + path_i["i2"]["launches"][k]
+            + path_i["i2"]["pairwise"]["launches"][k]
+            for k, _, _, _ in B3_FLAVOURS}
+    i_b4 = {k: path_i["i1"]["launches"][k] + path_i["i2"]["launches"][k]
+            + path_i["i2"]["pairwise"]["launches"][k]
+            for k, _, _ in B4_FLAVOURS}
 
     emit({"phase": "profile",
           "path_a": profile_rounds(engine_a, PROFILE_ROUNDS),
@@ -2756,7 +3240,8 @@ def main() -> int:
            "launches": (path_c["b3_launches"][name]
                         + path_d["b3_launches"][name]
                         + path_g["g1"]["b3_launches"][name]
-                        + path_g["g2"]["b3_launches"][name]),
+                        + path_g["g2"]["b3_launches"][name]
+                        + a6["b3_launches"][name] + i_b3[name]),
            "parity": "bit-exact (torch.equal), float32 and float64",
            "max_abs_err": k3["flavours"][name]["max_abs_err"],
            "ms": k3["flavours"][name]["ms"],
@@ -2771,7 +3256,8 @@ def main() -> int:
            "replaces": f"flow_updating_tpu/ops/pallas_fused.py:{line}",
            "launches": (path_d["b4_launches"][name]
                         + path_g["g1"]["b4_launches"][name]
-                        + path_g["g2"]["b4_launches"][name]),
+                        + path_g["g2"]["b4_launches"][name]
+                        + i_b4[name]),
            "parity": "bit-exact (torch.equal): float32, float64, int32, "
                      "batch 1 and 3, the split passes",
            "max_abs_err": k4["flavours"][name]["max_abs_err"],
@@ -2787,9 +3273,11 @@ def main() -> int:
          "replaces": "flow_updating_tpu/ops/pallas_round.py:520",
          # shard-rounds, the unit of ms (each: launches_per_shard_round
          # merge launches)
-         "launches": path_e["b5_launches"]["merge"]
+         "launches": (path_e["b5_launches"]["merge"]
+                      + path_i["i4"]["b5_launches"]["merge"])
                      // path_e["launches_per_shard_round"],
-         "kernel_launches": sum(path_e["b5_launches"].values()),
+         "kernel_launches": (sum(path_e["b5_launches"].values())
+                             + sum(path_i["i4"]["b5_launches"].values())),
          "parity": "bit-exact (torch.equal), float32 and float64, the "
                    "fire-only launch and the folded merges over whole "
                    "shards and split rows; sharded ring == single device "
@@ -2803,7 +3291,8 @@ def main() -> int:
          "source": "flow_updating_tpu_torch/csrc/halo_exchange.cu",
          "replaces": "flow_updating_tpu/ops/pallas_halo.py:99",
          "launches": (path_f["b6_launches"]["fused"]
-                      + path_f["pairwise_fast"]["b6_launches"]["pull"]),
+                      + path_f["pairwise_fast"]["b6_launches"]["pull"]
+                      + path_i["i3"]["b6_launches"]["fused"]),
          "parity": "bit-exact (torch.equal): float32 and float64, scalar "
                    "and 3 lanes, pull and fused, every shard, odd shapes; "
                    "path F 'overlap_pallas' == 'ppermute', 'allgather', "

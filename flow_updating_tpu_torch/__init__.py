@@ -10,10 +10,12 @@ Ported so far: the topology layer (generators, XML loaders), the general
 per-edge round (``models/rounds.py``, the default kernel) with its segment
 and delivery layouts, the node-collapsed fast synchronous round
 (``models/sync.py``) with its neighbor-sum paths, the topology compiler
-(RCM + banded plan), the ``Engine`` façade and the ``run`` CLI.  The TPU
-kernels on those paths are hand-written CUDA for Hopper (``csrc/``): the
-ELL neighbor sum, the one-kernel banded round, the fused Beneš passes and
-the segmented scan / fill-forward.  Everything runs on the CUDA card
+(RCM + banded plan), the ``Engine`` façade and the ``run`` CLI, with
+node and link faults and checkpoints in the JAX package's archive layout
+(``utils/checkpoint.py``).  The TPU kernels on those paths are
+hand-written CUDA for Hopper (``csrc/``): the ELL neighbor sum, the
+one-kernel banded round, the fused Beneš passes and the segmented scan /
+fill-forward.  Everything runs on the CUDA card
 unless the caller passes ``device='cpu'``.
 """
 

@@ -15,10 +15,14 @@ N-shard mesh (``--halo`` picks the exchange, as in the JAX CLI);
 ``--partition bfs|contiguous``), whose exchange decision the report
 carries under ``halo``.  ``--contention`` (``--contention-iters``,
 ``--contention-backlog``) and ``--fidelity`` price shared links on a
-``--platform`` topology.  Flags whose machinery is not ported yet exit
-with a message naming the ROADMAP item.  ``--backend`` selects the JAX
-backend in the JAX package; it is accepted here for command-line
-compatibility and has no effect.
+``--platform`` topology.  ``--save-checkpoint PATH`` writes the run's
+state at its end (the JAX package's archive, which either package
+resumes); ``--resume PATH`` continues from one instead of building a
+fresh state, under the archive's config (``--rounds`` counts from the
+restored round, ``--until`` is absolute simulated time).  Flags whose
+machinery is not ported yet exit with a message naming the ROADMAP
+item.  ``--backend`` selects the JAX backend in the JAX package; it is
+accepted here for command-line compatibility and has no effect.
 
 ``oracle`` runs the native discrete-event simulator on the host (the
 reference-style baseline; ``--lmm`` for the dynamic max-min network) and
@@ -40,8 +44,6 @@ _LATER_FLAGS = {
     "event_log": "observability twins and manifests (A9)",
     "profile": "profiling and analysis (A14)",
     "trace_dir": "profiling and analysis (A14)",
-    "save_checkpoint": "engine checkpoints (A7)",
-    "resume": "engine checkpoints (A7)",
 }
 
 
@@ -134,10 +136,26 @@ def cmd_run(args) -> int:
     except (NotImplementedError, RuntimeError, ValueError) as err:
         raise SystemExit(str(err)) from err
     engine.set_topology(_build_topology(args))
-    try:
-        engine.build(latency_scale=args.latency_scale, seed=args.seed)
-    except (ValueError, NotImplementedError) as err:
-        raise SystemExit(f"invalid flag combination: {err}") from err
+    if args.resume:
+        # restore makes no fresh state; the checkpoint's config governs
+        # the run (it is part of the run's identity — e.g. delay_depth
+        # shapes the ring buffer)
+        try:
+            engine.restore_checkpoint(args.resume)
+        except (ValueError, NotImplementedError) as err:
+            # bad checkpoints (format, fingerprint, dtype) and config
+            # errors raised while preparing the kernel
+            raise SystemExit(
+                f"cannot resume from {args.resume}: {err}") from err
+        if engine.config != cfg:
+            logging.getLogger("flow_updating_tpu_torch.cli").warning(
+                "--resume: checkpoint config %s overrides CLI flags %s",
+                engine.config, cfg)
+    else:
+        try:
+            engine.build(latency_scale=args.latency_scale, seed=args.seed)
+        except (ValueError, NotImplementedError) as err:
+            raise SystemExit(f"invalid flag combination: {err}") from err
 
     until_rmse_result = None
     t_run0 = time.perf_counter()
@@ -145,6 +163,8 @@ def cmd_run(args) -> int:
         until_rmse_result = engine.run_until_rmse(
             args.until_rmse, max_rounds=args.max_rounds)
     elif args.stream:
+        # --until is absolute simulated time (as run_until, after
+        # --resume too); --rounds is a relative count
         n = (args.rounds if args.rounds is not None
              else max(0, int(round(args.until - engine.clock))))
         every = max(1, int(args.observe_every))
@@ -173,6 +193,9 @@ def cmd_run(args) -> int:
     report["run_s"] = run_s
     if engine.halo_report() is not None:
         report["halo"] = engine.halo_report()
+    if args.save_checkpoint:
+        engine.save_checkpoint(args.save_checkpoint)
+        report["checkpoint"] = args.save_checkpoint
     print(json.dumps(report))
     return 0
 
@@ -324,8 +347,10 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--event-log", metavar="PATH")
     run.add_argument("--profile", metavar="DIR")
     run.add_argument("--trace-dir", metavar="DIR")
-    run.add_argument("--save-checkpoint", metavar="PATH")
-    run.add_argument("--resume", metavar="PATH")
+    run.add_argument("--save-checkpoint", metavar="PATH",
+                     help="write the final state to PATH (.npz)")
+    run.add_argument("--resume", metavar="PATH",
+                     help="continue from a checkpoint (its config wins)")
     run.set_defaults(fn=cmd_run)
 
     orc = sub.add_parser("oracle", help="native DES reference-style run "

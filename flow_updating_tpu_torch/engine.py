@@ -27,11 +27,21 @@ The edge kernel runs every config of the JAX engine's single-device edge
 path, robust clip/trim (on the halo round too) and shared-link contention
 (quasi-static, water-fill, backlog, ``RoundConfig.fidelity``) included;
 contention sizes ``delay_depth`` by ``Topology.contended_max_delay`` and
-is single-device, as in the JAX engine.  What the JAX engine does beyond
-that raises ``NotImplementedError`` naming its ROADMAP item: GSPMD's mesh
-paths, ``multichip='pod'``, ``plan='auto'``, ``host_actors``,
-``adversary``, custom actors, event logs, the edge kernel's streamed
-runner, and checkpoints and fault injection (A7).
+is single-device, as in the JAX engine.
+
+Faults and checkpoints (ROADMAP A7): ``kill_nodes``/``revive_nodes`` and
+``fail_links``/``restore_links`` edit the single-device edge state's
+masks (the node kernel refuses them, the halo round raises, as in the
+JAX engine); ``save_checkpoint``/``restore_checkpoint`` write and read
+the JAX package's archive (:mod:`~flow_updating_tpu_torch.utils.
+checkpoint`) on the edge round, the node round (every ``spmv`` route),
+the sharded banded round and the halo round, whose state is gathered to
+the canonical single-device layout, so its archive resumes on any mode.
+
+What the JAX engine does beyond that raises ``NotImplementedError``
+naming its ROADMAP item: GSPMD's mesh paths, ``multichip='pod'``,
+``plan='auto'``, ``host_actors``, ``adversary``, custom actors, event logs
+and the edge kernel's streamed runner.
 
 Simulated-time convention: one round == ``TICK_INTERVAL`` (1.0) simulated
 seconds, the reference peers' loop cadence.
@@ -45,10 +55,11 @@ import typing
 from collections.abc import Callable
 
 import numpy as np
+import torch
 
 from flow_updating_tpu_torch.models import rounds
 from flow_updating_tpu_torch.models.config import RoundConfig
-from flow_updating_tpu_torch.models.state import init_state
+from flow_updating_tpu_torch.models.state import init_state, state_from_numpy
 from flow_updating_tpu_torch.models.sync import NodeKernel, _node_sample
 from flow_updating_tpu_torch.parallel.mesh import Mesh
 from flow_updating_tpu_torch.topology.deployment import (
@@ -248,8 +259,8 @@ class Engine:
             out["decision"] = self.halo_decision
         return out
 
-    def _build_halo(self, latency_scale: float, seed: int) -> None:
-        """The halo kernel's plan, device tables and fresh state."""
+    def _prepare_halo(self, latency_scale: float) -> None:
+        """The halo kernel's plan and device tables (no state)."""
         from flow_updating_tpu_torch.parallel import sharded
 
         if self.config.kernel == "node":
@@ -278,8 +289,6 @@ class Engine:
             self._halo_resolved = self.halo
         self._halo_arrays = sharded.plan_device_arrays(
             self._halo_plan, self.mesh, halo=self._halo_resolved)
-        self.state = sharded.init_plan_state(
-            self._halo_plan, self.config, self.mesh, seed=seed)
 
     # ---- setup -----------------------------------------------------------
     @property
@@ -321,13 +330,13 @@ class Engine:
                 latency_scale=latency_scale,
             )
 
-    def build(self, latency_scale: float = 0.0, seed: int = 0) -> Engine:
-        """Resolve deployment(+platform) into topology + kernel + fresh
-        state.  ``seed`` keys the edge kernel's message-loss draws."""
-        self._resolve_topology(latency_scale)
+    def _prepare_arrays(self, latency_scale: float = 0.0) -> None:
+        """The configured kernel and its device tables, without a state
+        (``build`` adds a fresh one, ``restore_checkpoint`` a restored
+        one)."""
         if self._halo_mode:
-            self._build_halo(latency_scale, seed)
-            return self
+            self._prepare_halo(latency_scale)
+            return
         if self.config.kernel == "node":
             if latency_scale > 0.0 or self.topology.max_delay > 1:
                 raise ValueError(
@@ -350,8 +359,7 @@ class Engine:
                 self._node_kernel = NodeKernel(self.topology, self.config,
                                                device=self.device,
                                                mesh=self.mesh)
-            self.state = self._node_kernel.init_state()
-            return self
+            return
         if latency_scale > 0.0:
             depth = max(self.config.delay_depth, self.topology.max_delay)
             if depth != self.config.delay_depth:
@@ -371,8 +379,22 @@ class Engine:
             segment_benes=cfg.segment_benes_mode,
             delivery_benes=cfg.delivery_benes_mode,
             device=self.device)
-        self.state = init_state(self.topology, cfg, seed=seed,
-                                device=self.device)
+
+    def build(self, latency_scale: float = 0.0, seed: int = 0) -> Engine:
+        """Resolve deployment(+platform) into topology + kernel + fresh
+        state.  ``seed`` keys the edge kernel's message-loss draws."""
+        self._resolve_topology(latency_scale)
+        self._prepare_arrays(latency_scale)
+        if self._halo_mode:
+            from flow_updating_tpu_torch.parallel import sharded
+
+            self.state = sharded.init_plan_state(
+                self._halo_plan, self.config, self.mesh, seed=seed)
+        elif self.config.kernel == "node":
+            self.state = self._node_kernel.init_state()
+        else:
+            self.state = init_state(self.topology, self.config, seed=seed,
+                                    device=self.device)
         return self
 
     def _size_contention(self) -> None:
@@ -490,27 +512,182 @@ class Engine:
                 np.max(np.abs(flow + flow[self.topology.rev])))
         return report
 
-    # ---- fault injection and checkpoints (A7) ----------------------------
-    def _a7(self, what: str):
-        return _not_ported(f"{what}", "engine checkpoints and faults (A7)")
+    # ---- fault injection -------------------------------------------------
+    def _require_edge_kernel(self, what: str) -> None:
+        if self.config.kernel != "edge":
+            raise ValueError(
+                f"{what} needs per-edge state; the node-collapsed kernel is "
+                "exactly the fault-free fast path — use kernel='edge'")
+        if self._halo_mode:
+            # the per-shard layout does not take global node/edge ids
+            raise NotImplementedError(
+                f"{what} is not supported on the halo kernel's blocked "
+                "layout yet — run fault-injection single-device")
+        if self.state is None:
+            raise RuntimeError("engine not built")
+
+    def _node_ids(self, nodes) -> np.ndarray:
+        name_to_id = None
+        ids = []
+        for n in nodes:
+            if isinstance(n, str):
+                if name_to_id is None:
+                    name_to_id = self.topology.name_to_id()
+                ids.append(name_to_id[n])
+            else:
+                ids.append(int(n))
+        return np.asarray(ids, dtype=np.int32)
 
     def kill_nodes(self, nodes) -> Engine:
-        raise self._a7("kill_nodes")
+        """Crash-stop the given nodes (ids or host names): they stop
+        firing, sending and processing.  Delivered-but-undrained messages
+        stay queued and are processed on revival — the protocol's
+        idempotent state exchange makes the sequence self-healing.  The
+        mask edit is the shared churn primitive (service/membership.py)."""
+        from flow_updating_tpu_torch.service import membership
+
+        self._require_edge_kernel("kill_nodes")
+        self.state = membership.set_alive(
+            self.state, self._node_ids(nodes), False)
+        return self
 
     def revive_nodes(self, nodes) -> Engine:
-        raise self._a7("revive_nodes")
+        from flow_updating_tpu_torch.service import membership
+
+        self._require_edge_kernel("revive_nodes")
+        self.state = membership.set_alive(
+            self.state, self._node_ids(nodes), True)
+        return self
+
+    def _edge_ids(self, links) -> np.ndarray:
+        """Directed edge indices for (u, v) node pairs, both directions."""
+        topo = self.topology
+        topo._require_edges("fail_links/heal_links (edge lookup)")
+        keys = topo.src.astype(np.int64) * topo.num_nodes + topo.dst
+        ids = []
+        for u, v in links:
+            u, v = (int(x) for x in self._node_ids([u, v]))
+            for a, b in ((u, v), (v, u)):
+                key = a * topo.num_nodes + b  # Python ints: no int32 wrap
+                e = int(np.searchsorted(keys, key))
+                if e >= len(keys) or int(keys[e]) != key:
+                    raise ValueError(f"no edge {a}->{b} in topology")
+                ids.append(e)
+        return np.asarray(ids, dtype=np.int64)
+
+    def _set_edge_ok(self, links, ok: bool) -> None:
+        ids = self._edge_ids(links)
+        mask = self.state.edge_ok
+        self.state = self.state.replace(edge_ok=mask.index_put(
+            (torch.from_numpy(ids).to(mask.device),),
+            torch.tensor(ok, device=mask.device)))
 
     def fail_links(self, links) -> Engine:
-        raise self._a7("fail_links")
+        """Fail the given undirected links (pairs of node ids or names):
+        every message put on them is lost, in both directions, until
+        :meth:`restore_links`.  Senders' ledgers still update — the exact
+        semantics of a lost ``put_async``; fast pairwise never matches
+        them."""
+        self._require_edge_kernel("fail_links")
+        self._set_edge_ok(links, False)
+        return self
 
     def restore_links(self, links) -> Engine:
-        raise self._a7("restore_links")
+        self._require_edge_kernel("restore_links")
+        self._set_edge_ok(links, True)
+        return self
 
+    # ---- checkpoint / resume ---------------------------------------------
     def save_checkpoint(self, path: str) -> Engine:
-        raise self._a7("save_checkpoint")
+        """Write the full run state + config + topology fingerprint to
+        ``path`` in the JAX package's archive layout, with the simulated
+        clock and the watcher's stop (``extra``).  A halo state is
+        gathered to the canonical single-device layout first, so its
+        archive restores on any execution mode."""
+        from flow_updating_tpu_torch.utils.checkpoint import save_checkpoint
+
+        if self.state is None:
+            raise RuntimeError("engine not built — nothing to checkpoint")
+        state = self.state
+        if self._halo_mode:
+            from flow_updating_tpu_torch.parallel import sharded
+
+            state = sharded.gather_full_state(state, self._halo_plan,
+                                              self.topology)
+        save_checkpoint(path, state, self.config, topo=self.topology,
+                        extra={"clock": self._clock,
+                               "killed": self._killed})
+        return self
 
     def restore_checkpoint(self, path: str) -> Engine:
-        raise self._a7("restore_checkpoint")
+        """Resume from a checkpoint taken on the *same* topology (checked
+        by its content fingerprint): state, config and clock.  ``build()``
+        is not needed first, and no fresh state is made: the kernel's
+        tables are prepared under the archive's config, which governs the
+        run, and the archive's leaves go straight to the engine's device
+        (a halo engine scatters the canonical state over its shards)."""
+        from flow_updating_tpu_torch.utils.checkpoint import read_checkpoint
+
+        self._resolve_topology()
+        cls_name, fields, cfg, extra = read_checkpoint(path,
+                                                       topo=self.topology)
+        want = "NodeSyncState" if cfg.kernel == "node" \
+            else "FlowUpdatingState"
+        if cls_name != want:
+            raise ValueError(
+                f"checkpoint {path} holds a {cls_name} but its config "
+                f"runs kernel={cfg.kernel!r} (corrupt archive?)")
+        self.config = cfg
+        self._prepare_arrays()
+        if self._halo_mode:
+            from flow_updating_tpu_torch.parallel import sharded
+
+            state = sharded.scatter_full_state(
+                fields, self._halo_plan, self.topology, cfg, self.mesh)
+        elif cfg.kernel == "node":
+            state = self._restore_node_state(fields)
+        else:
+            got = fields["value"].shape[0]
+            if got != self.topology.num_nodes:
+                raise ValueError(
+                    f"checkpoint state has node axis {got} but this "
+                    "engine's layout expects "
+                    f"{self.topology.num_nodes} — restore with the same "
+                    "mesh/padding it was saved under")
+            state = state_from_numpy(fields, device=self.device)
+        self.state = state
+        t = int(np.asarray(fields["t"]).ravel()[0])
+        self._clock = float(extra.get("clock", float(t)))
+        self._killed = bool(extra.get("killed", False))
+        return self
+
+    def _restore_node_state(self, fields: dict):
+        """A node state from the archive's leaves, after JAX's two checks:
+        the node-axis size (padded slots), then the layout — a sharded
+        ``(S, M/S)`` state is NOT interchangeable with the single-device
+        ``(M,)`` layout even when the slot count matches."""
+        kernel = self._node_kernel
+        got = fields["S"].size
+        feat = getattr(kernel, "feature_shape", ())
+        expect = kernel.padded_size * int(np.prod(feat, dtype=np.int64))
+        if got != expect:
+            raise ValueError(
+                f"checkpoint state has node axis {got} but this engine's "
+                f"layout expects {expect} — restore with the same "
+                "mesh/padding it was saved under")
+        spec = getattr(kernel, "spec", None)
+        if self.mesh is not None and spec is not None:
+            shape = (spec.num_shards, spec.local)
+        else:
+            shape = (kernel.padded_size,) + tuple(feat)
+        if fields["S"].shape != shape:
+            raise ValueError(
+                f"checkpoint node state has shape {fields['S'].shape} but "
+                f"this engine's kernel uses {shape} — the sharded fused "
+                "kernel's interleaved layout is not interchangeable with "
+                "the single-device layout; restore under the "
+                "configuration it was saved with")
+        return kernel.state_from_numpy(fields)
 
     # ---- execution -------------------------------------------------------
     def _advance(self, n: int) -> None:

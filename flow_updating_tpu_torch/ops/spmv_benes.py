@@ -20,12 +20,19 @@ The ELL row sums that follow are plain reductions.  On the H100 the gather
 these stages replace is native (``spmv='xla'``/``'pallas'``); the network
 is ported for parity with the JAX package and for the delivery and
 segment paths that reuse it.
+
+Routed plans are cached in-process and on disk (``FU_PLAN_CACHE``, see
+:func:`plan_neighbor_sum`), so a second process on the same topology
+loads the routing instead of routing again.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import json
+import logging
+import os
 
 import numpy as np
 import torch
@@ -94,6 +101,94 @@ class FusedNeighborSumPlan:
 
 _plan_cache: dict = {}
 
+# The on-disk cache of routed base plans (the JAX package's layout): the
+# stage masks bit-packed (8x) and zlib'd in an npz keyed by the content
+# hash of the ELL matrices.  FU_PLAN_CACHE=0 turns it off; a path moves
+# it; the default is the user's cache directory, never the source tree.
+# A failure only warns and replans: the cache never breaks planning.
+_logger = logging.getLogger("flow_updating_tpu_torch.spmv_benes")
+
+# Bump when plan_sections / spread_plan / fill_forward_stages /
+# benes_plan routing changes: the digest covers only the INPUT mats, so
+# without this a stale file would replay a plan from before a fix.
+_PLANNER_VERSION = 1
+_DISK_FORMAT = 1
+
+
+def _disk_cache_dir():
+    env = os.environ.get("FU_PLAN_CACHE", "")
+    if env == "0":
+        return None
+    if env:
+        return env
+    # the port's own directory: its routing is its own (the native
+    # router of this package), so neither package reads the other's
+    # files unasked
+    xdg = os.environ.get("XDG_CACHE_HOME", os.path.expanduser("~/.cache"))
+    return os.path.join(xdg, "flow_updating_tpu_torch", "plans")
+
+
+def _disk_path(key0):
+    d = _disk_cache_dir()
+    if d is None:
+        return None
+    m1, _shapes, digest = key0
+    return os.path.join(d, f"ns_v{_PLANNER_VERSION}_{digest[:20]}_m{m1}.npz")
+
+
+def _disk_save(key0, plan: NeighborSumPlan) -> None:
+    path = _disk_path(key0)
+    if path is None:
+        return
+    try:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        st = plan.stages
+        arrays = {f"mask{i}": np.packbits(m) for i, m in enumerate(st.masks)}
+        meta = dict(
+            format=_DISK_FORMAT, m1=plan.m1, P=plan.P,
+            flat_begin=plan.flat_begin,
+            bucket_shapes=list(map(list, plan.bucket_shapes)),
+            n=st.n, dists=list(st.dists), kinds=list(st.kinds))
+        # the trailing .npz makes savez write exactly this path; unlink on
+        # failure so aborted writes cannot pile up
+        tmp = path + f".{os.getpid()}.tmp.npz"
+        try:
+            np.savez_compressed(tmp, meta=json.dumps(meta), **arrays)
+            os.replace(tmp, path)
+        except Exception:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+            raise
+    except Exception as exc:  # the cache write is best-effort
+        _logger.warning("plan disk-cache write failed (%s)", exc)
+
+
+def _disk_load(key0):
+    path = _disk_path(key0)
+    if path is None or not os.path.exists(path):
+        return None
+    try:
+        with np.load(path) as z:
+            meta = json.loads(str(z["meta"]))
+            if meta.get("format") != _DISK_FORMAT:
+                return None
+            if tuple(tuple(s) for s in meta["bucket_shapes"]) != key0[1]:
+                # the digest hashes raw bytes without per-matrix
+                # delimiters: never trust a shape-mismatched hit
+                return None
+            masks = tuple(
+                np.unpackbits(z[f"mask{i}"])[: meta["n"]].astype(bool)
+                for i in range(len(meta["dists"])))
+        stages = StagePlan(n=meta["n"], dists=tuple(meta["dists"]),
+                           kinds=tuple(meta["kinds"]), masks=masks)
+        return NeighborSumPlan(
+            m1=meta["m1"], P=meta["P"], flat_begin=meta["flat_begin"],
+            bucket_shapes=tuple(tuple(s) for s in meta["bucket_shapes"]),
+            stages=stages)
+    except Exception as exc:
+        _logger.warning("plan disk-cache read failed (%s); replanning", exc)
+        return None
+
 
 def _mats_key(mats: tuple, m1: int):
     h = hashlib.sha1()
@@ -109,9 +204,14 @@ def plan_neighbor_sum(mats: tuple, m1: int, fused: bool = False):
     ``m1 - 1``, the zero slot; ``m1`` = padded vector length + 1).
     ``fused=True`` also plans the fused passes, at the card's tile.
 
-    Plans are cached in-process on the content of ``mats``: routing the
-    network at a million nodes costs seconds to minutes, and the
-    ``'benes'`` twin and ``'benes_fused'`` share one routing."""
+    Plans are cached on the content of ``mats``: routing the network at
+    a million nodes costs seconds to minutes, and the ``'benes'`` twin and
+    ``'benes_fused'`` share one routing.  In-process, the last 8 plans;
+    on disk, every routed base plan, in ``FU_PLAN_CACHE`` (a directory;
+    ``0`` turns the disk cache off; default
+    ``$XDG_CACHE_HOME/flow_updating_tpu_torch/plans``).  Only the base
+    routing is stored: the fused passes are planned from it at the
+    card's tile each time."""
     key0 = _mats_key(mats, m1)
     key = (key0, fused)
     cached = _plan_cache.get(key)
@@ -119,12 +219,15 @@ def plan_neighbor_sum(mats: tuple, m1: int, fused: bool = False):
         return cached
     plan = _plan_cache.get((key0, False))
     if plan is None:
+        plan = _disk_load(key0)
+    if plan is None:
         spread, fill, benes, P = plan_sections(mats, m1)
         plan = NeighborSumPlan(
             m1=m1, P=P, flat_begin=m1,
             bucket_shapes=tuple(m.shape for m in mats),
             stages=concat_plans(spread, fill, benes))
-        _plan_cache[(key0, False)] = plan
+        _disk_save(key0, plan)
+    _plan_cache[(key0, False)] = plan
     out = plan
     if fused:
         out = FusedNeighborSumPlan(base=plan, fused=plan_fused(plan.stages))

@@ -36,8 +36,10 @@ The fast synchronous pairwise mode has its own round
 endpoint's current estimate and validity instead of a message; build the
 plan with ``plan_sharding(..., coloring=True)``.
 
-Not ported here: the telemetry and fields runners (ROADMAP A9) and the
-checkpoint gather/scatter (A7); they raise naming their item.
+:func:`gather_full_state` and :func:`scatter_full_state` move a halo
+state to the canonical single-device layout and back (checkpoints).  Not
+ported here: the telemetry and fields runners (ROADMAP A9); they raise
+naming their item.
 """
 
 from __future__ import annotations
@@ -896,6 +898,122 @@ def _unpermute(x: np.ndarray, plan: ShardPlan) -> np.ndarray:
     return out
 
 
+# ---- the canonical single-device layout (checkpoints) ---------------------
+
+_NODE_LEAVES = ("value", "ticks", "last_avg", "fired", "alive")
+_EDGE_LEAVES = ("flow", "est", "recv", "stamp", "edge_ok")
+_PLANE_LEAVES = ("pending_flow", "pending_est", "pending_valid",
+                 "pending_stamp", "buf_flow", "buf_est", "buf_valid")
+
+
+def _edge_map_to_original(plan: ShardPlan, orig_topo) -> np.ndarray:
+    """(E,) map: ORIGINAL edge index -> index into the plan's (possibly
+    BFS-reordered) global edge order.  Identity when no reorder."""
+    if plan.order is None:
+        return np.arange(plan.topo.num_edges, dtype=np.int64)
+    # reordered edge r = (src', dst') is the original pair
+    # (order[src'], order[dst']); locate it in the original sorted list
+    rt, ot = plan.topo, orig_topo
+    o_src = plan.order[rt.src.astype(np.int64)]
+    o_dst = plan.order[rt.dst.astype(np.int64)]
+    keys = ot.src.astype(np.int64) * ot.num_nodes + ot.dst
+    want = o_src * ot.num_nodes + o_dst
+    pos = np.searchsorted(keys, want)
+    # clip before the equality probe: an out-of-range key must surface as
+    # the diagnostic below, not an IndexError
+    probe = np.minimum(pos, len(keys) - 1)
+    if not np.array_equal(keys[probe], want):
+        raise ValueError("plan topology is not a renumbering of the "
+                         "original (edge sets differ)")
+    # pos[r] = original index of reordered edge r; invert
+    inv = np.empty_like(pos)
+    inv[pos] = np.arange(len(pos), dtype=np.int64)
+    return inv
+
+
+def _edge_slots(plan: ShardPlan, orig_topo) -> tuple:
+    """(shard, slot) of every edge of ``orig_topo``, in its order."""
+    if plan.edge_shard is None:
+        raise ValueError("plan lacks the edge ownership map")
+    e_of_orig = _edge_map_to_original(plan, orig_topo)
+    return plan.edge_shard[e_of_orig], plan.edge_slot[e_of_orig]
+
+
+def gather_full_state(state: ShardedState, plan: ShardPlan,
+                      orig_topo: Topology) -> FlowUpdatingState:
+    """The halo state as a CANONICAL single-device
+    :class:`FlowUpdatingState` on the host, in ``orig_topo``'s node and
+    edge order — the layout ``init_state`` produces, so it checkpoints and
+    restores through the standard path and resumes on any execution mode.
+    The PRNG key collapses to shard 0's, as in the JAX package: a run with
+    message loss does not continue its loss draws bit for bit across
+    layouts (:func:`scatter_full_state` folds each shard's key from it)."""
+    es, ep = _edge_slots(plan, orig_topo)
+    host = state.numpy()                       # (S, ...) leaves
+    out = {n: gather_node_array(host[n], plan) for n in _NODE_LEAVES}
+    out.update({n: host[n][es, ep] for n in _EDGE_LEAVES})
+    # (S, K, Eb, F...)[es, :, ep] is (E, K, F...): planes are (K, E, F...)
+    out.update({n: np.moveaxis(host[n][es, :, ep], 0, 1)
+                for n in _PLANE_LEAVES})
+    out["t"] = host["t"].ravel()[0]
+    out["key"] = host["key"][0]
+    return _state_from_numpy(out, device="cpu")
+
+
+def scatter_full_state(state, plan: ShardPlan, orig_topo: Topology,
+                       cfg: RoundConfig, mesh: Mesh) -> ShardedState:
+    """Inverse of :func:`gather_full_state`: distribute a canonical
+    single-device state (a :class:`FlowUpdatingState` on any device, or
+    its numpy leaves by name with the key as uint32 words) into the
+    plan's per-shard layout, each shard on its device.  Padding slots take
+    :func:`init_plan_state`'s values (dead dummies, zero ledgers, links
+    up); shard ``i``'s key is ``fold_in(key, i)``.  No fresh state is
+    made first: the shards are assembled on the host and copied once."""
+    _check_round_cfg(plan, cfg)
+    _check_mesh(plan, mesh)
+    canon = (state.numpy() if isinstance(state, FlowUpdatingState)
+             else {n: np.asarray(a) for n, a in state.items()})
+    es, ep = _edge_slots(plan, orig_topo)
+    S, cap, Nb, Eb = plan.num_shards, plan.cap, plan.Nb, plan.Eb
+    N = orig_topo.num_nodes
+    # node arrays: original order -> partition order -> (S, cap) blocks
+    norder = (plan.order if plan.order is not None
+              else np.arange(N, dtype=np.int64))
+
+    def node(x):
+        F = x.shape[1:]
+        flat = np.zeros((S * cap,) + F, x.dtype)
+        flat[:N] = x[norder]
+        out = np.zeros((S, Nb) + F, x.dtype)
+        out[:, :cap] = flat.reshape((S, cap) + F)
+        return out
+
+    def edge(x, fill=0):
+        out = np.full((S, Eb) + x.shape[1:], fill, x.dtype)
+        out[es, ep] = x
+        return out
+
+    def planes(x):
+        out = np.zeros((S, x.shape[0], Eb) + x.shape[2:], x.dtype)
+        out[es, :, ep] = np.moveaxis(x, 0, 1)
+        return out
+
+    blocks = {n: node(canon[n]) for n in _NODE_LEAVES}
+    blocks.update({n: edge(canon[n], fill=n == "edge_ok")
+                   for n in _EDGE_LEAVES})
+    blocks.update({n: planes(canon[n]) for n in _PLANE_LEAVES})
+    blocks["t"] = np.full((S,), int(np.asarray(canon["t"]).ravel()[0]),
+                          np.int32)
+    key = torch.from_numpy(
+        np.asarray(canon["key"]).astype(np.uint32).astype(np.int64))
+    # per-shard independent streams, like init_plan_state
+    blocks["key"] = np.stack([prng.fold_in(key, s).numpy()
+                              for s in range(S)]).astype(np.uint32)
+    return ShardedState(tuple(
+        _state_from_numpy({n: a[s] for n, a in blocks.items()}, device=dev)
+        for s, dev in enumerate(mesh.devices)))
+
+
 # ---- runners of later port items -----------------------------------------
 
 def _later(name: str, item: str):
@@ -911,7 +1029,3 @@ run_rounds_sharded_telemetry = _later(
     "run_rounds_sharded_telemetry", "observability twins and manifests (A9)")
 run_rounds_sharded_fields = _later(
     "run_rounds_sharded_fields", "observability twins and manifests (A9)")
-gather_full_state = _later("gather_full_state",
-                           "engine checkpoints and faults (A7)")
-scatter_full_state = _later("scatter_full_state",
-                            "engine checkpoints and faults (A7)")

@@ -133,6 +133,20 @@ class Topology:
     def true_mean(self) -> float:
         return float(self.values.mean())
 
+    def _require_edges(self, what: str) -> None:
+        """Every topology of this package materializes its edge arrays
+        (the JAX package's virtual, edge-less fat trees belong to the
+        structured stencil, ROADMAP A4); one whose arrays are missing
+        cannot serve an edge lookup."""
+        if self.src is None or self.dst is None:
+            raise ValueError(f"{what} needs materialized edge arrays, but "
+                             "this topology has none")
+
+    def name_to_id(self) -> dict:
+        if self.names is None:
+            raise ValueError("topology has no node names")
+        return {n: i for i, n in enumerate(self.names)}
+
     def ell_buckets(self) -> EllBuckets:
         """Degree-bucketed ELL adjacency for scatter-free neighbor sums.
 

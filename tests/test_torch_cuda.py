@@ -4,7 +4,8 @@ Every test here needs an NVIDIA GPU with ``nvcc`` and skips without one
 (kernels K1, K2, the four flavours of B3 — local, window, wide and wide2
 at every tile —, B4's scan (every tile too) and fill, B5 and B6;
 the edge kernel's Beneš routes, the sharded banded round and the halo
-edge round on the card).
+edge round on the card; checkpoints restored onto the card and faults
+that keep the state there).
 This file imports no JAX, so it also runs where JAX is absent, without the
 suite's JAX-pinning conftest:
 
@@ -934,3 +935,99 @@ def test_sharded_state_is_a_value_on_card(card):
         assert torch.equal(a, b)
     for a, b in zip(leaves(k.run(st5, 3)), leaves(k.run(st0, 8))):
         assert torch.equal(a, b)
+
+
+def _states_equal(a, b) -> bool:
+    na, nb = a.numpy(), b.numpy()
+    return na.keys() == nb.keys() and all(
+        np.array_equal(na[k], nb[k]) for k in na)
+
+
+@pytest.mark.parametrize("cfg", [
+    RoundConfig.reference("collectall", delay_depth=2, drop_rate=0.1,
+                          segment_impl="benes_fused",
+                          delivery="benes_fused"),
+    RoundConfig.fast("pairwise", segment_impl="benes_fused"),
+])
+def test_edge_checkpoint_restores_on_card_bit_for_bit(card, tmp_path, cfg):
+    """A card-resident edge state saves, restores onto the card (no host
+    fallback) and continues bit for bit."""
+    topo = barabasi_albert(600, 3, seed=4)
+    a = Engine(config=cfg).set_topology(topo).build(seed=3).run_rounds(60)
+    path = str(tmp_path / "edge.npz")
+    a.save_checkpoint(path)
+    b = Engine().set_topology(topo).restore_checkpoint(path)
+    assert b.config == cfg
+    assert all(t.device.type == "cuda" for t in vars(b.state).values())
+    a.run_rounds(25)
+    b.run_rounds(25)
+    assert _states_equal(a.state, b.state)
+
+
+@pytest.mark.parametrize("spmv", ["pallas", "banded_fused", "benes_fused"])
+def test_node_checkpoint_restores_on_card_bit_for_bit(card, tmp_path, spmv):
+    cfg = RoundConfig.fast(kernel="node", spmv=spmv)
+    topo = fat_tree(8) if spmv != "banded_fused" else ring(5000, 2)
+    a = Engine(config=cfg).set_topology(topo).build().run_rounds(9)
+    path = str(tmp_path / "node.npz")
+    a.save_checkpoint(path)
+    b = Engine().set_topology(topo).restore_checkpoint(path)
+    assert b.state.S.device.type == "cuda"
+    a.run_rounds(11)
+    b.run_rounds(11)
+    for f in ("S", "G", "avg_prev", "A_prev"):
+        assert torch.equal(getattr(a.state, f), getattr(b.state, f)), f
+
+
+def test_mesh_checkpoints_restore_on_card(card, tmp_path):
+    """The sharded banded round and the halo round restore onto their
+    card meshes and continue bit for bit (the halo state compared in the
+    canonical layout, keys aside: the gather keeps shard 0's)."""
+    from flow_updating_tpu_torch.parallel import sharded
+    from flow_updating_tpu_torch.parallel.mesh import make_mesh
+
+    path = str(tmp_path / "mesh.npz")
+    cfg = RoundConfig.fast(kernel="node", spmv="banded_fused")
+    topo = ring(20000, 2)
+    a = Engine(config=cfg, mesh=make_mesh(4), halo="overlap")
+    a.set_topology(topo).build().run_rounds(12).save_checkpoint(path)
+    b = Engine(mesh=make_mesh(4), halo="overlap").set_topology(topo)
+    b.restore_checkpoint(path)
+    a.run_rounds(8)
+    b.run_rounds(8)
+    for f in ("S", "G", "avg_prev", "A_prev", "avg"):
+        for x, y in zip(getattr(a.state, f), getattr(b.state, f)):
+            assert x.device.type == "cuda" and torch.equal(x, y), f
+    hcfg = RoundConfig.reference("collectall")
+    htopo = barabasi_albert(800, 3, seed=2)
+    h = Engine(config=hcfg, mesh=make_mesh(4), multichip="halo",
+               halo="overlap_pallas").set_topology(htopo).build()
+    h.run_rounds(60).save_checkpoint(path)
+    g = Engine(mesh=make_mesh(4), multichip="halo", halo="overlap_pallas")
+    g.set_topology(htopo).restore_checkpoint(path)
+    h.run_rounds(20)
+    g.run_rounds(20)
+    ca = sharded.gather_full_state(h.state, h._halo_plan, htopo).numpy()
+    cb = sharded.gather_full_state(g.state, g._halo_plan, htopo).numpy()
+    for k in ca:
+        if k != "key":
+            assert np.array_equal(ca[k], cb[k]), k
+
+
+def test_faults_keep_the_state_on_card(card):
+    topo = ring(64, 2)
+    e = Engine(config=RoundConfig.reference("collectall", delay_depth=2))
+    e.set_topology(topo).build().run_rounds(55)
+    e.kill_nodes([3, 7]).fail_links([(0, 1)])
+    assert e.state.alive.device.type == "cuda"
+    assert e.state.edge_ok.device.type == "cuda"
+    assert int(e.state.alive.sum()) == 62
+    assert int(e.state.edge_ok.sum()) == topo.num_edges - 2
+    host = Engine(config=e.config, device="cpu").set_topology(topo).build()
+    host.run_rounds(55).kill_nodes([3, 7]).fail_links([(0, 1)])
+    e.run_rounds(40).revive_nodes([3, 7]).restore_links([(0, 1)])
+    host.run_rounds(40).revive_nodes([3, 7]).restore_links([(0, 1)])
+    e.run_rounds(40)
+    host.run_rounds(40)
+    np.testing.assert_allclose(e.estimates(), host.estimates(), rtol=1e-5,
+                               atol=1e-6)

@@ -117,7 +117,7 @@ def test_halo_auto_records_jax_decision(graphs):
             assert e._ledger_dtype_bytes == size
 
 
-def test_engine_halo_refusals(graphs):
+def test_engine_halo_refusals(graphs, tmp_path):
     _, pt = graphs
     mesh = make_mesh(4, device="cpu")
     node = RoundConfig.fast(kernel="node", spmv="banded_fused")
@@ -138,12 +138,16 @@ def test_engine_halo_refusals(graphs):
         Engine(config=RoundConfig.fast(kernel="node"), mesh=mesh,
                device="cpu").set_topology(pt).build()
     built = _port_engine(pt, RoundConfig.fast(), "overlap")
+    # faults stay refused on the blocked layout, as in JAX; checkpoints
+    # gather to the canonical layout and restore
     for call in (lambda: built.kill_nodes([0]),
-                 lambda: built.fail_links([(0, 1)]),
-                 lambda: built.save_checkpoint("x.npz"),
-                 lambda: built.restore_checkpoint("x.npz")):
-        with pytest.raises(NotImplementedError, match="A7"):
+                 lambda: built.fail_links([(0, 1)])):
+        with pytest.raises(NotImplementedError, match="halo kernel"):
             call()
+    path = str(tmp_path / "halo.npz")
+    built.run_rounds(3).save_checkpoint(path)
+    again = Engine(mesh=mesh, multichip="halo", device="cpu")
+    assert again.set_topology(pt).restore_checkpoint(path).clock == 3.0
     with pytest.raises(NotImplementedError, match="A9"):
         built.run_streamed(10, observe_every=5)
     # a halo engine without a mesh is the single-device edge kernel, as

@@ -237,8 +237,9 @@ def test_sharded_refusals(graphs, host_mesh):
         sharded.init_plan_state(plan, cfg, make_mesh(4, device="cpu"))
     with pytest.raises(NotImplementedError, match="A9"):
         sharded.run_rounds_sharded_telemetry(st, plan, cfg, host_mesh, 2)
-    with pytest.raises(NotImplementedError, match="A7"):
-        sharded.gather_full_state(st, plan, pt)
+    with pytest.raises(ValueError, match="edge ownership"):
+        sharded.gather_full_state(
+            st, dataclasses.replace(plan, edge_shard=None), pt)
     with pytest.raises(ValueError, match="layout"):
         sharded.state_from_numpy(
             sharded.plan_sharding(pt, S, partition="bfs"),
