@@ -156,7 +156,22 @@ and prints one JSON line per phase:
    (equal in the canonical layout, keys aside) and in a single-device
    engine (estimates at the restore within ``EDGE_TWIN_ATOL``); I4 path
    E's sharded state resumed on the mesh (B5 launches counted, every leaf
-   equal), refused by the single-device kernel;
+   equal), refused by the single-device kernel; I1 also times its first
+   round apart and profiles the device time of I1 and D side by side;
+   ``path_j`` — the structured stencil and the new mesh routes: J1
+   ``spmv='structured'`` on the fat tree (ms/round, device time; 40
+   float64 rounds within 1e-12 of ``spmv='xla'``; the virtual k=160 tree
+   ``torch.equal`` to the materialized one); J2 the virtual fat tree
+   k=640 (66,048,000 nodes, no edge arrays) on one card: build seconds,
+   ms/round, device memory, a falling rmse, the estimates' mean at the
+   true mean within ``DRIFT_ULPS`` ulps a round; J3 its pod kernel over
+   ``make_mesh(4)``, plain and overlapped, equal to each other bit for
+   bit and within ``POD_ULPS`` ulps of the largest neighbor sum of J2,
+   at float64 on the virtual k=160 tree within 1e-12 of one device, and
+   a pod archive resumed on one device within the float32 tolerance; J4
+   ``Engine(mesh=make_mesh(4), spmv='benes_fused')`` on the fat tree:
+   plan seconds, ms/round, B3 launches (shards x passes a round), the
+   estimates equal to path C's bit for bit;
 17. ``profile`` — ``torch.profiler`` over a few more rounds of each path:
    device time per round, the device's busy share of the wall time, the
    time of each hand-written kernel and of each flavour of B3 and B4, and
@@ -247,6 +262,15 @@ FAILED_LINKS = 1000     # I2: undirected links failed
 A6_ROUNDS = 20          # a6: rounds of each engine
 #: path D's float32 estimates against the 'segment'/'gather' twin, whose
 #: per-node sums add in another order (sequential rows vs the scan tree)
+VIRTUAL_K = 640         # path J2/J3: fat_tree(640, materialize_edges=False),
+#                         66,048,000 nodes and no edge arrays
+J_CHECK_ROUNDS = 40     # J1, J3: float64 rounds held to a twin within 1e-12
+STRUCT_TOL = 1e-12      # J1, J3: JAX's tolerance (tests/test_structured.py)
+POD_ULPS = 8            # J3: float32 pod vs one device within this many
+#                         ulps of the largest neighbor sum (k x max value):
+#                         the core column is summed in another order
+DRIFT_ULPS = 4          # J2: the estimates' mean within this many ulps of
+#                         the largest value per round of the true mean
 EDGE_TWIN_ATOL = 1e-4
 SEED = 0
 
@@ -2631,20 +2655,28 @@ def phase_path_i1(engine_d, topo, tmp) -> dict:
     expected = {k: v * RESUME_ROUNDS for k, v in
                 planned_launches(fresh._topo_arrays, fresh.config).items()}
     reset_counts()
-    ms = _timed_rounds(fresh, RESUME_ROUNDS)
+    first = _timed_rounds(fresh, 1)
+    ms = first + _timed_rounds(fresh, RESUME_ROUNDS - 1)
     got = {**b3_launches(), **b4_launches()}
     if got != expected:
         raise AssertionError(f"I1 launches {got}, planned {expected}")
-    engine_d.run_rounds(RESUME_ROUNDS)
+    d_first = _timed_rounds(engine_d, 1)
+    d_ms = d_first + _timed_rounds(engine_d, RESUME_ROUNDS - 1)
     diff = _edge_leaves_equal(engine_d.state, fresh.state)
     if diff:
         raise AssertionError(f"I1: the resumed run differs in {diff}")
+    # the gap between I1 and D: the first round apart, and the device
+    # time of both side by side
+    gap = {"first_round_ms": first, "d_ms_per_round": d_ms / RESUME_ROUNDS,
+           "d_first_round_ms": d_first,
+           "profile_i1": profile_rounds(fresh, PROFILE_ROUNDS),
+           "profile_d": profile_rounds(engine_d, PROFILE_ROUNDS)}
     del fresh
     return {**out, "state_bytes": state_bytes,
             "compression": out["archive_bytes"] / state_bytes,
             "rounds_after_restore": RESUME_ROUNDS,
             "ms_per_round": ms / RESUME_ROUNDS, "launches": got,
-            "every_leaf_equal": True}
+            "every_leaf_equal": True, **gap}
 
 
 def phase_path_i2(topo) -> dict:
@@ -2970,6 +3002,249 @@ def phase_a6(topo) -> dict:
             "equal_runs": True}
 
 
+def _structured_cfg(dtype="float32"):
+    from flow_updating_tpu_torch import RoundConfig
+
+    return RoundConfig.fast(kernel="node", spmv="structured", dtype=dtype)
+
+
+def _timed_path(engine, rounds: int = ROUNDS) -> dict:
+    """Warm-up, then ``rounds`` rounds timed by CUDA events."""
+    engine.run_rounds(WARMUP)
+    ms = _timed_rounds(engine, rounds)
+    return {"rounds": rounds, "ms_per_round": ms / rounds,
+            "rounds_per_s": rounds / (ms / 1e3)}
+
+
+def _device_summary(engine) -> dict:
+    """Device ms, busy share and launches per round of ``engine``'s next
+    rounds (:func:`profile_rounds`), without the per-kernel tables."""
+    prof = profile_rounds(engine, PROFILE_ROUNDS)
+    return {k: prof[k] for k in ("device_ms_per_round", "wall_ms_per_round",
+                                 "busy_share", "device_launches_per_round")}
+
+
+def phase_path_j1(tree) -> dict:
+    """J1: the structured stencil on the materialized fat tree k=160:
+    float32 timing; 40 float64 rounds within 1e-12 of spmv='xla'; the
+    virtual tree's estimates ``torch.equal`` to the materialized one's."""
+    import numpy as np
+    import torch
+
+    from flow_updating_tpu_torch import Engine, RoundConfig
+    from flow_updating_tpu_torch.topology.generators import fat_tree
+
+    cfg = _structured_cfg()
+    t0 = time.perf_counter()
+    eng = Engine(config=cfg).set_topology(tree).build()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    rmse0 = eng.convergence_report()["rmse"]
+    out = {"build_s": build_s, "rmse_initial": rmse0, **_timed_path(eng)}
+    rep = eng.convergence_report()
+    est = eng.estimates()
+    if est.shape != (tree.num_nodes,) or not np.isfinite(est).all():
+        raise AssertionError("J1 estimates are not finite (N,) values")
+    if not rep["rmse"] < rmse0:
+        raise AssertionError("J1 did not reduce the rmse")
+    virtual = Engine(config=cfg).set_topology(
+        fat_tree(FAT_TREE_K, materialize_edges=False)).build()
+    virtual.run_rounds(eng.state.t)
+    if not torch.equal(_estimate_tensor(virtual), _estimate_tensor(eng)):
+        raise AssertionError("J1: the virtual tree's estimates differ from "
+                             "the materialized tree's")
+    del virtual
+    runs = {}
+    for spmv in ("structured", "xla"):
+        twin = Engine(config=RoundConfig.fast(kernel="node", spmv=spmv,
+                                              dtype="float64"))
+        runs[spmv] = twin.set_topology(tree).build().run_rounds(
+            J_CHECK_ROUNDS).estimates()
+        del twin
+    diff = float(np.abs(runs["structured"] - runs["xla"]).max())
+    if not np.allclose(runs["structured"], runs["xla"], rtol=STRUCT_TOL,
+                       atol=STRUCT_TOL):
+        raise AssertionError(f"J1: float64 structured differs from xla by "
+                             f"{diff}")
+    out.update(rep)
+    out.update({"virtual_equal": True,
+                "float64_max_abs_diff_to_xla": diff,
+                "device": _device_summary(eng)})
+    return out
+
+
+def phase_path_j2() -> tuple:
+    """J2: the virtual fat tree k=640 (66,048,000 nodes, no edges) on one
+    card: build seconds, ms/round, device memory; the rmse falls and the
+    estimates' mean stays at the true mean within float32 rounding."""
+    import numpy as np
+    import torch
+
+    from flow_updating_tpu_torch import Engine
+    from flow_updating_tpu_torch.topology.generators import fat_tree
+
+    t0 = time.perf_counter()
+    topo = fat_tree(VIRTUAL_K, materialize_edges=False)
+    topo_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = Engine(config=_structured_cfg()).set_topology(topo).build()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    held = torch.cuda.memory_allocated() - base
+    rmse0 = eng.convergence_report()["rmse"]
+    out = {"nodes": topo.num_nodes, "edges": topo.num_edges,
+           "topology_s": topo_s, "build_s": build_s,
+           "rmse_initial": rmse0, **_timed_path(eng)}
+    est = eng.estimates()
+    rounds = int(eng.state.t)
+    rep = eng.convergence_report()
+    if est.shape != (topo.num_nodes,) or not np.isfinite(est).all():
+        raise AssertionError("J2 estimates are not finite (N,) values")
+    if not rep["rmse"] < rmse0:
+        raise AssertionError("J2 did not reduce the rmse")
+    drift = float(est.astype(np.float64).mean() - topo.true_mean)
+    drift_bound = (rounds * DRIFT_ULPS * float(np.finfo(np.float32).eps)
+                   * float(np.abs(topo.values).max()))
+    if not abs(drift) <= drift_bound:
+        raise AssertionError(f"J2: the estimates' mean is {drift} off the "
+                             f"true mean (bound {drift_bound})")
+    device = _device_summary(eng)
+    torch.cuda.synchronize()
+    out.update(rep)
+    out.update({"mean_drift": drift, "mean_drift_bound": drift_bound,
+                "held_bytes": held,
+                "max_memory_allocated": torch.cuda.max_memory_allocated()
+                - base, "device": device})
+    del eng
+    return out, topo, est, rounds
+
+
+def _pod_engine(topo, overlap: bool, dtype="float32"):
+    from flow_updating_tpu_torch import Engine
+    from flow_updating_tpu_torch.parallel.mesh import make_mesh
+
+    return Engine(config=_structured_cfg(dtype), mesh=make_mesh(SHARDS),
+                  multichip="pod",
+                  halo="overlap" if overlap else "ppermute").set_topology(topo)
+
+
+def phase_path_j3(topo, est_j2, rounds: int, tmp) -> dict:
+    """J3: the pod kernel over make_mesh(4) on J2's tree, plain and
+    overlapped: equal bit for bit, within ``POD_ULPS`` ulps of the largest
+    neighbor sum of J2; at float64 on the virtual k=160 tree within 1e-12
+    of one device; a pod archive resumed on one device within the float32
+    tolerance."""
+    import numpy as np
+    import torch
+
+    from flow_updating_tpu_torch import Engine
+    from flow_updating_tpu_torch.topology.generators import fat_tree
+
+    eps = float(np.finfo(np.float32).eps)
+    tol = POD_ULPS * eps * VIRTUAL_K * float(np.abs(topo.values).max())
+    out = {"tolerance": tol}
+    ests = {}
+    for overlap in (False, True):
+        t0 = time.perf_counter()
+        eng = _pod_engine(topo, overlap).build()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        timed = _timed_path(eng, rounds - WARMUP)
+        ests[overlap] = eng.estimates()
+        out["overlap" if overlap else "plain"] = {
+            "build_s": build_s, **timed, **eng.convergence_report(),
+            "device": _device_summary(eng)}
+        del eng
+    if not np.array_equal(ests[True], ests[False]):
+        raise AssertionError("J3: the overlap schedule differs from the "
+                             "plain one")
+    diff = float(np.abs(ests[True].astype(np.float64) - est_j2).max())
+    if not diff <= tol:
+        raise AssertionError(f"J3: the pod run is {diff} off J2 (bound "
+                             f"{tol})")
+    del ests
+    small = fat_tree(FAT_TREE_K, materialize_edges=False)
+    pod64 = _pod_engine(small, True, "float64").build().run_rounds(
+        J_CHECK_ROUNDS)
+    one64 = Engine(config=_structured_cfg("float64")).set_topology(small)
+    one64.build().run_rounds(J_CHECK_ROUNDS)
+    diff64 = float(np.abs(pod64.estimates() - one64.estimates()).max())
+    if not diff64 <= STRUCT_TOL:
+        raise AssertionError(f"J3: float64 pod differs from one device by "
+                             f"{diff64}")
+    del pod64, one64
+    small_tol = POD_ULPS * eps * FAT_TREE_K * float(
+        np.abs(small.values).max())
+    pod = _pod_engine(small, True).build().run_rounds(RESUME_ROUNDS)
+    path = os.path.join(tmp, "pod.npz")
+    saved = _save_timed(pod, path)
+    one = Engine().set_topology(small)
+    restore = _restore_timed(one, path)
+    if one.state.S.device.type != "cuda" or one.config.spmv != "structured":
+        raise AssertionError("J3: the pod archive did not restore a "
+                             "structured state on the card")
+    pod.run_rounds(RESUME_ROUNDS)
+    one.run_rounds(RESUME_ROUNDS)
+    resumed = float(np.abs(pod.estimates().astype(np.float64)
+                           - one.estimates()).max())
+    if not resumed <= small_tol:
+        raise AssertionError(f"J3: the resumed single-device run is "
+                             f"{resumed} off the pod run (bound "
+                             f"{small_tol})")
+    out.update({"equal_overlap_plain": True, "max_abs_diff_to_j2": diff,
+                "float64_k160_max_abs_diff": diff64,
+                "resume": {**saved, **restore, "max_abs_diff": resumed,
+                           "tolerance": small_tol}})
+    return out
+
+
+def phase_path_j4(tree, engine_c) -> tuple:
+    """J4: Engine(mesh=make_mesh(4), spmv='benes_fused') on the fat tree
+    k=160: plan seconds, ms/round, B3 launches per round (S x passes), and
+    the estimates equal to path C's single-device run bit for bit."""
+    import numpy as np
+    import torch
+
+    from flow_updating_tpu_torch import Engine, RoundConfig
+    from flow_updating_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = RoundConfig.fast(kernel="node", spmv="benes_fused")
+    t0 = time.perf_counter()
+    eng = Engine(config=cfg, mesh=make_mesh(SHARDS)).set_topology(tree)
+    eng.build()
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    kern = eng._node_kernel
+    passes = kern.fused.passes
+    per_round = {name: 0 for name, _, _, _ in B3_FLAVOURS}
+    for ps in passes:
+        per_round[b3_family(ps.kind)] += SHARDS
+    target = int(engine_c.state.t)
+    eng.run_rounds(WARMUP)
+    reset_counts()
+    ms = _timed_rounds(eng, target - WARMUP)
+    launches = b3_launches()
+    for name, count in per_round.items():
+        if launches[name] != (target - WARMUP) * count:
+            raise AssertionError(f"J4 B3 {name}: {launches[name]} launches "
+                                 f"in {target - WARMUP} rounds, expected "
+                                 f"{(target - WARMUP) * count}")
+    mine, theirs = eng.estimates(), engine_c.estimates()
+    diff = float(np.abs(mine - theirs).max())
+    if not np.array_equal(mine, theirs):
+        raise AssertionError(f"J4 differs from path C by {diff}")
+    out = {"rounds": target - WARMUP,
+           "ms_per_round": ms / (target - WARMUP),
+           "plan_s": plan_s, "network_width": kern.fused.P,
+           "passes_per_shard": len(passes),
+           "b3_launches_per_round": per_round, "b3_launches": launches,
+           "equal_to_path_c": True, **eng.convergence_report()}
+    return out, eng
+
+
 def _intervals_union(spans) -> float:
     total, end = 0.0, None
     for a, b in sorted(spans):
@@ -3197,10 +3472,29 @@ def main() -> int:
             + path_i["i2"]["pairwise"]["launches"][k]
             for k, _, _ in B4_FLAVOURS}
 
+    t0 = time.perf_counter()
+    path_j = {"j1": phase_path_j1(tree)}
+    emit({"phase": "path_j", "part": "j1",
+          "topology": f"fat_tree:{FAT_TREE_K}", **path_j["j1"]})
+    path_j["j2"], virtual, est_j2, j2_rounds = phase_path_j2()
+    emit({"phase": "path_j", "part": "j2",
+          "topology": f"fat_tree:{VIRTUAL_K}:virtual", **path_j["j2"]})
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pod_") as tmp:
+        path_j["j3"] = phase_path_j3(virtual, est_j2, j2_rounds, tmp)
+    del virtual, est_j2
+    emit({"phase": "path_j", "part": "j3",
+          "topology": f"fat_tree:{VIRTUAL_K}:virtual", **path_j["j3"]})
+    path_j["j4"], engine_j4 = phase_path_j4(tree, engine_c)
+    emit({"phase": "path_j", "part": "j4",
+          "topology": f"fat_tree:{FAT_TREE_K}", **path_j["j4"]})
+    torch.cuda.synchronize()
+    emit({"phase": "path_j", "wall_s": time.perf_counter() - t0})
+
     emit({"phase": "profile",
           "path_a": profile_rounds(engine_a, PROFILE_ROUNDS),
           "path_b": profile_rounds(engine_b, PROFILE_ROUNDS),
           "path_c": profile_rounds(engine_c, PROFILE_ROUNDS),
+          "path_j4": profile_rounds(engine_j4, PROFILE_ROUNDS),
           "path_d": profile_rounds(engine_d, PROFILE_ROUNDS),
           "path_g1": profile_rounds(engine_g1, PROFILE_ROUNDS),
           "path_g2": profile_rounds(engine_g2, PROFILE_ROUNDS),
@@ -3241,7 +3535,8 @@ def main() -> int:
                         + path_d["b3_launches"][name]
                         + path_g["g1"]["b3_launches"][name]
                         + path_g["g2"]["b3_launches"][name]
-                        + a6["b3_launches"][name] + i_b3[name]),
+                        + a6["b3_launches"][name] + i_b3[name]
+                        + path_j["j4"]["b3_launches"][name]),
            "parity": "bit-exact (torch.equal), float32 and float64",
            "max_abs_err": k3["flavours"][name]["max_abs_err"],
            "ms": k3["flavours"][name]["ms"],

@@ -9,7 +9,10 @@ nothing of JAX.
 Ported so far: the topology layer (generators, XML loaders), the general
 per-edge round (``models/rounds.py``, the default kernel) with its segment
 and delivery layouts, the node-collapsed fast synchronous round
-(``models/sync.py``) with its neighbor-sum paths, the topology compiler
+(``models/sync.py``) with its neighbor-sum paths (the structured stencil
+of the regular generators and virtual fat trees among them), the mesh
+paths (``parallel/``: the sharded banded and Beneš rounds, the pod-sharded
+fat-tree stencil and the halo edge round), the topology compiler
 (RCM + banded plan), the ``Engine`` façade and the ``run`` CLI, with
 node and link faults and checkpoints in the JAX package's archive layout
 (``utils/checkpoint.py``).  The TPU kernels on those paths are

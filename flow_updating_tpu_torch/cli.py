@@ -9,7 +9,10 @@ watcher sampling every ``--observe-every`` simulated seconds until
 JSON convergence report.
 
 ``--shards N`` runs the node kernel's ``banded_fused`` round over an
-N-shard mesh (``--halo`` picks the exchange, as in the JAX CLI);
+N-shard mesh (``--halo`` picks the exchange, as in the JAX CLI), or its
+``benes_fused`` round with a Beneš network per shard; ``--shards N
+--multichip pod --spmv structured`` a fat tree's stencil sharded by pod
+(N dividing k; ``--halo overlap`` the overlap schedule);
 ``--shards N --multichip halo`` the edge kernel's halo round
 (``--halo ppermute|allgather|overlap|overlap_pallas|auto``,
 ``--partition bfs|contiguous``), whose exchange decision the report
@@ -113,10 +116,6 @@ def cmd_run(args) -> int:
         raise SystemExit(
             f"--multichip {args.multichip} needs --shards N (it is a "
             "multi-chip distribution strategy)")
-    if args.multichip == "pod":
-        raise SystemExit("--multichip pod is the ROADMAP item "
-                         "'multi-device execution: the pod-sharded stencil "
-                         "(A12)', not ported yet")
     if args.latency_scale is None:
         args.latency_scale = 1.0 if args.fidelity and args.platform else 0.0
 
@@ -281,7 +280,10 @@ def build_parser() -> argparse.ArgumentParser:
                      help="node-kernel neighbor sum: xla (plain gather), "
                           "pallas (CUDA ELL kernel), banded (RCM bands + "
                           "gather remainder), banded_fused (the whole "
-                          "round as one CUDA kernel)")
+                          "round as one CUDA kernel), benes / benes_fused "
+                          "(a permutation network; benes_fused through "
+                          "CUDA kernel B3), structured (a regular "
+                          "generator's closed-form stencil)")
     run.add_argument("--segment", default="auto",
                      choices=("auto", "segment", "ell", "benes",
                               "benes_fused"),
@@ -292,9 +294,11 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--multichip", default="auto",
                      choices=("auto", "halo", "pod"),
                      help="under --shards: 'auto' = the node kernel's "
-                          "sharded banded round; 'halo' = the edge "
-                          "kernel's halo round (cut-edge exchange, "
-                          "--halo, --partition); 'pod' is not ported")
+                          "sharded banded or Beneš round; 'halo' = the "
+                          "edge kernel's halo round (cut-edge exchange, "
+                          "--halo, --partition); 'pod' = a fat tree's "
+                          "stencil sharded by pod (--spmv structured, "
+                          "shards dividing k)")
     run.add_argument("--halo", default="ppermute",
                      choices=("ppermute", "allgather", "overlap",
                               "overlap_pallas", "auto"),
@@ -307,7 +311,8 @@ def build_parser() -> argparse.ArgumentParser:
                      choices=("bfs", "contiguous"))
     run.add_argument("--shards", type=int, default=0,
                      help="run over an N-shard mesh (--kernel node --spmv "
-                          "banded_fused, or --multichip halo): shards go "
+                          "banded_fused or benes_fused, --multichip pod, "
+                          "or --multichip halo): shards go "
                           "round-robin over the visible cards, or all on "
                           "the host with --device cpu")
     run.add_argument("--kernel", default="edge", choices=("edge", "node"),

@@ -16,12 +16,20 @@ on the engine's device — the CUDA card unless ``device='cpu'`` is given.
 (:class:`~flow_updating_tpu_torch.parallel.banded_sharded.
 ShardedBandedKernel`): ``halo='ppermute'`` (the default) the serialized
 exchange, any other ``halo`` the overlapped one, as in the JAX engine.
-``mesh=`` with ``multichip='halo'`` runs the edge kernel's halo round
-(:mod:`~flow_updating_tpu_torch.parallel.sharded`): ``halo`` picks the
-cut-edge exchange ('ppermute', 'allgather', 'overlap', 'overlap_pallas'
-with kernel B6, or 'auto', ranked by ``plan.select.select_halo_mode`` and
-recorded in :meth:`Engine.halo_report`), ``partition`` the node order
-('bfs' or 'contiguous').
+With ``spmv='benes_fused'`` it runs the node round with a Beneš network
+per shard (:class:`~flow_updating_tpu_torch.parallel.spmv_sharded.
+ShardedNodeKernel`, kernel B3 on each shard).  ``mesh=`` with
+``multichip='pod'`` runs a fat tree's structured stencil sharded by pod
+(:class:`~flow_updating_tpu_torch.parallel.structured_sharded.
+PodShardedFatTreeKernel`; ``kernel='node'``, ``spmv='structured'``, the
+shard count dividing k; ``halo`` 'overlap', 'overlap_pallas' or 'auto'
+takes its overlap schedule).  ``mesh=`` with ``multichip='halo'`` runs
+the edge kernel's halo round (:mod:`~flow_updating_tpu_torch.parallel.
+sharded`): ``halo`` picks the cut-edge exchange ('ppermute', 'allgather',
+'overlap', 'overlap_pallas' with kernel B6, or 'auto', ranked by
+``plan.select.select_halo_mode`` and recorded in
+:meth:`Engine.halo_report`), ``partition`` the node order ('bfs' or
+'contiguous').
 
 The edge kernel runs every config of the JAX engine's single-device edge
 path, robust clip/trim (on the halo round too) and shared-link contention
@@ -35,13 +43,15 @@ masks (the node kernel refuses them, the halo round raises, as in the
 JAX engine); ``save_checkpoint``/``restore_checkpoint`` write and read
 the JAX package's archive (:mod:`~flow_updating_tpu_torch.utils.
 checkpoint`) on the edge round, the node round (every ``spmv`` route),
-the sharded banded round and the halo round, whose state is gathered to
-the canonical single-device layout, so its archive resumes on any mode.
+the sharded banded and Beneš rounds and the halo and pod rounds, whose
+states are gathered to the canonical single-device layout, so their
+archives resume on any mode.  The structured route runs virtual fat trees
+(``fat_tree(k, materialize_edges=False)``), which have no edge arrays.
 
 What the JAX engine does beyond that raises ``NotImplementedError``
-naming its ROADMAP item: GSPMD's mesh paths, ``multichip='pod'``,
-``plan='auto'``, ``host_actors``, ``adversary``, custom actors, event logs
-and the edge kernel's streamed runner.
+naming its ROADMAP item: GSPMD's mesh paths, ``plan='auto'``,
+``host_actors``, ``adversary``, custom actors, event logs and the edge
+kernel's streamed runner.
 
 Simulated-time convention: one round == ``TICK_INTERVAL`` (1.0) simulated
 seconds, the reference peers' loop cadence.
@@ -124,10 +134,6 @@ class Engine:
             raise ValueError(
                 f"unknown halo mode {halo!r}: use 'ppermute', "
                 "'allgather', 'overlap', 'overlap_pallas', or 'auto'")
-        if multichip == "pod":
-            raise _not_ported(
-                "multichip='pod'",
-                "multi-device execution: the pod-sharded stencil (A12)")
         if mesh is not None and not isinstance(mesh, Mesh):
             raise TypeError(
                 "mesh= takes a flow_updating_tpu_torch.parallel.mesh.Mesh "
@@ -224,6 +230,10 @@ class Engine:
     @property
     def _halo_mode(self) -> bool:
         return self.mesh is not None and self.multichip == "halo"
+
+    @property
+    def _pod_mode(self) -> bool:
+        return self.mesh is not None and self.multichip == "pod"
 
     @property
     def _ledger_dtype_bytes(self) -> int:
@@ -343,7 +353,30 @@ class Engine:
                     "latency-warped rounds need per-edge delivery state; "
                     "the node-collapsed kernel is unit-delay only — use "
                     "kernel='edge' with latency_scale")
-            if self.mesh is not None and \
+            if self._pod_mode:
+                from flow_updating_tpu_torch.parallel.structured_sharded \
+                    import PodShardedFatTreeKernel
+
+                if self.config.spmv != "structured":
+                    raise ValueError(
+                        "multichip='pod' runs the pod-sharded stencil; it "
+                        "requires spmv='structured'")
+                # the overlap schedule is the same math reordered: taken
+                # whenever overlap is asked for or left to 'auto'
+                self._node_kernel = PodShardedFatTreeKernel(
+                    self.topology, self.config, self.mesh,
+                    overlap=self.halo in ("overlap", "overlap_pallas",
+                                          "auto"), device=self.device)
+            elif self.mesh is not None and \
+                    self.config.spmv == "benes_fused":
+                from flow_updating_tpu_torch.parallel.spmv_sharded import (
+                    ShardedNodeKernel,
+                )
+
+                self._node_kernel = ShardedNodeKernel(
+                    self.topology, self.config, self.mesh,
+                    device=self.device)
+            elif self.mesh is not None and \
                     self.config.spmv == "banded_fused":
                 from flow_updating_tpu_torch.parallel.banded_sharded import (
                     ShardedBandedKernel,
@@ -360,6 +393,10 @@ class Engine:
                                                device=self.device,
                                                mesh=self.mesh)
             return
+        if self._pod_mode:
+            raise ValueError(
+                "multichip='pod' drives the node kernel (kernel='node', "
+                "spmv='structured')")
         if latency_scale > 0.0:
             depth = max(self.config.delay_depth, self.topology.max_delay)
             if depth != self.config.delay_depth:
@@ -601,7 +638,7 @@ class Engine:
     def save_checkpoint(self, path: str) -> Engine:
         """Write the full run state + config + topology fingerprint to
         ``path`` in the JAX package's archive layout, with the simulated
-        clock and the watcher's stop (``extra``).  A halo state is
+        clock and the watcher's stop (``extra``).  A halo or pod state is
         gathered to the canonical single-device layout first, so its
         archive restores on any execution mode."""
         from flow_updating_tpu_torch.utils.checkpoint import save_checkpoint
@@ -614,6 +651,8 @@ class Engine:
 
             state = sharded.gather_full_state(state, self._halo_plan,
                                               self.topology)
+        elif self._pod_mode:
+            state = self._node_kernel.to_canonical(state)
         save_checkpoint(path, state, self.config, topo=self.topology,
                         extra={"clock": self._clock,
                                "killed": self._killed})
@@ -625,7 +664,8 @@ class Engine:
         is not needed first, and no fresh state is made: the kernel's
         tables are prepared under the archive's config, which governs the
         run, and the archive's leaves go straight to the engine's device
-        (a halo engine scatters the canonical state over its shards)."""
+        (a halo or pod engine scatters the canonical state over its
+        shards)."""
         from flow_updating_tpu_torch.utils.checkpoint import read_checkpoint
 
         self._resolve_topology()
@@ -667,19 +707,14 @@ class Engine:
         ``(S, M/S)`` state is NOT interchangeable with the single-device
         ``(M,)`` layout even when the slot count matches."""
         kernel = self._node_kernel
+        shape = kernel.state_shape
         got = fields["S"].size
-        feat = getattr(kernel, "feature_shape", ())
-        expect = kernel.padded_size * int(np.prod(feat, dtype=np.int64))
+        expect = int(np.prod(shape, dtype=np.int64))
         if got != expect:
             raise ValueError(
                 f"checkpoint state has node axis {got} but this engine's "
                 f"layout expects {expect} — restore with the same "
                 "mesh/padding it was saved under")
-        spec = getattr(kernel, "spec", None)
-        if self.mesh is not None and spec is not None:
-            shape = (spec.num_shards, spec.local)
-        else:
-            shape = (kernel.padded_size,) + tuple(feat)
         if fields["S"].shape != shape:
             raise ValueError(
                 f"checkpoint node state has shape {fields['S'].shape} but "

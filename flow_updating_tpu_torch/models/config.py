@@ -116,9 +116,9 @@ class RoundConfig:
     #                                    torch ops, ops/spmv_benes.py) |
     #                                    'benes_fused' (the same network as
     #                                    fused passes, the CUDA kernel of
-    #                                    ops/fused_passes.py).  'structured'
-    #                                    is accepted here and raises in the
-    #                                    node kernel (a later port item)
+    #                                    ops/fused_passes.py) | 'structured'
+    #                                    (a regular generator's closed-form
+    #                                    stencil, ops/structured.py)
     robust: str = "off"                # robust-aggregation variant of the
     #                                    fire/average step, BOTH protocol
     #                                    families (Byzantine tolerance,

@@ -24,11 +24,15 @@ operation is the neighbor sum A, selected by ``RoundConfig.spmv``:
 * ``'benes'``        — the gather-free permutation network, one set of
                        torch ops per stage (``ops/spmv_benes.py``);
 * ``'benes_fused'``  — the same network as fused passes, kernel B3
-                       (``ops/fused_passes.py``).
+                       (``ops/fused_passes.py``);
+* ``'structured'``   — the closed-form stencil of a regular generator's
+                       graph (``ops/structured.py``), plain tensor ops as
+                       in the JAX package; it runs virtual fat trees.
 
 Node vectors live in the layout of the chosen path (ELL degree order, which
-the Beneš paths share with 'xla', or the plan's RCM order padded to the
-tile grid), exactly as in the JAX package, so a state can be carried
+the Beneš paths share with 'xla', the plan's RCM order padded to the tile
+grid, or the generator's own order for 'structured'), exactly as in the
+JAX package, so a state can be carried
 across between the two packages
 (:meth:`NodeKernel.state_from_numpy`).  Rounds run as a Python loop over
 tensor ops on the kernel's device.
@@ -37,6 +41,7 @@ tensor ops on the kernel's device.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -59,6 +64,7 @@ from flow_updating_tpu_torch.ops.spmv_benes import (
     neighbor_sum_benes,
     plan_neighbor_sum,
 )
+from flow_updating_tpu_torch.ops.structured import structured_neighbor_sum
 from flow_updating_tpu_torch.plan.banded import (
     BandedLeaves,
     BandedSpmvPlan,
@@ -67,12 +73,6 @@ from flow_updating_tpu_torch.plan.banded import (
 )
 from flow_updating_tpu_torch.topology.graph import Topology
 from flow_updating_tpu_torch.utils.device import resolve_device
-
-#: spmv values of the JAX package that wait for a later port item
-_LATER = {
-    "structured": "structured stencil (A4)",
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class NodeSyncState:
@@ -100,6 +100,7 @@ class NodeSyncArrays:
     band_leaves: BandedLeaves | None = None
     fused: FusedRoundSpec | None = None   # 'banded_fused': tile geometry
     fused_leaves: FusedRoundLeaves | None = None
+    struct: object = None    # 'structured': the topology's descriptor
 
 
 def _check_cfg(cfg: RoundConfig) -> None:
@@ -109,11 +110,6 @@ def _check_cfg(cfg: RoundConfig) -> None:
             "collect-all mode (every_round, drain=0, delay_depth=1, no "
             "message drop); use the edge kernel otherwise"
         )
-    if cfg.spmv in _LATER:
-        raise NotImplementedError(
-            f"spmv={cfg.spmv!r} is the ROADMAP item '{_LATER[cfg.spmv]}', "
-            "not ported yet; this package runs spmv='xla', 'pallas', "
-            "'banded', 'banded_fused', 'benes' and 'benes_fused'")
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -122,20 +118,30 @@ def _ceil_to(x: int, m: int) -> int:
 
 def _refuse_mesh(cfg: RoundConfig) -> None:
     """``NodeKernel`` runs on one device.  As in the JAX package, the
-    kernel-backed neighbor sums name their mesh path; 'xla', which JAX
-    partitions with GSPMD, has no torch counterpart yet."""
+    kernel-backed neighbor sums name their mesh path; 'xla' and
+    'structured', which JAX partitions with GSPMD, have no torch
+    counterpart yet."""
     if cfg.spmv == "xla":
         raise NotImplementedError(
             "spmv='xla' over a mesh is GSPMD's node path in the JAX "
-            "package, the ROADMAP item 'multi-device execution (A12)', not "
-            "ported yet; spmv='banded_fused' runs over a mesh through "
-            "parallel.banded_sharded.ShardedBandedKernel")
+            "package, the ROADMAP item 'multi-device execution (A12 part "
+            "4)', not ported yet; spmv='banded_fused' and 'benes_fused' "
+            "run over a mesh through parallel.banded_sharded."
+            "ShardedBandedKernel and parallel.spmv_sharded."
+            "ShardedNodeKernel")
+    if cfg.spmv == "structured":
+        raise NotImplementedError(
+            "spmv='structured' over a mesh is GSPMD's stencil in the JAX "
+            "package, the ROADMAP item 'multi-device execution (A12 part "
+            "4)', not ported yet; a fat tree runs over a mesh by pod: "
+            "Engine(mesh=..., multichip='pod') or parallel."
+            "structured_sharded.PodShardedFatTreeKernel")
     if cfg.spmv == "banded_fused":
         hint = ("use parallel.banded_sharded.ShardedBandedKernel (the "
                 "kernel-per-shard halo path)")
     elif cfg.spmv == "benes_fused":
         hint = ("use parallel.spmv_sharded.ShardedNodeKernel (the sharded "
-                "fused-circuit path, ROADMAP A12, not ported yet)")
+                "fused-circuit path)")
     else:
         hint = ("use spmv='xla' with a mesh (GSPMD handles the collective; "
                 "ROADMAP A12, not ported yet)")
@@ -154,13 +160,22 @@ class NodeKernel:
     paths) supplies a compiled
     :class:`~flow_updating_tpu_torch.plan.compile.ExecutionPlan`;
     ``fused_tile`` pins the one-kernel round's tile height.  The
-    one-kernel round takes its remainder on the 'lanes' route.  A
-    ``mesh`` raises, as in the JAX package: the mesh path of
-    'banded_fused' is :class:`~flow_updating_tpu_torch.parallel.
-    banded_sharded.ShardedBandedKernel`."""
+    one-kernel round takes its remainder on the 'lanes' route.
+    ``row_multiple`` pads every degree bucket's row count ('xla',
+    'pallas', 'benes*') or the node vector ('structured') to a multiple
+    of it, as in the JAX package (the sharded Beneš round builds its base
+    layout with the shard count).  A ``mesh`` raises, as in the JAX
+    package: the mesh path of 'banded_fused' is
+    :class:`~flow_updating_tpu_torch.parallel.banded_sharded.
+    ShardedBandedKernel`, that of 'benes_fused'
+    :class:`~flow_updating_tpu_torch.parallel.spmv_sharded.
+    ShardedNodeKernel`, and a fat tree's stencil runs by pod
+    (:class:`~flow_updating_tpu_torch.parallel.structured_sharded.
+    PodShardedFatTreeKernel`)."""
 
     def __init__(self, topo: Topology, cfg: RoundConfig, values=None,
-                 plan=None, fused_tile=None, device=None, mesh=None):
+                 plan=None, fused_tile=None, device=None, mesh=None,
+                 row_multiple: int = 1):
         _check_cfg(cfg)
         self.device = resolve_device(device)
         self.topo = topo
@@ -181,9 +196,13 @@ class NodeKernel:
         if cfg.spmv in ("banded", "banded_fused"):
             self._init_banded(topo, plan, fused_tile)
             return
+        if cfg.spmv == "structured":
+            self._init_structured(topo, row_multiple)
+            return
         # 'pallas' pads each bucket to the JAX kernel's 256-row blocks, so
         # the state layout matches the JAX package's
-        row_multiple = BLOCK_ROWS if cfg.spmv == "pallas" else 1
+        if cfg.spmv == "pallas":
+            row_multiple = math.lcm(row_multiple, BLOCK_ROWS)
         ell = topo.ell_buckets()
         counts = [_ceil_to(c, row_multiple) for c in ell.row_counts]
         offs = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
@@ -225,6 +244,38 @@ class NodeKernel:
             value=torch.from_numpy(value).to(dev, dt),
             inv_depp1=torch.from_numpy(1.0 / (deg + 1.0)).to(dev, dt),
             deg=torch.from_numpy(deg).to(dev, dt), **kw)
+
+    def _init_structured(self, topo: Topology, row_multiple: int) -> None:
+        """spmv='structured': the generator's node order (there is no
+        gather to bucket), padding at the tail up to ``row_multiple``."""
+        struct = topo.structure
+        if struct is None:
+            raise ValueError(
+                "spmv='structured' is the closed-form stencil for "
+                "topologies whose GENERATOR proves their regularity "
+                "(ring, grid2d, torus2d, hypercube, complete, fat_tree) "
+                "— this topology carries no structure descriptor.  For "
+                "arbitrary graphs use the topology compiler instead: "
+                "Engine(plan='auto') / --plan auto picks the fastest "
+                "correct path automatically, spmv='banded' forces the "
+                "compiled RCM-band plan, and "
+                "spmv='xla'|'benes'|'benes_fused' are the generic "
+                "neighbor-sum layouts"
+            )
+        if struct.n != topo.num_nodes:
+            raise ValueError(
+                f"structure descriptor covers {struct.n} nodes but the "
+                f"topology has {topo.num_nodes}"
+            )
+        n = topo.num_nodes
+        self.padded_size = M = _ceil_to(n, row_multiple)
+        self._pos_of_real = np.arange(n, dtype=np.int64)
+        self._perm = np.arange(n, dtype=np.int64)
+        value = np.zeros(M, np.float64)
+        deg = np.zeros(M, np.float64)
+        value[:n] = self._values
+        deg[:n] = topo.out_deg
+        self.arrays = self._constants(value, deg, struct=struct)
 
     def _init_banded(self, topo: Topology, plan, fused_tile) -> None:
         """spmv='banded'/'banded_fused': node vectors live in the
@@ -269,6 +320,11 @@ class NodeKernel:
             band_leaves=plan.leaves.to(self.device),
             fused=spec, fused_leaves=fleaves)
 
+    @property
+    def state_shape(self) -> tuple:
+        """The shape of an archived state's vectors."""
+        return (self.padded_size,) + self.feature_shape
+
     def init_state(self) -> NodeSyncState:
         z = torch.zeros((self.padded_size,) + self.feature_shape,
                         dtype=self.dtype, device=self.device)
@@ -295,8 +351,10 @@ class NodeKernel:
         return run_rounds_node(state, self.arrays, self.cfg, num_rounds)
 
     def _unpermute(self, padded: np.ndarray) -> np.ndarray:
-        out = np.empty((self.topo.num_nodes,) + padded.shape[1:],
-                       padded.dtype)
+        n = self.topo.num_nodes
+        if self.cfg.spmv == "structured":   # the generator's own order
+            return padded[:n].copy()
+        out = np.empty((n,) + padded.shape[1:], padded.dtype)
         out[self._perm] = padded[self._pos_of_real]
         return out
 
@@ -342,6 +400,8 @@ def node_round_step(state: NodeSyncState, arrs: NodeSyncArrays,
         A_cur = banded_neighbor_sum(avg, arrs.band, arrs.band_leaves)
     elif cfg.spmv in ("benes", "benes_fused"):
         A_cur = neighbor_sum_benes(avg, arrs.ns_plan, arrs.ns_masks)
+    elif cfg.spmv == "structured":
+        A_cur = structured_neighbor_sum(avg, arrs.struct)
     else:
         A_cur = neighbor_sum(avg, arrs.mats)
     deg = _ex(arrs.deg, arrs.value)

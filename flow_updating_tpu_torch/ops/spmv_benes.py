@@ -237,15 +237,18 @@ def plan_neighbor_sum(mats: tuple, m1: int, fused: bool = False):
     return out
 
 
-def plan_sections(mats: tuple, m1: int):
+def plan_sections(mats: tuple, m1: int, min_width: int = 0):
     """The three network sections (spread, fill, benes StagePlans) plus
-    the common width ``P`` for one set of ELL matrices."""
+    the common width ``P`` for one set of ELL matrices.  Exposed apart so
+    that the sharded planner (``parallel/spmv_sharded.py``) can pad each
+    shard's sections to a common stage skeleton before it concatenates
+    them; ``min_width`` floors ``P``."""
     flats = [np.asarray(m, np.int64).ravel() for m in mats]
     idx_flat = np.concatenate(flats) if flats else np.zeros(0, np.int64)
     # synthetic block: every value present at least once
     aug = np.concatenate([np.arange(m1, dtype=np.int64), idx_flat])
     Ea = len(aug)
-    P = next_pow2(max(Ea, m1))
+    P = next_pow2(max(Ea, m1, min_width))
 
     order = np.argsort(aug, kind="stable")
     g = aug[order]
@@ -266,6 +269,26 @@ def plan_sections(mats: tuple, m1: int):
     perm2 = np.concatenate([inv_order, np.arange(Ea, P, dtype=np.int64)])
     benes = benes_plan(perm2)
     return spread, fill, benes, P
+
+
+def pad_roll_section(plan: StagePlan, target_dists: tuple) -> StagePlan:
+    """Extend a roll-stage section to the dist list ``target_dists`` by
+    inserting stages whose mask is all false (no-ops); the section's own
+    stages must appear in ``target_dists`` in order."""
+    it = iter(zip(plan.dists, plan.masks))
+    nxt = next(it, None)
+    masks = []
+    for d in target_dists:
+        if nxt is not None and nxt[0] == d:
+            masks.append(nxt[1])
+            nxt = next(it, None)
+        else:
+            masks.append(np.zeros(plan.n, bool))
+    if nxt is not None:
+        raise ValueError("section dists not a subsequence of target")
+    return StagePlan(n=plan.n, dists=tuple(target_dists),
+                     kinds=("roll",) * len(target_dists),
+                     masks=tuple(masks))
 
 
 def neighbor_sum_benes(x: torch.Tensor, plan, masks) -> torch.Tensor:

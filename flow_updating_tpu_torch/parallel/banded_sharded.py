@@ -75,7 +75,6 @@ scalar payloads, plans whose remainder is 'gather' (inlined per shard) or
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 
 import numpy as np
@@ -96,7 +95,7 @@ from flow_updating_tpu_torch.ops.sharded_round import (
     sharded_fire,
     sharded_round,
 )
-from flow_updating_tpu_torch.parallel.mesh import Mesh
+from flow_updating_tpu_torch.parallel.mesh import Mesh, check_mesh, on_stream
 from flow_updating_tpu_torch.topology.graph import Topology
 
 EXCHANGES = ("pallas", "ppermute")
@@ -177,17 +176,10 @@ class ShardedBandedKernel:
             raise ValueError(
                 "the sharded fused round is scalar-payload (vector "
                 "payloads run the single-device banded kernels)")
-        if not isinstance(mesh, Mesh):
-            raise TypeError("mesh= takes a flow_updating_tpu_torch.parallel."
-                            f"mesh.Mesh (make_mesh), got {type(mesh).__name__}")
+        check_mesh(mesh, device)
         S = mesh.size
         if S < 2:
             raise ValueError("the sharded fused round needs >= 2 shards")
-        if device is not None and torch.device(device).type \
-                != mesh.device_type:
-            raise ValueError(
-                f"device={device!r} disagrees with the mesh, whose shards "
-                f"are on {mesh.device_type}")
         self.topo = topo
         self.cfg = cfg
         self.mesh = mesh
@@ -279,6 +271,11 @@ class ShardedBandedKernel:
         return idx.astype(np.int32)
 
     # ---- state -------------------------------------------------------------
+    @property
+    def state_shape(self) -> tuple:
+        """The shape of an archived state's vectors."""
+        return (self.spec.num_shards, self.spec.local)
+
     def init_state(self) -> ShardedNodeState:
         z = tuple(torch.zeros(self.spec.local, dtype=self.dtype,
                               device=sh.device) for sh in self._shards)
@@ -313,10 +310,6 @@ class ShardedBandedKernel:
         return ShardedNodeState(t=t, avg=avg, **vecs)
 
     # ---- rounds ------------------------------------------------------------
-    def _on(self, stream):
-        return (contextlib.nullcontext() if stream is None
-                else torch.cuda.stream(stream))
-
     def _round(self, st: ShardedNodeState, parity: int) -> ShardedNodeState:
         spec, shards = self.spec, self._shards
         nsh, L, H = spec.num_shards, spec.local, spec.halo
@@ -329,7 +322,7 @@ class ShardedBandedKernel:
         for s, sh in enumerate(shards):
             left = shards[(s - 1) % nsh].recv[parity]
             right = shards[(s + 1) % nsh].recv[parity]
-            with self._on(sh.copy_stream):
+            with on_stream(sh.copy_stream):
                 if sh.ready is not None:
                     sh.copy_stream.wait_event(sh.ready)
                 left[1].copy_(st.avg[s][:H], non_blocking=True)
@@ -339,7 +332,7 @@ class ShardedBandedKernel:
         # 3. the rows whose reads stay on the shard, while the copies run
         outs = []
         for s, sh in enumerate(shards):
-            with self._on(sh.stream):
+            with on_stream(sh.stream):
                 out = tuple(torch.empty_like(st.S[s]) for _ in range(3)) \
                     + (sh.avg[1 - parity],)
                 for rb, re in before:
@@ -348,7 +341,7 @@ class ShardedBandedKernel:
         # 4. wait for both incoming halos, then the remaining rows in one
         #    launch
         for s, sh in enumerate(shards):
-            with self._on(sh.stream):
+            with on_stream(sh.stream):
                 if sh.stream is not None:
                     sh.stream.wait_event(shards[(s - 1) % nsh].copied)
                     sh.stream.wait_event(shards[(s + 1) % nsh].copied)

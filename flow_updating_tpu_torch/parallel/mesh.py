@@ -17,6 +17,7 @@ Processes over ``torch.distributed`` belong to the multi-host item.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -66,3 +67,23 @@ def make_mesh(n_shards: int, device=None) -> Mesh:
         devices = (dev,) * n
     return Mesh(devices=devices,
                 streams=tuple(torch.cuda.Stream(device=d) for d in devices))
+
+
+def on_stream(stream):
+    """The context that makes ``stream`` current (a shard's stream on the
+    card); a host shard's ``None`` changes nothing."""
+    return (contextlib.nullcontext() if stream is None
+            else torch.cuda.stream(stream))
+
+
+def check_mesh(mesh, device=None) -> None:
+    """Refuse what is no :class:`Mesh`, or a ``device`` that disagrees
+    with the mesh's shards."""
+    if not isinstance(mesh, Mesh):
+        raise TypeError("mesh= takes a flow_updating_tpu_torch.parallel."
+                        f"mesh.Mesh (make_mesh), got {type(mesh).__name__}")
+    if device is not None and torch.device(device).type \
+            != mesh.device_type:
+        raise ValueError(
+            f"device={device!r} disagrees with the mesh, whose shards "
+            f"are on {mesh.device_type}")

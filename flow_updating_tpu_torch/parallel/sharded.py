@@ -201,6 +201,7 @@ def plan_sharding(topo: Topology, num_shards: int,
     sends.  ``coloring=True`` colors the ORIGINAL topology before any
     reorder (the reorder carries the coloring through), so fast pairwise
     fires the single-device round's matching sequence."""
+    topo._require_edges("plan_sharding (the halo planner)")
     if coloring:
         topo.edge_coloring()
     order = None

@@ -93,6 +93,7 @@ def reorder_topology_stable(topo: Topology, order: np.ndarray,
         # fault-injection PRNG draws stay keyed by ORIGINAL edge id, so
         # a drop>0 planned run replays the exact original loss pattern
         drop_perm=e_order.astype(np.int32),
+        structure=None,
     )
     return out, e_order
 
@@ -189,6 +190,7 @@ def compile_topology(topo: Topology, *, max_lanes: int = 96,
     ``features`` > 0 declares a vector payload (rolls broadcast over it,
     the remainder then gathers).  Plans are cached on (topology content,
     knobs)."""
+    topo._require_edges("compile_topology (the banded planner)")
     # 'auto' builds exactly the 'gather' plan here (plan/banded.py), so
     # both share one cache entry: the sharded round asks for 'gather'
     key = (_topo_key(topo), max_lanes, float(min_fill),

@@ -6,9 +6,12 @@ them.  As in the JAX package, Erdős–Rényi from 100,000 nodes and
 Barabási–Albert above 10,000 nodes draw their edges in the C++ runtime
 (:mod:`flow_updating_tpu_torch.native`, the exact sequential BA process),
 so both packages build the same graph from the same seed at every size.
-No closed-form ``structure`` descriptor is attached (it feeds only
-``spmv='structured'``, a later port item), and ``fat_tree`` always
-materializes its edges.
+The regular generators attach their closed-form ``structure`` descriptor
+(:mod:`flow_updating_tpu_torch.ops.structured`, the node round's
+``spmv='structured'``) where the JAX package does, with its guards: a
+ring needs ``n > 2k``, a torus ``h, w >= 3``, a complete graph ``n >=
+2``.  ``fat_tree(k, materialize_edges=False)`` builds a virtual fat tree
+with no edge arrays, which only that route runs.
 """
 
 from __future__ import annotations
@@ -18,6 +21,14 @@ import dataclasses
 import numpy as np
 
 from flow_updating_tpu_torch import native
+from flow_updating_tpu_torch.ops.structured import (
+    CompleteStruct,
+    FatTreeStruct,
+    Grid2dStruct,
+    HypercubeStruct,
+    RingStruct,
+    Torus2dStruct,
+)
 from flow_updating_tpu_torch.topology.graph import Topology, build_topology
 
 
@@ -36,7 +47,10 @@ def ring(n: int, k: int = 1, seed: int = 0, values=None) -> Topology:
     pairs = np.concatenate(
         [np.stack([i, (i + d) % n], axis=1) for d in range(1, k + 1)], axis=0
     )
-    return _finish(n, pairs, seed, values)
+    topo = _finish(n, pairs, seed, values)
+    if n > 2 * k:  # below this, symmetrization breaks the roll form
+        topo = dataclasses.replace(topo, structure=RingStruct(n=n, k=k))
+    return topo
 
 
 def grid2d(h: int, w: int, seed: int = 0, values=None) -> Topology:
@@ -44,7 +58,8 @@ def grid2d(h: int, w: int, seed: int = 0, values=None) -> Topology:
     idx = np.arange(h * w, dtype=np.int64).reshape(h, w)
     right = np.stack([idx[:, :-1].ravel(), idx[:, 1:].ravel()], axis=1)
     down = np.stack([idx[:-1, :].ravel(), idx[1:, :].ravel()], axis=1)
-    return _finish(h * w, np.concatenate([right, down]), seed, values)
+    topo = _finish(h * w, np.concatenate([right, down]), seed, values)
+    return dataclasses.replace(topo, structure=Grid2dStruct(h=h, w=w))
 
 
 def torus2d(h: int, w: int, seed: int = 0, values=None) -> Topology:
@@ -52,7 +67,10 @@ def torus2d(h: int, w: int, seed: int = 0, values=None) -> Topology:
     idx = np.arange(h * w, dtype=np.int64).reshape(h, w)
     right = np.stack([idx.ravel(), np.roll(idx, -1, axis=1).ravel()], axis=1)
     down = np.stack([idx.ravel(), np.roll(idx, -1, axis=0).ravel()], axis=1)
-    return _finish(h * w, np.concatenate([right, down]), seed, values)
+    topo = _finish(h * w, np.concatenate([right, down]), seed, values)
+    if h >= 3 and w >= 3:  # the wrap edges collapse below this
+        topo = dataclasses.replace(topo, structure=Torus2dStruct(h=h, w=w))
+    return topo
 
 
 def hypercube(d: int, seed: int = 0, values=None) -> Topology:
@@ -65,12 +83,16 @@ def hypercube(d: int, seed: int = 0, values=None) -> Topology:
          for b in range(d)
          for lo in (i[(i >> b) & 1 == 0],)], axis=0
     )
-    return _finish(1 << d, pairs, seed, values)
+    topo = _finish(1 << d, pairs, seed, values)
+    return dataclasses.replace(topo, structure=HypercubeStruct(d=d))
 
 
 def complete(n: int, seed: int = 0, values=None) -> Topology:
     i, j = np.triu_indices(n, k=1)
-    return _finish(n, np.stack([i, j], axis=1), seed, values)
+    topo = _finish(n, np.stack([i, j], axis=1), seed, values)
+    if n >= 2:
+        topo = dataclasses.replace(topo, structure=CompleteStruct(n=n))
+    return topo
 
 
 def erdos_renyi(n: int, avg_degree: float = 8.0, seed: int = 0,
@@ -177,14 +199,18 @@ def fat_tree(k: int, seed: int = 0, values=None,
     Layout: hosts [0, k^3/4), edge switches, aggregation switches, core
     switches.  Vertex count k^3/4 + 5k^2/4, undirected edges 3k^3/4;
     k=160 gives 1,056,000 vertices.  Switches carry value 0 when
-    ``hosts_only_values``."""
+    ``hosts_only_values``.
+
+    ``materialize_edges=False`` builds a *virtual* topology: the node
+    arrays and the structure descriptor, no edge list (3k^3/4 pairs are
+    about 6 GB of host int64 at k=640).  The degrees are analytic (hosts
+    1, every switch k) and the values those of the materialized tree of
+    the same seed.  Only the node round's ``spmv='structured'`` runs it;
+    edge consumers raise (``Topology._require_edges``)."""
     if k % 2:
         raise ValueError("fat-tree arity k must be even")
     if not materialize_edges:
-        raise NotImplementedError(
-            "fat_tree(materialize_edges=False) builds a virtual topology "
-            "that only spmv='structured' can run; that path is the "
-            "ROADMAP item 'structured stencil (A4)', not ported yet")
+        return _virtual_fat_tree(k, seed, values, hosts_only_values)
     half = k // 2
     n_host = half * half * k
     n_edge_sw = half * k
@@ -220,8 +246,28 @@ def fat_tree(k: int, seed: int = 0, values=None,
         values = rng.uniform(0.0, 1.0, n)
         if hosts_only_values:
             values[n_host:] = 0.0
-    return build_topology(n, pairs, values=values, seed=seed,
+    topo = build_topology(n, pairs, values=values, seed=seed,
                           warn_asymmetric=False)
+    return dataclasses.replace(topo, structure=FatTreeStruct(k=k))
+
+
+def _virtual_fat_tree(k: int, seed: int, values,
+                      hosts_only_values: bool) -> Topology:
+    half = k // 2
+    n_host = half * half * k
+    n = n_host + half * k * 2 + half * half
+    if values is None:
+        values = np.random.default_rng(seed + 1).uniform(0.0, 1.0, n)
+        if hosts_only_values:
+            values[n_host:] = 0.0
+    out_deg = np.full(n, k, np.int32)
+    out_deg[:n_host] = 1
+    empty = np.zeros((0,), np.int32)
+    return Topology(
+        num_nodes=n, src=empty, dst=empty, rev=empty, out_deg=out_deg,
+        row_start=np.zeros(n + 1, np.int64), edge_rank=empty, delay=empty,
+        values=np.asarray(values, np.float64),
+        structure=FatTreeStruct(k=k), virtual=True)
 
 
 def topology_from_spec(spec: str, seed: int = 0) -> Topology:

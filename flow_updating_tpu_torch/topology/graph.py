@@ -69,6 +69,14 @@ class Topology:
     #                                          block id (community generator)
     bridge_edges: np.ndarray | None = None   # (B,) int64 directed edge ids
     #                                          crossing community blocks
+    structure: object | None = None          # closed-form adjacency
+    #                                          descriptor (ops/structured.py)
+    #                                          attached by a regular graph's
+    #                                          generator: spmv='structured'
+    virtual: bool = False                    # True = the edge arrays are
+    #                                          deliberately empty (a fat tree
+    #                                          built materialize_edges=False);
+    #                                          only spmv='structured' runs it
 
     @property
     def num_edges(self) -> int:
@@ -112,6 +120,7 @@ class Topology:
         slot (index ``l`` into a ``(L + 1,)`` per-link array) followed by
         the flat positions that cross it in increasing order (index
         ``L + 1 + position`` into the per-slot updates).  Cached."""
+        self._require_edges("link_csr (the link model)")
         cached = getattr(self, "_link_csr", None)
         if cached is not None:
             return cached
@@ -134,13 +143,29 @@ class Topology:
         return float(self.values.mean())
 
     def _require_edges(self, what: str) -> None:
-        """Every topology of this package materializes its edge arrays
-        (the JAX package's virtual, edge-less fat trees belong to the
-        structured stencil, ROADMAP A4); one whose arrays are missing
-        cannot serve an edge lookup."""
+        """Refuse an edge consumer on a virtual topology (the JAX
+        package's message), or on one whose arrays are missing."""
+        if self.virtual:
+            raise ValueError(
+                f"{what} needs materialized edge arrays, but this topology "
+                "is virtual (generator called with materialize_edges=False "
+                "for mega-scale runs); only the node kernel with "
+                "spmv='structured' can execute it — rebuild with "
+                "materialize_edges=True for any other path"
+            )
         if self.src is None or self.dst is None:
             raise ValueError(f"{what} needs materialized edge arrays, but "
                              "this topology has none")
+
+    def with_values(self, values: np.ndarray) -> Topology:
+        """The same graph with other initial values (``(N,)`` or ``(N,
+        D)``); the structure descriptor stays."""
+        values = np.asarray(values, dtype=np.float64)
+        if values.ndim not in (1, 2) or values.shape[0] != self.num_nodes:
+            raise ValueError(
+                f"values must have shape ({self.num_nodes},) or "
+                f"({self.num_nodes}, D) — got {values.shape}")
+        return dataclasses.replace(self, values=values)
 
     def name_to_id(self) -> dict:
         if self.names is None:
@@ -155,6 +180,7 @@ class Topology:
         bucket stores a dense ``(rows, width)`` neighbor-index matrix whose
         width is the bucket's true max degree (indices in *permuted* node
         space, padded with N -> a zero slot).  Cached after first use."""
+        self._require_edges("ell_buckets")
         cached = getattr(self, "_ell_buckets", None)
         if cached is not None:
             return cached
@@ -206,6 +232,7 @@ class Topology:
         return out
 
     def neighbors(self, node: int) -> np.ndarray:
+        self._require_edges("neighbors")
         lo, hi = self.row_start[node], self.row_start[node + 1]
         return self.dst[lo:hi]
 
@@ -221,6 +248,7 @@ class Topology:
         every edge that is the lowest-indexed uncolored edge at both of
         its endpoints, until no such edge is left) — the JAX package's two
         routes at its threshold, so both give the same colors."""
+        self._require_edges("edge_coloring")
         cached = getattr(self, "_edge_coloring", None)
         if cached is not None:
             return cached
@@ -271,6 +299,7 @@ class Topology:
         Beneš routing is the costly part (seconds at 2^23 elements), so
         the routed stages are cached on the object and both executors
         share them."""
+        self._require_edges(f"the {which} network")
         from flow_updating_tpu_torch.ops import permute, seg_benes
 
         cache = getattr(self, "_networks", None)
@@ -311,6 +340,7 @@ class Topology:
         link-major order of :meth:`Topology.link_csr`."""
         from flow_updating_tpu_torch.utils.device import resolve_device
 
+        self._require_edges("device_arrays")
         dev = resolve_device(device)
 
         def t(a, dtype):
@@ -706,7 +736,10 @@ def reorder_topology(topo: Topology, order: np.ndarray) -> Topology:
     attributes follow their edges, per-node ones their nodes; ``adopted``
     is dropped.  A cached edge coloring is carried through, so a
     reordered partition fires the same matching sequence as the original
-    topology."""
+    topology.  The structure descriptor is dropped: it indexes the
+    generator's node layout, and would give wrong stencil sums after a
+    renumbering."""
+    topo._require_edges("reorder_topology")
     N, E = topo.num_nodes, topo.num_edges
     order = np.asarray(order, np.int64)
     inv = np.empty(N, np.int64)
@@ -747,6 +780,7 @@ def reorder_topology(topo: Topology, order: np.ndarray) -> Topology:
                     else topo.membership[order].astype(np.int32)),
         bridge_edges=(None if topo.bridge_edges is None
                       else np.sort(e_pos[topo.bridge_edges])),
+        structure=None,
     )
     cached = getattr(topo, "_edge_coloring", None)
     if cached is not None:

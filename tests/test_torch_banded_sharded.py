@@ -364,10 +364,11 @@ def test_engine_mesh_refusals():
         Engine(config=RoundConfig.fast(dtype="float32"),
                mesh=make_mesh(2, device="cpu"),
                device="cpu").set_topology(topo).build()
-    # the pod stencil is still to port; the halo round drives the edge
-    # kernel and refuses the node kernel, as in JAX
-    with pytest.raises(NotImplementedError, match="A12"):
-        Engine(config=node, multichip="pod", device="cpu")
+    # the pod stencil runs spmv='structured' only; the halo round drives
+    # the edge kernel and refuses the node kernel, as in JAX
+    with pytest.raises(ValueError, match="requires spmv='structured'"):
+        Engine(config=node, mesh=make_mesh(2, device="cpu"),
+               multichip="pod", device="cpu").set_topology(topo).build()
     with pytest.raises(ValueError, match="drives the edge kernel"):
         Engine(config=node, mesh=make_mesh(2, device="cpu"),
                multichip="halo", device="cpu").set_topology(topo).build()

@@ -1031,3 +1031,91 @@ def test_faults_keep_the_state_on_card(card):
     host.run_rounds(40)
     np.testing.assert_allclose(e.estimates(), host.estimates(), rtol=1e-5,
                                atol=1e-6)
+
+
+@pytest.mark.parametrize("gen,args", [("ring", (1000, 2)),
+                                      ("grid2d", (40, 30)),
+                                      ("torus2d", (30, 40)),
+                                      ("hypercube", (12,)),
+                                      ("complete", (300,)),
+                                      ("fat_tree", (16,))])
+def test_structured_on_card_every_generator(card, gen, args):
+    """spmv='structured' runs on the card on every structured generator:
+    float64 within 1e-12 of the host run and of the card's gather route."""
+    from flow_updating_tpu_torch.topology import generators
+
+    topo = getattr(generators, gen)(*args, seed=2)
+    cfg = RoundConfig.fast(kernel="node", spmv="structured", dtype="float64")
+    on_card = Engine(config=cfg).set_topology(topo).build().run_rounds(40)
+    assert on_card.state.S.device.type == "cuda"
+    host = Engine(config=cfg, device="cpu").set_topology(topo).build()
+    gather = Engine(config=RoundConfig.fast(kernel="node", spmv="xla",
+                                            dtype="float64"))
+    gather.set_topology(topo).build().run_rounds(40)
+    np.testing.assert_allclose(on_card.estimates(),
+                               host.run_rounds(40).estimates(),
+                               rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(on_card.estimates(), gather.estimates(),
+                               rtol=1e-12, atol=1e-12)
+
+
+def test_virtual_fat_tree_on_card_equals_materialized(card):
+    from flow_updating_tpu_torch.topology.generators import fat_tree as ft
+
+    cfg = RoundConfig.fast(kernel="node", spmv="structured")
+    runs = [Engine(config=cfg).set_topology(ft(32, materialize_edges=m))
+            .build().run_rounds(30) for m in (True, False)]
+    a, b = (e._node_kernel.arrays.value + e.state.G for e in runs)
+    assert torch.equal(a, b)
+
+
+def test_pod_kernel_on_card(card, tmp_path):
+    """The pod stencil over make_mesh(4) on the card: overlap equals the
+    plain schedule bit for bit, float64 within 1e-12 of one device, and
+    its archive resumes on one device within 1e-12."""
+    from flow_updating_tpu_torch.parallel.mesh import make_mesh
+    from flow_updating_tpu_torch.topology.generators import fat_tree as ft
+
+    topo = ft(16, materialize_edges=False)
+    cfg = RoundConfig.fast(kernel="node", spmv="structured", dtype="float64")
+    runs = {}
+    for halo in ("ppermute", "overlap"):
+        e = Engine(config=cfg, mesh=make_mesh(4), multichip="pod",
+                   halo=halo).set_topology(topo).build().run_rounds(40)
+        assert all(g.device.type == "cuda" for g in e.state.G)
+        runs[halo] = e
+    assert np.array_equal(runs["ppermute"].estimates(),
+                          runs["overlap"].estimates())
+    one = Engine(config=cfg).set_topology(topo).build().run_rounds(40)
+    np.testing.assert_allclose(runs["overlap"].estimates(), one.estimates(),
+                               rtol=1e-12, atol=1e-12)
+    path = str(tmp_path / "pod.npz")
+    runs["overlap"].save_checkpoint(path)
+    back = Engine().set_topology(topo).restore_checkpoint(path)
+    assert back.state.S.device.type == "cuda"
+    runs["overlap"].run_rounds(20)
+    back.run_rounds(20)
+    np.testing.assert_allclose(back.estimates(),
+                               runs["overlap"].estimates(),
+                               rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_sharded_benes_launches_b3_per_shard_on_card(card, dtype):
+    """Engine(mesh=make_mesh(4), spmv='benes_fused') launches B3 once per
+    pass on each shard, and equals the single-device benes_fused round on
+    the card bit for bit."""
+    from flow_updating_tpu_torch.ops import fused_passes as fp
+    from flow_updating_tpu_torch.parallel.mesh import make_mesh
+
+    topo = barabasi_albert(3000, 4, seed=5)
+    cfg = RoundConfig.fast(kernel="node", spmv="benes_fused", dtype=dtype)
+    e = Engine(config=cfg, mesh=make_mesh(4)).set_topology(topo).build()
+    wrappers = (fp.local_pass, fp.window_pass, fp.wide_pass, fp.wide2_pass)
+    before = sum(w.launches for w in wrappers)
+    e.run_rounds(12)
+    passes = len(e._node_kernel.fused.passes)
+    assert sum(w.launches for w in wrappers) - before == 12 * 4 * passes
+    assert all(s.device.type == "cuda" for s in e.state.S)
+    one = Engine(config=cfg).set_topology(topo).build().run_rounds(12)
+    assert np.array_equal(e.estimates(), one.estimates())

@@ -132,8 +132,9 @@ def test_engine_halo_refusals(graphs, tmp_path):
     with pytest.raises(ValueError, match="unknown partition"):
         Engine(mesh=mesh, multichip="halo", partition="metis",
                device="cpu").set_topology(pt).build()
-    with pytest.raises(NotImplementedError, match="A12"):
-        Engine(mesh=mesh, multichip="pod", device="cpu")
+    with pytest.raises(ValueError, match="pod.*drives the node kernel"):
+        Engine(mesh=mesh, multichip="pod",
+               device="cpu").set_topology(pt).build()
     with pytest.raises(NotImplementedError, match="A12"):
         Engine(config=RoundConfig.fast(kernel="node"), mesh=mesh,
                device="cpu").set_topology(pt).build()
@@ -190,7 +191,7 @@ def test_cli_halo_matches_jax(capsys, halo, partition):
     with pytest.raises(SystemExit, match="needs --shards"):
         port_main(["run", "--device", "cpu", "--generator", "ring:16",
                    "--multichip", "halo"])
-    with pytest.raises(SystemExit, match="A12"):
+    with pytest.raises(SystemExit, match="pod.*drives the node kernel"):
         port_main(["run", "--device", "cpu", "--generator", "ring:16",
                    "--shards", "2", "--multichip", "pod"])
 

@@ -213,9 +213,10 @@ def test_cli_refuses_unported_flags():
             "--kernel", "node", "--fire-policy", "every_round"]
     with pytest.raises(SystemExit, match="A9"):
         port_main([*base, "--telemetry"])
-    # --shards runs the sharded banded round (and, with --multichip halo,
-    # the edge kernel's halo round); the other mesh paths exit
-    with pytest.raises(SystemExit, match="A12"):
+    # --shards runs the sharded banded and Beneš rounds (with --multichip
+    # halo the edge kernel's halo round, with --multichip pod the pod
+    # stencil, spmv='structured' only); GSPMD's 'xla' path exits
+    with pytest.raises(SystemExit, match="requires spmv='structured'"):
         port_main([*base, "--shards", "2", "--multichip", "pod"])
     with pytest.raises(SystemExit, match="drives the edge kernel"):
         port_main([*base, "--shards", "2", "--multichip", "halo"])
@@ -232,10 +233,11 @@ def test_cli_refuses_unported_flags():
 
 def test_unported_configs_raise_naming_their_item():
     topo = pgen.ring(16, seed=0)
-    with pytest.raises(NotImplementedError, match="structured"):
-        NodeKernel(topo, RoundConfig.fast(kernel="node", spmv="structured"),
+    with pytest.raises(ValueError, match="structured"):   # no descriptor
+        NodeKernel(pgen.erdos_renyi(16, 4.0, seed=0),
+                   RoundConfig.fast(kernel="node", spmv="structured"),
                    device="cpu")
-    for spmv in ("benes", "benes_fused"):   # ported: they build and run
+    for spmv in ("benes", "benes_fused", "structured"):   # ported
         k = NodeKernel(topo, RoundConfig.fast(kernel="node", spmv=spmv),
                        device="cpu")
         assert k.run(k.init_state(), 2).t == 2
@@ -253,15 +255,17 @@ def test_unported_configs_raise_naming_their_item():
     node = RoundConfig.fast(kernel="node")
     with pytest.raises(NotImplementedError, match="plan='auto'"):
         Engine(config=node, plan="auto", device="cpu")
-    # a mesh runs spmv='banded_fused'; GSPMD's 'xla' path and the pod
-    # stencil still raise, naming multi-device execution; the halo round
-    # refuses the node kernel, as in JAX
+    # a mesh runs spmv='banded_fused' and 'benes_fused', and the pod
+    # stencil spmv='structured'; GSPMD's 'xla' path still raises, naming
+    # multi-device execution; the halo round refuses the node kernel, as
+    # in JAX
     mesh = make_mesh(2, device="cpu")
     with pytest.raises(NotImplementedError, match="multi-device.*A12"):
         Engine(config=node, mesh=mesh, device="cpu").set_topology(
             topo).build()
-    with pytest.raises(NotImplementedError, match="multi-device.*A12"):
-        Engine(config=node, mesh=mesh, multichip="pod", device="cpu")
+    with pytest.raises(ValueError, match="requires spmv='structured'"):
+        Engine(config=node, mesh=mesh, multichip="pod",
+               device="cpu").set_topology(topo).build()
     with pytest.raises(ValueError, match="drives the edge kernel"):
         Engine(config=node, mesh=mesh, multichip="halo",
                device="cpu").set_topology(topo).build()

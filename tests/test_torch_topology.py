@@ -175,5 +175,12 @@ def test_spec_parser_and_unported_virtual_fat_tree():
     _assert_same_topology(p, jgen.topology_from_spec("ring:64:2", seed=4))
     with pytest.raises(ValueError, match="unknown generator"):
         pgen.topology_from_spec("moebius:4")
-    with pytest.raises(NotImplementedError, match="structured"):
-        pgen.fat_tree(4, materialize_edges=False)
+    # the virtual fat tree: the materialized tree's node data, no edges,
+    # and every edge consumer refuses it naming materialize_edges
+    virtual = pgen.fat_tree(4, materialize_edges=False)
+    tree = pgen.fat_tree(4)
+    assert virtual.virtual and virtual.num_edges == 0
+    np.testing.assert_array_equal(virtual.values, tree.values)
+    np.testing.assert_array_equal(virtual.out_deg, tree.out_deg)
+    with pytest.raises(ValueError, match="materialize_edges"):
+        virtual.ell_buckets()
