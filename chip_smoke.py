@@ -179,6 +179,30 @@ and prints one JSON line per phase:
    for paths E and F also the union of the busy intervals of their
    streams and the share of the copies' time that another stream's
    kernel overlaps (path F: its ``'overlap'`` twin, whose wire is copies);
+   ``path_l`` — ``plan='auto'`` and telemetry: L0 the gather ratio (the
+   node/xla gather of the neighbor slots against a streamed copy of as
+   many float32 elements, device time) on the fat tree and
+   ``barabasi_albert(1_000_000, 4)``, beside ``GATHER_COST['cuda']``,
+   which must lie between the two or within 25% of the nearer; L1
+   ``Engine(plan='auto')`` on the fat tree takes the stencil with no
+   probe, ``torch.equal`` to J1's route; L2 ``Engine(plan='auto')`` on
+   path B's ring (its descriptor dropped) and on the BA graph: the
+   decision, predicted costs, probes and probed rates (kernel K2 at each
+   tile and remainder route), cold and cached build seconds (the second
+   build hits the autotune cache with no probe), the chosen route's
+   ms/round, the four candidates' ms/round (the median of ``L_REPS``
+   interleaved repeats; the choice within ``PLAN_MARGIN`` of the fastest
+   rate), 40 float64 rounds within 1e-9
+   of ``spmv='xla'``; L3 ``mixing_report`` on the fat tree (edge rows)
+   and on the ring's banded plan: both provenances, gaps in (0, 1], a
+   cache hit recomputing nothing, two cold calls equal bit for bit; L4
+   ``select_halo_mode`` on path F's plan over one card: 'ppermute', with
+   the byte ranking's choice beside it; L5 ``run_telemetry`` with every
+   metric on paths D, A, F and J3 (J3's inside path J): the state
+   ``torch.equal`` to ``run_rounds``', the last rmse and mass residual
+   against the host's, host reads inside the loop, the overhead; path
+   F's series against the single-device series on its renumbered
+   topology; ``run_streamed`` on path D, 10 samples;
 18. the ``{"kernels": [...]}`` line (launches from the main paths; times,
     errors and bounds measured in this run), then the nvidia-smi line,
     then ``{"ok": true, "device": {...}}`` as the last line.
@@ -273,6 +297,18 @@ DRIFT_ULPS = 4          # J2: the estimates' mean within this many ulps of
 #                         the largest value per round of the true mean
 EDGE_TWIN_ATOL = 1e-4
 SEED = 0
+BA_N, BA_M = 1_000_000, 4   # path L: barabasi_albert(1_000_000, 4)
+L_ROUNDS = 20           # L2: timed rounds of the chosen route and of each
+#                         of the four candidates, per repeat
+L_REPS = 5              # L2: interleaved repeats of each candidate's timing
+PLAN_MARGIN = 0.10      # L2: the choice within this share of the fastest
+#                         candidate's rate (doctor's plan_selection margin)
+L_F64_ROUNDS = 40       # L2: float64 rounds held to spmv='xla'
+L_F64_TOL = 1e-9        # L2: ... within this
+TELEMETRY_ROUNDS = 20   # L5: rounds of paths F and J3 under telemetry
+L_SERIES_RTOL = 1e-5    # L5: halo vs single-device float32 series, as a
+#                         share of each series' largest value (the
+#                         shards' partial sums add in another order)
 
 #: NVIDIA H100 SXM data sheet: peak HBM rate (bytes/s) and float32 rate
 #: outside the tensor cores (FLOP/s)
@@ -3157,6 +3193,8 @@ def phase_path_j3(topo, est_j2, rounds: int, tmp) -> dict:
         out["overlap" if overlap else "plain"] = {
             "build_s": build_s, **timed, **eng.convergence_report(),
             "device": _device_summary(eng)}
+        if overlap:     # path L's L5 on the pod kernel, at full width
+            out["telemetry"] = telemetry_check(eng, TELEMETRY_ROUNDS)
         del eng
     if not np.array_equal(ests[True], ests[False]):
         raise AssertionError("J3: the overlap schedule differs from the "
@@ -3347,6 +3385,497 @@ def profile_rounds(engine, rounds: int) -> dict:
                     for k, us, c in device[:10]]}
 
 
+# ---- path L: plan='auto' on the card and telemetry at full width ---------
+
+def _host_reads_mode():
+    """A dispatch mode counting host reads: scalar reads
+    (``aten._local_scalar_dense``) and copies from the card to the host."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Reads(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.scalars = 0
+            self.copies = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if func is torch.ops.aten._local_scalar_dense.default:
+                self.scalars += 1
+            elif (func is torch.ops.aten._to_copy.default
+                  and args[0].is_cuda
+                  and torch.device(kwargs.get("device") or "cuda").type
+                  == "cpu"):
+                self.copies += 1
+            elif (func is torch.ops.aten.copy_.default
+                  and not args[0].is_cuda and args[1].is_cuda):
+                self.copies += 1
+            return func(*args, **kwargs)
+
+    return Reads()
+
+
+def _same_state(a, b) -> bool:
+    """Every tensor of two states of any kernel, ``torch.equal``."""
+    import dataclasses
+
+    import torch
+
+    if hasattr(a, "shards"):
+        return _states_equal(a, b)
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        pairs = zip(x, y) if isinstance(x, tuple) else ((x, y),)
+        for p, q in pairs:
+            if isinstance(p, torch.Tensor):
+                if not torch.equal(p, q):
+                    return False
+            elif p != q:
+                return False
+    return True
+
+
+def telemetry_check(engine, rounds: int) -> dict:
+    """L5 on one engine: ``rounds`` plain rounds timed, then the same
+    rounds from the same state under ``TelemetrySpec.full()``: the states
+    ``torch.equal``, the last rmse row against the rmse of
+    ``estimates()``, the last ``mass_residual`` against the host's sum,
+    the host reads inside the loop (expected 0) and the overhead."""
+    import numpy as np
+    import torch
+
+    from flow_updating_tpu_torch.obs.telemetry import TelemetrySpec
+
+    s0, clock0 = engine.state, engine.clock
+    with _host_reads_mode() as plain_reads:
+        plain_ms = _timed_rounds(engine, rounds)
+    plain = engine.state
+    engine.state, engine._clock = s0, clock0
+    torch.cuda.synchronize()
+    with _host_reads_mode() as reads:
+        t0 = time.perf_counter()
+        series = engine.run_telemetry(rounds, TelemetrySpec.full())
+        tele_ms = (time.perf_counter() - t0) * 1e3
+    kind = engine._kernel_kind
+    # the bulk copies at the end: one per series tensor on the card (the
+    # node and pod kernels count rounds on the host, the pod kernel its
+    # fired and active counts too)
+    host_made = ("fired_total", "active") if kind == "pod" else ()
+    bulk = sum(1 for m in series.metrics if m not in host_made) \
+        + (1 if kind in ("edge", "halo") else 0)
+    if not _same_state(engine.state, plain):
+        raise AssertionError(f"L5 {kind}: the state after run_telemetry "
+                             "differs from the state after run_rounds")
+    est = engine.estimates().astype(np.float64)
+    topo = engine.topology
+    # the series measures against the true mean in the run's dtype
+    mean = float(np.asarray(topo.true_mean, engine.estimates().dtype))
+    host_rmse = float(np.sqrt(np.mean((est - mean) ** 2)))
+    rel = abs(float(series["rmse"][-1]) - host_rmse) / host_rmse
+    eps = float(np.finfo(np.float32).eps)
+    if not rel <= 1e-4:
+        raise AssertionError(f"L5 {kind}: the last rmse row is {rel} off "
+                             "the rmse of estimates()")
+    host_res = float(est.sum() - np.asarray(topo.values, np.float64).sum())
+    res_tol = eps * topo.num_nodes * float(np.abs(est).max())
+    res_diff = abs(float(np.sum(series["mass_residual"][-1])) - host_res)
+    if not res_diff <= res_tol:
+        raise AssertionError(f"L5 {kind}: mass_residual is {res_diff} off "
+                             f"the host's (bound {res_tol})")
+    return {"kernel": kind, "rounds": rounds, "metrics": list(series.metrics),
+            "plain_ms_per_round": plain_ms / rounds,
+            "telemetry_ms_per_round": tele_ms / rounds,
+            "overhead": tele_ms / plain_ms - 1.0,
+            "state_equal": True, "rmse_rel_diff": rel,
+            "mass_residual_diff": res_diff, "mass_residual_bound": res_tol,
+            "host_reads_plain_run": plain_reads.scalars + plain_reads.copies,
+            "host_reads_in_loop": reads.scalars + reads.copies - bulk,
+            "bulk_copies": bulk, "final": series.row(len(series) - 1)}
+
+
+def _gather_ratio(topo, dev) -> dict:
+    """L0 on one graph: the node/xla gather of the graph's neighbor slots
+    (its degree buckets, one ``xp[m]`` per bucket, each timed apart)
+    against one streamed pass (a copy) over as many float32 elements,
+    both by device time."""
+    import numpy as np
+    import torch
+
+    ell = topo.ell_buckets()
+    mats = [torch.from_numpy(np.ascontiguousarray(m)).to(dev)
+            for m in ell.mats if m.size]
+    slots = int(sum(m.numel() for m in mats))
+    rng = np.random.default_rng(SEED)
+    xp = torch.from_numpy(rng.random(topo.num_nodes + 1)).to(
+        dev, torch.float32)
+    src = torch.from_numpy(rng.random(slots)).to(dev, torch.float32)
+    dst = torch.empty_like(src)
+    # one bucket a measurement: the buckets' gathers share a kernel name,
+    # and device_ms makes up for dropped profiler events per name, which
+    # needs the launches of a name to be alike
+    gather_ms = sum(device_ms(lambda m=m: xp[m]) for m in mats)
+    stream_ms = device_ms(lambda: dst.copy_(src))
+    return {"nodes": topo.num_nodes, "edges": topo.num_edges,
+            "gathered_slots": slots, "buckets": len(mats),
+            "gather_ms": gather_ms, "stream_ms": stream_ms,
+            "gather_ps_per_slot": gather_ms * 1e9 / slots,
+            "stream_ps_per_element": stream_ms * 1e9 / slots,
+            "ratio": gather_ms / stream_ms}
+
+
+def phase_path_l0(tree, ba) -> dict:
+    import torch
+
+    from flow_updating_tpu_torch.plan.select import GATHER_COST
+
+    dev = torch.device("cuda")
+    out = {"fat_tree": _gather_ratio(tree, dev),
+           "barabasi_albert": _gather_ratio(ba, dev)}
+    lo, hi = sorted((out["fat_tree"]["ratio"],
+                     out["barabasi_albert"]["ratio"]))
+    cg = GATHER_COST["cuda"]
+    near = lo if abs(cg - lo) <= abs(cg - hi) else hi
+    ok = lo <= cg <= hi or abs(cg - near) <= 0.25 * near
+    out.update({"gather_cost_cuda": cg, "ratio_range": [lo, hi],
+                "within_gate": ok})
+    if not ok:
+        raise AssertionError(f"L0: GATHER_COST['cuda'] = {cg} is not "
+                             f"within [{lo}, {hi}] or 25% of {near}")
+    return out
+
+
+def phase_path_l1(tree) -> dict:
+    """L1: Engine(plan='auto') on the fat tree k=160 takes the structured
+    stencil with no probe, and its estimates equal J1's route's after the
+    same rounds."""
+    import torch
+
+    from flow_updating_tpu_torch import Engine, RoundConfig
+    from flow_updating_tpu_torch.plan import select
+
+    probes = select.PROBE_COUNT
+    t0 = time.perf_counter()
+    auto = Engine(config=RoundConfig.fast(), plan="auto").set_topology(tree)
+    auto.build()
+    build_s = time.perf_counter() - t0
+    rep = auto.plan_report()
+    if (rep["kernel"], rep["spmv"]) != ("node", "structured") \
+            or select.PROBE_COUNT != probes or "autotune" in rep:
+        raise AssertionError(f"L1: plan='auto' chose {rep['kernel']}/"
+                             f"{rep['spmv']} with probes on the fat tree")
+    j1 = Engine(config=_structured_cfg()).set_topology(tree).build()
+    auto.run_rounds(ROUNDS)
+    j1.run_rounds(ROUNDS)
+    if not torch.equal(_estimate_tensor(auto), _estimate_tensor(j1)):
+        raise AssertionError("L1: plan='auto' estimates differ from J1's")
+    return {"decision": f"{rep['kernel']}/{rep['spmv']}", "probes_run": 0,
+            "build_s": build_s, "reason": rep["reason"],
+            "equal_to_j1": True, "rounds": ROUNDS}
+
+
+def _candidate_engines(topo, decision) -> dict:
+    """L2's four candidates on ``topo``: node/xla, the decision's plan as
+    node/banded and as node/banded_fused (at the autotuner's best fused
+    knobs when it probed them), and the edge kernel's gather round."""
+    import dataclasses
+
+    from flow_updating_tpu_torch import Engine, RoundConfig
+    from flow_updating_tpu_torch.plan.select import PlanDecision
+
+    tune = decision.fused or {}
+    best = tune.get("best") or {}
+    knobs = {"fused_tile": None, "fused_remainder": "auto"}
+    if best.get("spmv") == "banded_fused":
+        knobs = {"fused_tile": best.get("fused_tile"),
+                 "fused_remainder": best.get("fused_remainder") or "auto"}
+    knobs = tune.get("chosen") or knobs
+
+    def fixed(spmv, fused=None):
+        return PlanDecision(kernel="node", spmv=spmv, plan=decision.plan,
+                            backend="cuda", predicted={}, reason="L2",
+                            fused=fused)
+
+    cfg = RoundConfig.fast()
+    return {
+        "node/xla": lambda: Engine(config=dataclasses.replace(
+            cfg, kernel="node", spmv="xla")),
+        "node/banded": lambda: Engine(config=cfg, plan=fixed("banded")),
+        "node/banded_fused": lambda: Engine(
+            config=cfg, plan=fixed("banded_fused", {"chosen": knobs})),
+        "edge/gather": lambda: Engine(config=cfg),
+    }
+
+
+def _plan_graph(name, topo, tmp) -> dict:
+    """L2 on one graph: the cold decision with its probes, the cached
+    second build, the chosen route's time, the four candidates' times,
+    and the float64 agreement with spmv='xla'."""
+    import numpy as np
+    import torch
+
+    from flow_updating_tpu_torch import Engine, RoundConfig
+    from flow_updating_tpu_torch.plan import compile_topology, select
+    from flow_updating_tpu_torch.plan.select import PlanDecision
+
+    os.environ["FLOW_UPDATING_AUTOTUNE_CACHE"] = os.path.join(
+        tmp, f"{name}.json")
+    t0 = time.perf_counter()
+    plan_only = compile_topology(topo, min_fill=float(np.clip(
+        3.0 / select.GATHER_COST["cuda"], 1.0 / 64.0, 0.75)))
+    plan_s = time.perf_counter() - t0
+    probes0 = select.PROBE_COUNT
+    t0 = time.perf_counter()
+    eng = Engine(config=RoundConfig.fast(), plan="auto").set_topology(topo)
+    eng.build()
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    decision = eng.plan_decision
+    rep = eng.plan_report()
+    tune = rep.get("autotune") or {}
+    if tune.get("cache") != "miss" or not tune.get("probes_run"):
+        raise AssertionError(f"L2 {name}: the cold build ran no probes "
+                             f"({tune})")
+    probes_run = select.PROBE_COUNT - probes0
+    t0 = time.perf_counter()
+    again = Engine(config=RoundConfig.fast(), plan="auto").set_topology(topo)
+    again.build()
+    warm_s = time.perf_counter() - t0
+    tune2 = again.plan_report().get("autotune") or {}
+    if tune2.get("probes_run") != 0 or tune2.get("cache") != "hit" \
+            or select.PROBE_COUNT != probes0 + probes_run:
+        raise AssertionError(f"L2 {name}: the second build missed the "
+                             f"cache ({tune2})")
+    del again
+    chosen = f"{decision.kernel}/{decision.spmv or 'gather'}"
+    eng.run_rounds(WARMUP)
+    ms = _timed_rounds(eng, L_ROUNDS)
+    dev_ms = device_ms(lambda: eng.run_rounds(1))
+    # the candidates' rounds are host-bound at 1 M nodes, so each is
+    # timed L_REPS times, interleaved with the others, and its median
+    # counts (a slow stretch of the host hits every candidate alike)
+    engines = {}
+    for cand, make in _candidate_engines(topo, decision).items():
+        engines[cand] = make().set_topology(topo).build()
+        engines[cand].run_rounds(WARMUP)
+    reps = {cand: [] for cand in engines}
+    for _ in range(L_REPS):
+        for cand, e in engines.items():
+            reps[cand].append(_timed_rounds(e, L_ROUNDS) / L_ROUNDS)
+    measured = {cand: {"ms_per_round": float(np.median(v)),
+                       "ms_per_round_reps": v,
+                       "spmv": engines[cand].config.spmv}
+                for cand, v in reps.items()}
+    del engines
+    rates = {c: 1e3 / v["ms_per_round"] for c, v in measured.items()}
+    fastest = max(rates, key=rates.get)
+    chosen_rate = rates[chosen]
+    margin = 1.0 - chosen_rate / rates[fastest]
+    if chosen_rate < rates[fastest] * (1.0 - PLAN_MARGIN):
+        raise AssertionError(
+            f"L2 {name}: plan='auto' chose {chosen} at {chosen_rate:.4g} "
+            f"r/s, {100 * margin:.1f}% slower than {fastest} at "
+            f"{rates[fastest]:.4g} r/s")
+    # float64: the chosen route against spmv='xla' after 40 rounds
+    f64 = RoundConfig.fast(dtype="float64")
+    mine = Engine(config=f64, plan=PlanDecision(
+        kernel=decision.kernel, spmv=decision.spmv, plan=decision.plan,
+        backend="cuda", predicted={}, reason="L2 float64",
+        fused=decision.fused)).set_topology(topo).build()
+    ref = Engine(config=RoundConfig.fast(kernel="node", spmv="xla",
+                                         dtype="float64"))
+    ref.set_topology(topo).build()
+    mine.run_rounds(L_F64_ROUNDS)
+    ref.run_rounds(L_F64_ROUNDS)
+    diff = float(np.abs(mine.estimates() - ref.estimates()).max())
+    if not diff <= L_F64_TOL:
+        raise AssertionError(f"L2 {name}: float64 {chosen} is {diff} off "
+                             "spmv='xla'")
+    del mine, ref
+    out = {"nodes": topo.num_nodes, "edges": topo.num_edges,
+           "plan_s": plan_s, "band_lanes": len(plan_only.spmv.offsets),
+           "remainder_edges": int(plan_only.spmv.remainder_edges),
+           "decision": chosen, "reason": rep["reason"],
+           "predicted_cost": rep["predicted_cost"],
+           "probes_run": probes_run,
+           "probed_rounds_per_s": tune.get("candidates"),
+           "autotune_best": tune.get("best"),
+           "cold_build_s": cold_s, "cached_build_s": warm_s,
+           "cached_probes_run": 0,
+           "chosen_ms_per_round": ms / L_ROUNDS,
+           "chosen_device_ms_per_round": dev_ms,
+           "candidates_ms_per_round": measured,
+           "fastest": fastest, "chosen_margin": margin,
+           "float64_max_abs_diff_to_xla": diff,
+           "plan": decision.plan if decision.plan is not None else None}
+    del eng
+    return out
+
+
+def phase_path_l2(ring_topo, ba, tmp) -> dict:
+    import dataclasses
+
+    # path B's ring as an arbitrary graph: with its generator's descriptor
+    # plan='auto' takes the stencil and never races the banded family
+    plain_ring = dataclasses.replace(ring_topo, structure=None)
+    return {"ring": _plan_graph("ring", plain_ring, tmp),
+            "barabasi_albert": _plan_graph("ba", ba, tmp)}
+
+
+def _mixing_pair(topo, plan, tmp, name) -> dict:
+    from flow_updating_tpu_torch.obs.spectral import mixing_report
+
+    path = os.path.join(tmp, f"mix_{name}.json")
+    t0 = time.perf_counter()
+    cold = mixing_report(topo, plan=plan, cache_path=path)
+    cold_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hit = mixing_report(topo, plan=plan, cache_path=path)
+    hit_s = time.perf_counter() - t0
+    again = mixing_report(topo, plan=plan,
+                          cache_path=os.path.join(tmp, f"mix2_{name}.json"))
+    if cold["cache"]["hit"] or not hit["cache"]["hit"] \
+            or hit["structural"] != cold["structural"] \
+            or hit["measured"] != cold["measured"]:
+        raise AssertionError(f"L3 {name}: the second call was no cache hit")
+    if again["structural"] != cold["structural"] \
+            or again["measured"] != cold["measured"]:
+        raise AssertionError(f"L3 {name}: two cold calls differ")
+    gaps = [cold["gap"], cold["structural"]["gap"], cold["measured"]["gap"]]
+    if not all(0.0 < g <= 1.0 for g in gaps):
+        raise AssertionError(f"L3 {name}: a gap outside (0, 1]: {gaps}")
+    return {"family": cold["family"], "gap": cold["gap"],
+            "provenance": cold["provenance"],
+            "structural": cold["structural"], "measured": cold["measured"],
+            "predicted_rounds_to_1e-6": cold["predicted_rounds"],
+            "cold_s": cold_s, "cached_s": hit_s, "cold_calls_equal": True}
+
+
+def phase_path_l3(tree, ring_plan, plain_ring, tmp) -> dict:
+    return {"fat_tree": _mixing_pair(tree, None, tmp, "tree"),
+            "ring_banded": _mixing_pair(plain_ring, ring_plan, tmp, "ring")}
+
+
+def phase_path_l4(engine_f) -> dict:
+    from flow_updating_tpu_torch.plan.select import select_halo_mode
+
+    plan = engine_f._halo_plan
+    got = select_halo_mode(plan, mesh=engine_f.mesh, dtype_bytes=4)
+    bytes_only = select_halo_mode(plan, backend="cuda", dtype_bytes=4)
+    if got["halo"] != "ppermute" or not got.get("one_device"):
+        raise AssertionError(f"L4: halo='auto' on one card chose "
+                             f"{got['halo']}")
+    return {"chosen": got["halo"], "reason": got["reason"],
+            "wire_hide_fraction": got["wire_hide_fraction"],
+            "byte_ranking_choice": bytes_only["halo"],
+            "byte_ranking_hide_fraction": bytes_only["hide_fraction"],
+            "predicted_effective_bytes": got["predicted_effective_bytes"]}
+
+
+def phase_path_l5(engine_d, engine_a, engine_f, j3_telemetry) -> dict:
+    """L5: telemetry at full width on paths D, A and F (J3's ran inside
+    path J, where its engine lives), the halo series against the
+    single-device series on the renumbered topology, and run_streamed on
+    path D."""
+    import numpy as np
+
+    from flow_updating_tpu_torch import Engine
+    from flow_updating_tpu_torch.obs.telemetry import TelemetrySpec
+
+    out = {"path_d": telemetry_check(engine_d, EDGE_ROUNDS),
+           "path_a": telemetry_check(engine_a, ROUNDS),
+           "path_f": telemetry_check(engine_f, TELEMETRY_ROUNDS),
+           "path_j3": j3_telemetry}
+    # the halo series against the single-device round on the plan's
+    # renumbered topology, from path F's state (reached again from SEED)
+    plan, t_f = engine_f._halo_plan, int(engine_f.state.t)
+    single = Engine(config=engine_f.config).set_topology(plan.topo)
+    single.build(seed=SEED).run_rounds(t_f)
+    if not np.array_equal(engine_f.estimates()[plan.order],
+                          single.estimates()):
+        raise AssertionError("L5: path F's state is not the renumbered "
+                             "single-device run's")
+    spec = TelemetrySpec.full().for_kernel("halo")
+    halo = engine_f.run_telemetry(TELEMETRY_ROUNDS, spec)
+    one = single.run_telemetry(TELEMETRY_ROUNDS, spec)
+    worst = 0.0
+    for m in halo.metrics:
+        a, b = np.asarray(halo[m], np.float64), np.asarray(one[m],
+                                                           np.float64)
+        if np.issubdtype(np.asarray(halo[m]).dtype, np.integer):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"L5: halo series {m} differs from "
+                                     "the single device's")
+            continue
+        # the residual is a difference of masses: it is held on the
+        # masses' scale, every other series on its own
+        scale = float(np.max(np.abs(np.asarray(
+            one["mass"] if m == "mass_residual" else one[m], np.float64))))
+        rel = float(np.max(np.abs(a - b))) / max(scale, 1e-30)
+        worst = max(worst, rel)
+        if not rel <= L_SERIES_RTOL:
+            raise AssertionError(f"L5: halo series {m} is {rel} (of its "
+                                 "scale) off the single device's")
+    del single
+    out["halo_vs_single_device"] = {"rounds": TELEMETRY_ROUNDS,
+                                    "max_rel_diff": worst,
+                                    "rtol": L_SERIES_RTOL,
+                                    "counters_equal": True}
+    seen = []
+    engine_d.run_streamed(10 * OBS, observe_every=OBS, emit=seen.append)
+    if len(seen) != 10:
+        raise AssertionError(f"L5: run_streamed emitted {len(seen)} "
+                             "samples, expected 10")
+    out["path_d_streamed"] = {"samples": len(seen), "last": seen[-1]}
+    return out
+
+
+def phase_path_l(tree, ring_topo, engine_a, engine_d, engine_f,
+                 j3_telemetry) -> dict:
+    """Path L: L0 the gather ratio, L1 plan='auto' on the fat tree, L2
+    plan='auto' with probes on the ring and the BA graph, L3 the mixing
+    probe, L4 select_halo_mode on path F's plan, L5 telemetry."""
+    import tempfile
+
+    import torch
+
+    from flow_updating_tpu_torch.topology.generators import barabasi_albert
+
+    t0 = time.perf_counter()
+    ba = barabasi_albert(BA_N, BA_M, seed=SEED)
+    ba_s = time.perf_counter() - t0
+    out = {"ba_topology_s": ba_s}
+    saved = os.environ.get("FLOW_UPDATING_AUTOTUNE_CACHE")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_plan_") as tmp:
+        try:
+            out["l0"] = phase_path_l0(tree, ba)
+            emit({"phase": "path_l", "part": "l0", **out["l0"]})
+            out["l1"] = phase_path_l1(tree)
+            emit({"phase": "path_l", "part": "l1", **out["l1"]})
+            out["l2"] = phase_path_l2(ring_topo, ba, tmp)
+            ring_plan = out["l2"]["ring"].pop("plan")
+            out["l2"]["barabasi_albert"].pop("plan")
+            emit({"phase": "path_l", "part": "l2", **out["l2"]})
+            import dataclasses
+
+            out["l3"] = phase_path_l3(
+                tree, ring_plan, dataclasses.replace(ring_topo,
+                                                     structure=None), tmp)
+            emit({"phase": "path_l", "part": "l3", **out["l3"]})
+        finally:
+            if saved is None:
+                os.environ.pop("FLOW_UPDATING_AUTOTUNE_CACHE", None)
+            else:
+                os.environ["FLOW_UPDATING_AUTOTUNE_CACHE"] = saved
+    del ba
+    out["l4"] = phase_path_l4(engine_f)
+    emit({"phase": "path_l", "part": "l4", **out["l4"]})
+    out["l5"] = phase_path_l5(engine_d, engine_a, engine_f, j3_telemetry)
+    emit({"phase": "path_l", "part": "l5", **out["l5"]})
+    torch.cuda.synchronize()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3355,6 +3884,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     from flow_updating_tpu_torch import kernels
+    from flow_updating_tpu_torch.ops.fused_round import fused_banded_round
+    from flow_updating_tpu_torch.ops.spmv import neighbor_sum_ell
     from flow_updating_tpu_torch.topology.generators import fat_tree, ring
 
     # no phase reads or writes a plan cache file but a6, which points the
@@ -3506,12 +4037,23 @@ def main() -> int:
                                                      PROFILE_ROUNDS)}})
     torch.cuda.synchronize()
 
+    t0 = time.perf_counter()
+    reset_counts()
+    path_l = phase_path_l(tree, ring_topo, engine_a, engine_d, engine_f,
+                          path_j["j3"].pop("telemetry"))
+    l_launches = {"k1": neighbor_sum_ell.launches,
+                  "k2": fused_banded_round.launches, "b3": b3_launches(),
+                  "b4": b4_launches(), "b6": b6_launches()}
+    emit({"phase": "path_l", "wall_s": time.perf_counter() - t0,
+          "launches": l_launches,
+          "k2_probe_and_route_launches": l_launches["k2"]})
+
     emit({"phase": "timing", "timed_by_cuda_events": EVENT_TIMED})
     emit({"kernels": [
         {"name": "spmv_ell", "route": "cuda",
          "source": "flow_updating_tpu_torch/csrc/spmv_ell.cu",
          "replaces": "flow_updating_tpu/ops/pallas_spmv.py:35",
-         "launches": path_a["k1_launches"],
+         "launches": path_a["k1_launches"] + l_launches["k1"],
          "parity": "float32 rtol=atol=1e-6, float64 1e-12, dyadic exact",
          "max_abs_err": k1["max_abs_err_float32"],
          "ms": k1["ms"], "call_ms": k1["call_ms"],
@@ -3521,7 +4063,7 @@ def main() -> int:
         {"name": "fused_round", "route": "cuda",
          "source": "flow_updating_tpu_torch/csrc/fused_round.cu",
          "replaces": "flow_updating_tpu/ops/pallas_round.py:331",
-         "launches": path_b["k2_launches"],
+         "launches": path_b["k2_launches"] + l_launches["k2"],
          "parity": "lanes bit-exact, inline exact on integers",
          "max_abs_err": k2["max_abs_err"],
          "ms": k2["ms"], "call_ms": k2["call_ms"],
@@ -3536,7 +4078,8 @@ def main() -> int:
                         + path_g["g1"]["b3_launches"][name]
                         + path_g["g2"]["b3_launches"][name]
                         + a6["b3_launches"][name] + i_b3[name]
-                        + path_j["j4"]["b3_launches"][name]),
+                        + path_j["j4"]["b3_launches"][name]
+                        + l_launches["b3"][name]),
            "parity": "bit-exact (torch.equal), float32 and float64",
            "max_abs_err": k3["flavours"][name]["max_abs_err"],
            "ms": k3["flavours"][name]["ms"],
@@ -3552,7 +4095,7 @@ def main() -> int:
            "launches": (path_d["b4_launches"][name]
                         + path_g["g1"]["b4_launches"][name]
                         + path_g["g2"]["b4_launches"][name]
-                        + i_b4[name]),
+                        + i_b4[name] + l_launches["b4"][name]),
            "parity": "bit-exact (torch.equal): float32, float64, int32, "
                      "batch 1 and 3, the split passes",
            "max_abs_err": k4["flavours"][name]["max_abs_err"],
@@ -3587,7 +4130,8 @@ def main() -> int:
          "replaces": "flow_updating_tpu/ops/pallas_halo.py:99",
          "launches": (path_f["b6_launches"]["fused"]
                       + path_f["pairwise_fast"]["b6_launches"]["pull"]
-                      + path_i["i3"]["b6_launches"]["fused"]),
+                      + path_i["i3"]["b6_launches"]["fused"]
+                      + l_launches["b6"]["fused"]),
          "parity": "bit-exact (torch.equal): float32 and float64, scalar "
                    "and 3 lanes, pull and fused, every shard, odd shapes; "
                    "path F 'overlap_pallas' == 'ppermute', 'allgather', "

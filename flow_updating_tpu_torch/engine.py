@@ -48,10 +48,24 @@ states are gathered to the canonical single-device layout, so their
 archives resume on any mode.  The structured route runs virtual fat trees
 (``fat_tree(k, materialize_edges=False)``), which have no edge arrays.
 
+``plan='auto'`` (ROADMAP A5) picks the fastest correct kernel/spmv for the
+resolved topology on the engine's device
+(:func:`~flow_updating_tpu_torch.plan.select.select_plan`: the analytic
+model with the H100's gather penalty, the banded family raced on the
+device above 4,096 nodes through the autotune cache); an
+:class:`~flow_updating_tpu_torch.plan.compile.ExecutionPlan` or a
+:class:`~flow_updating_tpu_torch.plan.select.PlanDecision` is used as
+given.  Only the implementation changes, never the dynamics;
+:meth:`Engine.plan_report` records the decision.
+
+The run side of observability (ROADMAP A9 part 1): :meth:`run_telemetry`
+on the edge, node, halo and pod kernels (device-resident series, one
+bulk copy at the end), ``event_log=`` (``advance`` and ``kill_all``
+records), and :meth:`run_streamed` on every kernel.
+
 What the JAX engine does beyond that raises ``NotImplementedError``
-naming its ROADMAP item: GSPMD's mesh paths, ``plan='auto'``,
-``host_actors``, ``adversary``, custom actors, event logs and the edge
-kernel's streamed runner.
+naming its ROADMAP item: GSPMD's mesh paths, ``host_actors``,
+``adversary``, custom actors and the field runner.
 
 Simulated-time convention: one round == ``TICK_INTERVAL`` (1.0) simulated
 seconds, the reference peers' loop cadence.
@@ -138,16 +152,26 @@ class Engine:
             raise TypeError(
                 "mesh= takes a flow_updating_tpu_torch.parallel.mesh.Mesh "
                 f"(make_mesh), got {type(mesh).__name__}")
-        if plan not in ("off", None):
-            raise _not_ported(f"plan={plan!r}",
-                              "plan='auto' with the H100 cost model (A5)")
+        if isinstance(plan, str):
+            if plan not in ("off", "auto"):
+                raise ValueError(
+                    f"unknown plan mode {plan!r}: use 'off', 'auto', or "
+                    "pass a compiled flow_updating_tpu_torch.plan "
+                    "ExecutionPlan / PlanDecision")
+        elif plan is not None:
+            from flow_updating_tpu_torch.plan import ExecutionPlan
+            from flow_updating_tpu_torch.plan.select import PlanDecision
+
+            if not isinstance(plan, (ExecutionPlan, PlanDecision)):
+                # a dict/describe() output/bool must not silently run
+                # auto-selection in place of the caller's intended plan
+                raise TypeError(
+                    f"plan= takes 'off', 'auto', an ExecutionPlan or a "
+                    f"PlanDecision; got {type(plan).__name__}")
         if host_actors:
             raise _not_ported("host_actors=True", "host actors (A8)")
         if adversary is not None:
             raise _not_ported("adversary=", "sweep and scenarios (A10)")
-        if event_log is not None:
-            raise _not_ported("event_log=",
-                              "observability twins and manifests (A9)")
         self.argv = list(argv) if argv else []
         self.config = self._apply_argv_cfg(config or RoundConfig.fast())
         self.device = resolve_device(device)
@@ -174,7 +198,18 @@ class Engine:
         self._watchers: list = []
         self._clock = 0.0
         self._killed = False
+        self.plan_spec = plan
+        self.plan_decision = None   # PlanDecision once build() resolved it
+        self._plan = None           # ExecutionPlan handed to the NodeKernel
+        self._fused_kw = None       # the fused round's tile / remainder
+        #                             route (autotuned or defaults)
         self.netzone_root = _NetzoneShim(self)
+        # optional EventLog sink for engine lifecycle records ("advance"
+        # dispatches, "kill_all")
+        self.event_log = event_log
+        # wall-time split of the last run_telemetry call (run manifests
+        # record it); compile_s is None: nothing is compiled
+        self.telemetry_timings: dict = {}
 
     def _apply_argv_cfg(self, cfg: RoundConfig) -> RoundConfig:
         """Consume SimGrid-style ``--cfg=key:value`` flags from argv: every
@@ -236,6 +271,14 @@ class Engine:
         return self.mesh is not None and self.multichip == "pod"
 
     @property
+    def _kernel_kind(self) -> str:
+        """'edge', 'node', 'halo' or 'pod' — the key telemetry support
+        dispatches on."""
+        return ("halo" if self._halo_mode else
+                "pod" if self._pod_mode else
+                "node" if self.config.kernel == "node" else "edge")
+
+    @property
     def _ledger_dtype_bytes(self) -> int:
         """Bytes per ledger element on the halo wire — shared by the
         halo='auto' ranking and halo_report()'s evidence."""
@@ -292,7 +335,7 @@ class Engine:
 
             self.halo_decision = select_halo_mode(
                 self._halo_plan, backend=self.device.type,
-                dtype_bytes=self._ledger_dtype_bytes)
+                dtype_bytes=self._ledger_dtype_bytes, mesh=self.mesh)
             self._halo_resolved = self.halo_decision["halo"]
             logger.info("halo auto: %s", self.halo_decision["reason"])
         else:
@@ -389,9 +432,10 @@ class Engine:
                     exchange="ppermute" if self.halo == "ppermute"
                     else "pallas", device=self.device)
             else:
-                self._node_kernel = NodeKernel(self.topology, self.config,
-                                               device=self.device,
-                                               mesh=self.mesh)
+                self._node_kernel = NodeKernel(
+                    self.topology, self.config, device=self.device,
+                    mesh=self.mesh, plan=self._plan,
+                    **(self._fused_kw or {}))
             return
         if self._pod_mode:
             raise ValueError(
@@ -417,10 +461,128 @@ class Engine:
             delivery_benes=cfg.delivery_benes_mode,
             device=self.device)
 
+    # ---- the topology compiler's auto mode (A5) -------------------------
+    def _apply_plan(self) -> None:
+        """Resolve ``plan=`` into a concrete kernel/spmv choice.  Runs
+        between topology resolution and array preparation: the decision
+        may rewrite ``self.config``'s kernel and spmv fields and nothing
+        else — the requested dynamics are inputs to the selection, never
+        outputs.  The chosen plan and the fused round's knobs go to the
+        NodeKernel, whose permutation keeps every readback and telemetry
+        row in original node order."""
+        if self.plan_spec in (None, "off"):
+            return
+        if self.mesh is not None:
+            logger.info(
+                "plan=%r: multi-chip dispatch is not planned yet; keeping "
+                "the configured execution mode", self.plan_spec)
+            return
+        from flow_updating_tpu_torch.plan import ExecutionPlan, select_plan
+        from flow_updating_tpu_torch.plan.select import PlanDecision
+
+        feats = 0
+        vals = self.topology.values
+        if vals is not None and getattr(vals, "ndim", 1) > 1:
+            feats = int(vals.size // vals.shape[0])
+        spec = self.plan_spec
+        if isinstance(spec, ExecutionPlan):
+            decision = PlanDecision(
+                kernel="node", spmv="banded", plan=spec,
+                backend="explicit", predicted={},
+                reason="explicit ExecutionPlan passed to Engine(plan=)")
+        elif isinstance(spec, PlanDecision):
+            decision = spec
+        else:  # 'auto'
+            decision = select_plan(self.topology, self.config,
+                                   features=feats, device=self.device)
+        if decision.kernel == "node" and not \
+                self.config.is_fast_sync_collectall:
+            raise ValueError(
+                "the supplied plan selects the node kernel, but this "
+                "config runs dynamics only the edge kernel implements "
+                f"({self.config.variant!r}/{self.config.fire_policy!r}"
+                f"/drop={self.config.drop_rate}) — use plan='auto' to "
+                "let selection respect the config")
+        if decision.kernel == "node":
+            self.config = dataclasses.replace(
+                self.config, kernel="node", spmv=decision.spmv)
+            self._plan = decision.plan \
+                if decision.spmv in ("banded", "banded_fused") else None
+            if decision.spmv == "banded_fused":
+                # the autotuner's measured tile / remainder route (or the
+                # defaults when probing was skipped)
+                self._fused_kw = dict(
+                    (decision.fused or {}).get("chosen")
+                    or {"fused_tile": None, "fused_remainder": "auto"})
+        else:
+            self.config = dataclasses.replace(self.config, kernel="edge")
+            self._plan = None
+        self.plan_decision = decision
+        logger.info("plan: %s", decision.reason)
+
+    def plan_report(self, mixing: bool = False) -> dict | None:
+        """JSON-ready record of the plan decision (None when planning was
+        off or fell back) — the ``plan`` block of run and plan manifests.
+        Vector-payload engines also carry the payload-schedule ranking
+        (``payload_schedule``), a fused-round engine its bytes per round
+        (``fused_round``).  ``mixing=True`` adds the topology's spectral
+        gap (:func:`~flow_updating_tpu_torch.obs.spectral.mixing_report`,
+        probed on the engine's device) as the ``mixing`` block."""
+        if self.plan_decision is None:
+            return None
+        out = self.plan_decision.describe()
+        if mixing and self.topology is not None:
+            from flow_updating_tpu_torch.obs.spectral import mixing_report
+
+            out["mixing"] = mixing_report(
+                self.topology,
+                plan=self._plan if self.plan_decision.spmv
+                in ("banded", "banded_fused") else None,
+                device=self.device)
+        vals = self.topology.values if self.topology is not None else None
+        if vals is not None and getattr(vals, "ndim", 1) > 1:
+            from flow_updating_tpu_torch.plan.select import (
+                select_payload_schedule,
+            )
+
+            feats = int(vals.size // vals.shape[0])
+            try:
+                out["payload_schedule"] = select_payload_schedule(
+                    self.topology, features=feats,
+                    backend=self.device.type,
+                    dtype_bytes=self.config.torch_dtype.itemsize)
+            except ValueError as exc:
+                out["payload_schedule"] = {"error": str(exc)}
+        if self._node_kernel is not None:
+            from flow_updating_tpu_torch.obs.profile import (
+                fused_round_report,
+            )
+
+            fused = fused_round_report(self._node_kernel)
+            if fused is not None:
+                out["fused_round"] = fused
+        return out
+
+    def _plan_for_restore(self, cfg: RoundConfig) -> None:
+        """A planned engine restores as the banded route does: the
+        archive's config governs; the plan decision (made now under that
+        config if this engine was never built) hands its plan and fused
+        knobs to the kernel only when it picks the archive's route."""
+        if self.plan_spec not in (None, "off") and \
+                self.plan_decision is None:
+            self.config = cfg
+            self._apply_plan()
+        self.config = cfg
+        d = self.plan_decision
+        if d is None or (d.kernel, d.spmv if d.kernel == "node" else None) \
+                != (cfg.kernel, cfg.spmv if cfg.kernel == "node" else None):
+            self._plan = self._fused_kw = None
+
     def build(self, latency_scale: float = 0.0, seed: int = 0) -> Engine:
         """Resolve deployment(+platform) into topology + kernel + fresh
         state.  ``seed`` keys the edge kernel's message-loss draws."""
         self._resolve_topology(latency_scale)
+        self._apply_plan()
         self._prepare_arrays(latency_scale)
         if self._halo_mode:
             from flow_updating_tpu_torch.parallel import sharded
@@ -677,7 +839,7 @@ class Engine:
             raise ValueError(
                 f"checkpoint {path} holds a {cls_name} but its config "
                 f"runs kernel={cfg.kernel!r} (corrupt archive?)")
-        self.config = cfg
+        self._plan_for_restore(cfg)
         self._prepare_arrays()
         if self._halo_mode:
             from flow_updating_tpu_torch.parallel import sharded
@@ -726,6 +888,20 @@ class Engine:
 
     # ---- execution -------------------------------------------------------
     def _advance(self, n: int) -> None:
+        """Run ``n`` rounds of the configured kernel.  With an event log
+        attached, each call leaves an ``advance`` record (simulated start
+        time, round count, host wall time of the dispatch — the card runs
+        asynchronously, so ``wall_s`` measures the launches)."""
+        import time
+
+        t0 = time.perf_counter() if self.event_log is not None else 0.0
+        self._advance_inner(n)
+        if self.event_log is not None:
+            self.event_log.emit(
+                "advance", t=self._clock, rounds=n,
+                wall_s=round(time.perf_counter() - t0, 6))
+
+    def _advance_inner(self, n: int) -> None:
         if self._halo_mode:
             from flow_updating_tpu_torch.parallel import sharded
 
@@ -745,6 +921,65 @@ class Engine:
             self._advance(n)
         self._clock += n * TICK_INTERVAL
         return self
+
+    def run_telemetry(self, n: int, spec=None):
+        """Run ``n`` rounds, accumulating the ``spec``-selected per-round
+        metric series on the device (no host read inside the loop; one
+        bulk copy at the end).  Returns a :class:`~flow_updating_tpu_torch.
+        obs.telemetry.TelemetrySeries`.  Dispatches to the kernel's
+        runner (edge, node, halo, pod); a disabled spec runs the plain
+        :meth:`run_rounds` and returns an empty series.  The state after
+        it equals the state after :meth:`run_rounds` bit for bit.
+        ``self.telemetry_timings`` afterwards holds ``compile_s`` (None:
+        nothing is compiled) and ``execute_s``."""
+        import time
+
+        from flow_updating_tpu_torch.obs.telemetry import (
+            TelemetrySeries,
+            TelemetrySpec,
+        )
+
+        spec = TelemetrySpec.default() if spec is None else spec
+        self.telemetry_timings = {}
+        if self.state is None:
+            self.build()
+        if not spec.enabled or self._killed or n <= 0:
+            self.run_rounds(n)
+            return TelemetrySeries.empty()
+        kind = self._kernel_kind
+        spec = spec.for_kernel(kind)
+        t0 = time.perf_counter()
+        if kind == "halo":
+            from flow_updating_tpu_torch.parallel import sharded
+
+            state, series = sharded.run_rounds_sharded_telemetry(
+                self.state, self._halo_plan, self.config, self.mesh, n,
+                spec, self.topology.true_mean, arrays=self._halo_arrays,
+                halo=self._halo_wire)
+        elif kind == "pod":
+            state, series = self._node_kernel.run_telemetry(self.state, n,
+                                                            spec)
+        elif kind == "node":
+            if not isinstance(self._node_kernel, NodeKernel):
+                raise NotImplementedError(
+                    f"telemetry is not wired into "
+                    f"{type(self._node_kernel).__name__} yet — use the "
+                    "plain NodeKernel (spmv='xla'|'pallas'|'benes'|"
+                    "'structured'), the pod kernel, or the edge kernel")
+            state, series = self._node_kernel.run_telemetry(self.state, n,
+                                                            spec)
+        else:
+            state, series = rounds.run_rounds_telemetry(
+                self.state, self._topo_arrays, self.config, n, spec,
+                self.topology.true_mean)
+        host = {k: v.cpu().numpy() for k, v in series.items()}
+        self.telemetry_timings = {
+            "compile_s": None,
+            "execute_s": round(time.perf_counter() - t0, 6),
+        }
+        self.state = state
+        self._clock += n * TICK_INTERVAL
+        return TelemetrySeries(host)
 
     def run_until_rmse(self, threshold: float, max_rounds: int = 100_000,
                        chunk: int = 64) -> dict:
@@ -777,14 +1012,22 @@ class Engine:
         ``observe_every`` rounds (host-chunked: the samples are read
         between chunks).  ``emit(metrics_dict)`` defaults to an INFO log
         line."""
-        if n % observe_every:
-            raise ValueError("num_rounds must be a multiple of observe_every")
-        if self.config.kernel == "edge":
-            raise _not_ported("run_streamed on the edge kernel",
-                              "observability twins and manifests (A9)")
         if self.state is None:
             self.build()
         emit = emit or _log_stream_sample
+        if self._halo_mode:
+            self._halo_streamed(n, observe_every, emit)
+            self._clock += n * TICK_INTERVAL
+            return self
+        if n % observe_every:
+            raise ValueError("num_rounds must be a multiple of observe_every")
+        if self.config.kernel == "edge":
+            if not self._killed and n > 0:
+                self.state = rounds.run_rounds_streamed(
+                    self.state, self._topo_arrays, self.config, n,
+                    observe_every, self.topology.true_mean, emit)
+            self._clock += n * TICK_INTERVAL
+            return self
         if self.mesh is not None:
             if not self._killed and n > 0:
                 self.state = self._node_kernel.run_streamed(
@@ -800,6 +1043,30 @@ class Engine:
             emit(observer_sample(t, rmse_v, max_err, mass, t * cnt))
         self._clock += n * TICK_INTERVAL
         return self
+
+    def _halo_streamed(self, n: int, observe_every: int, emit) -> None:
+        """The halo kernel's streamed observer: chunks between samples,
+        each sample with the other kernels' contract (the state's round
+        counter, alive-masked rmse and mass, real fired counts)."""
+        from flow_updating_tpu_torch.parallel import sharded
+
+        done = 0
+        while done < n and not self._killed:
+            take = min(int(observe_every), n - done)
+            self._advance(take)
+            done += take
+            est = self.estimates()
+            alive = sharded.gather_node_array(
+                [st.alive for st in self.state.shards],
+                self._halo_plan).astype(bool)
+            cnt = max(int(alive.sum()), 1)
+            err = np.where(alive, est - self.topology.true_mean, 0.0)
+            emit(observer_sample(
+                self.state.t, np.sqrt(np.sum(err * err) / cnt),
+                np.max(np.abs(err)), est[alive].sum(),
+                sharded.gather_node_array(
+                    [st.fired for st in self.state.shards],
+                    self._halo_plan).sum()))
 
     def run_until(self, t_end: float) -> Engine:
         """Advance simulated time to ``t_end``, honoring watchers: chunks
@@ -842,5 +1109,7 @@ class Engine:
                     logger.info("[%0.1f] watcher: stopping every peer.",
                                 self._clock)
                     self._killed = True
+                    if self.event_log is not None:
+                        self.event_log.emit("kill_all", t=self._clock)
         self._clock = float(t_end)
         return self

@@ -46,10 +46,14 @@ under ``contention_backlog``; its float sums run in a fixed per-link
 order (the link-major CSR of ``Topology.link_csr``), so two runs on the
 card give the same delays.
 
+Telemetry (:func:`run_rounds_telemetry`) writes each round's sample into
+preallocated device rows and reads nothing back inside the loop;
+:func:`run_rounds_streamed` reads one watcher sample between chunks.
+
 Not ported yet, and refused with ``NotImplementedError`` naming the
 ROADMAP item: the adversary masks, per-lane reduction modes and traced
-``RoundParams`` (A10), the chunked runners (A13), and the telemetry,
-field and streamed runners (A9).
+``RoundParams`` (A10), the chunked runners (A13), and the field runner
+(A9 part 2).
 """
 
 from __future__ import annotations
@@ -740,6 +744,93 @@ def run_rounds_observed(state: FlowUpdatingState, topo, cfg: RoundConfig,
         for i, (name, dt) in enumerate(zip(names, dtypes))}
 
 
+def telemetry_sample(state, topo, spec, mean, processed,
+                     send_mask) -> dict:
+    """One round's metric row for the edge kernel, as device tensors (no
+    host read).  ``spec`` is a :class:`~flow_updating_tpu_torch.obs.
+    telemetry.TelemetrySpec`; only the selected metrics are computed.
+    Metrics mask to alive nodes (padding dummies and crash-stopped
+    nodes excluded)."""
+    out = {"t": state.t}
+    alive = state.alive
+    need_est = any(spec.has(m) for m in
+                   ("rmse", "max_abs_err", "mass", "mass_residual"))
+    if need_est:
+        est = node_estimates(state, topo)
+        a_ex = _ex(alive, est)
+        if spec.has("rmse") or spec.has("max_abs_err"):
+            err = torch.where(a_ex, est - mean, 0.0)
+            if spec.has("rmse"):
+                cnt = (torch.clamp(alive.sum(), min=1)
+                       * _feat(est)).to(est.dtype)
+                out["rmse"] = torch.sqrt((err * err).sum() / cnt)
+            if spec.has("max_abs_err"):
+                out["max_abs_err"] = err.abs().max()
+        if spec.has("mass") or spec.has("mass_residual"):
+            mass = torch.where(a_ex, est, 0.0).sum(0)   # per feature
+            if spec.has("mass"):
+                out["mass"] = mass
+            if spec.has("mass_residual"):
+                out["mass_residual"] = mass - torch.where(
+                    _ex(alive, state.value), state.value, 0.0).sum(0)
+    if spec.has("antisymmetry"):
+        out["antisymmetry"] = (state.flow + state.flow[topo.rev]).abs() \
+            .max()
+    if spec.has("sent"):
+        out["sent"] = send_mask.sum(dtype=torch.int32)
+    if spec.has("delivered"):
+        out["delivered"] = processed.sum(dtype=torch.int32)
+    if spec.has("fired_total"):
+        out["fired_total"] = state.fired.sum(dtype=torch.int64)
+    if spec.has("active"):
+        out["active"] = alive.sum(dtype=torch.int32)
+    return out
+
+
+def run_rounds_telemetry(state: FlowUpdatingState, topo, cfg: RoundConfig,
+                         num_rounds: int, spec, true_mean, params=None):
+    """Run ``num_rounds`` rounds, accumulating the ``spec``-selected
+    per-round metric series on the device (preallocated rows, no host
+    read in the loop).  Returns ``(state, {metric: (R,) or (R, D)
+    tensor})``.  The state evolves exactly as under :func:`run_rounds`.
+    A disabled spec is rejected: callers run :func:`run_rounds` instead
+    (``Engine.run_telemetry`` does)."""
+    from flow_updating_tpu_torch.obs.telemetry import SeriesRecorder
+
+    if not spec.enabled:
+        raise ValueError(
+            "telemetry spec is disabled; run run_rounds() instead (the "
+            "Engine.run_telemetry dispatcher handles this)")
+    check_ported(cfg, params)
+    mean = torch.tensor(true_mean, dtype=state.value.dtype,
+                        device=state.value.device)
+    rec = SeriesRecorder(num_rounds)
+    for i in range(int(num_rounds)):
+        state, processed, send_mask = round_step_aux(state, topo, cfg)
+        rec.put(i, telemetry_sample(state, topo, spec, mean, processed,
+                                    send_mask))
+    return state, rec.series()
+
+
+def run_rounds_streamed(state: FlowUpdatingState, topo, cfg: RoundConfig,
+                        num_rounds: int, observe_every: int, true_mean,
+                        emit) -> FlowUpdatingState:
+    """Like :func:`run_rounds_observed`, but each chunk's watcher sample
+    goes to ``emit(metrics_dict)`` (host numbers) as soon as the chunk
+    ends — the one host read per ``observe_every`` rounds."""
+    from flow_updating_tpu_torch.utils.metrics import observer_sample
+
+    if num_rounds % observe_every:
+        raise ValueError("num_rounds must be a multiple of observe_every")
+    mean = torch.tensor(true_mean, dtype=state.value.dtype,
+                        device=state.value.device)
+    for _ in range(num_rounds // observe_every):
+        state, sample = _observe_chunk(state, topo, cfg, observe_every,
+                                       mean)
+        emit(observer_sample(*(x.item() for x in sample)))
+    return state
+
+
 # ---- runners of later port items -------------------------------------------
 
 def _later_runner(name: str, item: str):
@@ -755,9 +846,6 @@ init_chunked_state = _later_runner("init_chunked_state", "workloads (A13)")
 run_rounds_chunked = _later_runner("run_rounds_chunked", "workloads (A13)")
 run_rounds_chunked_telemetry = _later_runner(
     "run_rounds_chunked_telemetry", "workloads (A13)")
-run_rounds_telemetry = _later_runner(
-    "run_rounds_telemetry", "observability twins and manifests (A9)")
 run_rounds_fields = _later_runner(
-    "run_rounds_fields", "observability twins and manifests (A9)")
-run_rounds_streamed = _later_runner(
-    "run_rounds_streamed", "observability twins and manifests (A9)")
+    "run_rounds_fields",
+    "observability part 2: field series, doctor, inspect (A9 part 2)")

@@ -159,8 +159,11 @@ class NodeKernel:
     'benes_fused' are scalar, as in the JAX package).  ``plan`` (banded
     paths) supplies a compiled
     :class:`~flow_updating_tpu_torch.plan.compile.ExecutionPlan`;
-    ``fused_tile`` pins the one-kernel round's tile height.  The
-    one-kernel round takes its remainder on the 'lanes' route.
+    ``fused_tile`` pins the one-kernel round's tile height and
+    ``fused_remainder`` its remainder route: ``'auto'`` (the default) and
+    ``'lanes'`` add the remainder computed outside the kernel, bit-exact
+    against 'banded'; ``'inline'`` gathers it inside the kernel (gather
+    remainders only) — the autotuner races the two.
     ``row_multiple`` pads every degree bucket's row count ('xla',
     'pallas', 'benes*') or the node vector ('structured') to a multiple
     of it, as in the JAX package (the sharded Beneš round builds its base
@@ -175,7 +178,7 @@ class NodeKernel:
 
     def __init__(self, topo: Topology, cfg: RoundConfig, values=None,
                  plan=None, fused_tile=None, device=None, mesh=None,
-                 row_multiple: int = 1):
+                 row_multiple: int = 1, fused_remainder: str = "auto"):
         _check_cfg(cfg)
         self.device = resolve_device(device)
         self.topo = topo
@@ -194,7 +197,7 @@ class NodeKernel:
         if mesh is not None:
             _refuse_mesh(cfg)
         if cfg.spmv in ("banded", "banded_fused"):
-            self._init_banded(topo, plan, fused_tile)
+            self._init_banded(topo, plan, fused_tile, fused_remainder)
             return
         if cfg.spmv == "structured":
             self._init_structured(topo, row_multiple)
@@ -277,7 +280,8 @@ class NodeKernel:
         deg[:n] = topo.out_deg
         self.arrays = self._constants(value, deg, struct=struct)
 
-    def _init_banded(self, topo: Topology, plan, fused_tile) -> None:
+    def _init_banded(self, topo: Topology, plan, fused_tile,
+                     fused_remainder: str = "auto") -> None:
         """spmv='banded'/'banded_fused': node vectors live in the
         topology compiler's RCM order (``plan.order[new] = old``), padding
         at the tail — for 'banded_fused' up to the tile grid."""
@@ -305,7 +309,8 @@ class NodeKernel:
         spec = fleaves = None
         self.padded_size = M = n
         if self.cfg.spmv == "banded_fused":
-            spec = plan_fused_round(plan.spmv, block_rows=fused_tile)
+            spec = plan_fused_round(plan.spmv, block_rows=fused_tile,
+                                    rem_route=fused_remainder)
             fleaves = build_fused_leaves(plan.spmv, plan.leaves,
                                          spec).to(self.device)
             self.padded_size = M = spec.P
@@ -349,6 +354,19 @@ class NodeKernel:
 
     def run(self, state: NodeSyncState, num_rounds: int) -> NodeSyncState:
         return run_rounds_node(state, self.arrays, self.cfg, num_rounds)
+
+    def run_telemetry(self, state: NodeSyncState, num_rounds: int, spec):
+        """Device-resident per-round series (see
+        :func:`run_rounds_node_telemetry`); returns ``(state, series)``.
+        Layouts whose real nodes are a prefix (the plan's RCM order, the
+        generator's order) reduce over that prefix only, so a
+        tile-padded 'banded_fused' series equals its unpadded twin's."""
+        n = self.topo.num_nodes
+        prefix = self.cfg.spmv in ("banded", "banded_fused", "structured")
+        return run_rounds_node_telemetry(
+            state, self.arrays, self.cfg, num_rounds, spec,
+            self.topo.true_mean,
+            n_live=n if prefix and self.padded_size != n else None)
 
     def _unpermute(self, padded: np.ndarray) -> np.ndarray:
         n = self.topo.num_nodes
@@ -416,6 +434,69 @@ def run_rounds_node(state: NodeSyncState, arrs: NodeSyncArrays,
     for _ in range(num_rounds):
         state = node_round_step(state, arrs, cfg)
     return state
+
+
+def node_telemetry_sample(s: NodeSyncState, arrs: NodeSyncArrays, spec,
+                          mean, n_live: int | None = None) -> dict:
+    """One round's metric row for the node-collapsed kernel, as device
+    tensors (no host read).  Communicating rows only (deg > 0 — padding
+    has degree 0).  In fast sync mode every communicating node fires
+    every round, so ``fired_total = t * active``.  ``n_live`` slices the
+    reductions to the real-node prefix, so a tile-padded layout sums the
+    same terms as the unpadded kernel."""
+    value, G = arrs.value, s.G
+    real = arrs.inv_depp1 < 1.0
+    if n_live is not None:
+        value, G, real = value[:n_live], G[:n_live], real[:n_live]
+    out = {"t": s.t}
+    need_est = any(spec.has(m) for m in
+                   ("rmse", "max_abs_err", "mass", "mass_residual"))
+    if need_est:
+        est = value + G
+        r_ex = _ex(real, est)
+        if spec.has("rmse") or spec.has("max_abs_err"):
+            err = torch.where(r_ex, est - mean, 0.0)
+            if spec.has("rmse"):
+                feat = int(est[0].numel()) if est.dim() > 1 else 1
+                cnt = (torch.clamp(real.sum(), min=1) * feat).to(est.dtype)
+                out["rmse"] = torch.sqrt((err * err).sum() / cnt)
+            if spec.has("max_abs_err"):
+                out["max_abs_err"] = err.abs().max()
+        if spec.has("mass") or spec.has("mass_residual"):
+            mass = torch.where(r_ex, est, 0.0).sum(0)
+            if spec.has("mass"):
+                out["mass"] = mass
+            if spec.has("mass_residual"):
+                out["mass_residual"] = mass - torch.where(
+                    _ex(real, value), value, 0.0).sum(0)
+    active = real.sum(dtype=torch.int32)
+    if spec.has("fired_total"):
+        out["fired_total"] = active.to(torch.int64) * s.t
+    if spec.has("active"):
+        out["active"] = active
+    return out
+
+
+def run_rounds_node_telemetry(state: NodeSyncState, arrs: NodeSyncArrays,
+                              cfg: RoundConfig, num_rounds: int, spec,
+                              true_mean, n_live: int | None = None):
+    """Node-kernel twin of :func:`flow_updating_tpu_torch.models.rounds.
+    run_rounds_telemetry`: the plain rounds, each followed by one sample
+    written into preallocated device rows.  Returns ``(state, series)``.
+    ``n_live`` is the real-node prefix of tile-padded layouts (see
+    :func:`node_telemetry_sample`)."""
+    from flow_updating_tpu_torch.obs.telemetry import SeriesRecorder
+
+    if not spec.enabled:
+        raise ValueError(
+            "telemetry spec is disabled; run run_rounds_node() instead")
+    mean = torch.tensor(true_mean, dtype=state.S.dtype,
+                        device=state.S.device)
+    rec = SeriesRecorder(num_rounds)
+    for i in range(int(num_rounds)):
+        state = node_round_step(state, arrs, cfg)
+        rec.put(i, node_telemetry_sample(state, arrs, spec, mean, n_live))
+    return state, rec.series()
 
 
 def _node_sample(s: NodeSyncState, arrs: NodeSyncArrays, mean: float):

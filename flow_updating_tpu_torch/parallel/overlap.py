@@ -347,10 +347,11 @@ def _wait_senders(blocks_by_shard, arrs, r: int, offsets: tuple) -> None:
 # ---- the overlap round bodies -------------------------------------------
 
 def local_round_overlap(states, arrs, cfg, Eb: int, offsets: tuple,
-                        halo_mode: str) -> tuple:
+                        halo_mode: str, masks: list | None = None) -> tuple:
     """One split-schedule round of every shard (message modes): the
     serialized round's state, bit for bit, for every mode but the
-    'interior' probe."""
+    'interior' probe.  ``masks`` (a list) receives each shard's
+    ``(processed, send_mask)``."""
     from flow_updating_tpu_torch.ops import halo_exchange
 
     wire = _WIRE[halo_mode]
@@ -379,7 +380,9 @@ def local_round_overlap(states, arrs, cfg, Eb: int, offsets: tuple,
                 st, msg_est, send_mask = fire_core(st, a.local, cfg,
                                                    processed)
             else:
-                st, _, msg_est, send_mask = full[r]
+                st, processed, msg_est, send_mask = full[r]
+            if masks is not None:
+                masks.append((processed, send_mask))
             t = st.t
             # 4) the intra-shard merge
             if exchange and wire == "pallas":
@@ -408,14 +411,18 @@ def local_round_overlap(states, arrs, cfg, Eb: int, offsets: tuple,
 
 
 def local_round_overlap_fastpair(states, arrs, cfg, Eb: int,  # noqa: ARG001
-                                 offsets: tuple, halo_mode: str) -> tuple:
+                                 offsets: tuple, halo_mode: str,
+                                 masks: list | None = None) -> tuple:
     """Split-schedule round of fast synchronous pairwise: the cut
     endpoints' estimates go on the wire first, the bulk estimate and
     partner compute runs behind them, and the received blocks finish the
     frontier's ``x_v``.  ``'overlap_pallas'`` pulls the blocks with B6
-    (no merge: this mode has no ring buffer)."""
+    (no merge: this mode has no ring buffer).  ``masks`` receives
+    ``(None, None)`` per shard: no messages drain or go out."""
     from flow_updating_tpu_torch.ops import halo_exchange
 
+    if masks is not None:
+        masks.extend([(None, None)] * len(states))
     wire = _WIRE[halo_mode]
     exchange = wire != "none" and bool(offsets)
     blocks = []

@@ -37,9 +37,9 @@ endpoint's current estimate and validity instead of a message; build the
 plan with ``plan_sharding(..., coloring=True)``.
 
 :func:`gather_full_state` and :func:`scatter_full_state` move a halo
-state to the canonical single-device layout and back (checkpoints).  Not
-ported here: the telemetry and fields runners (ROADMAP A9); they raise
-naming their item.
+state to the canonical single-device layout and back (checkpoints), and
+the telemetry runner (:func:`run_rounds_sharded_telemetry`).  Not ported
+here: the fields runner (ROADMAP A9 part 2); it raises naming its item.
 """
 
 from __future__ import annotations
@@ -708,15 +708,18 @@ def _fastpair_own(st: FlowUpdatingState, a: ShardArrays):
 # ---- the serialized round bodies ----------------------------------------
 
 def _local_round(states, arrs, cfg: RoundConfig, Eb: int, offsets: tuple,
-                 halo_mode: str) -> tuple:
+                 halo_mode: str, masks: list | None = None) -> tuple:
     """One message-mode round of every shard with a serialized wire
-    (``'ppermute'`` or ``'allgather'``)."""
+    (``'ppermute'`` or ``'allgather'``).  ``masks`` (a list) receives each
+    shard's ``(processed, send_mask)``, the telemetry counters."""
     S, D = len(states), cfg.delay_depth
     made = []
     for st, a in zip(states, arrs):
         with _on(a.stream):
             st, processed = deliver_phase(st, a.local, cfg)
             st, msg_est, send_mask = fire_core(st, a.local, cfg, processed)
+            if masks is not None:
+                masks.append((processed, send_mask))
             bufs = _local_deliver(st, a, msg_est, send_mask, D, Eb)
             if halo_mode == "ppermute":
                 blocks = _msg_blocks(st.flow, msg_est, send_mask,
@@ -753,14 +756,20 @@ def _local_round(states, arrs, cfg: RoundConfig, Eb: int, offsets: tuple,
 
 
 def _local_round_fastpair(states, arrs, cfg: RoundConfig, Eb: int,
-                          offsets: tuple, halo_mode: str) -> tuple:
+                          offsets: tuple, halo_mode: str,
+                          masks: list | None = None) -> tuple:
     """One fast-synchronous-pairwise round of every shard, serialized
     wire.  Round ``t`` fires color class ``t % C``; matched endpoints
     average directly.  The cut edges carry ``x_u`` and the sender-side
     validity, so each edge sees its remote endpoint's current estimate;
     both shards of a cut pair compute the same average from the same
-    ``(x_u, x_v)``, so the flow deltas are exactly antisymmetric."""
+    ``(x_u, x_v)``, so the flow deltas are exactly antisymmetric.  The
+    direct exchange drains and sends no messages: ``masks`` receives
+    ``(None, None)`` per shard (zero counters, as in the single-device
+    fast pairwise round)."""
     S = len(states)
+    if masks is not None:
+        masks.extend([(None, None)] * S)
     made = []
     for st, a in zip(states, arrs):
         with _on(a.stream):
@@ -799,7 +808,7 @@ def _local_round_fastpair(states, arrs, cfg: RoundConfig, Eb: int,
 
 
 def _round_dispatch(states, arrs, cfg: RoundConfig, Eb: int, offsets: tuple,
-                    halo_mode: str) -> tuple:
+                    halo_mode: str, masks: list | None = None) -> tuple:
     """One round of every shard for any halo mode: the serialized oracles
     run the bodies above, the overlap modes the interior/frontier-split
     schedule (:mod:`.overlap`)."""
@@ -811,7 +820,7 @@ def _round_dispatch(states, arrs, cfg: RoundConfig, Eb: int, offsets: tuple,
     else:
         body = (_local_round_fastpair if cfg.needs_coloring
                 else _local_round)
-    return body(states, arrs, cfg, Eb, offsets, halo_mode)
+    return body(states, arrs, cfg, Eb, offsets, halo_mode, masks)
 
 
 def run_rounds_sharded(state: ShardedState, plan: ShardPlan,
@@ -833,6 +842,15 @@ def run_rounds_sharded(state: ShardedState, plan: ShardPlan,
     On the card each shard's stream first waits for the caller's stream,
     and at the end the caller's stream waits for every shard's, so what
     the caller reads next is final."""
+    return _run_sharded(state, plan, cfg, mesh, num_rounds, arrays, halo,
+                        _internal)
+
+
+def _run_sharded(state: ShardedState, plan: ShardPlan, cfg: RoundConfig,
+                 mesh: Mesh, num_rounds: int, arrays, halo: str,
+                 _internal: bool = False, sample=None) -> ShardedState:
+    """The sharded round loop; ``sample(i, states, masks, arrays)`` runs
+    after round ``i`` with each shard's ``(processed, send_mask)``."""
     from flow_updating_tpu_torch.parallel import overlap as _ovl
 
     _check_round_cfg(plan, cfg)
@@ -850,15 +868,124 @@ def run_rounds_sharded(state: ShardedState, plan: ShardPlan,
     for a in cards:
         a.stream.wait_stream(torch.cuda.current_stream(a.device))
     states = state.shards
-    for _ in range(int(num_rounds)):
+    for i in range(int(num_rounds)):
+        masks = [] if sample is not None else None
         states = _round_dispatch(states, arrays, cfg, plan.Eb,
-                                 plan.perm_offsets, halo)
+                                 plan.perm_offsets, halo, masks)
+        if sample is not None:
+            sample(i, states, masks, arrays)
     for a in cards:
         caller = torch.cuda.current_stream(a.device)
         caller.wait_stream(a.stream)
         for f in dataclasses.fields(FlowUpdatingState):
             getattr(states[a.index], f.name).record_stream(caller)
     return ShardedState(tuple(states))
+
+
+def _halo_partials(st: FlowUpdatingState, a, spec, mean, processed,
+                   send_mask) -> dict:
+    """One shard's partial sums for one round's metric row, on its device
+    (no host read).  Padding rows are dead dummies (alive=False, value
+    0), so the alive mask leaves them out."""
+    out = {"t": st.t}
+    alive = st.alive
+    if any(spec.has(m) for m in ("rmse", "max_abs_err", "mass",
+                                 "mass_residual")):
+        est = st.value - _row_sum(st.flow, a.local)
+        a_ex = _ex(alive, est)
+        if spec.has("rmse") or spec.has("max_abs_err"):
+            err = torch.where(a_ex, est - mean, 0.0)
+            if spec.has("rmse"):
+                out["sq"] = (err * err).sum()
+            if spec.has("max_abs_err"):
+                out["mx"] = err.abs().max()
+        if spec.has("mass") or spec.has("mass_residual"):
+            out["mass"] = torch.where(a_ex, est, 0.0).sum(0)
+            if spec.has("mass_residual"):
+                out["vsum"] = torch.where(_ex(alive, st.value), st.value,
+                                          0.0).sum(0)
+    if spec.has("rmse") or spec.has("active"):
+        out["alive"] = alive.sum(dtype=torch.int32)
+    for name, m in (("sent", send_mask), ("delivered", processed)):
+        if spec.has(name):
+            out[name] = (m.sum(dtype=torch.int32) if m is not None else
+                         torch.zeros((), dtype=torch.int32, device=a.device))
+    if spec.has("fired_total"):
+        out["fired_total"] = st.fired.sum(dtype=torch.int64)
+    return out
+
+
+def run_rounds_sharded_telemetry(state: ShardedState, plan: ShardPlan,
+                                 cfg: RoundConfig, mesh: Mesh,
+                                 num_rounds: int, spec, true_mean,
+                                 arrays: tuple | None = None,
+                                 halo: str = "ppermute"):
+    """Telemetry twin of :func:`run_rounds_sharded`: the same rounds, each
+    followed by every shard's partial sums written into preallocated rows
+    on its device; after the loop the partials are added in shard order
+    (on the first shard's device), so the series does not depend on
+    stream timing.  Every metric but ``antisymmetry`` (a shard's reverse
+    edges live on other shards).  Returns ``(state, {metric: (R, ...)
+    tensor})``."""
+    from flow_updating_tpu_torch.obs.telemetry import SeriesRecorder
+
+    if not spec.enabled:
+        raise ValueError(
+            "telemetry spec is disabled; run run_rounds_sharded() instead")
+    if spec.has("antisymmetry"):
+        raise ValueError(
+            "antisymmetry is not measurable on the halo kernel (a "
+            "shard's reverse edges live on other shards)")
+    recs = [SeriesRecorder(num_rounds) for _ in mesh.devices]
+    means = [torch.tensor(true_mean, dtype=st.value.dtype, device=st.value
+                          .device) for st in state.shards]
+
+    def sample(i, states, masks, arrs):
+        for s, (st, a, (pr, sm)) in enumerate(zip(states, arrs, masks)):
+            with _on(a.stream):
+                recs[s].put(i, _halo_partials(st, a, spec, means[s], pr,
+                                              sm))
+
+    state = _run_sharded(state, plan, cfg, mesh, num_rounds, arrays, halo,
+                         sample=sample)
+    for rec, dev in zip(recs, mesh.devices):
+        if dev.type == "cuda":
+            caller = torch.cuda.current_stream(dev)
+            for t in rec.tensors():
+                t.record_stream(caller)
+    dev0 = mesh.devices[0]
+    parts = [{k: v.to(dev0) for k, v in rec.series().items()}
+             for rec in recs]
+
+    def total(key):
+        acc = parts[0][key]
+        for p in parts[1:]:
+            acc = acc + p[key]
+        return acc
+
+    first = state.shards[0].value
+    out = {"t": parts[0]["t"]}
+    if spec.has("rmse"):
+        cnt = (torch.clamp(total("alive"), min=1)
+               * _feat(first)).to(first.dtype)
+        out["rmse"] = torch.sqrt(total("sq") / cnt)
+    if spec.has("max_abs_err"):
+        mx = parts[0]["mx"]
+        for p in parts[1:]:
+            mx = torch.maximum(mx, p["mx"])
+        out["max_abs_err"] = mx
+    if spec.has("mass") or spec.has("mass_residual"):
+        mass = total("mass")
+        if spec.has("mass"):
+            out["mass"] = mass
+        if spec.has("mass_residual"):
+            out["mass_residual"] = mass - total("vsum")
+    for name in ("sent", "delivered", "fired_total"):
+        if spec.has(name):
+            out[name] = total(name)
+    if spec.has("active"):
+        out["active"] = total("alive")
+    return state, out
 
 
 # ---- read-back ----------------------------------------------------------
@@ -1026,7 +1153,6 @@ def _later(name: str, item: str):
     return fn
 
 
-run_rounds_sharded_telemetry = _later(
-    "run_rounds_sharded_telemetry", "observability twins and manifests (A9)")
 run_rounds_sharded_fields = _later(
-    "run_rounds_sharded_fields", "observability twins and manifests (A9)")
+    "run_rounds_sharded_fields",
+    "observability part 2: field series, doctor, inspect (A9 part 2)")

@@ -259,13 +259,20 @@ class PodShardedFatTreeKernel:
         """``num_rounds`` rounds from ``state``, which stays as it was.  On
         the card each shard's stream first waits for the caller's stream,
         and at the end the caller's stream waits for every shard's."""
+        return self._loop(state, num_rounds)
+
+    def _loop(self, state: PodState, num_rounds: int,
+              sample=None) -> PodState:
+        """The round loop; ``sample(i, state)`` runs after round ``i``."""
         if num_rounds <= 0:
             return state
         cards = [sh for sh in self._shards if sh.stream is not None]
         for sh in cards:
             sh.stream.wait_stream(torch.cuda.current_stream(sh.device))
-        for _ in range(num_rounds):
+        for i in range(num_rounds):
             state = self._round(state)
+            if sample is not None:
+                sample(i, state)
         for s, sh in enumerate(self._shards):
             if sh.stream is None:
                 continue
@@ -274,6 +281,89 @@ class PodShardedFatTreeKernel:
             for f in _FIELDS:
                 getattr(state, f)[s].record_stream(caller)
         return state
+
+    def _partials(self, s: int, state: PodState, spec, mean) -> dict:
+        """Shard ``s``'s partial sums of one round's metric row (the
+        replicated core section counted on shard 0 only), on its device."""
+        sh = self._shards[s]
+        est, value = sh.value + state.G[s], sh.value
+        if s:
+            est, value = est[:self._n_local], value[:self._n_local]
+        err = est - mean
+        out = {}
+        if spec.has("rmse"):
+            out["sq"] = (err * err).sum()
+        if spec.has("max_abs_err"):
+            out["mx"] = err.abs().max()
+        if spec.has("mass") or spec.has("mass_residual"):
+            out["mass"] = est.sum()
+            if spec.has("mass_residual"):
+                out["vsum"] = value.sum()
+        return out
+
+    def run_telemetry(self, state: PodState, num_rounds: int, spec):
+        """Device-resident per-round series with the node kernel's field
+        contract: each round every shard writes its partial sums into
+        preallocated rows on its device; after the loop they are added in
+        shard order on the first shard's device.  Every node fires every
+        round (``fired_total = t * n``).  Returns ``(state, series)``."""
+        from flow_updating_tpu_torch.obs.telemetry import SeriesRecorder
+
+        if not spec.enabled:
+            raise ValueError(
+                "telemetry spec is disabled; run run() instead")
+        n = self.topo.num_nodes
+        recs = [SeriesRecorder(num_rounds) for _ in self._shards]
+        means = [torch.tensor(self.topo.true_mean, dtype=self.dtype,
+                              device=sh.device) for sh in self._shards]
+        t0 = state.t
+        wanted = any(spec.has(m) for m in ("rmse", "max_abs_err", "mass",
+                                           "mass_residual"))
+
+        def sample(i, st):
+            if not wanted:
+                return
+            for s, sh in enumerate(self._shards):
+                with on_stream(sh.stream):
+                    recs[s].put(i, self._partials(s, st, spec, means[s]))
+
+        state = self._loop(state, num_rounds, sample)
+        for rec, sh in zip(recs, self._shards):
+            if sh.stream is not None:   # made on the shard's stream
+                for x in rec.tensors():
+                    x.record_stream(torch.cuda.current_stream(sh.device))
+        dev0 = self._shards[0].device
+        parts = [{k: v.to(dev0) for k, v in rec.series().items()}
+                 for rec in recs]
+
+        def total(key):
+            acc = parts[0][key]
+            for p in parts[1:]:
+                acc = acc + p[key]
+            return acc
+
+        t = torch.arange(t0 + 1, t0 + num_rounds + 1, dtype=torch.int64)
+        out = {"t": t}
+        if spec.has("rmse"):
+            out["rmse"] = torch.sqrt(
+                total("sq") / torch.tensor(n, dtype=self.dtype,
+                                           device=dev0))
+        if spec.has("max_abs_err"):
+            mx = parts[0]["mx"]
+            for p in parts[1:]:
+                mx = torch.maximum(mx, p["mx"])
+            out["max_abs_err"] = mx
+        if spec.has("mass") or spec.has("mass_residual"):
+            mass = total("mass")
+            if spec.has("mass"):
+                out["mass"] = mass
+            if spec.has("mass_residual"):
+                out["mass_residual"] = mass - total("vsum")
+        if spec.has("fired_total"):
+            out["fired_total"] = t * n
+        if spec.has("active"):
+            out["active"] = torch.full((num_rounds,), n, dtype=torch.int32)
+        return state, out
 
     # ---- read-back ---------------------------------------------------------
     def estimates(self, state: PodState) -> np.ndarray:
@@ -317,12 +407,8 @@ class PodShardedFatTreeKernel:
                                      state.t * n))
         return state
 
-    def run_telemetry(self, state, num_rounds: int, spec):
-        raise NotImplementedError(
-            "PodShardedFatTreeKernel.run_telemetry is the ROADMAP item "
-            "'observability twins and manifests (A9)', not ported yet")
-
     def run_fields(self, state, num_rounds: int, spec):
         raise NotImplementedError(
             "PodShardedFatTreeKernel.run_fields is the ROADMAP item "
-            "'observability twins and manifests (A9)', not ported yet")
+            "'observability part 2: field series, doctor, inspect (A9 "
+            "part 2)', not ported yet")

@@ -5,8 +5,11 @@ reordering (:mod:`.rcm`), dense masked-roll band lanes plus a gather
 remainder (:mod:`.banded`), bound together by :func:`compile_topology`.
 The banded plan runs either as plain tensor ops (``spmv='banded'``) or as
 one CUDA kernel per round (``spmv='banded_fused'``,
-:mod:`flow_updating_tpu_torch.ops.fused_round`).  Automatic plan selection
-(``plan='auto'``) waits for its H100 cost model (ROADMAP).
+:mod:`flow_updating_tpu_torch.ops.fused_round`).  :func:`select_plan` is
+the auto-mode policy (``Engine(plan='auto')``): an analytic cost model
+with the H100's measured gather penalty, and measured probes of the
+banded family on the engine's device through a persistent autotune cache
+(:func:`autotune_fused`).
 """
 
 from flow_updating_tpu_torch.plan.banded import (
@@ -26,12 +29,19 @@ from flow_updating_tpu_torch.plan.rcm import (
     offset_profile,
     rcm_order,
 )
+from flow_updating_tpu_torch.plan.select import (
+    PlanDecision,
+    autotune_fused,
+    select_plan,
+)
 
 __all__ = [
     "BandedLeaves",
     "BandedSpmvPlan",
     "ExecutionPlan",
+    "PlanDecision",
     "adjacency_bandwidth",
+    "autotune_fused",
     "banded_neighbor_sum",
     "banded_remainder_sum",
     "build_banded",
@@ -39,4 +49,5 @@ __all__ = [
     "offset_profile",
     "rcm_order",
     "reorder_topology_stable",
+    "select_plan",
 ]

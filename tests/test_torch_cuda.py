@@ -1119,3 +1119,87 @@ def test_sharded_benes_launches_b3_per_shard_on_card(card, dtype):
     assert all(s.device.type == "cuda" for s in e.state.S)
     one = Engine(config=cfg).set_topology(topo).build().run_rounds(12)
     assert np.array_equal(e.estimates(), one.estimates())
+
+
+def test_plan_auto_probes_on_the_card_then_hits(card, tmp_path,
+                                                monkeypatch):
+    """plan='auto' races the banded family on the card (kernel K2 at each
+    probed tile and remainder route), stores the record under the card's
+    name and hits it on the second build with zero probes."""
+    from flow_updating_tpu_torch.ops.fused_round import fused_banded_round
+    from flow_updating_tpu_torch.plan import select
+
+    monkeypatch.setenv("FLOW_UPDATING_AUTOTUNE_CACHE",
+                       str(tmp_path / "autotune.json"))
+    topo = barabasi_albert(8192, 3, seed=1)
+    cfg = RoundConfig.fast(dtype="float64")
+    k2 = fused_banded_round.launches
+    first = Engine(config=cfg, plan="auto").set_topology(topo).build()
+    tune = first.plan_report()["autotune"]
+    assert tune["cache"] == "miss" and tune["probes_run"] >= 2
+    assert fused_banded_round.launches > k2
+    assert torch.cuda.get_device_name(0) in next(iter(
+        select._load_autotune_cache(str(tmp_path / "autotune.json"))))
+    again = Engine(config=cfg, plan="auto").set_topology(topo).build()
+    assert again.plan_report()["autotune"]["probes_run"] == 0
+    first.run_rounds(40)
+    plain = Engine(config=cfg).set_topology(topo).build().run_rounds(40)
+    np.testing.assert_allclose(first.estimates(), plain.estimates(),
+                               rtol=1e-9, atol=1e-9)
+
+
+def test_telemetry_on_card_reads_nothing_in_the_loop(card):
+    """run_telemetry on the card: the state equals run_rounds' bit for
+    bit, and the loop makes no host read (one bulk copy at the end)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from flow_updating_tpu_torch.obs.telemetry import TelemetrySpec
+
+    class Reads(TorchDispatchMode):
+        count = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func is torch.ops.aten._local_scalar_dense.default:
+                Reads.count += 1
+            return func(*args, **(kwargs or {}))
+
+    topo = barabasi_albert(5000, 3, seed=2)
+    for cfg in (RoundConfig.reference(),
+                RoundConfig.fast(kernel="node", spmv="banded_fused")):
+        plain = Engine(config=cfg).set_topology(topo).build().run_rounds(30)
+        e = Engine(config=cfg).set_topology(topo).build()
+        kern = e._node_kernel
+        spec = TelemetrySpec.full().for_kernel(e._kernel_kind)
+        with Reads():
+            if kern is None:
+                from flow_updating_tpu_torch.models import rounds
+
+                st, series = rounds.run_rounds_telemetry(
+                    e.state, e._topo_arrays, e.config, 30, spec,
+                    topo.true_mean)
+            else:
+                st, series = kern.run_telemetry(e.state, 30, spec)
+        assert Reads.count == 0
+        assert all(v.device.type == "cuda" for k, v in series.items()
+                   if k != "t")
+        got = e.run_telemetry(30, spec)
+        assert np.array_equal(e.estimates(), plain.estimates())
+        assert got["rmse"][-1] == pytest.approx(np.sqrt(np.mean(
+            (plain.estimates() - topo.true_mean) ** 2)), rel=1e-4)
+
+
+def test_mixing_report_on_card_is_reproducible(card, tmp_path):
+    from flow_updating_tpu_torch.obs.spectral import mixing_report
+
+    topo = barabasi_albert(20000, 3, seed=4)
+    plan = compile_topology(topo)
+    for p in (None, plan):
+        a = mixing_report(topo, plan=p, cache_path=str(tmp_path / "a.json"))
+        b = mixing_report(topo, plan=p, cache_path=str(tmp_path / "b.json"))
+        assert a["structural"] == b["structural"]
+        assert a["measured"] == b["measured"]
+        assert 0.0 < a["gap"] <= 1.0
+        host = mixing_report(topo, plan=p, device="cpu",
+                             cache_path=str(tmp_path / "c.json"))
+        assert abs(host["structural"]["gap"]
+                   - a["structural"]["gap"]) < 1e-6

@@ -198,4 +198,5 @@ def test_oracle_subcommand_refuses_lmm_without_links():
 def test_help_lists_both_subcommands(capsys):
     with pytest.raises(SystemExit):
         port_cli.main(["--help"])
-    assert "{run,oracle}" in capsys.readouterr().out
+    # the plan subcommand joined run and oracle in A5
+    assert "{run,oracle,plan}" in capsys.readouterr().out

@@ -278,14 +278,14 @@ def test_unported_items_raise_naming_them(graphs):
         Engine(config=cfg, adversary=object(), device="cpu")
     for runner, item in ((rounds.run_rounds_chunked, "A13"),
                          (rounds.init_chunked_state, "A13"),
-                         (rounds.run_rounds_telemetry, "A9"),
-                         (rounds.run_rounds_fields, "A9"),
-                         (rounds.run_rounds_streamed, "A9")):
+                         (rounds.run_rounds_fields, "A9 part 2")):
         with pytest.raises(NotImplementedError, match=item):
             runner(state, arrays, cfg, 1)
+    # the streamed observer runs on the edge kernel (A9 part 1)
     eng = Engine(config=cfg, device="cpu").set_topology(pt).build()
-    with pytest.raises(NotImplementedError, match="A9"):
-        eng.run_streamed(10, observe_every=10)
+    seen = []
+    eng.run_streamed(10, observe_every=10, emit=seen.append)
+    assert [m["t"] for m in seen] == [10]
 
 
 def test_engine_edge_kernel_surface(graphs):

@@ -235,8 +235,8 @@ def test_sharded_refusals(graphs, host_mesh):
         sharded.plan_sharding(pt, S, partition="metis")
     with pytest.raises(ValueError, match="shards"):
         sharded.init_plan_state(plan, cfg, make_mesh(4, device="cpu"))
-    with pytest.raises(NotImplementedError, match="A9"):
-        sharded.run_rounds_sharded_telemetry(st, plan, cfg, host_mesh, 2)
+    with pytest.raises(NotImplementedError, match="A9 part 2"):
+        sharded.run_rounds_sharded_fields(st, plan, cfg, host_mesh, 2)
     with pytest.raises(ValueError, match="edge ownership"):
         sharded.gather_full_state(
             st, dataclasses.replace(plan, edge_shard=None), pt)

@@ -31,6 +31,7 @@ from flow_updating_tpu.topology import generators as jgen
 from flow_updating_tpu.utils import checkpoint as jck
 from flow_updating_tpu_torch import Engine, NodeKernel, RoundConfig
 from flow_updating_tpu_torch.cli import main as port_main
+from flow_updating_tpu_torch.obs.telemetry import TelemetrySpec
 from flow_updating_tpu_torch.parallel.mesh import make_mesh
 from flow_updating_tpu_torch.parallel.structured_sharded import (
     PodShardedFatTreeKernel,
@@ -130,9 +131,10 @@ def test_rejects_bad_inputs():
         PodShardedFatTreeKernel(pgen.fat_tree(8, seed=0), pcfg, _mesh(2),
                                 device="cuda")
     k = PodShardedFatTreeKernel(pgen.fat_tree(8, seed=0), pcfg, _mesh(2))
-    for run in (k.run_telemetry, k.run_fields):
-        with pytest.raises(NotImplementedError, match="A9"):
-            run(k.init_state(), 4, None)
+    with pytest.raises(NotImplementedError, match="A9 part 2"):
+        k.run_fields(k.init_state(), 4, None)
+    with pytest.raises(ValueError, match="disabled"):
+        k.run_telemetry(k.init_state(), 4, TelemetrySpec.off())
 
 
 def test_last_avg_matches_single_device():

@@ -211,8 +211,8 @@ def test_cli_run_json_matches_jax(capsys, spmv):
 def test_cli_refuses_unported_flags():
     base = ["run", "--device", "cpu", "--generator", "ring:16",
             "--kernel", "node", "--fire-policy", "every_round"]
-    with pytest.raises(SystemExit, match="A9"):
-        port_main([*base, "--telemetry"])
+    with pytest.raises(SystemExit, match="A14"):
+        port_main([*base, "--profile", "prof"])
     # --shards runs the sharded banded and Beneš rounds (with --multichip
     # halo the edge kernel's halo round, with --multichip pod the pod
     # stencil, spmv='structured' only); GSPMD's 'xla' path exits
@@ -253,8 +253,11 @@ def test_unported_configs_raise_naming_their_item():
     clip.run_rounds(5)
     assert clip.state.flow.abs().max() <= 1.0
     node = RoundConfig.fast(kernel="node")
-    with pytest.raises(NotImplementedError, match="plan='auto'"):
-        Engine(config=node, plan="auto", device="cpu")
+    # plan='auto' runs (A5); unknown plan modes are refused
+    assert Engine(config=node, plan="auto", device="cpu").set_topology(
+        topo).build().plan_decision.spmv == "structured"
+    with pytest.raises(ValueError, match="plan mode"):
+        Engine(config=node, plan="fastest", device="cpu")
     # a mesh runs spmv='banded_fused' and 'benes_fused', and the pod
     # stencil spmv='structured'; GSPMD's 'xla' path still raises, naming
     # multi-device execution; the halo round refuses the node kernel, as
