@@ -191,7 +191,7 @@ and prints one JSON line per phase:
    tile and remainder route), cold and cached build seconds (the second
    build hits the autotune cache with no probe), the chosen route's
    ms/round, the four candidates' ms/round (the median of ``L_REPS``
-   interleaved repeats; the choice within ``PLAN_MARGIN`` of the fastest
+   interleaved repeats in a rotating order; the choice within ``PLAN_MARGIN`` of the fastest
    rate), 40 float64 rounds within 1e-9
    of ``spmv='xla'``; L3 ``mixing_report`` on the fat tree (edge rows)
    and on the ring's banded plan: both provenances, gaps in (0, 1], a
@@ -203,6 +203,18 @@ and prints one JSON line per phase:
    against the host's, host reads inside the loop, the overhead; path
    F's series against the single-device series on its renumbered
    topology; ``run_streamed`` on path D, 10 samples;
+   ``path_m`` — per-node and per-edge fields at full width on paths A
+   (K1), B (K2), C (B3), D (B3, B4) and F (B6), and on J3 (inside path
+   J): the default fields at stride 1 and 10 (J3: 10) and, on D and F,
+   ``FieldSpec.full()``, each run's state ``torch.equal`` to
+   ``run_rounds``', no host read inside the loop, ms a round by CUDA
+   events and device ms a round by the profiler beside the plain round's,
+   the recorded bytes and the bulk copy's time, ``Engine.run_fields``
+   reduced against ``run_telemetry`` from the same state; F's fields
+   against the single-device round's on its renumbered topology, A's
+   ``topk_idx`` against a stable host ranking of the full rows, and
+   ``blame`` naming a flow planted on one edge of D's tree under fast
+   pairwise on D's segment networks;
 18. the ``{"kernels": [...]}`` line (launches from the main paths; times,
     errors and bounds measured in this run), then the nvidia-smi line,
     then ``{"ok": true, "device": {...}}`` as the last line.
@@ -245,9 +257,13 @@ FAT_TREE_K = 160        # fat_tree(160): 1,056,000 nodes (paths A, C; K1, B3)
 RING_N = 1_000_000      # ring(1_000_000, 2) (path B, K2)
 ROUNDS = 50             # timed rounds per main path
 WARMUP = 5              # rounds before the timed ones
-REPS = 20               # calls per kernel timing
-TRACES = 3              # profiler traces per device-time measurement
-PROFILE_ROUNDS = 20     # rounds per path under the profiler
+REPS = 10               # calls per kernel timing (the profiler spends
+#                         ~50-70 host us an event turning a trace into
+#                         rows: traces are most of the script's time)
+TRACES = 2              # profiler traces per device-time measurement
+PROFILE_ROUNDS = 10     # rounds per path under the profiler
+PROFILE_TRACES = 2      # profile: traces per path (the most device time
+#                         counts)
 EDGE_BOOT = 50          # path D: the faithful timeout (no fire before it)
 EDGE_ROUNDS = 150       # path D: timed rounds after the bootstrap
 TWIN_ROUNDS = 60        # path D: rounds before the twin comparisons
@@ -300,7 +316,10 @@ SEED = 0
 BA_N, BA_M = 1_000_000, 4   # path L: barabasi_albert(1_000_000, 4)
 L_ROUNDS = 20           # L2: timed rounds of the chosen route and of each
 #                         of the four candidates, per repeat
-L_REPS = 5              # L2: interleaved repeats of each candidate's timing
+L_REPS = 40             # L2: interleaved repeats of each candidate's timing
+#                         (the host's pace swings +-20% on host-bound
+#                         rounds: medians of 5 read routes 10% apart in
+#                         either order)
 PLAN_MARGIN = 0.10      # L2: the choice within this share of the fastest
 #                         candidate's rate (doctor's plan_selection margin)
 L_F64_ROUNDS = 40       # L2: float64 rounds held to spmv='xla'
@@ -309,6 +328,19 @@ TELEMETRY_ROUNDS = 20   # L5: rounds of paths F and J3 under telemetry
 L_SERIES_RTOL = 1e-5    # L5: halo vs single-device float32 series, as a
 #                         share of each series' largest value (the
 #                         shards' partial sums add in another order)
+M_ROUNDS = 40           # path M: rounds of each fields run on A, B, C
+M_EDGE_ROUNDS = 20      # path M: ... on D
+M_HALO_ROUNDS = 10      # path M: ... on F (FieldSpec.full() there is
+#                         ~260 MB a row: four shards of Eb edge slots)
+M_STRIDE = 10           # path M: the sparse stride (the dense one is 1)
+M_TOPK = 16             # path M: A's ranked nodes a row
+M_LEAK = 100.0          # path M: the flow planted on one edge of D's tree
+M_LEAK_WARMUP = 50      # path M: fast pairwise rounds before the plant
+M_LEAK_SETTLE = 60      # path M: plain rounds after the plant, while the
+#                         planted deficit mixes away from its ends
+M_LEAK_ROUNDS = 40      # path M: rounds then recorded (stride 10)
+M_J3_ROUNDS = 40        # path M: J3's fields rounds (stride 10 only: a
+#                         row of the default fields is ~0.8 GB there)
 
 #: NVIDIA H100 SXM data sheet: peak HBM rate (bytes/s) and float32 rate
 #: outside the tensor cores (FLOP/s)
@@ -3193,8 +3225,10 @@ def phase_path_j3(topo, est_j2, rounds: int, tmp) -> dict:
         out["overlap" if overlap else "plain"] = {
             "build_s": build_s, **timed, **eng.convergence_report(),
             "device": _device_summary(eng)}
-        if overlap:     # path L's L5 on the pod kernel, at full width
+        if overlap:     # paths L5 and M on the pod kernel, at full width
             out["telemetry"] = telemetry_check(eng, TELEMETRY_ROUNDS)
+            out["fields"] = fields_check(eng, M_J3_ROUNDS,
+                                         strides=(M_STRIDE,))
         del eng
     if not np.array_equal(ests[True], ests[False]):
         raise AssertionError("J3: the overlap schedule differs from the "
@@ -3348,15 +3382,15 @@ def profile_rounds(engine, rounds: int) -> dict:
     ``rounds`` rounds, the device time of every CUDA-side event (kernels,
     memsets, copies) summed and set against the wall time of the same
     rounds (which the profiler itself lengthens), with dropped events made
-    up for (:func:`_device_rows`); of ``TRACES`` traces the one with the
-    most device time counts.  ``busy_share`` is None when the trace holds
+    up for (:func:`_device_rows`); of ``PROFILE_TRACES`` traces the one
+    with the most device time counts.  ``busy_share`` is None when the trace holds
     no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     best = None
-    for _ in range(TRACES):
+    for _ in range(PROFILE_TRACES):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -3652,15 +3686,18 @@ def _plan_graph(name, topo, tmp) -> dict:
     ms = _timed_rounds(eng, L_ROUNDS)
     dev_ms = device_ms(lambda: eng.run_rounds(1))
     # the candidates' rounds are host-bound at 1 M nodes, so each is
-    # timed L_REPS times, interleaved with the others, and its median
-    # counts (a slow stretch of the host hits every candidate alike)
+    # timed L_REPS times, interleaved with the others in a rotating
+    # order, and its median counts (a slow stretch of the host hits every
+    # candidate alike)
     engines = {}
     for cand, make in _candidate_engines(topo, decision).items():
         engines[cand] = make().set_topology(topo).build()
         engines[cand].run_rounds(WARMUP)
     reps = {cand: [] for cand in engines}
-    for _ in range(L_REPS):
-        for cand, e in engines.items():
+    order = list(engines.items())
+    for i in range(L_REPS):
+        k = i % len(order)
+        for cand, e in order[k:] + order[:k]:
             reps[cand].append(_timed_rounds(e, L_ROUNDS) / L_ROUNDS)
     measured = {cand: {"ms_per_round": float(np.median(v)),
                        "ms_per_round_reps": v,
@@ -3772,11 +3809,12 @@ def phase_path_l4(engine_f) -> dict:
             "predicted_effective_bytes": got["predicted_effective_bytes"]}
 
 
-def phase_path_l5(engine_d, engine_a, engine_f, j3_telemetry) -> dict:
+def phase_path_l5(engine_d, engine_a, engine_f, j3_telemetry) -> tuple:
     """L5: telemetry at full width on paths D, A and F (J3's ran inside
     path J, where its engine lives), the halo series against the
     single-device series on the renumbered topology, and run_streamed on
-    path D."""
+    path D.  Returns the record and that single-device engine, in step
+    with path F (path M compares their fields)."""
     import numpy as np
 
     from flow_updating_tpu_torch import Engine
@@ -3816,7 +3854,6 @@ def phase_path_l5(engine_d, engine_a, engine_f, j3_telemetry) -> dict:
         if not rel <= L_SERIES_RTOL:
             raise AssertionError(f"L5: halo series {m} is {rel} (of its "
                                  "scale) off the single device's")
-    del single
     out["halo_vs_single_device"] = {"rounds": TELEMETRY_ROUNDS,
                                     "max_rel_diff": worst,
                                     "rtol": L_SERIES_RTOL,
@@ -3827,14 +3864,15 @@ def phase_path_l5(engine_d, engine_a, engine_f, j3_telemetry) -> dict:
         raise AssertionError(f"L5: run_streamed emitted {len(seen)} "
                              "samples, expected 10")
     out["path_d_streamed"] = {"samples": len(seen), "last": seen[-1]}
-    return out
+    return out, single
 
 
 def phase_path_l(tree, ring_topo, engine_a, engine_d, engine_f,
-                 j3_telemetry) -> dict:
+                 j3_telemetry) -> tuple:
     """Path L: L0 the gather ratio, L1 plan='auto' on the fat tree, L2
     plan='auto' with probes on the ring and the BA graph, L3 the mixing
-    probe, L4 select_halo_mode on path F's plan, L5 telemetry."""
+    probe, L4 select_halo_mode on path F's plan, L5 telemetry.  Returns
+    the record and L5's single-device twin of path F."""
     import tempfile
 
     import torch
@@ -3870,9 +3908,365 @@ def phase_path_l(tree, ring_topo, engine_a, engine_d, engine_f,
     del ba
     out["l4"] = phase_path_l4(engine_f)
     emit({"phase": "path_l", "part": "l4", **out["l4"]})
-    out["l5"] = phase_path_l5(engine_d, engine_a, engine_f, j3_telemetry)
+    out["l5"], f_single = phase_path_l5(engine_d, engine_a, engine_f,
+                                        j3_telemetry)
     emit({"phase": "path_l", "part": "l5", **out["l5"]})
     torch.cuda.synchronize()
+    return out, f_single
+
+
+# ---- path M: per-node and per-edge fields at full width -------------------
+
+def _raw_fields(engine, rounds: int, spec):
+    """The engine's field runner as ``Engine.run_fields`` dispatches it,
+    its rows left on the card: ``(state, conv, series)``."""
+    from flow_updating_tpu_torch.models import rounds as edge_rounds
+    from flow_updating_tpu_torch.parallel import sharded
+
+    kind = engine._kernel_kind
+    spec = spec.for_kernel(kind)
+    if kind == "halo":
+        return sharded.run_rounds_sharded_fields(
+            engine.state, engine._halo_plan, engine.config, engine.mesh,
+            rounds, spec, engine.topology.true_mean,
+            arrays=engine._halo_arrays, halo=engine._halo_wire)
+    if kind == "edge":
+        return edge_rounds.run_rounds_fields(
+            engine.state, engine._topo_arrays, engine.config, rounds, spec,
+            engine.topology.true_mean)
+    return engine._node_kernel.run_fields(engine.state, rounds, spec)
+
+
+def _card_tensors(x) -> list:
+    """Every CUDA tensor in a nest of dicts, lists and tuples."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return [x] if x.is_cuda else []
+    if isinstance(x, dict):
+        x = list(x.values())
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in _card_tensors(v)]
+    return []
+
+
+def _device_ms_per_round(fn, rounds: int, stride: int = 1) -> float:
+    """Device ms a round of ``fn`` (``rounds`` rounds) from one
+    ``torch.profiler`` trace of the CUDA activity alone (a trace of the
+    host's ops too costs seconds to reduce on a launch-heavy path), every
+    CUDA-side event summed; dropped events are made up for per chunk of
+    ``stride`` rounds (:func:`_device_rows`: a field runner samples once a
+    chunk).  A trace with no device time is taken again with the host's
+    activity on."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    units = rounds // stride
+    for acts in ([ProfilerActivity.CUDA],
+                 [ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        us = sum(us for _, us, _ in _device_rows(prof, units))
+        if us > 0:
+            return us / 1e3 / stride
+    raise AssertionError("M: the profiler saw no device time")
+
+
+def _fields_run(engine, rounds: int, spec) -> tuple:
+    """One run of the field runner from the engine's state, timed by CUDA
+    events, then the bulk copy of its rows timed apart."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    state, conv, series = _raw_fields(engine, rounds, spec)
+    end.record()
+    torch.cuda.synchronize()
+    rows = _card_tensors((conv, series))
+    t0 = time.perf_counter()
+    for t in rows:
+        t.cpu()
+    copy_s = time.perf_counter() - t0
+    return {"rows": rounds // spec.stride,
+            "ms_per_round": start.elapsed_time(end) / rounds,
+            "recorded_bytes": sum(t.numel() * t.element_size()
+                                  for t in rows),
+            "copy_ms": copy_s * 1e3}, state
+
+
+def _against_telemetry(series, tel) -> dict:
+    """A field series' reductions (``FieldSeries.reduced_series``, on the
+    host in float64) against the telemetry series of the same rounds from
+    the same state, at the recorded rounds: t and active exactly, the
+    float series within ``L_SERIES_RTOL`` of each one's largest value
+    (the residual on the masses' scale)."""
+    import numpy as np
+
+    red = series.reduced_series()
+    at = [int(np.flatnonzero(tel.t == t)[0]) for t in series.t]
+    if not np.array_equal(np.asarray(red["active"]),
+                          tel["active"][at]):
+        raise AssertionError("M: the fields' active counts differ from "
+                             "the telemetry's")
+    worst = {}
+    for m in ("rmse", "max_abs_err", "mass", "mass_residual"):
+        got = np.asarray(red[m], np.float64)
+        want = np.asarray(tel[m], np.float64)[at]
+        if got.ndim < want.ndim:
+            want = want.sum(axis=tuple(range(1, want.ndim)))
+        scale = float(np.max(np.abs(np.asarray(
+            tel["mass" if m == "mass_residual" else m], np.float64))))
+        worst[m] = float(np.max(np.abs(got - want))) / max(scale, 1e-30)
+        if not worst[m] <= L_SERIES_RTOL:
+            raise AssertionError(f"M: the fields' {m} is {worst[m]} (of its "
+                                 "scale) off the telemetry series")
+    return {"rows": len(series), "max_rel_diff": worst,
+            "rtol": L_SERIES_RTOL, "active_equal": True}
+
+
+def fields_check(engine, rounds: int, strides=(1, M_STRIDE),
+                 full: bool = False) -> dict:
+    """M on one engine: ``rounds`` plain rounds timed, then from the same
+    state the field runner with the default fields at each stride (and
+    ``FieldSpec.full()`` at stride 1 when ``full``): its state
+    ``torch.equal`` to the plain run's, the recorded bytes, the bulk
+    copy's time, ms a round by CUDA events, and for the default fields no
+    host read in the loop and device ms a round by the profiler beside the
+    plain round's; then
+    ``Engine.run_fields`` with the default fields reduced against
+    ``run_telemetry`` from the same state.  The engine ends where it
+    began."""
+    from flow_updating_tpu_torch.obs.fields import FieldSpec
+    from flow_updating_tpu_torch.obs.telemetry import TelemetrySpec
+
+    s0, clock0 = engine.state, engine.clock
+
+    def reset():
+        engine.state, engine._clock = s0, clock0
+
+    plain_ms = _timed_rounds(engine, rounds) / rounds
+    plain = engine.state
+    reset()
+    out = {"kernel": engine._kernel_kind, "rounds": rounds,
+           "plain_ms_per_round": plain_ms,
+           "plain_device_ms_per_round": _device_ms_per_round(
+               lambda: engine.run_rounds(rounds), rounds)}
+    reset()
+    runs = [(f"default_stride{s}", FieldSpec.default(stride=s), s)
+            for s in strides]
+    if full:
+        runs.append(("full_stride1", FieldSpec.full(), 1))
+    for name, spec, stride in runs:
+        rec, state = _fields_run(engine, rounds, spec)
+        if not _same_state(state, plain):
+            raise AssertionError(f"M {out['kernel']} {name}: the state "
+                                 "after the field runner differs from the "
+                                 "state after run_rounds")
+        del state
+        rec["overhead"] = rec["ms_per_round"] / plain_ms - 1.0
+        rec["state_equal"] = True
+        out[name] = rec
+        if name.startswith("full"):
+            continue
+        # the profiled run also counts the host reads: the counting mode
+        # adds Python to every op, so it stays out of the timed run
+        with _host_reads_mode() as reads:
+            rec["device_ms_per_round"] = _device_ms_per_round(
+                lambda spec=spec: _raw_fields(engine, rounds, spec),
+                rounds, stride)
+        rec["host_reads_in_loop"] = reads.scalars + reads.copies
+        if rec["host_reads_in_loop"]:
+            raise AssertionError(f"M {out['kernel']} {name}: "
+                                 f"{rec['host_reads_in_loop']} host reads "
+                                 "inside the loop")
+        rec["device_overhead"] = (rec["device_ms_per_round"]
+                                  / out["plain_device_ms_per_round"] - 1.0)
+    series = engine.run_fields(rounds, FieldSpec.default(stride=strides[0]))
+    out["engine_field_timings"] = dict(engine.field_timings)
+    if not _same_state(engine.state, plain):
+        raise AssertionError(f"M {out['kernel']}: the state after "
+                             "Engine.run_fields differs from run_rounds'")
+    reset()
+    tel = engine.run_telemetry(rounds, TelemetrySpec.default())
+    reset()
+    out["vs_telemetry"] = _against_telemetry(series, tel)
+    return out
+
+
+def _frontier_mismatch(conv, ref, tol, slack) -> int:
+    """Entries of the frontier ``conv`` that differ from the series
+    ``ref``'s at nodes whose pooled error in ``ref`` never came within
+    ``slack`` of ``tol`` (a float32 rounding may put a node on either side
+    there)."""
+    import numpy as np
+
+    near = np.any(np.abs(ref.pooled("node_err") - tol) <= slack, axis=0)
+    return int(np.sum((conv != ref.conv_round) & ~near))
+
+
+def _f_vs_single(engine_f, single) -> dict:
+    """F's fields against those of ``single``, the single-device edge
+    round on the plan's renumbered topology in step with F (L5's twin):
+    ``FieldSpec.full()`` at stride 2; t, active, node_fired and
+    edge_stale exactly, the float fields within ``L_SERIES_RTOL`` of each
+    one's largest value, the frontier equal away from the tolerance."""
+    import numpy as np
+
+    from flow_updating_tpu_torch.obs.fields import FieldSpec
+    from flow_updating_tpu_torch.parallel import sharded
+
+    s0, clock0 = engine_f.state, engine_f.clock
+    plan = engine_f._halo_plan
+    if not np.array_equal(engine_f.estimates()[plan.order],
+                          single.estimates()):
+        raise AssertionError("M: path F's state is not the renumbered "
+                             "single-device run's")
+    spec = FieldSpec.full(stride=2)
+    a = engine_f.run_fields(M_HALO_ROUNDS, spec)
+    b = single.run_fields(M_HALO_ROUNDS, spec)
+    engine_f.state, engine_f._clock = s0, clock0
+    e_map = sharded._edge_map_to_original(plan, engine_f.topology)
+    if not (np.array_equal(a.t, b.t) and np.array_equal(a.active,
+                                                        b.active)):
+        raise AssertionError("M: F's t or active differ from the single "
+                             "device's")
+    worst = {}
+    pairs = [(n, a.node[n][:, plan.order], b.node[n]) for n in b.node]
+    pairs += [(n, a.edge[n], b.edge[n][:, e_map]) for n in b.edge]
+    for name, x, y in pairs:
+        if np.issubdtype(y.dtype, np.integer):
+            if not np.array_equal(x, y):
+                raise AssertionError(f"M: F's {name} differs from the "
+                                     "single device's")
+            continue
+        scale = float(np.max(np.abs(y))) if y.size else 0.0
+        worst[name] = float(np.max(np.abs(x.astype(np.float64) - y)))
+        worst[name] /= max(scale, 1e-30)
+        if not worst[name] <= L_SERIES_RTOL:
+            raise AssertionError(f"M: F's {name} is {worst[name]} (of its "
+                                 "scale) off the single device's")
+    slack = 8 * float(np.finfo(np.float32).eps) * float(
+        np.abs(plan.topo.values).max())
+    bad = _frontier_mismatch(a.conv_round[plan.order], b, spec.tol, slack)
+    if bad:
+        raise AssertionError(f"M: {bad} frontier entries of F differ from "
+                             "the single device's away from the tolerance")
+    return {"rounds": M_HALO_ROUNDS, "stride": 2,
+            "fields": list(a.fields), "max_rel_diff": worst,
+            "rtol": L_SERIES_RTOL, "integers_equal": True,
+            "frontier_mismatches_away_from_tol": 0}
+
+
+def _a_topk(engine_a) -> dict:
+    """A's ``topk_idx`` (kernel layout, straight from the runner) against
+    a stable ranking, on the host, of the full ``node_err`` row the same
+    runner records from the same state."""
+    import numpy as np
+
+    from flow_updating_tpu_torch.obs.fields import FieldSpec
+
+    k, s0 = engine_a._node_kernel, engine_a.state
+    _, _, top = k.run_fields(s0, M_ROUNDS, FieldSpec.parse(
+        "node_err", stride=M_STRIDE, topk=M_TOPK))
+    _, _, rows = k.run_fields(s0, M_ROUNDS, FieldSpec.parse(
+        "node_err", stride=M_STRIDE))
+    idx = top["topk_idx"].cpu().numpy()
+    mag = rows["node_err"].abs().cpu().numpy()
+    for i in range(mag.shape[0]):
+        want = np.argsort(-mag[i], kind="stable")[:M_TOPK]
+        if not np.array_equal(idx[i], want):
+            raise AssertionError(f"M: A's topk_idx row {i} is {idx[i]}, the "
+                                 f"host's stable ranking {want}")
+    if not np.array_equal(top["node_err"].cpu().numpy(),
+                          np.take_along_axis(rows["node_err"].cpu().numpy(),
+                                             idx.astype(np.int64), 1)):
+        raise AssertionError("M: A's ranked node_err rows are not the full "
+                             "rows' entries")
+    return {"rows": int(idx.shape[0]), "topk": M_TOPK,
+            "equal_to_stable_host_ranking": True,
+            "original_ids_last_row": k.original_node_ids(idx[-1]).tolist()}
+
+
+def _d_leak(engine_d) -> dict:
+    """``blame`` on a flow of ``M_LEAK`` planted on one switch-to-switch
+    edge of path D's fat tree, run in fast pairwise mode on D's segment
+    networks (B3, B4), as the JAX package's own leak test plants it: the
+    direct exchange adds exactly antisymmetric increments, so the pair's
+    residual stays the plant while the plant's deficit mixes away, and
+    the pair ranks first in the leak blame.  (Under D's faithful round a
+    plant heals once the next message crosses; failing the link keeps it,
+    but then the planted end averages only at its timeout, and between
+    its firings its error climbs back to 5-90% of the plant, so blame's
+    in-flight allowance of twice the largest error covers the pair in
+    part of every timeout cycle.)"""
+    import numpy as np
+
+    from flow_updating_tpu_torch import Engine, RoundConfig
+    from flow_updating_tpu_torch.obs.fields import FieldSpec
+    from flow_updating_tpu_torch.obs.inspect import blame
+
+    topo = engine_d.topology
+    pw = Engine(config=RoundConfig.fast(
+        "pairwise", segment_impl=engine_d.config.segment_impl))
+    pw.set_topology(topo).build(seed=SEED)
+    pw.run_rounds(M_LEAK_WARMUP)
+    deg = np.asarray(topo.out_deg)
+    inner = np.flatnonzero((deg[topo.src] > 1) & (deg[topo.dst] > 1))
+    leak = int(inner[len(inner) // 3])
+    u, v = int(topo.src[leak]), int(topo.dst[leak])
+    flow = pw.state.flow.clone()
+    flow[leak] += M_LEAK
+    pw.state = pw.state.replace(flow=flow)
+    t0 = time.perf_counter()
+    pw.run_rounds(M_LEAK_SETTLE)
+    series = pw.run_fields(M_LEAK_ROUNDS, FieldSpec.parse(
+        "node_err,edge_flow", stride=M_STRIDE))
+    run_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    verdict = blame(series)
+    blame_s = time.perf_counter() - t0
+    del pw
+    top = (verdict["leak"] or [None])[0]
+    if top is None or {top["edge"], top["rev"]} != {leak,
+                                                    int(topo.rev[leak])}:
+        raise AssertionError(f"M: blame did not rank the planted leak edge "
+                             f"{leak} first: {verdict['leak']}")
+    return {"edge": leak, "rev": int(topo.rev[leak]), "link": [u, v],
+            "mode": "fast pairwise", "planted": M_LEAK,
+            "warmup_rounds": M_LEAK_WARMUP, "settle_rounds": M_LEAK_SETTLE,
+            "rounds": M_LEAK_ROUNDS,
+            "stride": M_STRIDE, "top": top,
+            "culprits": len(verdict["leak"]),
+            "max_final_err": float(np.max(series.pooled("node_err")[-1])),
+            "run_s": run_s, "blame_s": blame_s}
+
+
+def phase_path_m(engine_a, engine_b, engine_c, engine_d, engine_f,
+                 f_single) -> dict:
+    """Path M: the field runners on paths A (K1), B (K2), C (B3), D (B3,
+    B4) and F (B6) at full width (J3's ran inside path J): the state equal
+    to ``run_rounds``', no host read in the loop, ms a round against the
+    plain round, the recorded bytes and the copy, the reductions against
+    telemetry; F against the single-device round on its renumbered
+    topology, A's ranking against the host's, a leak planted on D's tree
+    (fast pairwise, D's networks) named by ``blame``."""
+    out = {}
+    for name, eng, rounds, full in (("path_a", engine_a, M_ROUNDS, False),
+                                    ("path_b", engine_b, M_ROUNDS, False),
+                                    ("path_c", engine_c, M_ROUNDS, False),
+                                    ("path_d", engine_d, M_EDGE_ROUNDS,
+                                     True),
+                                    ("path_f", engine_f, M_HALO_ROUNDS,
+                                     True)):
+        out[name] = fields_check(eng, rounds, full=full)
+        emit({"phase": "path_m", "part": name, **out[name]})
+    out["f_vs_single_device"] = _f_vs_single(engine_f, f_single)
+    out["a_topk"] = _a_topk(engine_a)
+    out["d_leak"] = _d_leak(engine_d)
     return out
 
 
@@ -4039,8 +4433,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     reset_counts()
-    path_l = phase_path_l(tree, ring_topo, engine_a, engine_d, engine_f,
-                          path_j["j3"].pop("telemetry"))
+    path_l, f_single = phase_path_l(tree, ring_topo, engine_a, engine_d,
+                                    engine_f, path_j["j3"].pop("telemetry"))
     l_launches = {"k1": neighbor_sum_ell.launches,
                   "k2": fused_banded_round.launches, "b3": b3_launches(),
                   "b4": b4_launches(), "b6": b6_launches()}
@@ -4048,12 +4442,32 @@ def main() -> int:
           "launches": l_launches,
           "k2_probe_and_route_launches": l_launches["k2"]})
 
+    t0 = time.perf_counter()
+    reset_counts()
+    path_m = phase_path_m(engine_a, engine_b, engine_c, engine_d, engine_f,
+                          f_single)
+    del f_single
+    m_launches = {"k1": neighbor_sum_ell.launches,
+                  "k2": fused_banded_round.launches, "b3": b3_launches(),
+                  "b4": b4_launches(), "b6": b6_launches()}
+    emit({"phase": "path_m", "wall_s": time.perf_counter() - t0,
+          "launches": m_launches, "path_j3": path_j["j3"].pop("fields"),
+          **{k: v for k, v in path_m.items() if not k.startswith("path_")}})
+    for family, count in (("K1", m_launches["k1"]),
+                          ("K2", m_launches["k2"]),
+                          ("B3", sum(m_launches["b3"].values())),
+                          ("B4", sum(m_launches["b4"].values())),
+                          ("B6", m_launches["b6"]["fused"])):
+        if not count:
+            raise AssertionError(f"path M launched no {family}")
+
     emit({"phase": "timing", "timed_by_cuda_events": EVENT_TIMED})
     emit({"kernels": [
         {"name": "spmv_ell", "route": "cuda",
          "source": "flow_updating_tpu_torch/csrc/spmv_ell.cu",
          "replaces": "flow_updating_tpu/ops/pallas_spmv.py:35",
-         "launches": path_a["k1_launches"] + l_launches["k1"],
+         "launches": (path_a["k1_launches"] + l_launches["k1"]
+                      + m_launches["k1"]),
          "parity": "float32 rtol=atol=1e-6, float64 1e-12, dyadic exact",
          "max_abs_err": k1["max_abs_err_float32"],
          "ms": k1["ms"], "call_ms": k1["call_ms"],
@@ -4063,7 +4477,8 @@ def main() -> int:
         {"name": "fused_round", "route": "cuda",
          "source": "flow_updating_tpu_torch/csrc/fused_round.cu",
          "replaces": "flow_updating_tpu/ops/pallas_round.py:331",
-         "launches": path_b["k2_launches"] + l_launches["k2"],
+         "launches": (path_b["k2_launches"] + l_launches["k2"]
+                      + m_launches["k2"]),
          "parity": "lanes bit-exact, inline exact on integers",
          "max_abs_err": k2["max_abs_err"],
          "ms": k2["ms"], "call_ms": k2["call_ms"],
@@ -4079,7 +4494,7 @@ def main() -> int:
                         + path_g["g2"]["b3_launches"][name]
                         + a6["b3_launches"][name] + i_b3[name]
                         + path_j["j4"]["b3_launches"][name]
-                        + l_launches["b3"][name]),
+                        + l_launches["b3"][name] + m_launches["b3"][name]),
            "parity": "bit-exact (torch.equal), float32 and float64",
            "max_abs_err": k3["flavours"][name]["max_abs_err"],
            "ms": k3["flavours"][name]["ms"],
@@ -4095,7 +4510,8 @@ def main() -> int:
            "launches": (path_d["b4_launches"][name]
                         + path_g["g1"]["b4_launches"][name]
                         + path_g["g2"]["b4_launches"][name]
-                        + i_b4[name] + l_launches["b4"][name]),
+                        + i_b4[name] + l_launches["b4"][name]
+                        + m_launches["b4"][name]),
            "parity": "bit-exact (torch.equal): float32, float64, int32, "
                      "batch 1 and 3, the split passes",
            "max_abs_err": k4["flavours"][name]["max_abs_err"],
@@ -4131,7 +4547,8 @@ def main() -> int:
          "launches": (path_f["b6_launches"]["fused"]
                       + path_f["pairwise_fast"]["b6_launches"]["pull"]
                       + path_i["i3"]["b6_launches"]["fused"]
-                      + l_launches["b6"]["fused"]),
+                      + l_launches["b6"]["fused"]
+                      + m_launches["b6"]["fused"]),
          "parity": "bit-exact (torch.equal): float32 and float64, scalar "
                    "and 3 lanes, pull and fused, every shard, odd shapes; "
                    "path F 'overlap_pallas' == 'ppermute', 'allgather', "

@@ -1,7 +1,8 @@
-"""Command-line driver: the ``run``, ``oracle`` and ``plan`` subcommands.
+"""Command-line driver: the ``run``, ``oracle``, ``plan``, ``inspect`` and
+``obs`` subcommands.
 
-Counterpart of ``flow_updating_tpu/cli.py``'s ``run``, ``oracle`` and
-``plan``.
+Counterpart of ``flow_updating_tpu/cli.py``'s ``run``, ``oracle``,
+``plan``, ``inspect`` and ``obs export-trace``.
 They take the same flags, so a JAX command line carries over, plus
 ``--device`` (``cuda``, the default, or ``cpu``) for ``run``.  Topology
 from ``--platform``/``--deployment`` XML or a synthetic ``--generator``;
@@ -42,6 +43,17 @@ with band occupancy and predicted costs as JSON (``--explain`` adds the
 table on stderr, ``--mixing`` the spectral-gap block, ``--autotune`` the
 measured probes on ``--device``, ``--report PATH`` a
 ``flow-updating-plan-report/v1`` manifest).
+
+``inspect`` records per-node and per-edge fields on a live run on
+``--device`` (``--fields``, ``--field-stride``, ``--field-topk``,
+``--conv-tol``; ``--report PATH`` writes a
+``flow-updating-field-report/v1`` manifest) or reads saved field, sweep
+and recovery manifests — either package's — and prints their summary,
+``--blame`` (ranked culprits per symptom), ``--diff A B`` (per-field
+deltas on the common round grid) or ``--heatmap FIELD`` (ASCII, over
+the generator's coordinates).  ``obs export-trace`` converts an
+``--event-log`` JSONL file (or a serving manifest) into a Chrome
+trace-event document.
 """
 
 from __future__ import annotations
@@ -129,8 +141,6 @@ def cmd_run(args) -> int:
     if args.latency_scale is None:
         args.latency_scale = 1.0 if args.fidelity and args.platform else 0.0
 
-    from flow_updating_tpu_torch.engine import Engine
-
     cfg = _make_config(args)
     telemetry_spec = _telemetry_spec(args)
     event_log = None
@@ -138,19 +148,7 @@ def cmd_run(args) -> int:
         from flow_updating_tpu_torch.utils.eventlog import EventLog
 
         event_log = EventLog(args.event_log)
-    try:
-        mesh = None
-        if args.shards:
-            from flow_updating_tpu_torch.parallel.mesh import make_mesh
-
-            mesh = make_mesh(args.shards, device=args.device)
-        engine = Engine(config=cfg, mesh=mesh, multichip=args.multichip,
-                        halo=args.halo,
-                        partition=args.partition, plan=args.plan,
-                        event_log=event_log, device=args.device)
-    except (NotImplementedError, RuntimeError, ValueError) as err:
-        raise SystemExit(str(err)) from err
-    engine.set_topology(_build_topology(args))
+    engine = _new_engine(args, cfg, event_log)
     t_build0 = time.perf_counter()
     if args.resume:
         # restore makes no fresh state; the checkpoint's config governs
@@ -268,6 +266,26 @@ def cmd_run(args) -> int:
     return 0
 
 
+def _new_engine(args, cfg, event_log=None):
+    """The Engine the shared run flags describe, its topology set (``run``
+    and ``inspect``'s live run build the same engine on ``--device``)."""
+    from flow_updating_tpu_torch.engine import Engine
+
+    try:
+        mesh = None
+        if args.shards:
+            from flow_updating_tpu_torch.parallel.mesh import make_mesh
+
+            mesh = make_mesh(args.shards, device=args.device)
+        engine = Engine(config=cfg, mesh=mesh, multichip=args.multichip,
+                        halo=args.halo, partition=args.partition,
+                        plan=args.plan, event_log=event_log,
+                        device=args.device)
+    except (NotImplementedError, RuntimeError, ValueError) as err:
+        raise SystemExit(str(err)) from err
+    return engine.set_topology(_build_topology(args))
+
+
 def _telemetry_spec(args):
     """``--telemetry`` as a spec (None when off), checked against the
     run flags before anything runs."""
@@ -295,6 +313,251 @@ def _telemetry_spec(args):
                 f"{','.join(need)} for the watch records — add them to "
                 "the list or use '--telemetry default'")
     return spec
+
+
+def cmd_obs_export_trace(args) -> int:
+    """``obs export-trace``: an event-log JSONL file -> a Chrome
+    trace-event / Perfetto document (chrome://tracing, ui.perfetto.dev).
+    A serving manifest (a ``serving_trace`` block) renders as lane
+    tracks with query spans and metric counter tracks instead."""
+    import os
+
+    from flow_updating_tpu_torch.obs.trace import (
+        eventlog_to_chrome_trace,
+        read_eventlog,
+        serving_manifest_to_chrome_trace,
+    )
+
+    if not os.path.exists(args.eventlog):
+        raise SystemExit(f"no such event log: {args.eventlog}")
+    # a manifest is one JSON document, not a JSONL event log — the most
+    # common mix-up: name the fix instead of tracing a half-parsed file
+    try:
+        with open(args.eventlog) as f:
+            doc = json.load(f)
+    except (ValueError, OSError):
+        doc = None
+    if isinstance(doc, dict) and "schema" in doc:
+        # a one-record event log also parses as one JSON object; only the
+        # schema key marks a manifest
+        if isinstance(doc.get("serving_trace"), dict) \
+                or isinstance(doc.get("query"), dict):
+            trace_doc = serving_manifest_to_chrome_trace(doc)
+            _write_trace(trace_doc, args, {"source": doc["schema"]})
+            return 0
+        raise SystemExit(
+            f"{args.eventlog}: this is a {doc['schema']} manifest, not "
+            "an event log — export-trace consumes the JSONL file "
+            "written by `run --event-log PATH` (manifests are judged "
+            "by `doctor`, field manifests by `inspect`; serve/query "
+            "manifests with a serving_trace block DO render here)")
+    records = read_eventlog(args.eventlog)
+    if not records:
+        raise SystemExit(
+            f"{args.eventlog}: no parseable JSONL records (is this an "
+            "event log written with --event-log?)")
+    _write_trace(eventlog_to_chrome_trace(records), args,
+                 {"records": len(records)})
+    return 0
+
+
+def _write_trace(doc: dict, args, info: dict) -> None:
+    out = args.output or (args.eventlog + ".trace.json")
+    if out == "-":
+        json.dump(doc, sys.stdout)
+        sys.stdout.write("\n")
+        return
+    with open(out, "w") as f:
+        json.dump(doc, f)
+    print(json.dumps({"trace": out, **info,
+                      "trace_events": len(doc["traceEvents"])}))
+
+
+def _load_inspect_manifest(path: str) -> dict:
+    try:
+        with open(path) as f:
+            manifest = json.load(f)
+    except (OSError, ValueError) as err:
+        raise SystemExit(f"inspect: cannot read {path}: {err}") from err
+    if not isinstance(manifest, dict):
+        raise SystemExit(
+            f"inspect: {path} is not a manifest (expected a JSON object "
+            "with a 'fields' block — write one with `inspect --report` "
+            "or `run`'s field flags)")
+    return manifest
+
+
+def _field_series_from(manifest: dict, path: str):
+    """A manifest's fields block as a FieldSeries, with mix-ups named."""
+    from flow_updating_tpu_torch.obs.fields import FieldSeries
+
+    block = manifest.get("fields")
+    if not isinstance(block, dict):
+        schema = manifest.get("schema", "unknown schema")
+        raise SystemExit(
+            f"inspect: {path} ({schema}) has no per-node/per-edge "
+            "fields block — record one with `inspect --generator ... "
+            "--fields ... --report PATH` (global-telemetry manifests "
+            "are judged by `doctor`)")
+    return FieldSeries.from_jsonable(block)
+
+
+def _emit_json(doc: dict, output: str | None) -> None:
+    if output and output != "-":
+        with open(output, "w") as f:
+            json.dump(doc, f, indent=1, default=str)
+            f.write("\n")
+        print(json.dumps({"output": output}))
+    else:
+        print(json.dumps(doc, default=str))
+
+
+def cmd_inspect(args) -> int:
+    """``inspect``: record per-node/per-edge fields on a live run
+    (``--fields``, bounded by ``--field-stride``/``--field-topk``),
+    localize faults (``--blame``), diff two runs (``--diff A B``) and
+    render ASCII heatmaps (``--heatmap FIELD``); field manifests use the
+    ``flow-updating-field-report/v1`` schema."""
+    from flow_updating_tpu_torch.obs import inspect as _inspect
+
+    if args.diff:
+        a_path, b_path = args.diff
+        sa = _field_series_from(_load_inspect_manifest(a_path), a_path)
+        sb = _field_series_from(_load_inspect_manifest(b_path), b_path)
+        try:
+            out = _inspect.diff_fields(sa, sb, atol=args.diff_atol)
+        except ValueError as err:
+            raise SystemExit(f"inspect --diff: {err}") from err
+        _emit_json({"a": a_path, "b": b_path, **out}, args.output)
+        return 0
+
+    targets = []
+    if args.generator or args.deployment:
+        from flow_updating_tpu_torch.obs.fields import FieldSpec
+
+        try:
+            spec = FieldSpec.parse(
+                args.fields if args.fields is not None else "default",
+                stride=args.field_stride, topk=args.field_topk,
+                tol=args.conv_tol)
+        except ValueError as err:
+            raise SystemExit(f"--fields: {err}") from err
+        if not spec.enabled:
+            raise SystemExit(
+                "--fields off records nothing to inspect; pick a field "
+                "list (or 'default'/'full')")
+        if args.multichip in ("halo", "pod") and not args.shards:
+            raise SystemExit(
+                f"--multichip {args.multichip} needs --shards N (it is a "
+                "multi-chip distribution strategy)")
+        engine = _new_engine(args, _make_config(args))
+        try:
+            engine.build(latency_scale=args.latency_scale, seed=args.seed)
+        except (ValueError, NotImplementedError) as err:
+            raise SystemExit(f"invalid flag combination: {err}") from err
+        t0 = time.perf_counter()
+        try:
+            series = engine.run_fields(args.rounds, spec)
+        except (ValueError, NotImplementedError) as err:
+            raise SystemExit(f"inspect: {err}") from err
+        run_s = time.perf_counter() - t0
+        if args.report:
+            from flow_updating_tpu_torch.obs.report import (
+                build_field_manifest,
+                write_report,
+            )
+
+            report = engine.convergence_report()
+            report["true_mean"] = engine.topology.true_mean
+            report["nodes"] = engine.topology.num_nodes
+            write_report(args.report, build_field_manifest(
+                argv=getattr(args, "_argv", None), config=engine.config,
+                topo=engine.topology, fields=series, report=report,
+                timings={"run_s": round(run_s, 6),
+                         **engine.field_timings},
+                device=engine.device))
+        targets.append((args.report or "<live>", series))
+    sweep_targets = []
+    recovery_targets = []
+    for path in args.reports:
+        doc = _load_inspect_manifest(path)
+        if isinstance(doc.get("recovery"), dict):
+            if not args.blame:
+                raise SystemExit(
+                    f"inspect: {path} is a recovery manifest — pass "
+                    "--blame to rank the infra faults that explain it")
+            recovery_targets.append((path, doc))
+        elif (isinstance(doc.get("instances"), list)
+                and not isinstance(doc.get("fields"), dict)):
+            if not args.blame:
+                raise SystemExit(
+                    f"inspect: {path} is a sweep manifest — pass "
+                    "--blame to rank its worst instances (field-level "
+                    "views need a field manifest)")
+            sweep_targets.append((path, doc))
+        else:
+            targets.append((path, _field_series_from(doc, path)))
+    if not targets and not sweep_targets and not recovery_targets:
+        raise SystemExit(
+            "inspect: nothing to inspect — pass saved field-manifest "
+            "paths, --diff A B, or a topology (--generator/"
+            "--deployment) for a live field recording")
+
+    if args.heatmap:
+        if sweep_targets:
+            raise SystemExit(
+                "inspect: --heatmap renders per-node fields; sweep "
+                "manifests carry per-instance records only (use "
+                "--blame)")
+        for path, series in targets:
+            if args.heatmap not in series:
+                raise SystemExit(
+                    f"inspect: field {args.heatmap!r} was not recorded "
+                    f"in {path} (have: {', '.join(series.fields)})")
+            vals = series[args.heatmap]
+            if args.heatmap != "node_conv_round":
+                try:
+                    vals = vals[args.heatmap_round]
+                except IndexError:
+                    raise SystemExit(
+                        f"inspect: --heatmap-round {args.heatmap_round} "
+                        f"outside the {len(series)} recorded rows") from None
+            if series.topk_idx is not None:
+                raise SystemExit(
+                    "inspect: heatmaps need full field rows; this run "
+                    "recorded only the topk worst nodes")
+            # coordinates are per node; edge fields wrap in edge-id order
+            coords = (series.coords if args.heatmap not in series.edge
+                      else None)
+            print(f"# {path}: {args.heatmap}"
+                  + ("" if args.heatmap == "node_conv_round" else
+                     f" @ t={int(series.t[args.heatmap_round])}"))
+            print(_inspect.ascii_heatmap(vals, coords,
+                                         width=args.heatmap_width))
+        return 0
+
+    out = []
+    for path, series in targets:
+        entry = {"source": path, "fields": series.summary()}
+        if args.blame:
+            entry["blame"] = _inspect.blame(
+                series, threshold=args.rmse_threshold)
+        out.append(entry)
+    for path, doc in sweep_targets:
+        try:
+            verdict = _inspect.blame_sweep(doc)
+        except ValueError as err:
+            raise SystemExit(f"inspect: {path}: {err}") from err
+        out.append({"source": path, "sweep_blame": verdict})
+    for path, doc in recovery_targets:
+        try:
+            verdict = _inspect.blame_recovery(doc)
+        except ValueError as err:
+            raise SystemExit(f"inspect: {path}: {err}") from err
+        out.append({"source": path, "recovery_blame": verdict})
+    _emit_json(out[0] if len(out) == 1 else {"inspected": out},
+               args.output)
+    return 0
 
 
 def cmd_plan(args) -> int:
@@ -495,6 +758,34 @@ def _add_config_flags(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--contention-backlog", action="store_true")
 
 
+def _add_mesh_flags(ap: argparse.ArgumentParser) -> None:
+    """The multi-shard flags ``run`` and ``inspect`` share."""
+    ap.add_argument("--multichip", default="auto",
+                    choices=("auto", "halo", "pod"),
+                    help="under --shards: 'auto' = the node kernel's "
+                         "sharded banded or Beneš round; 'halo' = the "
+                         "edge kernel's halo round (cut-edge exchange, "
+                         "--halo, --partition); 'pod' = a fat tree's "
+                         "stencil sharded by pod (--spmv structured, "
+                         "shards dividing k)")
+    ap.add_argument("--halo", default="ppermute",
+                    choices=("ppermute", "allgather", "overlap",
+                             "overlap_pallas", "auto"),
+                    help="exchange under --shards: 'ppermute' = the "
+                         "serialized schedule; the banded round overlaps "
+                         "its copies for any other value; the halo round "
+                         "takes each mode as named ('overlap_pallas' = "
+                         "CUDA kernel B6, 'auto' = ranked by wire bytes)")
+    ap.add_argument("--partition", default="bfs",
+                    choices=("bfs", "contiguous"))
+    ap.add_argument("--shards", type=int, default=0,
+                    help="run over an N-shard mesh (--kernel node --spmv "
+                         "banded_fused or benes_fused, --multichip pod, "
+                         "or --multichip halo): shards go "
+                         "round-robin over the visible cards, or all on "
+                         "the host with --device cpu")
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="flow_updating_tpu_torch",
@@ -513,30 +804,7 @@ def build_parser() -> argparse.ArgumentParser:
                           "command-line compatibility, no effect here "
                           "(see --device)")
     _add_topology_flags(run)
-    run.add_argument("--multichip", default="auto",
-                     choices=("auto", "halo", "pod"),
-                     help="under --shards: 'auto' = the node kernel's "
-                          "sharded banded or Beneš round; 'halo' = the "
-                          "edge kernel's halo round (cut-edge exchange, "
-                          "--halo, --partition); 'pod' = a fat tree's "
-                          "stencil sharded by pod (--spmv structured, "
-                          "shards dividing k)")
-    run.add_argument("--halo", default="ppermute",
-                     choices=("ppermute", "allgather", "overlap",
-                              "overlap_pallas", "auto"),
-                     help="exchange under --shards: 'ppermute' = the "
-                          "serialized schedule; the banded round overlaps "
-                          "its copies for any other value; the halo round "
-                          "takes each mode as named ('overlap_pallas' = "
-                          "CUDA kernel B6, 'auto' = ranked by wire bytes)")
-    run.add_argument("--partition", default="bfs",
-                     choices=("bfs", "contiguous"))
-    run.add_argument("--shards", type=int, default=0,
-                     help="run over an N-shard mesh (--kernel node --spmv "
-                          "banded_fused or benes_fused, --multichip pod, "
-                          "or --multichip halo): shards go "
-                          "round-robin over the visible cards, or all on "
-                          "the host with --device cpu")
+    _add_mesh_flags(run)
     _add_config_flags(run)
     run.add_argument("--plan", default="off", choices=("off", "auto"),
                      help="'auto' = the topology compiler picks the "
@@ -642,6 +910,95 @@ def build_parser() -> argparse.ArgumentParser:
                     help="write the flow-updating-plan-report/v1 "
                          "manifest to PATH")
     pl.set_defaults(fn=cmd_plan)
+
+    ins = sub.add_parser(
+        "inspect",
+        help="topology-resolved observability: record per-node/per-edge "
+             "metric fields on a live run (on the device, stride/topk "
+             "memory bounding), localize faults with --blame, diff two "
+             "runs (--diff A B), render ASCII heatmaps (--heatmap "
+             "FIELD) — flow-updating-field-report/v1 manifests")
+    ins.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                     help="where a live run's rounds run: the CUDA card "
+                          "(default) or the host CPU")
+    ins.add_argument("--backend", default="auto",
+                     choices=("auto", "cpu", "jax_tpu"),
+                     help="accepted for command-line compatibility with "
+                          "the JAX CLI; no effect (see --device)")
+    _add_topology_flags(ins)
+    _add_mesh_flags(ins)
+    _add_config_flags(ins)
+    ins.add_argument("--plan", default="off", choices=("off", "auto"),
+                     help="'auto' = the topology compiler picks the "
+                          "kernel/spmv for the graph on --device")
+    ins.add_argument("reports", nargs="*", metavar="FIELDS.json",
+                     help="saved field manifests to inspect")
+    ins.add_argument("--latency-scale", type=float, default=0.0)
+    ins.add_argument("--msg-bytes", type=float, default=104.0)
+    ins.add_argument("--rounds", type=int, default=200,
+                     help="live-run length (with --generator/"
+                          "--deployment); must be a multiple of "
+                          "--field-stride")
+    ins.add_argument("--fields", nargs="?", const="default",
+                     metavar="FIELDS",
+                     help="field selection for the live run: 'default', "
+                          "'full', or a comma list from: node_err, "
+                          "node_mass, node_mass_residual, node_fired, "
+                          "node_conv_round, edge_flow, edge_est, "
+                          "edge_stale")
+    ins.add_argument("--field-stride", type=int, default=1, metavar="K",
+                     help="record every K-th round only (memory bound; "
+                          "state evolution is unchanged)")
+    ins.add_argument("--field-topk", type=int, default=0, metavar="M",
+                     help="record only the M worst nodes per round "
+                          "(ranked by |node_err|; single-device kernels)")
+    ins.add_argument("--conv-tol", type=float, default=1e-6,
+                     help="per-node convergence-frontier tolerance for "
+                          "node_conv_round")
+    ins.add_argument("--rmse-threshold", type=float, default=1e-6,
+                     help="stall-blame threshold: nodes above it with a "
+                          "flat error trend rank as stragglers")
+    ins.add_argument("--blame", action="store_true",
+                     help="rank culprit node/edge ids per failing "
+                          "symptom (stall stragglers, leaking edge "
+                          "pairs, divergence origin)")
+    ins.add_argument("--diff", nargs=2, metavar=("A.json", "B.json"),
+                     help="align two field manifests on their common "
+                          "round grid and report per-node/per-metric "
+                          "deltas (identical-seed runs diff to zero)")
+    ins.add_argument("--diff-atol", type=float, default=0.0,
+                     help="absolute tolerance under which --diff "
+                          "deltas count as identical")
+    ins.add_argument("--heatmap", metavar="FIELD",
+                     help="render FIELD as an ASCII heatmap over the "
+                          "generator's coordinates (plain text output)")
+    ins.add_argument("--heatmap-round", type=int, default=-1,
+                     help="recorded row to render (default: last)")
+    ins.add_argument("--heatmap-width", type=int, default=64,
+                     help="wrap width when the topology has no "
+                          "coordinates")
+    ins.add_argument("--report", metavar="PATH",
+                     help="write the live run's "
+                          "flow-updating-field-report/v1 manifest to "
+                          "PATH")
+    ins.add_argument("-o", "--output", default=None, metavar="PATH",
+                     help="write the JSON result (summary/blame/diff) "
+                          "to PATH instead of stdout")
+    ins.set_defaults(fn=cmd_inspect)
+
+    obs = sub.add_parser(
+        "obs", help="observability tools (event-log trace export)")
+    obs_sub = obs.add_subparsers(dest="obs_cmd", required=True)
+    exp = obs_sub.add_parser(
+        "export-trace",
+        help="convert an --event-log JSONL into Chrome trace-event / "
+             "Perfetto JSON: engine lanes and watcher metrics as counter "
+             "tracks (serving manifests: lane tracks)")
+    exp.add_argument("eventlog", help="JSONL event log path")
+    exp.add_argument("-o", "--output", default=None,
+                     help="output path (default: <eventlog>.trace.json; "
+                          "'-' = stdout)")
+    exp.set_defaults(fn=cmd_obs_export_trace)
     return ap
 
 

@@ -58,14 +58,16 @@ device above 4,096 nodes through the autotune cache); an
 given.  Only the implementation changes, never the dynamics;
 :meth:`Engine.plan_report` records the decision.
 
-The run side of observability (ROADMAP A9 part 1): :meth:`run_telemetry`
-on the edge, node, halo and pod kernels (device-resident series, one
-bulk copy at the end), ``event_log=`` (``advance`` and ``kill_all``
-records), and :meth:`run_streamed` on every kernel.
+Observability (ROADMAP A9 parts 1 and 2): :meth:`run_telemetry` (global
+series) and :meth:`run_fields` (per-node and per-edge fields in original
+node and edge order) on the edge, node, halo and pod kernels, both
+device-resident with one bulk copy at the end; ``event_log=``
+(``advance`` and ``kill_all`` records), and :meth:`run_streamed` on every
+kernel.
 
 What the JAX engine does beyond that raises ``NotImplementedError``
 naming its ROADMAP item: GSPMD's mesh paths, ``host_actors``,
-``adversary``, custom actors and the field runner.
+``adversary`` and custom actors.
 
 Simulated-time convention: one round == ``TICK_INTERVAL`` (1.0) simulated
 seconds, the reference peers' loop cadence.
@@ -210,6 +212,9 @@ class Engine:
         # wall-time split of the last run_telemetry call (run manifests
         # record it); compile_s is None: nothing is compiled
         self.telemetry_timings: dict = {}
+        # the same for the last run_fields call, with the recorded bytes
+        # and the final copy's share
+        self.field_timings: dict = {}
 
     def _apply_argv_cfg(self, cfg: RoundConfig) -> RoundConfig:
         """Consume SimGrid-style ``--cfg=key:value`` flags from argv: every
@@ -980,6 +985,138 @@ class Engine:
         self.state = state
         self._clock += n * TICK_INTERVAL
         return TelemetrySeries(host)
+
+    def run_fields(self, n: int, spec=None):
+        """Run ``n`` rounds recording the ``spec``-selected per-node and
+        per-edge fields (:mod:`~flow_updating_tpu_torch.obs.fields`) on
+        the device every ``spec.stride`` rounds: no host read inside the
+        loop, one bulk copy at the end.  Returns a :class:`~flow_updating_
+        tpu_torch.obs.fields.FieldSeries` in ORIGINAL node and edge order.
+
+        Dispatches to the kernel's fields runner (edge, node, halo, pod);
+        the sharded banded and Beneš rounds raise ``NotImplementedError``,
+        as in the JAX package.  A disabled spec runs the plain
+        :meth:`run_rounds` and returns an empty series; at any stride the
+        state afterwards equals :meth:`run_rounds`' bit for bit.
+        ``self.field_timings`` afterwards holds ``compile_s`` (None),
+        ``execute_s`` (the loop's launches), ``copy_s`` (the wait for the
+        device, the bulk copy and the host's reassembly) and
+        ``recorded_bytes`` (the rows on the device)."""
+        import time
+
+        from flow_updating_tpu_torch.obs.fields import (
+            EDGE_FIELDS,
+            FieldSeries,
+            FieldSpec,
+        )
+        from flow_updating_tpu_torch.obs.inspect import node_coordinates
+
+        spec = FieldSpec.default() if spec is None else spec
+        self.field_timings = {}
+        if self.state is None:
+            self.build()
+        if not spec.enabled or self._killed or n <= 0:
+            self.run_rounds(n)
+            return FieldSeries.empty()
+        kind = self._kernel_kind
+        spec = spec.for_kernel(kind)
+        if not spec.enabled:
+            self.run_rounds(n)
+            return FieldSeries.empty()
+        if n % spec.stride:
+            raise ValueError(
+                f"round count {n} must be a multiple of the field "
+                f"stride {spec.stride}")
+        if kind == "node" and not isinstance(self._node_kernel, NodeKernel):
+            raise NotImplementedError(
+                f"field recording is not wired into "
+                f"{type(self._node_kernel).__name__} yet — use the "
+                "plain NodeKernel (spmv='xla'|'pallas'|'benes'|"
+                "'structured'), the pod kernel, or the edge kernel")
+        t0 = time.perf_counter()
+        if kind == "halo":
+            from flow_updating_tpu_torch.parallel import sharded
+
+            state, conv_b, series = sharded.run_rounds_sharded_fields(
+                self.state, self._halo_plan, self.config, self.mesh, n,
+                spec, self.topology.true_mean, arrays=self._halo_arrays,
+                halo=self._halo_wire)
+        elif kind == "pod":
+            state, conv_b, series = self._node_kernel.run_fields(
+                self.state, n, spec)
+        elif kind == "node":
+            state, conv_b, series = self._node_kernel.run_fields(
+                self.state, n, spec)
+        else:
+            state, conv_b, series = rounds.run_rounds_fields(
+                self.state, self._topo_arrays, self.config, n, spec,
+                self.topology.true_mean)
+        t1 = time.perf_counter()
+        recorded = sum(x.numel() * x.element_size()
+                       for v in series.values()
+                       for x in (v if isinstance(v, list) else [v]))
+        # key order as the JAX package's (a pytree dict comes back sorted),
+        # so summaries and manifests list the fields alike
+        host = {k: ([x.cpu().numpy() for x in v] if isinstance(v, list)
+                    else v.cpu().numpy()) for k, v in sorted(series.items())}
+        if not spec.has("node_conv_round"):
+            conv_b = None
+        if conv_b is not None:
+            conv_b = ([c.cpu().numpy() for c in conv_b]
+                      if isinstance(conv_b, list) else conv_b.cpu().numpy())
+        t = host.pop("t")
+        active = host.pop("active")
+        node: dict = {}
+        edge: dict = {}
+        conv = topk_idx = None
+        if kind == "halo":
+            for name, v in host.items():
+                if name in EDGE_FIELDS:
+                    edge[name] = sharded.gather_edge_field_series(
+                        v, self._halo_plan, self.topology)
+                else:
+                    node[name] = sharded.gather_node_field_series(
+                        v, self._halo_plan)
+            if conv_b is not None:
+                conv = sharded.gather_node_array(conv_b, self._halo_plan)
+        elif kind == "pod":
+            for name, v in host.items():
+                node[name] = self._node_kernel.flatten_field_series(v)
+            if conv_b is not None:
+                conv = self._node_kernel.flatten_field_final(conv_b)
+        elif kind == "node":
+            kernel = self._node_kernel
+            if "topk_idx" in host:
+                topk_idx = kernel.original_node_ids(host.pop("topk_idx"))
+                node.update(host)
+            else:
+                node.update({k: kernel.unpermute_series(v)
+                             for k, v in host.items()})
+            if conv_b is not None:
+                conv = kernel._unpermute(conv_b)
+        else:
+            topk_idx = host.pop("topk_idx", None)
+            for name, v in host.items():
+                (edge if name in EDGE_FIELDS else node)[name] = v
+            conv = conv_b
+        self.field_timings = {
+            "compile_s": None,
+            "execute_s": round(t1 - t0, 6),
+            "copy_s": round(time.perf_counter() - t1, 6),
+            "recorded_bytes": int(recorded),
+        }
+        self.state = state
+        self._clock += n * TICK_INTERVAL
+        edges = None
+        if edge:
+            topo = self.topology
+            edges = {"src": np.asarray(topo.src),
+                     "dst": np.asarray(topo.dst),
+                     "rev": np.asarray(topo.rev)}
+        return FieldSeries(
+            t=t, active=active, node=node, edge=edge, conv_round=conv,
+            topk_idx=topk_idx, spec=spec, edges=edges,
+            coords=node_coordinates(self.topology))
 
     def run_until_rmse(self, threshold: float, max_rounds: int = 100_000,
                        chunk: int = 64) -> dict:

@@ -46,14 +46,15 @@ under ``contention_backlog``; its float sums run in a fixed per-link
 order (the link-major CSR of ``Topology.link_csr``), so two runs on the
 card give the same delays.
 
-Telemetry (:func:`run_rounds_telemetry`) writes each round's sample into
-preallocated device rows and reads nothing back inside the loop;
-:func:`run_rounds_streamed` reads one watcher sample between chunks.
+Telemetry (:func:`run_rounds_telemetry`) and the per-node and per-edge
+fields (:func:`run_rounds_fields`, every ``stride`` rounds) write their
+rows into preallocated device tensors and read nothing back inside the
+loop; :func:`run_rounds_streamed` reads one watcher sample between
+chunks.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the
 ROADMAP item: the adversary masks, per-lane reduction modes and traced
-``RoundParams`` (A10), the chunked runners (A13), and the field runner
-(A9 part 2).
+``RoundParams`` (A10) and the chunked runners (A13).
 """
 
 from __future__ import annotations
@@ -831,6 +832,125 @@ def run_rounds_streamed(state: FlowUpdatingState, topo, cfg: RoundConfig,
     return state
 
 
+def _pool_abs(x: torch.Tensor) -> torch.Tensor:
+    """Per-entity magnitude with trailing feature axes pooled (max |.|)."""
+    if x.dim() > 1:
+        return x.abs().amax(dim=tuple(range(1, x.dim())))
+    return x.abs()
+
+
+def _pool_sum(x: torch.Tensor) -> torch.Tensor:
+    """Signed feature pooling (sum) — keeps flow antisymmetry."""
+    if x.dim() > 1:
+        return x.sum(dim=tuple(range(1, x.dim())))
+    return x
+
+
+def topk_rows(mag: torch.Tensor, m: int) -> torch.Tensor:
+    """Indices of the ``m`` largest entries of ``mag``, the lower index
+    first among equal values (``jax.lax.top_k``'s order; ``torch.topk``
+    promises none, and ties are common: dead and padded nodes sit at 0)."""
+    return torch.sort(mag, descending=True, stable=True)[1][:m]
+
+
+def field_sample(state: FlowUpdatingState, topo, spec, mean):
+    """One recorded row of per-node/per-edge fields for the edge kernel,
+    as device tensors (no host read).  ``spec`` is a :class:`~flow_updating_
+    tpu_torch.obs.fields.FieldSpec`.  Returns ``(row, err)``, ``err``
+    being the alive-masked signed estimate error (None when no selected
+    field needs it), which the convergence frontier and the topk ranking
+    reuse.  The masking is :func:`telemetry_sample`'s, so each field
+    reduces to the global series."""
+    row = {"t": state.t, "active": state.alive.sum(dtype=torch.int32)}
+    err = None
+    if any(spec.has(f) for f in ("node_err", "node_mass",
+                                 "node_mass_residual", "node_conv_round")):
+        est = node_estimates(state, topo)
+        a_ex = _ex(state.alive, est)
+        err = torch.where(a_ex, est - mean, 0.0)
+        if spec.has("node_err"):
+            row["node_err"] = err
+        if spec.has("node_mass"):
+            row["node_mass"] = torch.where(a_ex, est, 0.0)
+        if spec.has("node_mass_residual"):
+            row["node_mass_residual"] = torch.where(a_ex, est - state.value,
+                                                    0.0)
+    if spec.has("node_fired"):
+        row["node_fired"] = state.fired.to(torch.int32)
+    if spec.has("edge_flow"):
+        row["edge_flow"] = _pool_sum(state.flow)
+    if spec.has("edge_est"):
+        row["edge_est"] = _pool_sum(state.est)
+    if spec.has("edge_stale"):
+        row["edge_stale"] = (state.t - state.stamp).to(torch.int32)
+    return row, err
+
+
+def frontier_update(conv: torch.Tensor, err: torch.Tensor, live, t,
+                    tol: float) -> torch.Tensor:
+    """The convergence frontier after one recorded row: each entry still
+    at -1 whose pooled ``|err|`` is within ``tol`` takes the round ``t``
+    (a 0-d tensor or a Python int), int32 throughout; ``live`` (a mask, or
+    None on kernels with no dead or padded entries) limits it."""
+    within = _pool_abs(err) <= tol
+    if live is not None:
+        within = within & live
+    return torch.where((conv < 0) & within, t, conv)
+
+
+def keep_topk(row: dict, err: torch.Tensor, spec) -> dict:
+    """Narrow the per-node series fields of ``row`` to the ``spec.topk``
+    worst nodes by pooled ``|err|``, and record their ids as
+    ``topk_idx`` (int32)."""
+    idx = topk_rows(_pool_abs(err), spec.topk)
+    for name in spec.node_series_fields:
+        row[name] = row[name][idx]
+    row["topk_idx"] = idx.to(torch.int32)
+    return row
+
+
+def run_rounds_fields(state: FlowUpdatingState, topo, cfg: RoundConfig,
+                      num_rounds: int, spec, true_mean, params=None):
+    """Run ``num_rounds`` rounds, recording the ``spec``-selected field
+    rows every ``spec.stride`` rounds into preallocated ``(R/stride,
+    ...)`` tensors on the device (no host read in the loop).  Returns
+    ``(state, conv_round, series)``: ``conv_round`` is the ``(N,)`` int32
+    convergence frontier (-1 = never within ``spec.tol``).
+
+    Recording is a pure observer: each chunk runs exactly ``stride``
+    :func:`round_step` calls and then reads the state, so the state
+    equals :func:`run_rounds`' bit for bit at any stride.  A disabled
+    spec is rejected: callers run :func:`run_rounds` instead
+    (``Engine.run_fields`` does)."""
+    from flow_updating_tpu_torch.obs.telemetry import SeriesRecorder
+
+    if not spec.enabled:
+        raise ValueError(
+            "field spec is disabled; run run_rounds() instead (the "
+            "Engine.run_fields dispatcher handles this)")
+    stride = spec.stride
+    if num_rounds % stride:
+        raise ValueError(
+            f"num_rounds={num_rounds} must be a multiple of the field "
+            f"stride {stride}")
+    check_ported(cfg, params)
+    dev = state.value.device
+    mean = torch.tensor(true_mean, dtype=state.value.dtype, device=dev)
+    conv = torch.full(state.alive.shape, -1, dtype=torch.int32, device=dev)
+    rec = SeriesRecorder(num_rounds // stride)
+    for i in range(num_rounds // stride):
+        for _ in range(stride):
+            state = round_step(state, topo, cfg)
+        row, err = field_sample(state, topo, spec, mean)
+        if spec.has("node_conv_round"):
+            conv = frontier_update(conv, err, state.alive, state.t,
+                                   spec.tol)
+        if spec.topk:
+            row = keep_topk(row, err, spec)
+        rec.put(i, row)
+    return state, conv, rec.series()
+
+
 # ---- runners of later port items -------------------------------------------
 
 def _later_runner(name: str, item: str):
@@ -846,6 +966,3 @@ init_chunked_state = _later_runner("init_chunked_state", "workloads (A13)")
 run_rounds_chunked = _later_runner("run_rounds_chunked", "workloads (A13)")
 run_rounds_chunked_telemetry = _later_runner(
     "run_rounds_chunked_telemetry", "workloads (A13)")
-run_rounds_fields = _later_runner(
-    "run_rounds_fields",
-    "observability part 2: field series, doctor, inspect (A9 part 2)")

@@ -368,6 +368,30 @@ class NodeKernel:
             self.topo.true_mean,
             n_live=n if prefix and self.padded_size != n else None)
 
+    def run_fields(self, state: NodeSyncState, num_rounds: int, spec):
+        """Device-resident per-node field rows (see
+        :func:`run_rounds_node_fields`); returns ``(state, conv_round,
+        series)``, every node axis still in the kernel's padded layout
+        (``Engine.run_fields`` unpermutes with :meth:`unpermute_series`,
+        :meth:`_unpermute` and :meth:`original_node_ids`)."""
+        return run_rounds_node_fields(state, self.arrays, self.cfg,
+                                      num_rounds, spec, self.topo.true_mean)
+
+    def unpermute_series(self, padded: np.ndarray) -> np.ndarray:
+        """A stacked ``(R, M, ...)`` per-node field series in the kernel's
+        layout -> ``(R, N, ...)`` in original node order."""
+        out = np.empty((padded.shape[0], self.topo.num_nodes)
+                       + padded.shape[2:], padded.dtype)
+        out[:, self._perm] = padded[:, self._pos_of_real]
+        return out
+
+    def original_node_ids(self, padded_idx: np.ndarray) -> np.ndarray:
+        """Padded-slot indices (a recorded ``topk_idx`` row) -> original
+        node ids; padding slots map to -1."""
+        inv = np.full(self.padded_size, -1, np.int64)
+        inv[self._pos_of_real] = self._perm
+        return inv[np.asarray(padded_idx)]
+
     def _unpermute(self, padded: np.ndarray) -> np.ndarray:
         n = self.topo.num_nodes
         if self.cfg.spmv == "structured":   # the generator's own order
@@ -497,6 +521,73 @@ def run_rounds_node_telemetry(state: NodeSyncState, arrs: NodeSyncArrays,
         state = node_round_step(state, arrs, cfg)
         rec.put(i, node_telemetry_sample(state, arrs, spec, mean, n_live))
     return state, rec.series()
+
+
+def node_field_sample(s: NodeSyncState, arrs: NodeSyncArrays, spec,
+                      mean):
+    """One recorded row of per-node fields for the node-collapsed kernel,
+    in the kernel's padded layout (the host unpermutes).  Communicating
+    rows only (deg > 0), as :func:`node_telemetry_sample` masks; every
+    communicating node fires every round in fast sync mode, so
+    ``node_fired = t`` on those rows.  Returns ``(row, err, real)``."""
+    real = arrs.inv_depp1 < 1.0
+    row = {"t": s.t, "active": real.sum(dtype=torch.int32)}
+    err = None
+    if any(spec.has(f) for f in ("node_err", "node_mass",
+                                 "node_mass_residual", "node_conv_round")):
+        est = arrs.value + s.G
+        r_ex = _ex(real, est)
+        err = torch.where(r_ex, est - mean, 0.0)
+        if spec.has("node_err"):
+            row["node_err"] = err
+        if spec.has("node_mass"):
+            row["node_mass"] = torch.where(r_ex, est, 0.0)
+        if spec.has("node_mass_residual"):
+            row["node_mass_residual"] = torch.where(r_ex, est - arrs.value,
+                                                    0.0)
+    if spec.has("node_fired"):
+        row["node_fired"] = real.to(torch.int32) * s.t
+    return row, err, real
+
+
+def run_rounds_node_fields(state: NodeSyncState, arrs: NodeSyncArrays,
+                           cfg: RoundConfig, num_rounds: int, spec,
+                           true_mean):
+    """Node-kernel twin of :func:`flow_updating_tpu_torch.models.rounds.
+    run_rounds_fields`: chunks of ``spec.stride`` plain rounds, each
+    followed by one field row written into preallocated device tensors,
+    the convergence frontier carried on the device.  Returns ``(state,
+    conv_round, series)`` in the kernel's padded layout; the round
+    counter is a host number, so ``t`` goes into the recorder's host
+    rows."""
+    from flow_updating_tpu_torch.models.rounds import (
+        frontier_update,
+        keep_topk,
+    )
+    from flow_updating_tpu_torch.obs.telemetry import SeriesRecorder
+
+    if not spec.enabled:
+        raise ValueError(
+            "field spec is disabled; run run_rounds_node() instead")
+    stride = spec.stride
+    if num_rounds % stride:
+        raise ValueError(
+            f"num_rounds={num_rounds} must be a multiple of the field "
+            f"stride {stride}")
+    dev = state.S.device
+    mean = torch.tensor(true_mean, dtype=state.S.dtype, device=dev)
+    conv = torch.full(state.S.shape[:1], -1, dtype=torch.int32, device=dev)
+    rec = SeriesRecorder(num_rounds // stride)
+    for i in range(num_rounds // stride):
+        for _ in range(stride):
+            state = node_round_step(state, arrs, cfg)
+        row, err, real = node_field_sample(state, arrs, spec, mean)
+        if spec.has("node_conv_round"):
+            conv = frontier_update(conv, err, real, state.t, spec.tol)
+        if spec.topk:
+            row = keep_topk(row, err, spec)
+        rec.put(i, row)
+    return state, conv, rec.series()
 
 
 def _node_sample(s: NodeSyncState, arrs: NodeSyncArrays, mean: float):

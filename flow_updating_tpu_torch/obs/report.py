@@ -3,14 +3,18 @@
 Counterpart of a subset of ``flow_updating_tpu/obs/report.py``: the
 schema names, :func:`build_manifest` (``run --report``,
 ``flow-updating-run-report/v1``), :func:`build_plan_manifest` (``plan
---report``, ``flow-updating-plan-report/v1``) and :func:`write_report`.
+--report``, ``flow-updating-plan-report/v1``), :func:`build_field_manifest`
+(``inspect --report``, ``flow-updating-field-report/v1``) and
+:func:`write_report`.
 A manifest binds the invocation (argv and the resolved config), the
 topology (size and the checkpoint-grade content fingerprint), the
 execution substrate (torch, CUDA, the device), the timings, the final
-report and — when telemetry ran — the full per-round series, in the
-JAX package's keys, so its ``doctor`` judges the port's manifests.  The
-field, sweep, profile, service, query, recovery, scenario, audit and
-budget builders move with their ROADMAP items.
+report and — when telemetry ran — the full per-round series (or, in a
+field manifest, the per-node and per-edge fields and the global series
+reduced from them), in the JAX package's keys, so its ``doctor`` and
+``inspect`` judge the port's manifests.  The sweep, profile, service,
+query, recovery, scenario, audit and budget builders move with their
+ROADMAP items.
 """
 
 from __future__ import annotations
@@ -148,6 +152,40 @@ def build_plan_manifest(*, argv=None, config=None, topo=None,
     }
     if measured:
         manifest["measured"] = dict(measured)
+    if extra:
+        manifest.update(extra)
+    return manifest
+
+
+def build_field_manifest(*, argv=None, config=None, topo=None,
+                         fields=None, report=None, timings=None,
+                         extra=None, device=None) -> dict:
+    """Assemble the field manifest: the run manifest's binding around one
+    :class:`~flow_updating_tpu_torch.obs.fields.FieldSeries` — its
+    per-node/per-edge block and, when the run recorded full rows, the
+    global series reduced from the fields under the ``telemetry`` key, so
+    ``doctor``'s series checks run on field manifests unchanged (and can
+    cite culprit ids from the fields)."""
+    manifest = {
+        "schema": FIELD_SCHEMA,
+        "created_unix": round(time.time(), 3),
+        "argv": list(argv) if argv is not None else None,
+        "config": _configs(config),
+        "topology": topology_summary(topo) if topo is not None else None,
+        "environment": environment_info(device),
+        "timings": dict(timings) if timings else None,
+        "report": report,
+    }
+    if fields is not None and fields:
+        manifest["fields"] = fields.to_jsonable()
+        reduced = fields.reduced_series()
+        if reduced:
+            manifest["telemetry"] = {
+                "metrics": [k for k in reduced if k != "t"],
+                "rounds": len(fields),
+                "derived_from": "fields",
+                "series": reduced,
+            }
     if extra:
         manifest.update(extra)
     return manifest

@@ -38,8 +38,10 @@ plan with ``plan_sharding(..., coloring=True)``.
 
 :func:`gather_full_state` and :func:`scatter_full_state` move a halo
 state to the canonical single-device layout and back (checkpoints), and
-the telemetry runner (:func:`run_rounds_sharded_telemetry`).  Not ported
-here: the fields runner (ROADMAP A9 part 2); it raises naming its item.
+the telemetry and field runners (:func:`run_rounds_sharded_telemetry`,
+:func:`run_rounds_sharded_fields`, whose per-shard rows
+:func:`gather_node_field_series` and :func:`gather_edge_field_series`
+bring back to the original node and edge order).
 """
 
 from __future__ import annotations
@@ -91,11 +93,6 @@ def _check_halo(halo: str, *, _internal: bool = False) -> None:
             f"mode: use one of {HALO_MODES}")
     raise ValueError(
         f"unknown halo mode {halo!r}: use one of {HALO_MODES}")
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is the ROADMAP item '{item}', not ported yet")
 
 
 # ---- the plan (host-side numpy tables, equal to the JAX package's) -------
@@ -988,6 +985,138 @@ def run_rounds_sharded_telemetry(state: ShardedState, plan: ShardPlan,
     return state, out
 
 
+def _halo_field_sample(st: FlowUpdatingState, a, spec, mean) -> tuple:
+    """One recorded per-node/per-edge field row on one shard, in its
+    local block layout, on its device (no host read).  The node estimate
+    is ``value - segment_sum(flow)`` over the shard's CSR rows, the
+    reduction the halo telemetry uses; padding rows are dead dummies, so
+    the alive mask leaves them out.  Returns ``(row, err)``; ``active``
+    is the shard's count, added over shards after the loop."""
+    from flow_updating_tpu_torch.models.rounds import _pool_sum
+
+    row = {"t": st.t, "active": st.alive.sum(dtype=torch.int32)}
+    err = None
+    if any(spec.has(f) for f in ("node_err", "node_mass",
+                                 "node_mass_residual", "node_conv_round")):
+        est = st.value - _row_sum(st.flow, a.local)
+        a_ex = _ex(st.alive, est)
+        err = torch.where(a_ex, est - mean, 0.0)
+        if spec.has("node_err"):
+            row["node_err"] = err
+        if spec.has("node_mass"):
+            row["node_mass"] = torch.where(a_ex, est, 0.0)
+        if spec.has("node_mass_residual"):
+            row["node_mass_residual"] = torch.where(a_ex, est - st.value,
+                                                    0.0)
+    if spec.has("node_fired"):
+        row["node_fired"] = st.fired.to(torch.int32)
+    if spec.has("edge_flow"):
+        row["edge_flow"] = _pool_sum(st.flow)
+    if spec.has("edge_est"):
+        row["edge_est"] = _pool_sum(st.est)
+    if spec.has("edge_stale"):
+        row["edge_stale"] = (st.t - st.stamp).to(torch.int32)
+    return row, err
+
+
+def run_rounds_sharded_fields(state: ShardedState, plan: ShardPlan,
+                              cfg: RoundConfig, mesh: Mesh,
+                              num_rounds: int, spec, true_mean,
+                              arrays: tuple | None = None,
+                              halo: str = "ppermute"):
+    """Fields twin of :func:`run_rounds_sharded_telemetry`: the same
+    rounds, and after every ``spec.stride``-th each shard writes its
+    local field row into preallocated tensors on its device, on its own
+    stream.  Returns ``(state, conv_round, series)``: ``conv_round`` is
+    one ``(Nb,)`` int32 frontier per shard; ``series`` holds ``t`` (shard
+    0's), ``active`` (the shards' counts added in shard order after the
+    loop) and, per field, one ``(R/stride, Nb|Eb, ...)`` tensor per shard
+    — still blocked: :func:`gather_node_field_series` and
+    :func:`gather_edge_field_series` reassemble them."""
+    from flow_updating_tpu_torch.models.rounds import frontier_update
+    from flow_updating_tpu_torch.obs.telemetry import SeriesRecorder
+
+    if not spec.enabled:
+        raise ValueError(
+            "field spec is disabled; run run_rounds_sharded() instead")
+    stride = spec.stride
+    if num_rounds % stride:
+        raise ValueError(
+            f"num_rounds={num_rounds} must be a multiple of the field "
+            f"stride {stride}")
+    recs = [SeriesRecorder(num_rounds // stride) for _ in mesh.devices]
+    means = [torch.tensor(true_mean, dtype=st.value.dtype,
+                          device=st.value.device) for st in state.shards]
+    conv = [None] * len(recs)
+
+    def sample(i, states, masks, arrs):
+        if (i + 1) % stride:
+            return
+        for s, (st, a) in enumerate(zip(states, arrs)):
+            with _on(a.stream):
+                row, err = _halo_field_sample(st, a, spec, means[s])
+                if spec.has("node_conv_round"):
+                    if conv[s] is None:
+                        conv[s] = torch.full(st.alive.shape, -1,
+                                             dtype=torch.int32,
+                                             device=a.device)
+                    conv[s] = frontier_update(conv[s], err, st.alive, st.t,
+                                              spec.tol)
+                recs[s].put((i + 1) // stride - 1, row)
+
+    state = _run_sharded(state, plan, cfg, mesh, num_rounds, arrays, halo,
+                         sample=sample)
+    for s, (rec, dev) in enumerate(zip(recs, mesh.devices)):
+        if dev.type == "cuda":
+            caller = torch.cuda.current_stream(dev)
+            for t in rec.tensors() + ([conv[s]] if conv[s] is not None
+                                      else []):
+                t.record_stream(caller)
+    parts = [rec.series() for rec in recs]
+    dev0 = mesh.devices[0]
+    active = parts[0]["active"]
+    for p in parts[1:]:
+        active = active + p["active"].to(dev0)
+    out = {"t": parts[0]["t"], "active": active}
+    for name in parts[0]:
+        if name not in ("t", "active"):
+            out[name] = [p[name] for p in parts]
+    return state, (conv if spec.has("node_conv_round") else None), out
+
+
+def _stacked(x) -> np.ndarray:
+    """Per-shard blocks (a sequence of tensors or arrays) or one stacked
+    array -> one ``(S, ...)`` numpy array."""
+    if isinstance(x, (tuple, list)):
+        return np.stack([v.cpu().numpy() if isinstance(v, torch.Tensor)
+                         else np.asarray(v) for v in x])
+    return np.asarray(x)
+
+
+def gather_node_field_series(x, plan: ShardPlan) -> np.ndarray:
+    """A per-node field series, one ``(R, Nb, ...)`` block per shard (or
+    their ``(S, R, Nb, ...)`` stack) -> ``(R, N, ...)`` in the caller's
+    original node order (drops the dummy row and the tail padding, undoes
+    any partition reorder)."""
+    x = _stacked(x)
+    R, rest = x.shape[1], x.shape[3:]
+    x = np.moveaxis(x[:, :, : plan.cap], 0, 1).reshape(
+        (R, plan.num_shards * plan.cap) + rest)[:, : plan.topo.num_nodes]
+    if plan.order is None:
+        return x.copy()
+    out = np.empty_like(x)
+    out[:, plan.order] = x
+    return out
+
+
+def gather_edge_field_series(x, plan: ShardPlan, orig_topo) -> np.ndarray:
+    """A per-edge field series, one ``(R, Eb)`` block per shard (or their
+    ``(S, R, Eb)`` stack) -> ``(R, E)`` in ``orig_topo``'s edge order
+    (through the plan's edge ownership map)."""
+    es, ep = _edge_slots(plan, orig_topo)
+    return _stacked(x)[es, :, ep].T
+
+
 # ---- read-back ----------------------------------------------------------
 
 def gather_estimates(state: ShardedState, plan: ShardPlan) -> np.ndarray:
@@ -1140,19 +1269,3 @@ def scatter_full_state(state, plan: ShardPlan, orig_topo: Topology,
     return ShardedState(tuple(
         _state_from_numpy({n: a[s] for n, a in blocks.items()}, device=dev)
         for s, dev in enumerate(mesh.devices)))
-
-
-# ---- runners of later port items -----------------------------------------
-
-def _later(name: str, item: str):
-    def fn(*args, **kwargs):
-        raise _not_ported(f"{name}()", item)
-
-    fn.__name__ = fn.__qualname__ = name
-    fn.__doc__ = f"The JAX package's ``{name}``: ROADMAP item {item}."
-    return fn
-
-
-run_rounds_sharded_fields = _later(
-    "run_rounds_sharded_fields",
-    "observability part 2: field series, doctor, inspect (A9 part 2)")

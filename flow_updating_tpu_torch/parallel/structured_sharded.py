@@ -407,8 +407,103 @@ class PodShardedFatTreeKernel:
                                      state.t * n))
         return state
 
-    def run_fields(self, state, num_rounds: int, spec):
-        raise NotImplementedError(
-            "PodShardedFatTreeKernel.run_fields is the ROADMAP item "
-            "'observability part 2: field series, doctor, inspect (A9 "
-            "part 2)', not ported yet")
+    def _field_row(self, s: int, state: PodState, spec, mean) -> tuple:
+        """Shard ``s``'s per-node field row in its flat section layout, on
+        its device (the host flattens with :meth:`flatten_field_series`).
+        The fat tree tiles exactly (no padding, no churn on this kernel),
+        so nothing is masked; every node fires every round."""
+        sh = self._shards[s]
+        row, err = {}, None
+        if any(spec.has(f) for f in ("node_err", "node_mass",
+                                     "node_mass_residual",
+                                     "node_conv_round")):
+            est = sh.value + state.G[s]
+            err = est - mean
+            if spec.has("node_err"):
+                row["node_err"] = err
+            if spec.has("node_mass"):
+                row["node_mass"] = est
+            if spec.has("node_mass_residual"):
+                row["node_mass_residual"] = est - sh.value
+        if spec.has("node_fired"):
+            row["node_fired"] = torch.full(sh.value.shape, state.t,
+                                           dtype=torch.int32,
+                                           device=sh.device)
+        return row, err
+
+    def run_fields(self, state: PodState, num_rounds: int, spec):
+        """Per-node field rows every ``spec.stride`` rounds, each shard's
+        written into preallocated tensors on its device on its own
+        stream.  Returns ``(state, conv, series)``: ``conv`` is one flat
+        int32 frontier per shard (``abs(err) <= tol`` per section, as in
+        the JAX package), ``series`` holds ``t`` and ``active`` (host
+        numbers: the round counter and ``n``) and, per field, one ``(R,
+        L)`` tensor per shard (:meth:`flatten_field_series`)."""
+        from flow_updating_tpu_torch.models.rounds import frontier_update
+        from flow_updating_tpu_torch.obs.telemetry import SeriesRecorder
+
+        if not spec.enabled:
+            raise ValueError("field spec is disabled; run run() instead")
+        stride = spec.stride
+        if num_rounds % stride:
+            raise ValueError(
+                f"num_rounds={num_rounds} must be a multiple of the "
+                f"field stride {stride}")
+        n = self.topo.num_nodes
+        rows = num_rounds // stride
+        recs = [SeriesRecorder(rows) for _ in self._shards]
+        means = [torch.tensor(self.topo.true_mean, dtype=self.dtype,
+                              device=sh.device) for sh in self._shards]
+        conv = [None] * len(self._shards)
+        t0 = state.t
+
+        def sample(i, st):
+            if (i + 1) % stride:
+                return
+            for s, sh in enumerate(self._shards):
+                with on_stream(sh.stream):
+                    row, err = self._field_row(s, st, spec, means[s])
+                    if spec.has("node_conv_round"):
+                        if conv[s] is None:
+                            conv[s] = torch.full(sh.value.shape, -1,
+                                                 dtype=torch.int32,
+                                                 device=sh.device)
+                        conv[s] = frontier_update(conv[s], err, None, st.t,
+                                                  spec.tol)
+                    if row:
+                        recs[s].put((i + 1) // stride - 1, row)
+
+        state = self._loop(state, num_rounds, sample)
+        for s, (rec, sh) in enumerate(zip(recs, self._shards)):
+            if sh.stream is not None:   # made on the shard's stream
+                for x in rec.tensors() + ([conv[s]] if conv[s] is not None
+                                          else []):
+                    x.record_stream(torch.cuda.current_stream(sh.device))
+        parts = [rec.series() for rec in recs]
+        out = {"t": torch.arange(t0 + stride, t0 + num_rounds + 1, stride,
+                                 dtype=torch.int64),
+               "active": torch.full((rows,), n, dtype=torch.int32)}
+        for name in parts[0]:
+            out[name] = [p[name] for p in parts]
+        return state, (conv if spec.has("node_conv_round") else None), out
+
+    def flatten_field_series(self, per_shard) -> np.ndarray:
+        """One ``(R, L)`` per-shard series (tensors or arrays) -> ``(R,
+        N)`` in the generator's node order: the host, edge and agg
+        sections of every shard in pod order, then the replicated core
+        section from shard 0."""
+        xs = [x.cpu().numpy() if isinstance(x, torch.Tensor)
+              else np.asarray(x) for x in per_shard]
+        kb, h = self._kb, self.struct.half
+        cuts = np.cumsum([kb * h * h, kb * h, kb * h])
+        secs = [np.split(x, cuts, axis=1) for x in xs]
+        return np.concatenate(
+            [sec[i] for i in range(3) for sec in secs] + [secs[0][3]],
+            axis=1)
+
+    def flatten_field_final(self, per_shard) -> np.ndarray:
+        """One ``(L,)`` per-shard vector (the convergence frontier) ->
+        ``(N,)`` in the generator's node order."""
+        return self.flatten_field_series(
+            [(x.cpu().numpy() if isinstance(x, torch.Tensor)
+              else np.asarray(x))[None] for x in per_shard])[0]

@@ -14,7 +14,12 @@ engine's device (:func:`autotune_fused`: band width x tile x remainder
 route of kernel K2) and the measured rates replace its prediction; the
 records persist in a JSON cache keyed by plan content, device, torch and
 CUDA versions and dtype.  A topology carrying a generator's structure
-descriptor always selects the structured stencil.
+descriptor always selects the structured stencil.  The best banded and
+the best fused configuration of the grid are then raced head to head
+with ``node/xla`` (:func:`_head_to_head`), and those three measured
+rates rank the node candidates: on the card the rounds are host-bound,
+and the best of many noisy probes of one family would otherwise beat
+the analytic estimate of another.
 
 :func:`select_halo_mode` ranks the halo kernel's exchanges (``halo=
 'auto'``) from the plan's wire bytes; on a mesh whose shards all sit on
@@ -387,6 +392,15 @@ PROBE_REPEATS = 3
 #: idle card and a cold host, and reads slow against the ones after it
 PROBE_WARM_S = 0.25
 
+#: passes of the head-to-head race that ranks the node candidates after
+#: the probe grid: the best banded and the best fused configuration and
+#: node/xla, built and warmed together, then timed in turn in every pass
+#: (each pass starting one candidate further on).  On the H100 these
+#: rounds are host-bound (46-53 launches, 0.33 device ms, 0.5-1.2 wall ms
+#: at 1 M nodes) and the host's pace swings by +-20% from one timing to
+#: the next: five passes let two routes 10% apart read in either order
+H2H_PASSES = 60
+
 #: largest (padded rows x widest remainder row) index table the 'inline'
 #: remainder route is probed with: it pads every row to the widest
 #: remainder row, so a hub-heavy graph (barabasi_albert at 1e6 nodes: rows
@@ -490,6 +504,51 @@ def _probe_rate(kernel_factory, rounds: int) -> float:
     return float(np.median(rates))
 
 
+def _head_to_head(factories: dict, rounds: int) -> dict:
+    """Rounds/s of each candidate (``{label: kernel factory}``) timed
+    against the others: all built and warmed (each for at least
+    :data:`PROBE_WARM_S`), then :data:`H2H_PASSES` passes of ``rounds``
+    rounds in which every candidate runs once, in turn (a rotating
+    order, so no candidate always follows the same one).  A candidate's
+    rate is the median pass's: the median of its times over their pass's
+    geometric mean, times the median pass's mean.  The grid's
+    rates are each the best of several probes taken at different times,
+    and on a host-bound round the best of many noisy readings of one
+    family beats the best of few of another (the fused family has the
+    most configurations); these rates are taken alike, together.  Every
+    candidate counts one probe."""
+    global PROBE_COUNT
+
+    kerns = {}
+    for label, make in factories.items():
+        PROBE_COUNT += 1
+        kern = make()
+        state = kern.init_state()
+        t0 = time.perf_counter()
+        while True:
+            kern.run(state, rounds)
+            _sync(kern.device)
+            if time.perf_counter() - t0 >= PROBE_WARM_S:
+                break
+        kerns[label] = (kern, state)
+    secs = {label: [] for label in kerns}
+    order = list(kerns.items())
+    for i in range(H2H_PASSES):
+        k = i % len(order)
+        for label, (kern, state) in order[k:] + order[:k]:
+            t0 = time.perf_counter()
+            kern.run(state, rounds)
+            _sync(kern.device)
+            secs[label].append(max(time.perf_counter() - t0, 1e-9))
+    # each time against its pass's geometric mean, so a slow stretch of
+    # the host that spans a pass cancels out of the ranking
+    table = np.array(list(secs.values()))
+    scale = np.exp(np.log(table).mean(axis=0))
+    typical = float(np.median(scale))
+    return {label: rounds / (float(np.median(row / scale)) * typical)
+            for label, row in zip(secs, table)}
+
+
 def _fused_tile_candidates(plan) -> list:
     """Tile heights worth probing for one plan: the heuristic default
     and a 4x coarser tile when it is still under half the array."""
@@ -517,10 +576,13 @@ def autotune_fused(topo, cfg, *, backend: str | None = None,
     that fails to build or launch is recorded under its label's
     ``#error`` key, never timed on another device.
 
-    The record's ``measured_rounds_per_sec`` block uses
+    The grid's best configuration of each family is then raced head to
+    head with ``node/xla`` (:func:`_head_to_head`): the record's
+    ``measured_rounds_per_sec`` block holds those rates under
     :func:`select_plan`'s candidate labels (``node/banded``,
-    ``node/banded_fused``) so ``doctor``'s ``plan_selection`` check can
-    judge the decision offline."""
+    ``node/banded_fused``, ``node/xla``), so ``doctor``'s
+    ``plan_selection`` check can judge the decision offline, and
+    ``best`` is the faster of the two raced configurations."""
     from flow_updating_tpu_torch.models import sync
     from flow_updating_tpu_torch.utils.device import resolve_device
 
@@ -603,13 +665,44 @@ def autotune_fused(topo, cfg, *, backend: str | None = None,
                 candidates[label] = rate
                 if rate > best[0]:
                     best = (rate, "banded_fused", mf, tile, route)
-    rate_banded = max((v for k, v in candidates.items()
-                       if isinstance(v, (int, float))
-                       and k.startswith("node/banded[")), default=0.0)
-    rate_fused = max((v for k, v in candidates.items()
-                      if isinstance(v, (int, float))
-                      and k.startswith("node/banded_fused[")),
-                     default=0.0)
+    # the best configuration of each family by the grid, raced again
+    # head to head with node/xla: these rates rank the node candidates
+    best_b = max(((v, k) for k, v in candidates.items()
+                  if isinstance(v, (int, float))
+                  and k.startswith("node/banded[")), default=None)
+    best_f = max(((v, k) for k, v in candidates.items()
+                  if isinstance(v, (int, float))
+                  and k.startswith("node/banded_fused[")), default=None)
+    by_fill = {mf: plan for mf, plan in plans.values()}
+
+    def _knobs(label):
+        kv = dict(part.split("=") for part in
+                  label[label.index("[") + 1:-1].split(","))
+        return (float(kv["min_fill"]),
+                int(kv["tile"]) if "tile" in kv else None, kv.get("rem"))
+
+    factories = {}
+    if best_b is not None:
+        mf_b = _knobs(best_b[1])[0]
+        factories["node/banded"] = lambda: sync.NodeKernel(
+            topo, cfg_b, plan=by_fill[mf_b], device=dev)
+    if best_f is not None:
+        mf_f, tile_f, rem_f = _knobs(best_f[1])
+        factories["node/banded_fused"] = lambda: sync.NodeKernel(
+            topo, cfg_f, plan=by_fill[mf_f], fused_tile=tile_f,
+            fused_remainder=rem_f, device=dev)
+    factories["node/xla"] = lambda: sync.NodeKernel(
+        topo, dataclasses.replace(cfg, kernel="node", spmv="xla"),
+        device=dev)
+    raced = _head_to_head(factories, PROBE_ROUNDS)
+    probes += len(factories)
+    if best_f is not None and best_b is not None:
+        winner = best_f if raced["node/banded_fused"] \
+            > raced["node/banded"] else best_b
+        mf, tile, rem = _knobs(winner[1])
+        best = ((raced["node/banded_fused"], "banded_fused", mf, tile, rem)
+                if winner is best_f else
+                (raced["node/banded"], "banded", mf, None, None))
     entry = {
         "key": key,
         "backend": backend,
@@ -620,9 +713,7 @@ def autotune_fused(topo, cfg, *, backend: str | None = None,
         "candidates": {k: (round(v, 3) if isinstance(v, float) else v)
                        for k, v in candidates.items()},
         "measured_rounds_per_sec": {
-            k: round(v, 3) for k, v in
-            (("node/banded", rate_banded),
-             ("node/banded_fused", rate_fused)) if v > 0},
+            k: round(v, 3) for k, v in raced.items() if v > 0},
         "best": {
             "spmv": "banded_fused" if best[1] == "banded_fused"
             else "banded",
@@ -723,14 +814,17 @@ def select_plan(topo, cfg, *, backend: str | None = None,
                               min_fill=min_fill, remainder=remainder,
                               device=device)
         rates = tune.get("measured_rounds_per_sec", {})
-        rb, rf = rates.get("node/banded"), rates.get("node/banded_fused")
-        if rb and rf and "node/banded" in predicted:
-            # re-anchor the fused candidate on the measured ratio so it
-            # stays comparable with the analytic xla/edge entries
-            predicted["node/banded_fused"] = \
-                predicted["node/banded"] * rb / rf
-            predicted["node/banded_fused#measured"] = \
-                f"{rf:.4g} r/s vs banded {rb:.4g} r/s (probed)"
+        rb = rates.get("node/banded")
+        for cand in ("node/banded_fused", "node/xla"):
+            rc = rates.get(cand)
+            if rb and rc and "node/banded" in predicted \
+                    and cand in predicted:
+                # re-anchor each raced candidate on its measured ratio to
+                # banded, so the node family ranks as measured and stays
+                # comparable with the analytic edge entry
+                predicted[cand] = predicted["node/banded"] * rb / rc
+                predicted[f"{cand}#measured"] = \
+                    f"{rc:.4g} r/s vs banded {rb:.4g} r/s (raced)"
     numeric = [c for c in candidates
                if isinstance(predicted.get(c), (int, float))]
     best = min(numeric, key=lambda c: predicted[c])
@@ -775,7 +869,8 @@ def select_plan(topo, cfg, *, backend: str | None = None,
         fused=fused_doc,
         reason=(f"{best} "
                 + ("measured fastest" if tune is not None
-                   and best in ("node/banded", "node/banded_fused")
+                   and best in ("node/banded", "node/banded_fused",
+                                "node/xla")
                    else "predicted cheapest")
                 + f" on {backend} "
                 f"(bands cover {100 * s.coverage:.1f}% of edges in "

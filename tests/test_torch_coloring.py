@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+import jax_native  # noqa: F401  (JAX's native library, whole)
+
 from flow_updating_tpu.topology import generators as jgen
 from flow_updating_tpu_torch.topology import generators as pgen
 

@@ -1203,3 +1203,78 @@ def test_mixing_report_on_card_is_reproducible(card, tmp_path):
                              cache_path=str(tmp_path / "c.json"))
         assert abs(host["structural"]["gap"]
                    - a["structural"]["gap"]) < 1e-6
+
+
+@pytest.mark.parametrize("kind", ["edge", "pallas", "banded_fused",
+                                  "benes_fused", "halo", "pod"])
+def test_fields_on_card_equal_fields_on_cpu(card, kind):
+    """run_fields on the card (kernels K1, K2, B3, B4, B6 on the recorded
+    paths) equals run_fields on the CPU for fat_tree(8) at float64, every
+    field and the frontier, and its loop reads nothing back."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from flow_updating_tpu_torch.obs.fields import FieldSpec
+    from flow_updating_tpu_torch.parallel.mesh import make_mesh
+
+    class Reads(TorchDispatchMode):
+        count = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func is torch.ops.aten._local_scalar_dense.default:
+                Reads.count += 1
+            return func(*args, **(kwargs or {}))
+
+    topo = fat_tree(8, seed=3)
+
+    def engine(device):
+        mesh = None
+        kw = {}
+        if kind == "edge":
+            cfg = RoundConfig.reference(dtype="float64",
+                                        delivery="benes_fused",
+                                        segment_impl="benes_fused")
+        elif kind == "halo":
+            cfg = RoundConfig.reference(dtype="float64")
+            mesh = make_mesh(4, device=device.type)
+            kw = dict(multichip="halo", halo="overlap_pallas")
+        elif kind == "pod":
+            cfg = RoundConfig.fast(kernel="node", spmv="structured",
+                                   dtype="float64")
+            mesh = make_mesh(4, device=device.type)
+            kw = dict(multichip="pod")
+        else:
+            cfg = RoundConfig.fast(kernel="node", spmv=kind,
+                                   dtype="float64")
+        return Engine(config=cfg, mesh=mesh, device=device, **kw) \
+            .set_topology(topo).build()
+
+    # topk on the bit-exact edge route (K1's float64 sums may differ from
+    # the host's in the last bit, so near-ties could rank otherwise)
+    spec = FieldSpec.full(stride=2, topk=4 if kind == "edge" else 0)
+    cpu = engine(torch.device("cpu")).run_fields(60, spec)
+    e = engine(card)
+    plain = engine(card).run_rounds(60)
+    with Reads():
+        got = e.run_fields(60, spec)
+    # the rows come back by bulk copies after the loop, no scalar reads
+    assert Reads.count == 0
+    assert np.array_equal(e.estimates(), plain.estimates())
+    assert got.fields == cpu.fields
+    np.testing.assert_array_equal(got.t, cpu.t)
+    np.testing.assert_array_equal(got.active, cpu.active)
+    for block in ("node", "edge"):
+        for name, v in getattr(cpu, block).items():
+            np.testing.assert_allclose(getattr(got, block)[name], v,
+                                       rtol=0, atol=1e-12, err_msg=name)
+    np.testing.assert_array_equal(got.conv_round, cpu.conv_round)
+    if cpu.topk_idx is not None:
+        # each rank holds a node as bad as the CPU's; the very node where
+        # its error stands apart from its neighbours' in the ranking
+        mag = cpu.pooled("node_err")
+        apart = np.ones(mag.shape, bool)
+        close = np.abs(np.diff(mag, axis=1)) <= 1e-12
+        apart[:, 1:] &= ~close
+        apart[:, :-1] &= ~close
+        apart[:, -1] = False
+        np.testing.assert_array_equal(got.topk_idx[apart],
+                                      cpu.topk_idx[apart])

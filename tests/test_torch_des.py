@@ -21,6 +21,8 @@ import numpy as np
 import pytest
 import torch
 
+import jax_native  # noqa: F401  (JAX's native library, whole)
+
 from flow_updating_tpu import cli as jax_cli
 from flow_updating_tpu import native as jnative
 from flow_updating_tpu.topology import generators as jgen
@@ -198,5 +200,6 @@ def test_oracle_subcommand_refuses_lmm_without_links():
 def test_help_lists_both_subcommands(capsys):
     with pytest.raises(SystemExit):
         port_cli.main(["--help"])
-    # the plan subcommand joined run and oracle in A5
-    assert "{run,oracle,plan}" in capsys.readouterr().out
+    # the plan subcommand joined run and oracle in A5, inspect and obs in
+    # A9 part 2
+    assert "{run,oracle,plan,inspect,obs}" in capsys.readouterr().out

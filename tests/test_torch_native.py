@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+import jax_native  # noqa: F401  (JAX's native library, whole)
+
 from flow_updating_tpu import native as jnative
 from flow_updating_tpu.ops import permute as jpermute
 from flow_updating_tpu.topology import generators as jgen

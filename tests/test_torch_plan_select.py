@@ -17,6 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+import jax_native  # noqa: F401  (JAX's native library, whole)
+
 from flow_updating_tpu.engine import Engine as JaxEngine
 from flow_updating_tpu.models.config import RoundConfig as JaxConfig
 from flow_updating_tpu.parallel import sharded as jsharded
@@ -333,8 +335,10 @@ def test_autotune_probes_once_then_hits(tmp_path):
     (key, entry), = cache.items()
     assert key.startswith(f"v1|cpu|cpu|torch{torch.__version__}|")
     assert "|dtfloat64" in key
-    assert set(entry["measured_rounds_per_sec"]) <= {
-        "node/banded", "node/banded_fused"}
+    # the grid's best of each family, raced head to head with node/xla
+    assert set(entry["measured_rounds_per_sec"]) == {
+        "node/banded", "node/banded_fused", "node/xla"}
+    assert first.predicted["node/xla#measured"].endswith("(raced)")
     # a second build (Engine(plan='auto') probes automatically above
     # AUTOTUNE_MIN_NODES on its own device) hits with zero probes
     hits = select.AUTOTUNE_CACHE_STATS["hits"]

@@ -13,6 +13,8 @@ import json
 
 import pytest
 
+import jax_native  # noqa: F401  (JAX's native library, whole)
+
 from flow_updating_tpu.obs import health
 from flow_updating_tpu.obs import report as jreport
 from flow_updating_tpu.obs.spectral import mixing_report as jax_mixing

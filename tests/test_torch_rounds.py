@@ -277,10 +277,19 @@ def test_unported_items_raise_naming_them(graphs):
     with pytest.raises(NotImplementedError, match="A10"):
         Engine(config=cfg, adversary=object(), device="cpu")
     for runner, item in ((rounds.run_rounds_chunked, "A13"),
-                         (rounds.init_chunked_state, "A13"),
-                         (rounds.run_rounds_fields, "A9 part 2")):
+                         (rounds.init_chunked_state, "A13")):
         with pytest.raises(NotImplementedError, match=item):
             runner(state, arrays, cfg, 1)
+    # the field runner is ported (A9 part 2): a disabled spec or a round
+    # count off the stride is refused, as in the JAX package
+    from flow_updating_tpu_torch.obs.fields import FieldSpec
+
+    with pytest.raises(ValueError, match="field spec is disabled"):
+        rounds.run_rounds_fields(state, arrays, cfg, 1, FieldSpec.off(),
+                                 pt.true_mean)
+    with pytest.raises(ValueError, match="multiple of the field stride"):
+        rounds.run_rounds_fields(state, arrays, cfg, 5,
+                                 FieldSpec.default(stride=2), pt.true_mean)
     # the streamed observer runs on the edge kernel (A9 part 1)
     eng = Engine(config=cfg, device="cpu").set_topology(pt).build()
     seen = []

@@ -235,8 +235,15 @@ def test_sharded_refusals(graphs, host_mesh):
         sharded.plan_sharding(pt, S, partition="metis")
     with pytest.raises(ValueError, match="shards"):
         sharded.init_plan_state(plan, cfg, make_mesh(4, device="cpu"))
-    with pytest.raises(NotImplementedError, match="A9 part 2"):
-        sharded.run_rounds_sharded_fields(st, plan, cfg, host_mesh, 2)
+    from flow_updating_tpu_torch.obs.fields import FieldSpec
+
+    with pytest.raises(ValueError, match="field spec is disabled"):
+        sharded.run_rounds_sharded_fields(st, plan, cfg, host_mesh, 2,
+                                          FieldSpec.off(), pt.true_mean)
+    with pytest.raises(ValueError, match="multiple of the field stride"):
+        sharded.run_rounds_sharded_fields(st, plan, cfg, host_mesh, 5,
+                                          FieldSpec.default(stride=2),
+                                          pt.true_mean)
     with pytest.raises(ValueError, match="edge ownership"):
         sharded.gather_full_state(
             st, dataclasses.replace(plan, edge_shard=None), pt)

@@ -25,6 +25,8 @@ import numpy as np
 import pytest
 import torch
 
+import jax_native  # noqa: F401  (JAX's native library, whole)
+
 from flow_updating_tpu.obs import health
 from flow_updating_tpu.obs import spectral as jspectral
 from flow_updating_tpu.plan import compile_topology as jax_compile

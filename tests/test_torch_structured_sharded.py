@@ -131,8 +131,12 @@ def test_rejects_bad_inputs():
         PodShardedFatTreeKernel(pgen.fat_tree(8, seed=0), pcfg, _mesh(2),
                                 device="cuda")
     k = PodShardedFatTreeKernel(pgen.fat_tree(8, seed=0), pcfg, _mesh(2))
-    with pytest.raises(NotImplementedError, match="A9 part 2"):
-        k.run_fields(k.init_state(), 4, None)
+    from flow_updating_tpu_torch.obs.fields import FieldSpec
+
+    with pytest.raises(ValueError, match="field spec is disabled"):
+        k.run_fields(k.init_state(), 4, FieldSpec.off())
+    with pytest.raises(ValueError, match="multiple of the field stride"):
+        k.run_fields(k.init_state(), 5, FieldSpec.default(stride=2))
     with pytest.raises(ValueError, match="disabled"):
         k.run_telemetry(k.init_state(), 4, TelemetrySpec.off())
 

@@ -19,6 +19,8 @@ import numpy as np
 import pytest
 import torch
 
+import jax_native  # noqa: F401  (JAX's native library, whole)
+
 from flow_updating_tpu.engine import Engine as JaxEngine
 from flow_updating_tpu.models import sync as jsync
 from flow_updating_tpu.models.config import RoundConfig as JaxConfig
