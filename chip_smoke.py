@@ -215,6 +215,20 @@ and prints one JSON line per phase:
    ``topk_idx`` against a stable host ranking of the full rows, and
    ``blame`` naming a flow planted on one edge of D's tree under fast
    pairwise on D's segment networks;
+   ``path_n`` — ``doctor`` on the card: N1 the live run through
+   ``cli.main(["doctor", ...])`` on the fat tree k=160 for 200 rounds,
+   on the node kernel through K1 (K1 launched at least once a round) and
+   on the edge kernel's plain round (the antisymmetry series): exit code
+   0, no ``fail``, the environment (naming the cuda backend), the final
+   report and every series check whose metric the kernel records judged;
+   N2 the manifests paths L and M built at full width — the run
+   manifests of L5's series on A, D, F and J3, the plan manifests of L1
+   and L2, the field manifests of A and of the planted leak — judged by
+   ``health.diagnose_manifest`` and, the run and plan manifests written
+   to a temporary directory, by one ``doctor`` call through the CLI
+   with the same verdicts; the run manifests' series checks judged; D's
+   manifest with its last ten rmse rows set to NaN exits 1 with
+   ``nan_divergence`` at ``fail``; every verdict recorded;
 18. the ``{"kernels": [...]}`` line (launches from the main paths; times,
     errors and bounds measured in this run), then the nvidia-smi line,
     then ``{"ok": true, "device": {...}}`` as the last line.
@@ -235,6 +249,10 @@ boundary merge, each firing the next round); a B6 call one shard's fused
 pull and merge, whose
 yardstick (``composition_ms``) is the tensor ops it replaces, since no
 one PyTorch call does both.
+
+Every phase line carries ``elapsed_s`` (seconds since the start) and
+``wall_s`` (seconds since the previous phase line, or the whole phase on
+the line that closes a phase of several parts).
 
 Any failure raises and exits non-zero.  Without a CUDA device it exits
 with code 2 and prints no result.  It takes no options: the sizes below
@@ -261,7 +279,7 @@ REPS = 10               # calls per kernel timing (the profiler spends
 #                         ~50-70 host us an event turning a trace into
 #                         rows: traces are most of the script's time)
 TRACES = 2              # profiler traces per device-time measurement
-PROFILE_ROUNDS = 10     # rounds per path under the profiler
+PROFILE_ROUNDS = 5      # rounds per path under the profiler
 PROFILE_TRACES = 2      # profile: traces per path (the most device time
 #                         counts)
 EDGE_BOOT = 50          # path D: the faithful timeout (no fire before it)
@@ -273,7 +291,7 @@ SHARDS = 4              # k5, path E: shards of the mesh (all on one card)
 GRID_SIDE = 1000        # k5: grid2d(1000, 1000), the remainder-heavy plan
 HALO_ROUNDS = 100       # path F: timed rounds after the twin comparison
 STRESS_NODES = 4000     # k6: the stress run's erdos_renyi(4000, 6)
-STRESS_ROUNDS = 200     # k6: the stress run's rounds
+STRESS_ROUNDS = 100     # k6: the stress run's rounds
 RING_STRESS_N = 20000   # k5: the stress run's ring(20000, 2)
 RING_STRESS_ROUNDS = 500  # k5: the stress run's rounds
 PULL_SETS = 4           # k6: block sets the pull's timing turns over
@@ -289,10 +307,10 @@ SMALL6_MSG_BYTES = (1e5, 1e6)
 DES_TICKS = 1200        # path H1/H2: rounds (ticks) of each curve
 OBS = 10                # path H1/H2: the curves' sampling interval
 LINK_SER_ROUNDS = 0.01  # path H3: a message's serialization, in rounds
-DES_BASE_TICKS = 10     # des: ticks of each timed DES run (k=160)
+DES_BASE_TICKS = 3      # des: ticks of each timed DES run (k=160)
 DES_REPEATS = 3         # des: timed runs per timeout
 DES_FIXED_TICKS = 2000  # des: ring(24, 2) rounds to the fixed point
-C1_ROUNDS = 20          # c1: rounds of path E per measurement
+C1_ROUNDS = 10          # c1: rounds of path E per measurement
 RESUME_ROUNDS = 20      # path I: rounds after each restore
 FAULT_BOOT = 60         # I2: rounds before the faults (past the timeout)
 FAULT_ROUNDS = 30       # I2: rounds with the faults in place
@@ -339,8 +357,9 @@ M_LEAK_WARMUP = 50      # path M: fast pairwise rounds before the plant
 M_LEAK_SETTLE = 60      # path M: plain rounds after the plant, while the
 #                         planted deficit mixes away from its ends
 M_LEAK_ROUNDS = 40      # path M: rounds then recorded (stride 10)
-M_J3_ROUNDS = 40        # path M: J3's fields rounds (stride 10 only: a
+M_J3_ROUNDS = 20        # path M: J3's fields rounds (stride 10 only: a
 #                         row of the default fields is ~0.8 GB there)
+N_ROUNDS = 200          # path N: rounds of each live doctor run
 
 #: NVIDIA H100 SXM data sheet: peak HBM rate (bytes/s) and float32 rate
 #: outside the tensor cores (FLOP/s)
@@ -349,13 +368,19 @@ FP32_FLOP_PER_S = 67e12
 
 
 T_START = time.perf_counter()
+#: when the last phase line was printed (``emit`` keeps it)
+_LAST_PHASE = [T_START]
 
 
 def emit(obj) -> None:
     """One JSON line; a phase's line also carries the seconds since the
-    script started (``elapsed_s``)."""
+    script started (``elapsed_s``) and, unless it states its own, the
+    seconds since the previous phase line (``wall_s``)."""
     if "phase" in obj:
-        obj = {**obj, "elapsed_s": time.perf_counter() - T_START}
+        now = time.perf_counter()
+        obj = {"wall_s": now - _LAST_PHASE[0], **obj,
+               "elapsed_s": now - T_START}
+        _LAST_PHASE[0] = now
     print(json.dumps(obj), flush=True)
 
 
@@ -3470,12 +3495,28 @@ def _same_state(a, b) -> bool:
     return True
 
 
+def _run_manifest(engine, series) -> dict:
+    """The manifest ``run --telemetry full --report`` writes for
+    ``series`` (path N judges it): the engine's convergence report with
+    the true mean and the node count, as ``run`` adds them."""
+    from flow_updating_tpu_torch.obs.report import build_manifest
+
+    report = engine.convergence_report()
+    report["true_mean"] = engine.topology.true_mean
+    report["nodes"] = engine.topology.num_nodes
+    return build_manifest(config=engine.config, topo=engine.topology,
+                          report=report, telemetry=series,
+                          device=engine.device)
+
+
 def telemetry_check(engine, rounds: int) -> dict:
     """L5 on one engine: ``rounds`` plain rounds timed, then the same
     rounds from the same state under ``TelemetrySpec.full()``: the states
     ``torch.equal``, the last rmse row against the rmse of
     ``estimates()``, the last ``mass_residual`` against the host's sum,
-    the host reads inside the loop (expected 0) and the overhead."""
+    the host reads inside the loop (expected 0) and the overhead.  The
+    record's ``manifest`` (the run manifest of the series, for path N) is
+    popped before it is printed."""
     import numpy as np
     import torch
 
@@ -3525,7 +3566,8 @@ def telemetry_check(engine, rounds: int) -> dict:
             "mass_residual_diff": res_diff, "mass_residual_bound": res_tol,
             "host_reads_plain_run": plain_reads.scalars + plain_reads.copies,
             "host_reads_in_loop": reads.scalars + reads.copies - bulk,
-            "bulk_copies": bulk, "final": series.row(len(series) - 1)}
+            "bulk_copies": bulk, "final": series.row(len(series) - 1),
+            "manifest": _run_manifest(engine, series)}
 
 
 def _gather_ratio(topo, dev) -> dict:
@@ -3579,10 +3621,23 @@ def phase_path_l0(tree, ba) -> dict:
     return out
 
 
+def _plan_manifest(engine) -> dict:
+    """The manifest ``plan --report`` writes for the engine's
+    ``plan='auto'`` decision (path N judges it)."""
+    from flow_updating_tpu_torch.obs.report import build_plan_manifest
+
+    doc = engine.plan_decision.describe()
+    doc["nodes"] = engine.topology.num_nodes
+    doc["directed_edges"] = engine.topology.num_edges
+    return build_plan_manifest(config=engine.config, topo=engine.topology,
+                               plan=doc, device=engine.device)
+
+
 def phase_path_l1(tree) -> dict:
     """L1: Engine(plan='auto') on the fat tree k=160 takes the structured
     stencil with no probe, and its estimates equal J1's route's after the
-    same rounds."""
+    same rounds.  The record's ``manifest`` (the decision's plan manifest,
+    for path N) is popped before it is printed."""
     import torch
 
     from flow_updating_tpu_torch import Engine, RoundConfig
@@ -3605,7 +3660,8 @@ def phase_path_l1(tree) -> dict:
         raise AssertionError("L1: plan='auto' estimates differ from J1's")
     return {"decision": f"{rep['kernel']}/{rep['spmv']}", "probes_run": 0,
             "build_s": build_s, "reason": rep["reason"],
-            "equal_to_j1": True, "rounds": ROUNDS}
+            "equal_to_j1": True, "rounds": ROUNDS,
+            "manifest": _plan_manifest(auto)}
 
 
 def _candidate_engines(topo, decision) -> dict:
@@ -3744,7 +3800,8 @@ def _plan_graph(name, topo, tmp) -> dict:
            "candidates_ms_per_round": measured,
            "fastest": fastest, "chosen_margin": margin,
            "float64_max_abs_diff_to_xla": diff,
-           "plan": decision.plan if decision.plan is not None else None}
+           "plan": decision.plan if decision.plan is not None else None,
+           "manifest": _plan_manifest(eng)}
     del eng
     return out
 
@@ -3813,8 +3870,9 @@ def phase_path_l5(engine_d, engine_a, engine_f, j3_telemetry) -> tuple:
     """L5: telemetry at full width on paths D, A and F (J3's ran inside
     path J, where its engine lives), the halo series against the
     single-device series on the renumbered topology, and run_streamed on
-    path D.  Returns the record and that single-device engine, in step
-    with path F (path M compares their fields)."""
+    path D.  Returns the record, that single-device engine, in step with
+    path F (path M compares their fields), and the four series' run
+    manifests (path N judges them)."""
     import numpy as np
 
     from flow_updating_tpu_torch import Engine
@@ -3824,6 +3882,7 @@ def phase_path_l5(engine_d, engine_a, engine_f, j3_telemetry) -> tuple:
            "path_a": telemetry_check(engine_a, ROUNDS),
            "path_f": telemetry_check(engine_f, TELEMETRY_ROUNDS),
            "path_j3": j3_telemetry}
+    manifests = {name: rec.pop("manifest") for name, rec in out.items()}
     # the halo series against the single-device round on the plan's
     # renumbered topology, from path F's state (reached again from SEED)
     plan, t_f = engine_f._halo_plan, int(engine_f.state.t)
@@ -3864,7 +3923,7 @@ def phase_path_l5(engine_d, engine_a, engine_f, j3_telemetry) -> tuple:
         raise AssertionError(f"L5: run_streamed emitted {len(seen)} "
                              "samples, expected 10")
     out["path_d_streamed"] = {"samples": len(seen), "last": seen[-1]}
-    return out, single
+    return out, single, manifests
 
 
 def phase_path_l(tree, ring_topo, engine_a, engine_d, engine_f,
@@ -3872,7 +3931,9 @@ def phase_path_l(tree, ring_topo, engine_a, engine_d, engine_f,
     """Path L: L0 the gather ratio, L1 plan='auto' on the fat tree, L2
     plan='auto' with probes on the ring and the BA graph, L3 the mixing
     probe, L4 select_halo_mode on path F's plan, L5 telemetry.  Returns
-    the record and L5's single-device twin of path F."""
+    the record, L5's single-device twin of path F, and the plan manifests
+    of L1 and L2 and the run manifests of L5 by name (path N judges
+    them)."""
     import tempfile
 
     import torch
@@ -3889,10 +3950,14 @@ def phase_path_l(tree, ring_topo, engine_a, engine_d, engine_f,
             out["l0"] = phase_path_l0(tree, ba)
             emit({"phase": "path_l", "part": "l0", **out["l0"]})
             out["l1"] = phase_path_l1(tree)
+            manifests = {"plan_l1_fat_tree": out["l1"].pop("manifest")}
             emit({"phase": "path_l", "part": "l1", **out["l1"]})
             out["l2"] = phase_path_l2(ring_topo, ba, tmp)
             ring_plan = out["l2"]["ring"].pop("plan")
             out["l2"]["barabasi_albert"].pop("plan")
+            for graph in ("ring", "barabasi_albert"):
+                manifests[f"plan_l2_{graph}"] = out["l2"][graph].pop(
+                    "manifest")
             emit({"phase": "path_l", "part": "l2", **out["l2"]})
             import dataclasses
 
@@ -3908,11 +3973,12 @@ def phase_path_l(tree, ring_topo, engine_a, engine_d, engine_f,
     del ba
     out["l4"] = phase_path_l4(engine_f)
     emit({"phase": "path_l", "part": "l4", **out["l4"]})
-    out["l5"], f_single = phase_path_l5(engine_d, engine_a, engine_f,
-                                        j3_telemetry)
+    out["l5"], f_single, runs = phase_path_l5(engine_d, engine_a, engine_f,
+                                              j3_telemetry)
+    manifests.update({f"run_{name}": man for name, man in runs.items()})
     emit({"phase": "path_l", "part": "l5", **out["l5"]})
     torch.cuda.synchronize()
-    return out, f_single
+    return out, f_single, manifests
 
 
 # ---- path M: per-node and per-edge fields at full width -------------------
@@ -4028,8 +4094,21 @@ def _against_telemetry(series, tel) -> dict:
             "rtol": L_SERIES_RTOL, "active_equal": True}
 
 
+def _field_manifest(engine, series) -> dict:
+    """The manifest ``inspect --report`` writes for ``series`` (path N
+    judges it)."""
+    from flow_updating_tpu_torch.obs.report import build_field_manifest
+
+    report = engine.convergence_report()
+    report["true_mean"] = engine.topology.true_mean
+    report["nodes"] = engine.topology.num_nodes
+    return build_field_manifest(config=engine.config, topo=engine.topology,
+                                fields=series, report=report,
+                                device=engine.device)
+
+
 def fields_check(engine, rounds: int, strides=(1, M_STRIDE),
-                 full: bool = False) -> dict:
+                 full: bool = False, manifest: bool = False) -> dict:
     """M on one engine: ``rounds`` plain rounds timed, then from the same
     state the field runner with the default fields at each stride (and
     ``FieldSpec.full()`` at stride 1 when ``full``): its state
@@ -4038,7 +4117,9 @@ def fields_check(engine, rounds: int, strides=(1, M_STRIDE),
     host read in the loop and device ms a round by the profiler beside the
     plain round's; then
     ``Engine.run_fields`` with the default fields reduced against
-    ``run_telemetry`` from the same state.  The engine ends where it
+    ``run_telemetry`` from the same state; with ``manifest``, the field
+    manifest of the default fields in eight rows (under the record's
+    ``manifest``, popped before it is printed).  The engine ends where it
     began."""
     from flow_updating_tpu_torch.obs.fields import FieldSpec
     from flow_updating_tpu_torch.obs.telemetry import TelemetrySpec
@@ -4094,6 +4175,12 @@ def fields_check(engine, rounds: int, strides=(1, M_STRIDE),
     tel = engine.run_telemetry(rounds, TelemetrySpec.default())
     reset()
     out["vs_telemetry"] = _against_telemetry(series, tel)
+    if manifest:
+        # eight rows: doctor's stall check judges no shorter series
+        kept = engine.run_fields(rounds, FieldSpec.default(
+            stride=max(1, rounds // 8)))
+        out["manifest"] = _field_manifest(engine, kept)
+        reset()
     return out
 
 
@@ -4202,7 +4289,9 @@ def _d_leak(engine_d) -> dict:
     but then the planted end averages only at its timeout, and between
     its firings its error climbs back to 5-90% of the plant, so blame's
     in-flight allowance of twice the largest error covers the pair in
-    part of every timeout cycle.)"""
+    part of every timeout cycle.)  The record's ``manifest`` (the run's
+    field manifest, its masses recorded too, for path N) is popped before
+    it is printed."""
     import numpy as np
 
     from flow_updating_tpu_torch import Engine, RoundConfig
@@ -4224,11 +4313,12 @@ def _d_leak(engine_d) -> dict:
     t0 = time.perf_counter()
     pw.run_rounds(M_LEAK_SETTLE)
     series = pw.run_fields(M_LEAK_ROUNDS, FieldSpec.parse(
-        "node_err,edge_flow", stride=M_STRIDE))
+        "node_err,node_mass,node_mass_residual,edge_flow", stride=M_STRIDE))
     run_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     verdict = blame(series)
     blame_s = time.perf_counter() - t0
+    manifest = _field_manifest(pw, series)
     del pw
     top = (verdict["leak"] or [None])[0]
     if top is None or {top["edge"], top["rev"]} != {leak,
@@ -4242,7 +4332,7 @@ def _d_leak(engine_d) -> dict:
             "stride": M_STRIDE, "top": top,
             "culprits": len(verdict["leak"]),
             "max_final_err": float(np.max(series.pooled("node_err")[-1])),
-            "run_s": run_s, "blame_s": blame_s}
+            "run_s": run_s, "blame_s": blame_s, "manifest": manifest}
 
 
 def phase_path_m(engine_a, engine_b, engine_c, engine_d, engine_f,
@@ -4253,8 +4343,10 @@ def phase_path_m(engine_a, engine_b, engine_c, engine_d, engine_f,
     plain round, the recorded bytes and the copy, the reductions against
     telemetry; F against the single-device round on its renumbered
     topology, A's ranking against the host's, a leak planted on D's tree
-    (fast pairwise, D's networks) named by ``blame``."""
-    out = {}
+    (fast pairwise, D's networks) named by ``blame``.  Returns the record
+    and the field manifests of A and of the leak by name (path N judges
+    them)."""
+    out, manifests = {}, {}
     for name, eng, rounds, full in (("path_a", engine_a, M_ROUNDS, False),
                                     ("path_b", engine_b, M_ROUNDS, False),
                                     ("path_c", engine_c, M_ROUNDS, False),
@@ -4262,12 +4354,167 @@ def phase_path_m(engine_a, engine_b, engine_c, engine_d, engine_f,
                                      True),
                                     ("path_f", engine_f, M_HALO_ROUNDS,
                                      True)):
-        out[name] = fields_check(eng, rounds, full=full)
+        out[name] = fields_check(eng, rounds, full=full,
+                                 manifest=name == "path_a")
+        if name == "path_a":
+            manifests["fields_path_a"] = out[name].pop("manifest")
         emit({"phase": "path_m", "part": name, **out[name]})
     out["f_vs_single_device"] = _f_vs_single(engine_f, f_single)
     out["a_topk"] = _a_topk(engine_a)
     out["d_leak"] = _d_leak(engine_d)
-    return out
+    manifests["fields_d_leak"] = out["d_leak"].pop("manifest")
+    return out, manifests
+
+
+# ---- path N: doctor, live through the entry point and on saved manifests ---
+
+#: the doctor's four series checks; antisymmetry is judged only where the
+#: series records it (the edge-ledger kernels: JAX's rule)
+SERIES_CHECKS = ("nan_divergence", "rmse_stall", "mass_conservation",
+                 "antisymmetry")
+
+
+def _doctor_cli(argv) -> tuple:
+    """``flow_updating_tpu_torch.cli.main(["doctor", *argv])`` in this
+    process: its exit code and the verdict JSON it prints."""
+    import contextlib
+    import io
+
+    from flow_updating_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["doctor", *argv])
+    return rc, json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def _statuses(checks) -> dict:
+    return {c["name"]: c["status"] for c in checks}
+
+
+def _live_doctor(argv, kernel: str) -> dict:
+    """One live ``doctor`` run on the card through the CLI: exit code 0,
+    no ``fail``, environment and final report judged, the series checks
+    judged wherever the series records their metric, the environment
+    naming the card."""
+    t0 = time.perf_counter()
+    rc, doc = _doctor_cli(argv)
+    wall = time.perf_counter() - t0
+    st = _statuses(doc["checks"])
+    if rc != 0 or "fail" in st.values():
+        raise AssertionError(f"N1 {kernel}: doctor exited {rc}: {doc}")
+    judged = [*SERIES_CHECKS[:3], "environment", "final_report"]
+    if kernel == "edge":
+        judged.append("antisymmetry")
+    elif st.get("antisymmetry") != "skip":
+        raise AssertionError(f"N1 {kernel}: antisymmetry judged on a kernel "
+                             "that records no antisymmetry series")
+    skipped = [name for name in judged if st.get(name, "skip") == "skip"]
+    if skipped:
+        raise AssertionError(f"N1 {kernel}: {skipped} skipped: {doc}")
+    env = {c["name"]: c for c in doc["checks"]}["environment"]["evidence"]
+    if env.get("backend") != "cuda":
+        raise AssertionError(f"N1 {kernel}: the environment is {env}")
+    final = {c["name"]: c for c in doc["checks"]}["rmse_stall"]["evidence"]
+    return {"argv": argv, "rc": rc, "overall": doc["overall"],
+            "statuses": st, "final_rmse": final.get("final_rmse"),
+            "environment": env, "wall_s": wall}
+
+
+def phase_path_n1() -> dict:
+    """N1: the live ``doctor`` through ``cli.main`` on the full fat tree
+    k=160: the node kernel through K1 (K1 launched at least once a round)
+    and the edge kernel's plain round (whose flows make the antisymmetry
+    series)."""
+    from flow_updating_tpu_torch.ops.spmv import neighbor_sum_ell
+
+    tree = ["--generator", f"fat_tree:{FAT_TREE_K}", "--fire-policy",
+            "every_round", "--rounds", str(N_ROUNDS)]
+    k1 = neighbor_sum_ell.launches
+    node = _live_doctor([*tree, "--kernel", "node", "--spmv", "pallas"],
+                        "node")
+    node["k1_launches"] = neighbor_sum_ell.launches - k1
+    if node["k1_launches"] < N_ROUNDS:
+        raise AssertionError(f"N1: K1 launched {node['k1_launches']} times "
+                             f"in {N_ROUNDS} rounds")
+    return {"node": node, "edge": _live_doctor(tree, "edge")}
+
+
+def _judge(name, manifest) -> list:
+    """``health.diagnose_manifest`` on one manifest; a check that raises
+    fails the phase."""
+    from flow_updating_tpu_torch.obs import health
+
+    try:
+        return health.diagnose_manifest(manifest)
+    except Exception as err:
+        raise AssertionError(f"N2: doctor raised on {name}: "
+                             f"{type(err).__name__}: {err}") from err
+
+
+def phase_path_n2(manifests: dict, tmp) -> dict:
+    """N2: the manifests paths L and M built at full width — the run
+    manifests of L5's telemetry on A, D, F and J3, the plan manifests of
+    L1 and L2, the field manifests of A and of the planted leak — judged
+    by ``health.diagnose_manifest`` and, the run and plan manifests
+    written to ``tmp``, by one ``doctor`` call through the CLI (the field
+    manifests hold tens of millions of values: they are judged in
+    memory).  The series checks of every run manifest are judged (the
+    antisymmetry wherever its series is recorded); D's manifest with its
+    last ten rmse rows set to NaN exits 1 with ``nan_divergence`` at
+    ``fail``.  Every verdict is recorded, a ``fail`` included."""
+    import copy
+
+    from flow_updating_tpu_torch.obs import health
+    from flow_updating_tpu_torch.obs.report import write_report
+
+    out, paths = {}, {}
+    for name, man in manifests.items():
+        if name.startswith("fields_"):
+            checks = _judge(name, man)
+        else:
+            paths[name] = os.path.join(tmp, f"{name}.json")
+            write_report(paths[name], man)
+            with open(paths[name]) as f:
+                checks = _judge(name, json.load(f))
+        st = {c.name: c.status for c in checks}
+        if name.startswith("run_"):
+            metrics = man["telemetry"]["metrics"]
+            skipped = [c for c in SERIES_CHECKS if st.get(c) == "skip"
+                       and (c != "antisymmetry" or c in metrics)]
+            if skipped:
+                raise AssertionError(f"N2 {name}: {skipped} skipped")
+        out[name] = {"overall": health.overall(checks), "statuses": st}
+        if name == "fields_d_leak":
+            out[name]["mass_conservation"] = next(
+                c.to_jsonable() for c in checks
+                if c.name == "mass_conservation")
+    rc, doc = _doctor_cli(list(paths.values()))
+    by_source = {}
+    for c in doc["checks"]:
+        by_source.setdefault(c["evidence"]["source"], {})[c["name"]] = \
+            c["status"]
+    for name, path in paths.items():
+        if by_source.get(path) != out[name]["statuses"]:
+            raise AssertionError(f"N2 {name}: the CLI's verdicts "
+                                 f"{by_source.get(path)} differ from "
+                                 f"diagnose_manifest's")
+    poisoned = copy.deepcopy(manifests["run_path_d"])
+    rows = poisoned["telemetry"]["series"]["rmse"]
+    rows[-10:] = [float("nan")] * 10
+    bad = os.path.join(tmp, "run_path_d_poisoned.json")
+    write_report(bad, poisoned)
+    prc, pdoc = _doctor_cli([bad])
+    nan = _statuses(pdoc["checks"]).get("nan_divergence")
+    if prc != 1 or nan != "fail":
+        raise AssertionError(f"N2: the poisoned D manifest exited {prc} "
+                             f"with nan_divergence {nan}")
+    return {"manifests": out, "cli_rc": rc, "cli_overall": doc["overall"],
+            "cli_checks": len(doc["checks"]),
+            "poisoned_d": {"rc": prc, "nan_divergence": nan,
+                           "evidence": {c["name"]: c for c in
+                                        pdoc["checks"]}[
+                                            "nan_divergence"]["evidence"]}}
 
 
 def main() -> int:
@@ -4433,8 +4680,9 @@ def main() -> int:
 
     t0 = time.perf_counter()
     reset_counts()
-    path_l, f_single = phase_path_l(tree, ring_topo, engine_a, engine_d,
-                                    engine_f, path_j["j3"].pop("telemetry"))
+    path_l, f_single, manifests = phase_path_l(
+        tree, ring_topo, engine_a, engine_d, engine_f,
+        path_j["j3"].pop("telemetry"))
     l_launches = {"k1": neighbor_sum_ell.launches,
                   "k2": fused_banded_round.launches, "b3": b3_launches(),
                   "b4": b4_launches(), "b6": b6_launches()}
@@ -4444,9 +4692,10 @@ def main() -> int:
 
     t0 = time.perf_counter()
     reset_counts()
-    path_m = phase_path_m(engine_a, engine_b, engine_c, engine_d, engine_f,
-                          f_single)
-    del f_single
+    path_m, m_manifests = phase_path_m(engine_a, engine_b, engine_c,
+                                       engine_d, engine_f, f_single)
+    manifests.update(m_manifests)
+    del f_single, m_manifests
     m_launches = {"k1": neighbor_sum_ell.launches,
                   "k2": fused_banded_round.launches, "b3": b3_launches(),
                   "b4": b4_launches(), "b6": b6_launches()}
@@ -4461,13 +4710,26 @@ def main() -> int:
         if not count:
             raise AssertionError(f"path M launched no {family}")
 
+    t0 = time.perf_counter()
+    reset_counts()
+    path_n = {"n1": phase_path_n1()}
+    n_launches = {"k1": neighbor_sum_ell.launches}
+    emit({"phase": "path_n", "part": "n1", "launches": n_launches,
+          **path_n["n1"]})
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_doctor_") as tmp:
+        path_n["n2"] = phase_path_n2(manifests, tmp)
+    del manifests
+    emit({"phase": "path_n", "part": "n2", **path_n["n2"]})
+    emit({"phase": "path_n", "wall_s": time.perf_counter() - t0,
+          "launches": n_launches})
+
     emit({"phase": "timing", "timed_by_cuda_events": EVENT_TIMED})
     emit({"kernels": [
         {"name": "spmv_ell", "route": "cuda",
          "source": "flow_updating_tpu_torch/csrc/spmv_ell.cu",
          "replaces": "flow_updating_tpu/ops/pallas_spmv.py:35",
          "launches": (path_a["k1_launches"] + l_launches["k1"]
-                      + m_launches["k1"]),
+                      + m_launches["k1"] + n_launches["k1"]),
          "parity": "float32 rtol=atol=1e-6, float64 1e-12, dyadic exact",
          "max_abs_err": k1["max_abs_err_float32"],
          "ms": k1["ms"], "call_ms": k1["call_ms"],

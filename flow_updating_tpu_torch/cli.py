@@ -1,8 +1,8 @@
-"""Command-line driver: the ``run``, ``oracle``, ``plan``, ``inspect`` and
-``obs`` subcommands.
+"""Command-line entry point: the ``run``, ``oracle``, ``plan``, ``inspect``,
+``obs`` and ``doctor`` subcommands.
 
 Counterpart of ``flow_updating_tpu/cli.py``'s ``run``, ``oracle``,
-``plan``, ``inspect`` and ``obs export-trace``.
+``plan``, ``inspect``, ``obs export-trace`` and ``doctor``.
 They take the same flags, so a JAX command line carries over, plus
 ``--device`` (``cuda``, the default, or ``cpu``) for ``run``.  Topology
 from ``--platform``/``--deployment`` XML or a synthetic ``--generator``;
@@ -54,6 +54,13 @@ deltas on the common round grid) or ``--heatmap FIELD`` (ASCII, over
 the generator's coordinates).  ``obs export-trace`` converts an
 ``--event-log`` JSONL file (or a serving manifest) into a Chrome
 trace-event document.
+
+``doctor`` judges saved manifests (run, plan, field and every other
+``flow-updating-*-report/v1`` kind, either package's), ``--baselines``
+and/or a live telemetry run on ``--device`` (``--generator`` or
+``--deployment`` with ``run``'s flags, ``--rounds``) with the rules of
+``obs/health.py``, prints ``{"overall", "checks"}`` and exits 1 on a
+``fail`` (on a ``warn`` too under ``--strict``).
 """
 
 from __future__ import annotations
@@ -65,10 +72,12 @@ import math
 import sys
 import time
 
-#: run flags of the JAX CLI that this package does not run yet -> item
+#: run and doctor flags of the JAX CLI that this package does not run
+#: yet -> item
 _LATER_FLAGS = {
     "profile": "profiling and analysis (A14)",
     "trace_dir": "profiling and analysis (A14)",
+    "golden": "profiling and analysis (A14)",
 }
 
 
@@ -129,11 +138,19 @@ def _make_config(args):
         raise SystemExit(f"invalid flag combination: {err}") from err
 
 
-def cmd_run(args) -> int:
+def _refuse_later_flags(args) -> None:
     for flag, item in _LATER_FLAGS.items():
-        if getattr(args, flag) not in (None, False):
+        if getattr(args, flag, None) not in (None, False):
             raise SystemExit(f"--{flag.replace('_', '-')} is the ROADMAP "
                              f"item '{item}', not ported yet")
+
+
+def _check_run_flags(args) -> None:
+    """The checks a live run (``run``, ``inspect``, ``doctor``) makes
+    before building: later items' flags, ``--multichip`` without
+    ``--shards``, and the default latency scale (1.0 for ``--fidelity``
+    on a platform)."""
+    _refuse_later_flags(args)
     if args.multichip in ("halo", "pod") and not args.shards:
         raise SystemExit(
             f"--multichip {args.multichip} needs --shards N (it is a "
@@ -141,6 +158,9 @@ def cmd_run(args) -> int:
     if args.latency_scale is None:
         args.latency_scale = 1.0 if args.fidelity and args.platform else 0.0
 
+
+def cmd_run(args) -> int:
+    _check_run_flags(args)
     cfg = _make_config(args)
     telemetry_spec = _telemetry_spec(args)
     event_log = None
@@ -284,6 +304,17 @@ def _new_engine(args, cfg, event_log=None):
     except (NotImplementedError, RuntimeError, ValueError) as err:
         raise SystemExit(str(err)) from err
     return engine.set_topology(_build_topology(args))
+
+
+def _live_engine(args):
+    """The built engine of a live ``inspect`` or ``doctor`` run."""
+    _check_run_flags(args)
+    engine = _new_engine(args, _make_config(args))
+    try:
+        engine.build(latency_scale=args.latency_scale, seed=args.seed)
+    except (ValueError, NotImplementedError) as err:
+        raise SystemExit(f"invalid flag combination: {err}") from err
+    return engine
 
 
 def _telemetry_spec(args):
@@ -446,15 +477,7 @@ def cmd_inspect(args) -> int:
             raise SystemExit(
                 "--fields off records nothing to inspect; pick a field "
                 "list (or 'default'/'full')")
-        if args.multichip in ("halo", "pod") and not args.shards:
-            raise SystemExit(
-                f"--multichip {args.multichip} needs --shards N (it is a "
-                "multi-chip distribution strategy)")
-        engine = _new_engine(args, _make_config(args))
-        try:
-            engine.build(latency_scale=args.latency_scale, seed=args.seed)
-        except (ValueError, NotImplementedError) as err:
-            raise SystemExit(f"invalid flag combination: {err}") from err
+        engine = _live_engine(args)
         t0 = time.perf_counter()
         try:
             series = engine.run_fields(args.rounds, spec)
@@ -703,6 +726,67 @@ def cmd_oracle(args) -> int:
     return 0
 
 
+def cmd_doctor(args) -> int:
+    """``doctor``: rule-based health verdicts (``obs/health.py``) over
+    saved manifests (either package's), the recorded baselines, and/or a
+    live telemetry run on ``--device``.  Exit code 1 on any failing check
+    (warnings too under ``--strict``) — the CI contract."""
+    from flow_updating_tpu_torch.obs import health
+
+    _refuse_later_flags(args)
+    checks = []
+    for path in args.reports:
+        try:
+            with open(path) as f:
+                manifest = json.load(f)
+        except (OSError, ValueError) as err:
+            raise SystemExit(f"doctor: cannot read {path}: {err}") from err
+        for c in health.diagnose_manifest(manifest):
+            c.evidence.setdefault("source", path)
+            checks.append(c)
+    if args.baselines is not None:
+        try:
+            with open(args.baselines) as f:
+                data = json.load(f)
+        except (OSError, ValueError) as err:
+            raise SystemExit(
+                f"doctor: cannot read baselines {args.baselines}: {err}"
+            ) from err
+        c = health.check_baselines(data)
+        c.evidence.setdefault("source", args.baselines)
+        checks.append(c)
+    if args.generator or args.deployment:
+        from flow_updating_tpu_torch.obs.report import environment_info
+        from flow_updating_tpu_torch.obs.telemetry import TelemetrySpec
+
+        engine = _live_engine(args)
+        try:
+            series = engine.run_telemetry(args.rounds,
+                                          TelemetrySpec.full())
+        except (ValueError, NotImplementedError) as err:
+            raise SystemExit(f"doctor: {err}") from err
+        dtype = engine.config.dtype
+        checks.extend(health.diagnose_series(
+            series, threshold=args.rmse_threshold, dtype=dtype))
+        checks.append(health.check_environment(
+            environment_info(engine.device), config={"dtype": dtype}))
+        # as run's printed report: check_report scales its mass tolerance
+        # by true_mean x nodes, and a bare report would be judged at
+        # scale 1.0
+        report = engine.convergence_report()
+        report["true_mean"] = engine.topology.true_mean
+        report["nodes"] = engine.topology.num_nodes
+        checks.append(health.check_report(report, dtype=dtype))
+    if not checks:
+        raise SystemExit(
+            "doctor: nothing to judge — pass saved report paths, "
+            "--baselines, --golden, or a topology (--generator/"
+            "--deployment) for a live run")
+    print(json.dumps({"overall": health.overall(checks),
+                      "checks": [c.to_jsonable() for c in checks]}))
+    return health.exit_code(checks, strict=args.strict)
+
+
 def _add_topology_flags(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--platform", help="SimGrid-style platform XML")
     ap.add_argument("--deployment", help="SimGrid-style deployment XML")
@@ -712,7 +796,8 @@ def _add_topology_flags(ap: argparse.ArgumentParser) -> None:
 
 
 def _add_config_flags(ap: argparse.ArgumentParser) -> None:
-    """The round-config flags ``run`` and ``plan`` share."""
+    """The round-config flags ``run``, ``plan``, ``inspect`` and
+    ``doctor`` share."""
     ap.add_argument("--variant", default="collectall",
                     choices=("collectall", "pairwise"))
     ap.add_argument("--fire-policy", default=None,
@@ -759,7 +844,7 @@ def _add_config_flags(ap: argparse.ArgumentParser) -> None:
 
 
 def _add_mesh_flags(ap: argparse.ArgumentParser) -> None:
-    """The multi-shard flags ``run`` and ``inspect`` share."""
+    """The multi-shard flags ``run``, ``inspect`` and ``doctor`` share."""
     ap.add_argument("--multichip", default="auto",
                     choices=("auto", "halo", "pod"),
                     help="under --shards: 'auto' = the node kernel's "
@@ -999,6 +1084,50 @@ def build_parser() -> argparse.ArgumentParser:
                      help="output path (default: <eventlog>.trace.json; "
                           "'-' = stdout)")
     exp.set_defaults(fn=cmd_obs_export_trace)
+
+    dr = sub.add_parser(
+        "doctor",
+        help="rule-based health verdicts with evidence: NaN/divergence "
+             "watchdog, RMSE-stall detection, mass-conservation and "
+             "antisymmetry drift, environment sanity, recorded-baseline "
+             "validity — on saved manifests (either package's) and/or a "
+             "live telemetry run on --device; exit 1 on any fail "
+             "(obs/health.py)")
+    dr.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="where a live run's rounds run: the CUDA card "
+                         "(default) or the host CPU")
+    dr.add_argument("--backend", default="auto",
+                    choices=("auto", "cpu", "jax_tpu"),
+                    help="accepted for command-line compatibility with "
+                         "the JAX CLI; no effect (see --device)")
+    _add_topology_flags(dr)
+    _add_mesh_flags(dr)
+    _add_config_flags(dr)
+    dr.add_argument("--plan", default="off", choices=("off", "auto"),
+                    help="'auto' = the topology compiler picks the "
+                         "kernel/spmv for the graph on --device")
+    dr.add_argument("reports", nargs="*", metavar="REPORT.json",
+                    help="saved flow-updating-*-report/v1 manifests to "
+                         "judge")
+    dr.add_argument("--latency-scale", type=float, default=None)
+    dr.add_argument("--msg-bytes", type=float, default=104.0)
+    dr.add_argument("--rounds", type=int, default=200,
+                    help="live-run length (with --generator/"
+                         "--deployment)")
+    dr.add_argument("--rmse-threshold", type=float, default=1e-6,
+                    help="convergence threshold for the stall check")
+    dr.add_argument("--baselines", nargs="?",
+                    const="BASELINE_MEASURED.json", metavar="PATH",
+                    help="audit recorded DES baselines against the "
+                         "spread validity gate (default file: "
+                         "BASELINE_MEASURED.json)")
+    dr.add_argument("--golden", nargs="?", const="GOLDEN_PROGRAMS.json",
+                    metavar="PATH",
+                    help="program_conformance: audit the golden-program "
+                         "ledger (ROADMAP A14; exits naming it)")
+    dr.add_argument("--strict", action="store_true",
+                    help="warnings also exit 1")
+    dr.set_defaults(fn=cmd_doctor)
     return ap
 
 

@@ -9,6 +9,10 @@ side and the topology-resolved side.
   pinned claims, cut links, divergence origins), run diffs and ASCII
   heatmaps over field series;
 * :mod:`.report` — run, plan and field manifests;
+* :mod:`.health` — ``doctor``'s rule-based verdicts
+  (:class:`CheckResult`, :func:`diagnose_manifest`) on series and on
+  every kind of manifest, either package's;
+* :mod:`.roofline` — the perf lens' roofline floor table;
 * :mod:`.trace` — event logs and serving manifests as Chrome
   trace-event documents;
 * :mod:`.spectral` — the diffusion operator's spectral gap
@@ -23,6 +27,7 @@ from flow_updating_tpu_torch.obs.fields import (
     FieldSeries,
     FieldSpec,
 )
+from flow_updating_tpu_torch.obs.health import CheckResult, diagnose_manifest
 from flow_updating_tpu_torch.obs.inspect import (
     ascii_heatmap,
     blame,
@@ -49,6 +54,7 @@ from flow_updating_tpu_torch.utils.metrics import observer_sample
 __all__ = [
     "ALL_FIELDS",
     "ALL_METRICS",
+    "CheckResult",
     "DEFAULT_METRICS",
     "SUPPORTED_FIELDS",
     "SUPPORTED_METRICS",
@@ -60,6 +66,7 @@ __all__ = [
     "blame",
     "build_field_manifest",
     "build_manifest",
+    "diagnose_manifest",
     "diff_fields",
     "eventlog_to_chrome_trace",
     "observer_sample",

@@ -168,6 +168,11 @@ class ExecutionPlan:
 
 _plan_cache: dict = {}
 
+#: the RCM order and the reordered topology by topology content: they do
+#: not depend on the knobs, so the plans of one graph at several fills
+#: (the autotuner's grid) order it once
+_order_cache: dict = {}
+
 
 def _topo_key(topo: Topology) -> tuple:
     import hashlib
@@ -176,6 +181,29 @@ def _topo_key(topo: Topology) -> tuple:
     h.update(np.ascontiguousarray(topo.src))
     h.update(np.ascontiguousarray(topo.dst))
     return (topo.num_nodes, topo.num_edges, h.hexdigest())
+
+
+def _ordered(topo: Topology, topo_key: tuple) -> tuple:
+    """``(order, bandwidth before, bandwidth after, reordered topology,
+    edge order)`` of ``topo``, cached by content (as many graphs as the
+    plan cache keeps, whose plans share the reordered topologies)."""
+    hit = _order_cache.get(topo_key)
+    if hit is not None:
+        return hit
+    order = rcm_order(topo)
+    bw_before = adjacency_bandwidth(topo)
+    bw_after = adjacency_bandwidth(topo, order)
+    if bw_after > bw_before:
+        # RCM never *has* to win; on a pre-banded input keep the
+        # original order (identity) rather than degrade it
+        order = np.arange(topo.num_nodes, dtype=np.int64)
+        bw_after = bw_before
+    hit = (order, bw_before, bw_after,
+           *reorder_topology_stable(topo, order))
+    _order_cache[topo_key] = hit
+    while len(_order_cache) > 4:   # a reordered topology is O(E) arrays
+        _order_cache.pop(next(iter(_order_cache)))
+    return hit
 
 
 def compile_topology(topo: Topology, *, max_lanes: int = 96,
@@ -189,7 +217,7 @@ def compile_topology(topo: Topology, *, max_lanes: int = 96,
     the out-of-band edges ('auto' | 'gather' | 'benes' | 'none');
     ``features`` > 0 declares a vector payload (rolls broadcast over it,
     the remainder then gathers).  Plans are cached on (topology content,
-    knobs)."""
+    knobs), the RCM ordering on the content alone."""
     topo._require_edges("compile_topology (the banded planner)")
     # 'auto' builds exactly the 'gather' plan here (plan/banded.py), so
     # both share one cache entry: the sharded round asks for 'gather'
@@ -199,15 +227,7 @@ def compile_topology(topo: Topology, *, max_lanes: int = 96,
     if cached is not None:
         return cached
     t0 = time.perf_counter()
-    order = rcm_order(topo)
-    bw_before = adjacency_bandwidth(topo)
-    bw_after = adjacency_bandwidth(topo, order)
-    if bw_after > bw_before:
-        # RCM never *has* to win; on a pre-banded input keep the
-        # original order (identity) rather than degrade it
-        order = np.arange(topo.num_nodes, dtype=np.int64)
-        bw_after = bw_before
-    reordered, e_order = reorder_topology_stable(topo, order)
+    order, bw_before, bw_after, reordered, e_order = _ordered(topo, key[0])
     spmv, leaves = build_banded(
         reordered.num_nodes, reordered.src, reordered.dst,
         max_lanes=max_lanes, min_fill=min_fill, remainder=remainder,

@@ -1278,3 +1278,28 @@ def test_fields_on_card_equal_fields_on_cpu(card, kind):
         apart[:, -1] = False
         np.testing.assert_array_equal(got.topk_idx[apart],
                                       cpu.topk_idx[apart])
+
+
+@pytest.mark.parametrize("argv", [
+    ["--generator", "erdos_renyi:2000", "--fire-policy", "every_round"],
+    ["--generator", "fat_tree:8", "--fire-policy", "every_round",
+     "--segment", "benes_fused", "--delivery", "benes_fused"],
+])
+def test_doctor_live_run_on_card(card, argv, capsys):
+    """A live ``doctor`` on the card (the default device): the four
+    series checks and the environment judge (none skips, as a series left
+    on the card would), and the environment names the cuda backend."""
+    import json
+
+    from flow_updating_tpu_torch.cli import main
+
+    rc = main(["doctor", *argv, "--rounds", "300"])
+    doc = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    by = {c["name"]: c for c in doc["checks"]}
+    assert rc == 0, doc
+    for name in ("nan_divergence", "rmse_stall", "mass_conservation",
+                 "antisymmetry", "environment", "final_report"):
+        assert by[name]["status"] not in ("skip", "fail"), by[name]
+    env = by["environment"]["evidence"]
+    assert env["backend"] == "cuda"
+    assert env["device_kind"] == torch.cuda.get_device_name(0)

@@ -90,6 +90,34 @@ def test_compiled_plan_equal(name):
 
 
 @pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_plans_at_two_fills_order_once(name, monkeypatch):
+    """The plans of one graph at two fills (the autotuner's grid) share
+    one RCM ordering, and each equals JAX's plan at its fill."""
+    from flow_updating_tpu_torch.plan import compile as pcompile
+
+    monkeypatch.setattr(pcompile, "_plan_cache", {})
+    monkeypatch.setattr(pcompile, "_order_cache", {})
+    calls = []
+
+    def counted(topo):
+        calls.append(topo.num_nodes)
+        return rcm_order(topo)
+
+    monkeypatch.setattr(pcompile, "rcm_order", counted)
+    for fill in (0.05, 0.75):
+        p = compile_topology(GRAPHS[name](pgen), min_fill=fill,
+                             remainder="gather")
+        j = jcompile(GRAPHS[name](jgen), min_fill=fill, remainder="gather")
+        for field in ("order", "inv_order", "edge_order"):
+            np.testing.assert_array_equal(getattr(p, field),
+                                          getattr(j, field))
+        np.testing.assert_array_equal(p.topo.src, j.topo.src)
+        assert p.spmv.offsets == j.spmv.offsets
+        assert p.spmv.remainder_edges == j.spmv.remainder_edges
+    assert len(calls) == 1
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS))
 @pytest.mark.parametrize("route,tile", [("auto", None), ("inline", None),
                                         ("lanes", 8), ("inline", 16)])
 def test_fused_round_planning_equal(name, route, tile):

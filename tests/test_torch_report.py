@@ -80,6 +80,9 @@ def test_run_manifest_has_no_fail(tmp_path, capsys):
     man = json.loads(path.read_text())
     assert man["schema"] == report.SCHEMA == jreport.SCHEMA
     assert man["report"]["plan"]["kernel"] == "node"
+    # the doctor's float tolerances take np.dtype(config dtype): a numpy
+    # name, never "torch.float32"
+    assert man["config"]["dtype"] == "float32"
     assert man["telemetry"]["rounds"] == 60
     assert set(man["telemetry"]["series"]) >= {"t", "rmse", "mass"}
     assert out["telemetry"]["rounds"] == 60
