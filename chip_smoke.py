@@ -229,6 +229,26 @@ and prints one JSON line per phase:
    with the same verdicts; the run manifests' series checks judged; D's
    manifest with its last ten rmse rows set to NaN exits 1 with
    ``nan_divergence`` at ``fail``; every verdict recorded;
+   ``path_o`` — the sweep engine and the scenarios: O1
+   ``cli.main(["sweep", ...])`` on the card over ``fat_tree:32`` x 8 seeds
+   x 4 drop rates x 4 timeouts (128 lanes in one bucket of 1,310,720 node
+   and 7,340,032 edge slots, 200 faithful rounds with per-lane
+   telemetry), its manifest judged by ``doctor`` (no ``fail``), then the
+   same bucket timed (ms a bucket round by CUDA events; device ms, busy
+   share and launches a round by the profiler; peak memory; lane-rounds a
+   second) beside one lane's instance alone through ``Engine``; O2 lanes
+   0, 63 and 127 (and 0, 15, 31 of a 32-lane faithful pairwise grid)
+   after 40 rounds ``torch.equal`` on every leaf to the same instance
+   packed alone, and their distance from the unpadded ``run_rounds(
+   params=)`` run recorded (the card's CSR row sums add in another order
+   than the row fold; within ``EDGE_TWIN_ATOL``); O3 ``cli.main([
+   "scenarios", ...])`` over the whole registry (rc 0, ``pass``, one
+   bucket structure a scenario, seconds by scenario) and the two negative
+   controls (rc 1, ``fail``); O4 ``Engine(adversary=)`` on path D's
+   networks (lying and silent switches, scaled wires): B3 and B4
+   launches against the plans over 20 rounds after the bootstrap,
+   ``torch.equal`` to its ``segment``/``gather`` twin, away from the
+   honest round;
 18. the ``{"kernels": [...]}`` line (launches from the main paths; times,
     errors and bounds measured in this run), then the nvidia-smi line,
     then ``{"ok": true, "device": {...}}`` as the last line.
@@ -360,6 +380,20 @@ M_LEAK_ROUNDS = 40      # path M: rounds then recorded (stride 10)
 M_J3_ROUNDS = 20        # path M: J3's fields rounds (stride 10 only: a
 #                         row of the default fields is ~0.8 GB there)
 N_ROUNDS = 200          # path N: rounds of each live doctor run
+O_GENERATOR = "fat_tree:32"   # path O: each lane's topology (9,472 nodes,
+#                               49,152 edges; bucket (10240, 57344))
+O_SEEDS = 8             # O1: seeds of the grid (x 4 drops x 4 timeouts
+#                         = 128 lanes in one bucket)
+O_DROPS = "0,0.01,0.05,0.1"
+O_TIMEOUTS = "2,4,8,16"
+O_ROUNDS = 200          # O1: the sweep's rounds (with per-lane telemetry)
+O_TIMED_ROUNDS = 20     # O1: bucket rounds timed by CUDA events
+O_CHECK_ROUNDS = 40     # O2: rounds before the lanes are compared
+O_LANES = (0, 63, 127)  # O2: the lanes held to B = 1 and to one instance
+O_PAIRWISE_SEEDS = 2    # O2: the pairwise grid (32 lanes)
+O_PAIRWISE_LANES = (0, 15, 31)
+O_SCENARIO_SEEDS = 2    # O3: seeds of each scenario's grid
+O4_ROUNDS = 20          # O4: rounds after the timeout bootstrap
 
 #: NVIDIA H100 SXM data sheet: peak HBM rate (bytes/s) and float32 rate
 #: outside the tensor cores (FLOP/s)
@@ -588,7 +622,7 @@ def b6_launches() -> dict:
             "pull": halo_exchange.remote_block_exchange.launches}
 
 
-def round_network_calls(cfg) -> dict:
+def round_network_calls(cfg, adversary=None) -> dict:
     """Network applications and B4 calls of one edge round on the planned
     segment networks, by the round's code (models/rounds.py): deliver
     broadcasts ``alive`` and, per drain step, takes two segment minima and
@@ -597,7 +631,7 @@ def round_network_calls(cfg) -> dict:
     extraction, and broadcasts (fire, avg) as one batch; fast pairwise
     fire reduces the flow sum, the matched max and the average sum one by
     one; delivery='benes_fused' moves the lanes through the rev network
-    once."""
+    once; an adversary's lie and silent masks are one broadcast each."""
     faithful = cfg.fire_policy != "every_round"
     if cfg.variant == "collectall":
         scans = 2 * cfg.drain + 1 + int(faithful)
@@ -617,17 +651,19 @@ def round_network_calls(cfg) -> dict:
         scans += extra
         extracts += extra
         places += 5
+    if adversary is not None:
+        places += bool(adversary.lie_nodes) + bool(adversary.silent_nodes)
     return {"scan": scans, "fill": places, "extract": extracts,
             "place": places, "rev": int(cfg.delivery == "benes_fused")}
 
 
-def planned_launches(arrays, cfg) -> dict:
+def planned_launches(arrays, cfg, adversary=None) -> dict:
     """B3 launches per flavour and B4 launches per flavour of one edge
     round, from the plans (passes per network, B4 passes per stage list)
     and :func:`round_network_calls`."""
     from flow_updating_tpu_torch.ops.fused_passes import plan_dist_passes
 
-    calls = round_network_calls(cfg)
+    calls = round_network_calls(cfg, adversary)
     plan = arrays.seg_plan
     nets = [(calls["extract"], plan.extract_fused),
             (calls["place"], plan.place_fused)]
@@ -2703,14 +2739,26 @@ def _save_timed(engine, path) -> dict:
             "archive_bytes": os.path.getsize(path)}
 
 
-def _edge_leaves_equal(a, b) -> list:
-    """The names of the leaves where two edge states differ."""
+def _edge_leaves_equal(a, b, N=None, E=None) -> list:
+    """The names of the leaves where two edge states differ; with ``N``
+    and ``E``, on the first N nodes and E edges only (a padded sweep
+    lane's real slots; the FIFO and ring fields on their edge axis)."""
     import dataclasses
 
     import torch
 
+    def part(name, x):
+        if N is None or name in ("t", "key"):
+            return x
+        if name in ("value", "ticks", "last_avg", "fired", "alive"):
+            return x[:N]
+        if name in ("flow", "est", "recv", "stamp", "edge_ok"):
+            return x[:E]
+        return x[:, :E]
+
     return [f.name for f in dataclasses.fields(a)
-            if not torch.equal(getattr(a, f.name), getattr(b, f.name))]
+            if not torch.equal(part(f.name, getattr(a, f.name)),
+                               part(f.name, getattr(b, f.name)))]
 
 
 def _named_fat_tree():
@@ -4377,15 +4425,7 @@ SERIES_CHECKS = ("nan_divergence", "rmse_stall", "mass_conservation",
 def _doctor_cli(argv) -> tuple:
     """``flow_updating_tpu_torch.cli.main(["doctor", *argv])`` in this
     process: its exit code and the verdict JSON it prints."""
-    import contextlib
-    import io
-
-    from flow_updating_tpu_torch import cli
-
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        rc = cli.main(["doctor", *argv])
-    return rc, json.loads(buf.getvalue().strip().splitlines()[-1])
+    return _cli_json(["doctor", *argv])
 
 
 def _statuses(checks) -> dict:
@@ -4515,6 +4555,331 @@ def phase_path_n2(manifests: dict, tmp) -> dict:
                            "evidence": {c["name"]: c for c in
                                         pdoc["checks"]}[
                                             "nan_divergence"]["evidence"]}}
+
+
+# ---- path O: the sweep engine and the scenarios on the card -------------
+
+class _BucketRounds:
+    """A sweep bucket behind ``run_rounds(n)``, so the engine timers and
+    :func:`profile_rounds` drive its rounds."""
+
+    def __init__(self, bucket, cfg):
+        self.bucket, self.cfg, self.state = bucket, cfg, bucket.states
+
+    def run_rounds(self, n: int):
+        from flow_updating_tpu_torch.models.rounds import round_step
+
+        for _ in range(n):
+            self.state = round_step(self.state, self.bucket.arrays,
+                                    self.cfg, self.bucket.params)
+        return self
+
+
+def _cli_json(argv) -> tuple:
+    """``flow_updating_tpu_torch.cli.main(argv)`` in this process: its exit
+    code and the JSON it prints last."""
+    import contextlib
+    import io
+
+    from flow_updating_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(argv))
+    return rc, json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def _o_grid(variant: str, seeds: int) -> tuple:
+    """Path O's grid (``O_GENERATOR`` x seeds x ``O_DROPS`` x
+    ``O_TIMEOUTS``), as the ``sweep`` subcommand builds it: ``(cfg,
+    topology, instances)``."""
+    from flow_updating_tpu_torch import RoundConfig
+    from flow_updating_tpu_torch.sweep import grid_instances
+    from flow_updating_tpu_torch.topology.generators import (
+        topology_from_spec,
+    )
+
+    topo = topology_from_spec(O_GENERATOR, seed=SEED)
+    cfg = RoundConfig.reference(variant, dtype="float32")
+    insts = grid_instances(
+        [(O_GENERATOR, topo)], seeds=[SEED + i for i in range(seeds)],
+        drop_rates=[float(d) for d in O_DROPS.split(",")],
+        timeouts=[int(t) for t in O_TIMEOUTS.split(",")])
+    return cfg, topo, insts
+
+
+def phase_path_o1(tmp) -> tuple:
+    """O1: ``cli.main(["sweep", ...])`` on the card over the 128-lane grid
+    (one bucket of 1.31 M node and 7.34 M edge slots), its manifest
+    judged by ``doctor`` (no ``fail``) and its peak memory above what the
+    earlier paths hold; then the same bucket packed again and timed: ms a
+    bucket round by CUDA events, device ms, busy share and launches a
+    round by the profiler, lane-rounds a second, and one lane's instance
+    alone through ``Engine`` beside it."""
+    import torch
+
+    from flow_updating_tpu_torch import Engine
+    from flow_updating_tpu_torch.obs import health
+    from flow_updating_tpu_torch.sweep import pack_instances
+
+    path = os.path.join(tmp, "sweep.json")
+    argv = ["sweep", "--generator", O_GENERATOR, "--seeds", str(O_SEEDS),
+            "--drop-rates", O_DROPS, "--timeouts", O_TIMEOUTS, "--rounds",
+            str(O_ROUNDS), "--fire-policy", "reference", "--report", path]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()      # the earlier paths' tensors
+    t0 = time.perf_counter()
+    rc, out = _cli_json(argv)
+    cli_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - held
+    lanes = O_SEEDS * 16
+    if rc != 0 or out["instances"] != lanes or len(out["buckets"]) != 1 \
+            or out["buckets"][0]["size"] != lanes:
+        raise AssertionError(f"O1: sweep exited {rc}: {out}")
+    with open(path) as f:
+        man = json.load(f)
+    checks = health.diagnose_manifest(man)
+    st = {c.name: c.status for c in checks}
+    if "fail" in st.values() or man["environment"]["backend"] != "cuda":
+        raise AssertionError(f"O1: doctor on the sweep manifest: {st}")
+    converged = out["converged"]
+
+    cfg, topo, insts = _o_grid("collectall", O_SEEDS)
+    t0 = time.perf_counter()
+    bucket = pack_instances(insts, cfg)[0]
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    runner = _BucketRounds(bucket, cfg)
+    timed = _timed_path(runner, O_TIMED_ROUNDS)
+    prof = _device_summary(runner)
+    alone = Engine(config=cfg).set_topology(topo).build(seed=SEED)
+    one = _timed_path(alone, O_TIMED_ROUNDS)
+    del runner, alone
+    report = {
+        "argv": argv, "rc": rc, "cli_s": cli_s,
+        "lanes": lanes, "bucket_shape": out["buckets"][0]["shape"],
+        "node_slots": lanes * bucket.shape[0],
+        "edge_slots": lanes * bucket.shape[1],
+        "row_width": int(bucket.arrays.sweep_edge_rows.shape[1]),
+        "compiled_programs": out["compiled_programs"],
+        "converged": converged, "median_exit_round":
+            out["median_exit_round"],
+        "sweep_pack_s": out["timings"]["pack_s"],
+        "sweep_run_s": out["timings"]["run_s"],
+        "sweep_ms_per_round_with_telemetry":
+            out["timings"]["run_s"] * 1e3 / O_ROUNDS,
+        "peak_memory_bytes": peak, "memory_held_before_bytes": held,
+        "doctor": {"overall": health.overall(checks), "statuses": st},
+        "pack_s": pack_s,
+        "ms_per_bucket_round": timed["ms_per_round"],
+        "lane_rounds_per_s": lanes * timed["rounds_per_s"],
+        **{f"bucket_{k}": v for k, v in prof.items()},
+        "one_lane_alone": {"ms_per_round": one["ms_per_round"],
+                           "rounds_per_s": one["rounds_per_s"]},
+        "batching_speedup": lanes * one["ms_per_round"]
+        / timed["ms_per_round"]}
+    return report, bucket, (cfg, topo, insts)
+
+
+def _lane_checks(bucket, cfg, topo, insts, lanes) -> dict:
+    """Lanes of ``bucket`` after ``O_CHECK_ROUNDS`` rounds against the same
+    instance packed alone (every leaf bit for bit; the key too where the
+    lane draws its losses alone as well) and against the unpadded
+    instance through ``run_rounds(params=)`` (recorded: bit for bit where
+    the card's CSR row sums add as the row fold does)."""
+    import torch
+
+    from flow_updating_tpu_torch.models.rounds import run_rounds
+    from flow_updating_tpu_torch.models.state import init_state, lane_state
+    from flow_updating_tpu_torch.sweep import pack_instances, run_bucket
+
+    N, E = topo.num_nodes, topo.num_edges
+    out = run_bucket(bucket, cfg, O_CHECK_ROUNDS)
+    arrays = topo.device_arrays(coloring=cfg.needs_coloring,
+                                device="cuda")
+    rows = {}
+    for lane in lanes:
+        inst = insts[lane]
+        got = lane_state(out, lane, bucket.size)
+        alone = lane_state(run_bucket(pack_instances([inst], cfg)[0], cfg,
+                                      O_CHECK_ROUNDS), 0, 1)
+        bad = _edge_leaves_equal(got, alone, N, E)
+        draws_alone = bool(inst.drop_rate)
+        if not draws_alone:
+            # a bucket of one loss-free lane leaves the draw out, so its
+            # key stays where the 128-lane bucket's advanced
+            bad = [f for f in bad if f != "key"]
+        if bad:
+            raise AssertionError(f"O2: lane {lane} differs from its B = 1 "
+                                 f"packing in {bad}")
+        single = run_rounds(init_state(topo, cfg, seed=inst.seed),
+                            arrays, cfg, O_CHECK_ROUNDS,
+                            params=inst.params(cfg))
+        diff = _edge_leaves_equal(got, single, N, E)
+        gap = max((float((getattr(got, f)[:E] - getattr(single, f)[:E])
+                         .abs().max()) for f in ("flow", "est")),
+                  default=0.0)
+        if not (gap <= EDGE_TWIN_ATOL):
+            raise AssertionError(f"O2: lane {lane} is {gap} from its "
+                                 "unpadded run")
+        rows[str(lane)] = {"tag": inst.tag, "equal_to_alone": True,
+                           "key_compared": draws_alone,
+                           "unpadded_leaves_differing": diff,
+                           "unpadded_max_abs_diff": gap}
+    del out
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_path_o2(bucket, grid) -> dict:
+    """O2: lanes of O1's bucket and of a 32-lane faithful pairwise grid
+    (its affine scans run lane by lane) after ``O_CHECK_ROUNDS`` rounds,
+    each against B = 1 and the unpadded run."""
+    from flow_updating_tpu_torch.sweep import pack_instances
+
+    cfg, topo, insts = grid
+    out = {"rounds": O_CHECK_ROUNDS,
+           "collectall": _lane_checks(bucket, cfg, topo, insts, O_LANES)}
+    pcfg, ptopo, pinsts = _o_grid("pairwise", O_PAIRWISE_SEEDS)
+    pbucket = pack_instances(pinsts, pcfg)[0]
+    if pbucket.size != 32:
+        raise AssertionError(f"O2: the pairwise grid packed "
+                             f"{pbucket.size} lanes")
+    out["pairwise"] = _lane_checks(pbucket, pcfg, ptopo, pinsts,
+                                   O_PAIRWISE_LANES)
+    return out
+
+
+def phase_path_o3(tmp) -> dict:
+    """O3: ``cli.main(["scenarios", ...])`` on the card over the whole
+    sweep-grid registry (rc 0, ``pass``, one bucket structure a
+    scenario), the wall seconds of each scenario, and the two negative
+    controls (rc 1, ``fail``)."""
+    from flow_updating_tpu_torch.scenarios import registry
+    from flow_updating_tpu_torch.scenarios import run as scn_run
+
+    walls = {}
+    plain = scn_run.run_scenario
+
+    def timed(scn, *args, **kw):
+        t0 = time.perf_counter()
+        rec = plain(scn, *args, **kw)
+        walls[scn.name] = time.perf_counter() - t0
+        return rec
+
+    scn_run.run_scenario = timed
+    try:
+        rc, doc = _cli_json(["scenarios", "--seeds", str(O_SCENARIO_SEEDS),
+                             "--report", os.path.join(tmp, "scn.json")])
+    finally:
+        scn_run.run_scenario = plain
+    n = len(registry.REGISTRY)
+    if rc != 0 or doc["overall"] != "pass" or doc["sweep_compiles"] != n:
+        raise AssertionError(f"O3: scenarios exited {rc}: overall "
+                             f"{doc['overall']}, {doc['sweep_compiles']} "
+                             f"structures for {n} scenarios")
+    out = {"rc": rc, "overall": doc["overall"], "scenarios": n,
+           "checks": len(doc["checks"]),
+           "sweep_compiles": doc["sweep_compiles"],
+           "wall_s": doc["wall_s"], "wall_s_by_scenario": walls,
+           "perturbed": {}}
+    for name, perturb in (("byzantine_lie", "remove_adversary"),
+                          ("partition_heal", "no_heal")):
+        t0 = time.perf_counter()
+        prc, pdoc = _cli_json(["scenarios", name, "--seeds",
+                               str(O_SCENARIO_SEEDS), "--perturb", perturb])
+        if prc != 1 or pdoc["overall"] != "fail":
+            raise AssertionError(f"O3: {name} --perturb {perturb} exited "
+                                 f"{prc} with {pdoc['overall']}")
+        out["perturbed"][name] = {
+            "perturb": perturb, "rc": prc, "overall": pdoc["overall"],
+            "failing": sorted(c["name"] for c in pdoc["checks"]
+                              if c["status"] == "fail"),
+            "wall_s": time.perf_counter() - t0}
+    return out
+
+
+def _o4_adversary(tree):
+    """Faults whose first effects show right after the timeout bootstrap:
+    two edge switches lie and one is silent (their hosts, of degree 1,
+    fire as soon as they hear their one neighbor, or never before the
+    next timeout), and two switch-to-host edges carry a scaled wire flow."""
+    import numpy as np
+
+    from flow_updating_tpu_torch.scenarios import Adversary
+
+    hosts = np.flatnonzero(tree.out_deg == 1)
+    switch = tree.dst[tree.row_start[hosts]]        # each host's switch
+    picks = [int(h) for h in hosts[np.linspace(0, len(hosts) - 1, 5)
+                                   .astype(int)]]
+    wires = tree.rev[tree.row_start[picks[3:]]]      # switch -> host edges
+    return Adversary(
+        lie_nodes=tuple(int(switch[np.searchsorted(hosts, h)])
+                        for h in picks[:2]), lie_value=5.0,
+        silent_nodes=(int(switch[np.searchsorted(hosts, picks[2])]),),
+        corrupt_edges=tuple(int(e) for e in wires), corrupt_gain=1.5)
+
+
+def phase_path_o4(tree) -> dict:
+    """O4: ``Engine(adversary=)`` on path D's configuration (the k=160 fat
+    tree, faithful collect-all, ``benes_fused`` segments and delivery:
+    kernels B3 and B4 broadcast the lie and silent masks): after the
+    timeout bootstrap, ``O4_ROUNDS`` rounds with the B3/B4 counts from 0,
+    held bit for bit to its ``segment``/``gather`` twin, and away from the
+    honest round."""
+    import dataclasses
+
+    import torch
+
+    from flow_updating_tpu_torch import Engine, RoundConfig
+
+    adv = _o4_adversary(tree)
+    cfg = RoundConfig.reference("collectall", segment_impl="benes_fused",
+                                delivery="benes_fused")
+    t0 = time.perf_counter()
+    eng = Engine(config=cfg, adversary=adv).set_topology(tree).build(
+        seed=SEED)
+    build_s = time.perf_counter() - t0
+    eng.run_rounds(EDGE_BOOT)
+    per_round = planned_launches(eng._topo_arrays, cfg, adversary=adv)
+    reset_counts()
+    ms = _timed_rounds(eng, O4_ROUNDS)
+    got = {**b3_launches(), **b4_launches()}
+    if got != {k: v * O4_ROUNDS for k, v in per_round.items()}:
+        raise AssertionError(f"O4 launches {got}, planned {per_round} per "
+                             f"round x {O4_ROUNDS}")
+    mine = _edge_estimates(eng)
+    flow = eng.state.flow
+    rounds_ = EDGE_BOOT + O4_ROUNDS
+    tcfg = dataclasses.replace(cfg, segment_impl="segment",
+                               delivery="gather")
+    twin = Engine(config=tcfg, adversary=adv).set_topology(tree).build(
+        seed=SEED)
+    twin.run_rounds(rounds_)
+    diff = float((mine - _edge_estimates(twin)).abs().max())
+    if diff != 0.0 or not torch.equal(flow, twin.state.flow):
+        raise AssertionError(f"O4 differs from its segment/gather twin at "
+                             f"round {rounds_} (estimates max {diff})")
+    del twin
+    honest = Engine(config=tcfg).set_topology(tree).build(seed=SEED)
+    honest.run_rounds(rounds_)
+    away = float((mine - _edge_estimates(honest)).abs().max())
+    if not away > 0.0:
+        raise AssertionError("O4 equals the honest round")
+    del honest, eng
+    torch.cuda.empty_cache()
+    return {"config": {k: getattr(cfg, k) for k in (
+                "variant", "fire_policy", "segment_impl", "delivery",
+                "dtype")},
+            "adversary": adv.describe(), "build_s": build_s,
+            "after_round": EDGE_BOOT, "rounds_timed": O4_ROUNDS,
+            "ms_per_round": ms / O4_ROUNDS,
+            "launches_per_round": per_round,
+            "b3_launches": {k: got[k] for k, _, _, _ in B3_FLAVOURS},
+            "b4_launches": {k: got[k] for k, _, _ in B4_FLAVOURS},
+            "max_abs_diff_to_segment": diff, "flow_equal_to_segment": True,
+            "max_abs_diff_to_honest": away}
 
 
 def main() -> int:
@@ -4723,6 +5088,23 @@ def main() -> int:
     emit({"phase": "path_n", "wall_s": time.perf_counter() - t0,
           "launches": n_launches})
 
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sweep_") as tmp:
+        path_o = {}
+        path_o["o1"], o_bucket, o_grid = phase_path_o1(tmp)
+        emit({"phase": "path_o", "part": "o1", **path_o["o1"]})
+        path_o["o2"] = phase_path_o2(o_bucket, o_grid)
+        del o_bucket, o_grid
+        emit({"phase": "path_o", "part": "o2", **path_o["o2"]})
+        path_o["o3"] = phase_path_o3(tmp)
+        emit({"phase": "path_o", "part": "o3", **path_o["o3"]})
+    path_o["o4"] = phase_path_o4(tree)
+    emit({"phase": "path_o", "part": "o4",
+          "topology": f"fat_tree:{FAT_TREE_K}", **path_o["o4"]})
+    o4 = path_o["o4"]
+    emit({"phase": "path_o", "wall_s": time.perf_counter() - t0,
+          "launches": {"b3": o4["b3_launches"], "b4": o4["b4_launches"]}})
+
     emit({"phase": "timing", "timed_by_cuda_events": EVENT_TIMED})
     emit({"kernels": [
         {"name": "spmv_ell", "route": "cuda",
@@ -4756,7 +5138,8 @@ def main() -> int:
                         + path_g["g2"]["b3_launches"][name]
                         + a6["b3_launches"][name] + i_b3[name]
                         + path_j["j4"]["b3_launches"][name]
-                        + l_launches["b3"][name] + m_launches["b3"][name]),
+                        + l_launches["b3"][name] + m_launches["b3"][name]
+                        + o4["b3_launches"][name]),
            "parity": "bit-exact (torch.equal), float32 and float64",
            "max_abs_err": k3["flavours"][name]["max_abs_err"],
            "ms": k3["flavours"][name]["ms"],
@@ -4773,7 +5156,8 @@ def main() -> int:
                         + path_g["g1"]["b4_launches"][name]
                         + path_g["g2"]["b4_launches"][name]
                         + i_b4[name] + l_launches["b4"][name]
-                        + m_launches["b4"][name]),
+                        + m_launches["b4"][name]
+                        + o4["b4_launches"][name]),
            "parity": "bit-exact (torch.equal): float32, float64, int32, "
                      "batch 1 and 3, the split passes",
            "max_abs_err": k4["flavours"][name]["max_abs_err"],

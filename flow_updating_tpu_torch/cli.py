@@ -1,8 +1,9 @@
 """Command-line entry point: the ``run``, ``oracle``, ``plan``, ``inspect``,
-``obs`` and ``doctor`` subcommands.
+``obs``, ``sweep``, ``scenarios`` and ``doctor`` subcommands.
 
 Counterpart of ``flow_updating_tpu/cli.py``'s ``run``, ``oracle``,
-``plan``, ``inspect``, ``obs export-trace`` and ``doctor``.
+``plan``, ``inspect``, ``obs export-trace``, ``sweep``, ``scenarios`` and
+``doctor``.
 They take the same flags, so a JAX command line carries over, plus
 ``--device`` (``cuda``, the default, or ``cpu``) for ``run``.  Topology
 from ``--platform``/``--deployment`` XML or a synthetic ``--generator``;
@@ -54,6 +55,15 @@ deltas on the common round grid) or ``--heatmap FIELD`` (ASCII, over
 the generator's coordinates).  ``obs export-trace`` converts an
 ``--event-log`` JSONL file (or a serving manifest) into a Chrome
 trace-event document.
+
+``sweep`` packs a grid (``--generator`` repeated, ``--seeds``,
+``--drop-rates``, ``--timeouts``, ``--latency-scales``) into shape
+buckets and advances each bucket's lanes together on ``--device``;
+``--report`` writes a ``flow-updating-sweep-report/v1`` manifest.
+``scenarios`` runs the conformance registry (``--list``, names,
+``--seeds``, ``--perturb``) and exits 1 when a declared signature
+fails; the ``agg_*`` aggregate cases and ``sweep --profile`` exit naming
+their ROADMAP items.
 
 ``doctor`` judges saved manifests (run, plan, field and every other
 ``flow-updating-*-report/v1`` kind, either package's), ``--baselines``
@@ -787,6 +797,182 @@ def cmd_doctor(args) -> int:
     return health.exit_code(checks, strict=args.strict)
 
 
+def _csv_list(text, cast, flag: str):
+    if text is None:
+        return (None,)
+    try:
+        vals = tuple(cast(v) for v in text.split(",") if v.strip())
+    except ValueError:
+        raise SystemExit(f"{flag} {text!r}: expected a comma list of "
+                         f"{cast.__name__} values") from None
+    if not vals:
+        raise SystemExit(f"{flag} {text!r}: no values")
+    return vals
+
+
+def cmd_sweep(args) -> int:
+    """``sweep``: a grid of (topology, seed, params) instances packed into
+    shape buckets, each bucket's lanes advanced together on ``--device``
+    (``flow_updating_tpu_torch.sweep``).  Prints the summary as JSON;
+    ``--report`` writes the ``flow-updating-sweep-report/v1`` manifest."""
+    import dataclasses
+
+    import numpy as np
+
+    from flow_updating_tpu_torch.models.config import RoundConfig
+    from flow_updating_tpu_torch.obs.telemetry import TelemetrySpec
+    from flow_updating_tpu_torch.sweep import grid_instances, run_sweep
+    from flow_updating_tpu_torch.topology.generators import (
+        topology_from_spec,
+    )
+
+    _refuse_later_flags(args)
+    topos = []
+    for spec in args.generator:
+        try:
+            topos.append((spec, topology_from_spec(spec, seed=args.seed)))
+        except (ValueError, NotImplementedError) as err:
+            raise SystemExit(str(err)) from err
+    drop_rates = _csv_list(args.drop_rates, float, "--drop-rates")
+    timeouts = _csv_list(args.timeouts, int, "--timeouts")
+    latency_scales = _csv_list(args.latency_scales, float,
+                               "--latency-scales")
+    maker = (RoundConfig.reference if args.fire_policy == "reference"
+             else RoundConfig.fast)
+    try:
+        cfg = maker(variant=args.variant, dtype=args.dtype)
+        ls_max = max((ls for ls in latency_scales if ls is not None),
+                     default=0.0)
+        if ls_max > 0:
+            # the ring buffer must cover the worst scaled delay, or the
+            # clamp flattens the latency sweep
+            need = int(np.ceil(max(t.max_delay for _, t in topos) * ls_max))
+            cfg = dataclasses.replace(
+                cfg, delay_depth=max(cfg.delay_depth, need))
+    except ValueError as err:
+        raise SystemExit(f"invalid flag combination: {err}") from err
+
+    seeds = [args.seed + i for i in range(max(1, args.seeds))]
+    instances = grid_instances(topos, seeds=seeds, drop_rates=drop_rates,
+                               timeouts=timeouts,
+                               latency_scales=latency_scales)
+    spec = TelemetrySpec.default()
+    if args.telemetry is not None:
+        try:
+            spec = TelemetrySpec.parse(args.telemetry)
+        except ValueError as err:
+            raise SystemExit(f"--telemetry: {err}") from err
+    t0 = time.perf_counter()
+    try:
+        records, summary = run_sweep(
+            instances, cfg, args.rounds, spec=spec,
+            rmse_threshold=args.rmse_threshold,
+            max_batch=args.max_batch or None,
+            include_series=args.include_series, device=args.device)
+    except ValueError as err:
+        raise SystemExit(f"invalid sweep configuration: {err}") from err
+    wall_s = time.perf_counter() - t0
+
+    out = dict(summary)
+    out["wall_s"] = round(wall_s, 6)
+    exits = [r["convergence"]["converged_round"] for r in records
+             if r["convergence"]["converged"]]
+    out["median_exit_round"] = int(np.median(exits)) if exits else None
+    if args.report:
+        from flow_updating_tpu_torch.obs.report import (
+            build_sweep_manifest,
+            write_report,
+        )
+
+        write_report(args.report, build_sweep_manifest(
+            argv=getattr(args, "_argv", None), config=cfg,
+            instances=records, summary=summary,
+            timings={"wall_s": round(wall_s, 6)}, device=args.device))
+        out["report_path"] = args.report
+    print(json.dumps(out))
+    return 0
+
+
+#: the aggregate fault cases of the JAX ``scenarios`` subcommand run the
+#: serving stack's fabric
+_AGG_ITEM = "the serving stack (A11)"
+
+
+def cmd_scenarios(args) -> int:
+    """``scenarios``: the adversarial conformance suite
+    (``flow_updating_tpu_torch.scenarios``) — run registered scenarios on
+    ``--device`` (each a seed grid under the sweep engine plus one
+    field-recorded blame run), write the
+    ``flow-updating-scenario-report/v1`` manifest, and judge every
+    scenario's declared signature.  Exit 1 on any failing clause (on a
+    warning too under ``--strict``)."""
+    from flow_updating_tpu_torch.scenarios.registry import (
+        REGISTRY,
+        get_scenario,
+    )
+
+    if args.list:
+        listing = {
+            name: {
+                "summary": scn.summary,
+                "rounds": scn.rounds,
+                "rmse_threshold": scn.rmse_threshold,
+                "config": dict(scn.config),
+                "signature": [dict(c) for c in scn.signature],
+            } for name, scn in REGISTRY.items()}
+        print(f"# the sweep-grid registry; the agg_* aggregate scenarios "
+              f"are the ROADMAP item '{_AGG_ITEM}', not ported yet",
+              file=sys.stderr)
+        print(json.dumps(listing))
+        return 0
+    names = list(args.names) or None
+    agg = [n for n in (names or []) if n.startswith("agg_")]
+    if agg:
+        raise SystemExit(
+            f"scenarios: the aggregate scenarios ({', '.join(agg)}) are "
+            f"the ROADMAP item '{_AGG_ITEM}', not ported yet")
+    for n in names or ():
+        try:
+            get_scenario(n)
+        except ValueError as err:
+            raise SystemExit(f"scenarios: {err}") from err
+    from flow_updating_tpu_torch.obs import health
+    from flow_updating_tpu_torch.scenarios.run import (
+        run_scenarios,
+        scenario_manifest,
+    )
+
+    seeds = [args.seed + i for i in range(max(1, args.seeds))]
+    try:
+        records, summary = run_scenarios(
+            names, seeds=seeds, perturb=args.perturb,
+            max_batch=args.max_batch or None, device=args.device)
+    except ValueError as err:
+        raise SystemExit(f"scenarios: {err}") from err
+    manifest = scenario_manifest(records, summary,
+                                 argv=getattr(args, "_argv", None),
+                                 device=args.device)
+    if args.report:
+        from flow_updating_tpu_torch.obs.report import write_report
+
+        write_report(args.report, manifest)
+    checks = health.check_scenario_conformance(manifest)
+    out = {
+        "overall": health.overall(checks),
+        "scenarios": summary["scenarios"],
+        "seeds": summary["seeds"],
+        "sweep_compiles": summary["sweep_compiles"],
+        "wall_s": summary["wall_s"],
+        "checks": [c.to_jsonable() for c in checks],
+    }
+    if args.perturb:
+        out["perturb"] = args.perturb
+    if args.report:
+        out["report_path"] = args.report
+    print(json.dumps(out))
+    return health.exit_code(checks, strict=args.strict)
+
+
 def _add_topology_flags(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--platform", help="SimGrid-style platform XML")
     ap.add_argument("--deployment", help="SimGrid-style deployment XML")
@@ -1084,6 +1270,107 @@ def build_parser() -> argparse.ArgumentParser:
                      help="output path (default: <eventlog>.trace.json; "
                           "'-' = stdout)")
     exp.set_defaults(fn=cmd_obs_export_trace)
+
+    sw = sub.add_parser(
+        "sweep",
+        help="batched multi-instance parameter sweep: pack a grid of "
+             "(topology, seed, params) instances into shape buckets and "
+             "advance each bucket's lanes together on --device")
+    sw.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="where the buckets run: the CUDA card (default) "
+                         "or the host CPU")
+    sw.add_argument("--backend", default="auto",
+                    choices=("auto", "cpu", "jax_tpu"),
+                    help="accepted for command-line compatibility with "
+                         "the JAX CLI; no effect (see --device)")
+    sw.add_argument("--generator", action="append", required=True,
+                    metavar="SPEC",
+                    help="synthetic topology, e.g. 'ring:64:2' or "
+                         "'fat_tree:32' — repeat the flag to sweep "
+                         "several topologies")
+    sw.add_argument("--seed", type=int, default=0,
+                    help="base seed (topology values + first instance "
+                         "seed)")
+    sw.add_argument("--seeds", type=int, default=1,
+                    help="instance seeds per grid point: seed, seed+1, "
+                         "... (independent message-loss realizations)")
+    sw.add_argument("--drop-rates", metavar="CSV",
+                    help="comma list of per-message loss probabilities "
+                         "(one lane parameter each)")
+    sw.add_argument("--timeouts", metavar="CSV",
+                    help="comma list of timeout values (one lane "
+                         "parameter each)")
+    sw.add_argument("--latency-scales", metavar="CSV",
+                    help="comma list of delay multipliers (scales each "
+                         "topology's static per-edge delays; delay_depth "
+                         "is sized to cover the largest)")
+    sw.add_argument("--variant", default="collectall",
+                    choices=("collectall", "pairwise"))
+    sw.add_argument("--fire-policy", default="reference",
+                    choices=("reference", "every_round"))
+    sw.add_argument("--dtype", default="float32",
+                    choices=("float32", "float64"))
+    sw.add_argument("--rounds", type=int, default=200,
+                    help="rounds per instance (every lane runs the full "
+                         "count; converged lanes record their effective "
+                         "early-exit round)")
+    sw.add_argument("--rmse-threshold", type=float, default=1e-6,
+                    help="per-instance convergence threshold for the "
+                         "early-exit round")
+    sw.add_argument("--max-batch", type=int, default=0,
+                    help="cap lanes per bucket (0 = unbounded)")
+    sw.add_argument("--telemetry", nargs="?", const="default",
+                    metavar="METRICS",
+                    help="per-instance metric selection (as in `run`; "
+                         "must include rmse)")
+    sw.add_argument("--include-series", action="store_true",
+                    help="embed each instance's full per-round series "
+                         "in the manifest records (large)")
+    sw.add_argument("--profile", action="store_true",
+                    help="per-bucket cost attribution (ROADMAP A14; "
+                         "exits naming it)")
+    sw.add_argument("--report", metavar="PATH",
+                    help="write the flow-updating-sweep-report/v1 "
+                         "manifest (one record per instance) to PATH")
+    sw.set_defaults(fn=cmd_sweep)
+
+    sc = sub.add_parser(
+        "scenarios",
+        help="adversarial conformance suite: run registered scenarios "
+             "(conductance-bottleneck bridges, Byzantine nodes, "
+             "correlated failures) under the sweep engine on --device, "
+             "blame the planted adversary, and assert each declared "
+             "signature — flow-updating-scenario-report/v1 manifests")
+    sc.add_argument("names", nargs="*", metavar="SCENARIO",
+                    help="registered scenario names (default: the whole "
+                         "registry; see --list)")
+    sc.add_argument("--list", action="store_true",
+                    help="print the registry (name, summary, config, "
+                         "declared signature) and exit")
+    sc.add_argument("--seeds", type=int, default=2, metavar="K",
+                    help="seeds per scenario (the sweep grid width)")
+    sc.add_argument("--seed", type=int, default=0,
+                    help="base seed (seeds are seed..seed+K-1)")
+    sc.add_argument("--perturb",
+                    choices=("remove_adversary", "no_heal"),
+                    help="negative control: withdraw the planted fault "
+                         "(or never heal the partition) — signatures "
+                         "are EXPECTED to fail")
+    sc.add_argument("--max-batch", type=int, default=0, metavar="B",
+                    help="cap sweep lanes per bucket (0 = unbounded)")
+    sc.add_argument("--report", metavar="PATH",
+                    help="write the flow-updating-scenario-report/v1 "
+                         "manifest to PATH")
+    sc.add_argument("--strict", action="store_true",
+                    help="exit 1 on warnings too")
+    sc.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="where the scenarios run: the CUDA card "
+                         "(default) or the host CPU")
+    sc.add_argument("--backend", default="auto",
+                    choices=("auto", "cpu", "jax_tpu"),
+                    help="accepted for command-line compatibility with "
+                         "the JAX CLI; no effect (see --device)")
+    sc.set_defaults(fn=cmd_scenarios)
 
     dr = sub.add_parser(
         "doctor",

@@ -65,9 +65,16 @@ device-resident with one bulk copy at the end; ``event_log=``
 (``advance`` and ``kill_all`` records), and :meth:`run_streamed` on every
 kernel.
 
+``adversary=`` (a :class:`~flow_updating_tpu_torch.scenarios.adversary.
+Adversary`, ROADMAP A10) plants lies, silent senders, a scheduled link cut
+or a scaled wire flow on the single-device edge round's messages, with
+every ``segment_impl`` and ``delivery`` (the masks ride the planned
+networks like every other broadcast); a mesh, the node kernel and fast
+pairwise refuse it with the JAX engine's messages.
+
 What the JAX engine does beyond that raises ``NotImplementedError``
-naming its ROADMAP item: GSPMD's mesh paths, ``host_actors``,
-``adversary`` and custom actors.
+naming its ROADMAP item: GSPMD's mesh paths, ``host_actors`` and custom
+actors.
 
 Simulated-time convention: one round == ``TICK_INTERVAL`` (1.0) simulated
 seconds, the reference peers' loop cadence.
@@ -172,8 +179,6 @@ class Engine:
                     f"PlanDecision; got {type(plan).__name__}")
         if host_actors:
             raise _not_ported("host_actors=True", "host actors (A8)")
-        if adversary is not None:
-            raise _not_ported("adversary=", "sweep and scenarios (A10)")
         self.argv = list(argv) if argv else []
         self.config = self._apply_argv_cfg(config or RoundConfig.fast())
         self.device = resolve_device(device)
@@ -183,6 +188,9 @@ class Engine:
                 f"engine runs on {self.device}; build the mesh with "
                 f"make_mesh(n, device={self.device.type!r})")
         self.mesh = mesh
+        # a scenarios.Adversary planted on the single-device edge round's
+        # wire (an empty one plants nothing)
+        self.adversary = adversary or None
         self.multichip = multichip
         self.halo = halo
         self.partition = partition
@@ -392,6 +400,8 @@ class Engine:
         """The configured kernel and its device tables, without a state
         (``build`` adds a fresh one, ``restore_checkpoint`` a restored
         one)."""
+        if self.adversary is not None:
+            self._check_adversary()
         if self._halo_mode:
             self._prepare_halo(latency_scale)
             return
@@ -465,6 +475,34 @@ class Engine:
             segment_benes=cfg.segment_benes_mode,
             delivery_benes=cfg.delivery_benes_mode,
             device=self.device)
+        if self.adversary is not None:
+            # the fault masks on the wire; an absent family stays None and
+            # the round runs none of its operations
+            self._topo_arrays = self._topo_arrays.replace(
+                **self.adversary.device_leaves(
+                    self.topology.num_nodes, self.topology.num_edges,
+                    cfg.torch_dtype, device=self.device))
+
+    def _check_adversary(self) -> None:
+        """``adversary=`` runs on the single-device edge round's message
+        wire, as in the JAX engine."""
+        if self.mesh is not None:
+            raise ValueError(
+                "adversary= injects faults into the single-device "
+                "edge kernel's wire; multi-chip / host-actor / "
+                "custom-actor dispatch is not covered — drop mesh=/"
+                "host_actors=, or run the scenario under the sweep "
+                "engine (SweepInstance.adversary)")
+        if self.config.kernel != "edge":
+            raise ValueError(
+                "adversary= corrupts per-edge wire state; the node-"
+                "collapsed kernel has no wire — use kernel='edge'")
+        if self.config.needs_coloring:
+            raise ValueError(
+                "adversary= targets the message-based protocols; the "
+                "fast synchronous pairwise mode exchanges estimates "
+                "directly on-chip (no wire to attack) — use "
+                "variant='collectall' or fire_policy='reference'")
 
     # ---- the topology compiler's auto mode (A5) -------------------------
     def _apply_plan(self) -> None:

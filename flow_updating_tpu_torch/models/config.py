@@ -8,8 +8,9 @@ command lines carry over unchanged.  ``torch_dtype`` replaces
 CUDA ELL neighbor-sum kernel (``ops/spmv.py``), ``'banded_fused'`` the
 hand-written one-kernel round (``ops/fused_round.py``) and
 ``'benes_fused'`` the hand-written fused network passes
-(``ops/fused_passes.py``).  The traced-knob
-twin ``RoundParams`` belongs to the sweep engine and is not ported.
+(``ops/fused_passes.py``).  :class:`RoundParams` is the traced-knob twin
+of the config's four numeric fields: tensors the round reads, so one
+bucket of the sweep engine (``sweep/``) carries a value per lane.
 
 Mapping to the reference's knobs:
 
@@ -28,8 +29,93 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 COLLECTALL = "collectall"
 PAIRWISE = "pairwise"
+
+
+@dataclasses.dataclass(frozen=True)
+class RoundParams:
+    """The numeric knobs of the edge round as tensors (JAX
+    ``RoundParams``): ``drop_rate`` (float32, or ``None`` = statically no
+    loss draw), ``timeout`` (int32), ``latency_scale`` and
+    ``contention_scale`` (float32).  Each leaf is 0-d for one instance, or
+    ``(B,)`` for a sweep bucket's B lanes.  Under ``params`` the round:
+
+    * always draws the loss mask when ``drop_rate`` is a tensor (so the key
+      advances even at 0.0, where the mask keeps everything), and draws it
+      in float32 whatever the ledger dtype, as ``jax.random.bernoulli``
+      does with a float32 probability;
+    * reads ``timeout`` in place of ``cfg.timeout``;
+    * stretches every static delay by ``latency_scale`` (``rint`` to whole
+      rounds, clamped to ``[1, delay_depth]``) and, under
+      ``cfg.contention``, the route latencies by ``latency_scale`` and
+      every link's serialization cost by ``contention_scale``.
+    """
+
+    drop_rate: torch.Tensor | None
+    timeout: torch.Tensor
+    latency_scale: torch.Tensor
+    contention_scale: torch.Tensor
+
+    @classmethod
+    def from_config(cls, cfg: RoundConfig, drop_rate=None, timeout=None,
+                    latency_scale=None, contention_scale=None,
+                    device=None) -> RoundParams:
+        """Params mirroring ``cfg``'s numeric knobs, any keyword
+        overriding its field, as 0-d tensors on ``device`` (the card
+        unless ``'cpu'`` is given)."""
+        from flow_updating_tpu_torch.utils.device import resolve_device
+
+        dev = resolve_device(device)
+
+        def t(v, dtype):
+            return torch.tensor(v, dtype=dtype, device=dev)
+
+        return cls(
+            drop_rate=t(cfg.drop_rate if drop_rate is None else drop_rate,
+                        torch.float32),
+            timeout=t(cfg.timeout if timeout is None else timeout,
+                      torch.int32),
+            latency_scale=t(1.0 if latency_scale is None else latency_scale,
+                            torch.float32),
+            contention_scale=t(1.0 if contention_scale is None
+                               else contention_scale, torch.float32))
+
+    @classmethod
+    def stack(cls, lanes) -> RoundParams:
+        """One ``(B,)`` leaf per knob from B instances' 0-d params; their
+        ``drop_rate`` must be all tensors or all ``None``."""
+        lanes = list(lanes)
+        drops = [p.drop_rate for p in lanes]
+        if any(d is None for d in drops) and not all(d is None
+                                                     for d in drops):
+            raise ValueError("lanes of one bucket must all draw the loss "
+                             "mask or none of them")
+        return cls(
+            drop_rate=None if drops[0] is None else torch.stack(drops),
+            **{f: torch.stack([getattr(p, f) for p in lanes])
+               for f in ("timeout", "latency_scale", "contention_scale")})
+
+    def replace(self, **kw) -> RoundParams:
+        return dataclasses.replace(self, **kw)
+
+    def without_drop(self) -> RoundParams:
+        """The drop-free variant: the loss draw is left out of the round
+        (valid only when the drop rate is 0)."""
+        return self.replace(drop_rate=None)
+
+    def describe(self) -> dict:
+        """Host-side JSON form of a 0-d params (sweep manifests record
+        one per instance), the float32 values as the round reads them."""
+        return {
+            "drop_rate": (0.0 if self.drop_rate is None
+                          else float(self.drop_rate)),
+            "timeout": int(self.timeout),
+            "latency_scale": float(self.latency_scale),
+            "contention_scale": float(self.contention_scale),
+        }
 
 
 @dataclasses.dataclass(frozen=True)

@@ -23,6 +23,9 @@ Rounds run as a Python loop over tensor operations on the state's
 device.  The per-node reductions and broadcasts dispatch on the
 :class:`~flow_updating_tpu_torch.topology.graph.EdgeArrays`:
 
+* ``sweep_edge_rows`` set (a sweep bucket's padded lanes) — the
+  uniform-width out-edge rows, folded column by column in edge order
+  (``ops/segment.rows_segment_*``);
 * ``segment_impl='benes'|'benes_fused'`` — the permutation-network
   segmented scans and broadcasts (``ops/seg_benes.py``; kernels B3 and B4
   for ``'benes_fused'`` on the card);
@@ -46,6 +49,17 @@ under ``contention_backlog``; its float sums run in a fixed per-link
 order (the link-major CSR of ``Topology.link_csr``), so two runs on the
 card give the same delays.
 
+Traced parameters (``params=``, a :class:`~flow_updating_tpu_torch.
+models.config.RoundParams`) replace ``cfg``'s timeout, drop rate and
+delay scales with tensors: 0-d for one instance, ``(B,)`` for the B lanes
+of a sweep bucket (:mod:`flow_updating_tpu_torch.sweep`), whose
+instances lie end to end as one disjoint graph; a lane's value is
+spread over its nodes or edges where the round reads it.  The adversary
+leaves of :class:`~flow_updating_tpu_torch.topology.graph.EdgeArrays`
+(``adv_*``, :mod:`flow_updating_tpu_torch.scenarios`) corrupt what goes on
+the wire — lies, silent senders, a scheduled link cut, a scaled wire
+flow — and never the honest ledgers; an absent family adds no operation.
+
 Telemetry (:func:`run_rounds_telemetry`) and the per-node and per-edge
 fields (:func:`run_rounds_fields`, every ``stride`` rounds) write their
 rows into preallocated device tensors and read nothing back inside the
@@ -53,8 +67,8 @@ loop; :func:`run_rounds_streamed` reads one watcher sample between
 chunks.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item: the adversary masks, per-lane reduction modes and traced
-``RoundParams`` (A10) and the chunked runners (A13).
+ROADMAP item: the chunked runners (A13).  The per-lane reduction modes of
+the aggregates layer are A11's.
 """
 
 from __future__ import annotations
@@ -76,6 +90,10 @@ from flow_updating_tpu_torch.ops.segment import (
     ell_segment_max,
     ell_segment_min,
     ell_segment_sum,
+    rows_segment_all,
+    rows_segment_max,
+    rows_segment_min,
+    rows_segment_sum,
     segment_all,
     segment_max,
     segment_min,
@@ -92,13 +110,6 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
         f"{what} is the ROADMAP item '{item}', not ported yet")
 
 
-def check_ported(cfg: RoundConfig, params=None) -> None:
-    """Refuse what the edge kernel does not run yet, naming its item:
-    traced ``RoundParams``."""
-    if params is not None:
-        raise _not_ported("traced RoundParams", "sweep and scenarios (A10)")
-
-
 # ---- per-node reductions and node->edge broadcasts --------------------------
 
 def _rows(x, topo):
@@ -109,6 +120,8 @@ def _rows(x, topo):
 
 
 def _seg_sum(x, topo):
+    if topo.sweep_edge_rows is not None:
+        return rows_segment_sum(x, topo.sweep_edge_rows)
     if topo.seg_plan is not None:
         return seg_reduce(x, "sum", topo.seg_plan, topo.seg_dist,
                           topo.seg_extract_masks)
@@ -118,6 +131,8 @@ def _seg_sum(x, topo):
 
 
 def _seg_min(x, topo, identity):
+    if topo.sweep_edge_rows is not None:
+        return rows_segment_min(x, topo.sweep_edge_rows, identity)
     if topo.seg_plan is not None:
         return seg_reduce(x, "min", topo.seg_plan, topo.seg_dist,
                           topo.seg_extract_masks)
@@ -128,6 +143,8 @@ def _seg_min(x, topo, identity):
 
 
 def _seg_max(x, topo, identity):
+    if topo.sweep_edge_rows is not None:
+        return rows_segment_max(x, topo.sweep_edge_rows, identity)
     if topo.seg_plan is not None:
         return seg_reduce(x, "max", topo.seg_plan, topo.seg_dist,
                           topo.seg_extract_masks)
@@ -138,6 +155,8 @@ def _seg_max(x, topo, identity):
 
 
 def _seg_all(pred, topo):
+    if topo.sweep_edge_rows is not None:
+        return rows_segment_all(pred, topo.sweep_edge_rows, topo.out_deg)
     if topo.seg_plan is not None:
         return seg_reduce(pred, "all", topo.seg_plan, topo.seg_dist,
                           topo.seg_extract_masks)
@@ -154,6 +173,30 @@ def _bcast(x, topo):
         return broadcast(x, topo.seg_plan, topo.seg_dist,
                          topo.seg_place_masks)
     return x[topo.src]
+
+
+def _per_slot(x, n: int):
+    """A parameter over ``n`` slots: a 0-d value as it is, a ``(B,)`` value
+    a lane spread over each lane's ``n // B`` consecutive slots."""
+    if x.dim() == 0:
+        return x
+    return x.repeat_interleave(n // x.shape[0])
+
+
+def _lane_scan(a, b, seg_start, topo):
+    """The segmented affine scan; in a sweep bucket each lane's edges are
+    scanned on their own (``(B, E_pad)`` views, paired from every lane's
+    first edge as if the lane ran alone)."""
+    if topo.sweep_edge_rows is None:
+        return segmented_affine_scan(a, b, seg_start)
+    B = topo.lanes
+
+    def lanes(x):
+        return x.reshape((B, -1) + tuple(x.shape[1:]))
+
+    A, Bv = segmented_affine_scan(lanes(a), lanes(b), lanes(seg_start),
+                                  axis=1)
+    return A.reshape(a.shape), Bv.reshape(b.shape)
 
 
 def _row(a: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
@@ -309,15 +352,19 @@ def _clip_delta(flow, target, clip):
     return torch.clamp(flow + target, -clip, clip) - flow
 
 
-def fire_core(state: FlowUpdatingState, topo, cfg: RoundConfig, trigger):
+def fire_core(state: FlowUpdatingState, topo, cfg: RoundConfig, trigger,
+              params=None):
     """Tick + averaging + ledger update; the outgoing messages are computed
     but not delivered.  Returns ``(state, msg_est, send_mask)``: edge e's
     message is ``(state.flow[e], msg_est[e])``, the sender's ledger after
-    the update (``flowupdating-collectall.py:116-125``)."""
+    the update (``flowupdating-collectall.py:116-125``).  ``params`` (a
+    :class:`RoundParams`) supplies the timeout and the drop rate in place
+    of ``cfg``'s."""
     E = topo.num_edges
     dt = state.flow.dtype
     t = state.t
     src = topo.src
+    timeout = cfg.timeout if params is None else params.timeout
     ticks, stamp, recv = state.ticks, state.stamp, state.recv
     last_avg, fired_ctr = state.last_avg, state.fired
 
@@ -348,7 +395,9 @@ def fire_core(state: FlowUpdatingState, topo, cfg: RoundConfig, trigger):
         else:
             if all_heard is None:
                 all_heard = _seg_all(recv, topo)
-            fire_n = (all_heard | (ticks >= cfg.timeout)) & state.alive
+            if params is not None:
+                timeout = _per_slot(timeout, topo.num_nodes)
+            fire_n = (all_heard | (ticks >= timeout)) & state.alive
         # the average over self and ALL neighbors' last-known estimates
         # (unheard neighbors count as the reference's defaultdict 0.0);
         # under trim, without the marked edges, which also move no flow
@@ -399,7 +448,10 @@ def fire_core(state: FlowUpdatingState, topo, cfg: RoundConfig, trigger):
             raise ValueError(
                 "fast pairwise mode needs the edge coloring: build the "
                 "topology arrays with device_arrays(coloring=True)")
-        matched = ((topo.edge_color == t % topo.num_colors)
+        # a bucket carries each lane's color count as a tensor
+        n_colors = (topo.num_colors if topo.num_colors_arr is None
+                    else topo.num_colors_arr)
+        matched = ((topo.edge_color == t % n_colors)
                    & state.alive[src] & state.alive[topo.dst]
                    & state.edge_ok & state.edge_ok[topo.rev])
         if cfg.robust == "trim":
@@ -435,7 +487,9 @@ def fire_core(state: FlowUpdatingState, topo, cfg: RoundConfig, trigger):
         # to the node's running estimate in edge order (the reference's
         # loop over stale neighbors, pairwise.py:86-91,102-109) — one
         # segmented affine scan
-        stale = stamp < (t - cfg.timeout)
+        if params is not None:
+            timeout = _per_slot(timeout, E)
+        stale = stamp < (t - timeout)
         fire_e = (trigger | stale) & _bcast(state.alive, topo)
         if cfg.robust == "trim":
             # an armed node's extreme edges do not fire: no flow delta,
@@ -445,7 +499,7 @@ def fire_core(state: FlowUpdatingState, topo, cfg: RoundConfig, trigger):
         fire_f = fire_e.to(dt)
         a = 1.0 - 0.5 * fire_f                       # 0.5 firing, 1 not
         b = torch.where(_ex(fire_e, state.est), state.est * 0.5, 0.0)
-        A, B = segmented_affine_scan(a, b, topo.edge_rank == 0)
+        A, B = _lane_scan(a, b, topo.edge_rank == 0, topo)
         run_est = _ex(A, B) * _bcast(estimate, topo) + B
         avg_e = run_est                 # the 2-party average at firing e
         f_ex = _ex(fire_e, state.flow)
@@ -478,11 +532,21 @@ def fire_core(state: FlowUpdatingState, topo, cfg: RoundConfig, trigger):
                                last_avg)
         fired_ctr = fired_ctr + fire_any.to(torch.int32)
 
+    msg_est, send_mask = _inject(topo, cfg, t, msg_est, send_mask)
     # a dead link loses every message put on it; the sender's ledger is
     # still updated, exactly like per-message loss
     send_mask = send_mask & state.edge_ok
     key = state.key
-    if cfg.drop_rate > 0.0:
+    if params is not None and params.drop_rate is not None:
+        # traced: always drawn (the key advances even at 0.0), in float32
+        # words whatever the ledger dtype, as jax.random.bernoulli draws
+        # in the dtype of its float32 probability; a (B, 2) key draws
+        # each lane's E/B counters under its own key
+        key, sub = prng.split(key).unbind(-2)
+        keep = prng.bernoulli(sub, 1.0 - params.drop_rate,
+                              E // topo.lanes, torch.float32).reshape(E)
+        send_mask = send_mask & _align_drop(keep, topo)
+    elif params is None and cfg.drop_rate > 0.0:
         key, sub = prng.split(key)
         keep = prng.bernoulli(sub, 1.0 - cfg.drop_rate, E, _draw_dtype(dt))
         send_mask = send_mask & _align_drop(keep, topo)
@@ -491,6 +555,39 @@ def fire_core(state: FlowUpdatingState, topo, cfg: RoundConfig, trigger):
                           ticks=ticks, stamp=stamp, last_avg=last_avg,
                           fired=fired_ctr, key=key)
     return state, msg_est, send_mask
+
+
+def _refuse_coloring(cfg: RoundConfig, what: str) -> None:
+    if cfg.needs_coloring:
+        raise ValueError(
+            f"{what} targets the message wire; the fast synchronous "
+            "pairwise mode exchanges estimates directly on-chip (no wire "
+            "to attack) — use variant='collectall' or "
+            "fire_policy='reference'")
+
+
+def _inject(topo, cfg: RoundConfig, t, msg_est, send_mask):
+    """The adversary's faults on this round's messages: a lying node's
+    messages report ``adv_lie_value``, a silent node's sends are lost, and
+    the down edges lose theirs during ``[adv_down_from, adv_down_until)``.
+    The senders' ledgers are untouched.  An absent family adds nothing."""
+    if (topo.adv_lie_mask is not None or topo.adv_silent_mask is not None
+            or topo.adv_down_mask is not None):
+        _refuse_coloring(cfg, "Byzantine/fault injection")
+    if topo.adv_lie_mask is not None:
+        lie_e = _bcast(topo.adv_lie_mask, topo)
+        lie = topo.adv_lie_value
+        if lie.dim():                    # a bucket: one value per node
+            lie = _bcast(lie, topo)
+        msg_est = torch.where(_ex(lie_e, msg_est), _ex(lie, msg_est),
+                              msg_est)
+    if topo.adv_silent_mask is not None:
+        send_mask = send_mask & ~_bcast(topo.adv_silent_mask, topo)
+    if topo.adv_down_mask is not None:
+        send_mask = send_mask & ~(topo.adv_down_mask
+                                  & (t >= topo.adv_down_from)
+                                  & (t < topo.adv_down_until))
+    return msg_est, send_mask
 
 
 def _link_sum(per_link, per_slot, topo):
@@ -513,8 +610,8 @@ def _link_count(counts, topo, base=None):
                           counts.to(torch.int32).repeat_interleave(K))
 
 
-def edge_delays(topo, cfg: RoundConfig, send_mask,
-                inflight=None) -> torch.Tensor:
+def edge_delays(topo, cfg: RoundConfig, send_mask, inflight=None,
+                params=None) -> torch.Tensor:
     """Per-edge delivery delay of this round's sends.
 
     Static (``topo.delay``) unless ``cfg.contention``: then each SHARED
@@ -534,9 +631,17 @@ def edge_delays(topo, cfg: RoundConfig, send_mask,
     their local share).  ``inflight`` ((E,) — messages still in the ring
     buffer) counts as standing load under ``cfg.contention_backlog``.
     All in float32 as in the JAX package; the float per-link sums run in
-    the fixed order of :func:`_link_sum`."""
+    the fixed order of :func:`_link_sum`.  Under ``params`` the static
+    delays are stretched by ``latency_scale`` (``rint`` to whole rounds,
+    clamped to ``[1, delay_depth]``; 1.0 keeps them), and under
+    contention the route latencies by ``latency_scale`` and the links'
+    serialization by ``contention_scale``."""
     if not cfg.contention:
-        return topo.delay
+        if params is None:
+            return topo.delay
+        scale = _per_slot(params.latency_scale, topo.num_edges)
+        scaled = torch.round(topo.delay.to(torch.float32) * scale)
+        return torch.clamp(scaled.to(torch.int32), 1, cfg.delay_depth)
     if topo.edge_links is None:
         raise ValueError(
             "cfg.contention needs a topology with a link model (platform-"
@@ -549,6 +654,9 @@ def edge_delays(topo, cfg: RoundConfig, send_mask,
     flows = _link_count(send_mask, topo, standing)
     lat_rounds = topo.lat_rounds
     link_ser = topo.link_ser_rounds
+    if params is not None:
+        lat_rounds = lat_rounds * params.latency_scale
+        link_ser = link_ser * params.contention_scale
     D = cfg.delay_depth
     if cfg.contention_iters == 0:
         load = torch.where(topo.link_shared, torch.clamp(flows, min=1), 1)
@@ -594,24 +702,39 @@ def edge_delays(topo, cfg: RoundConfig, send_mask,
 
 
 def send_messages(state: FlowUpdatingState, topo, cfg: RoundConfig,
-                  msg_est, send_mask) -> FlowUpdatingState:
+                  msg_est, send_mask, params=None) -> FlowUpdatingState:
     """Delivery into the receiver edge's ring-buffer slot at ``(t + delay)
     % D``.  'gather': receiving edge r pulls from ``rev[r]`` (``rev`` is an
     involution, so this is the sender's push); 'benes*': the same pull
     through the planned network, flow, estimate and send mask as one
     batch of lanes; 'scatter': the literal push (targets are distinct, a
-    non-sender writes a discarded pad column)."""
+    non-sender writes a discarded pad column).  ``adv_corrupt_mask``
+    scales the wire copy of the flow on its edges by ``adv_corrupt_gain``
+    (the sender's ledger keeps its value)."""
     E = topo.num_edges
     t = state.t
     D = cfg.delay_depth
     dev = state.flow.device
+    if params is not None and cfg.delivery not in ("gather", "scatter"):
+        # the network delivery bakes delay[rev] in as a static lane; a
+        # traced latency_scale would silently not apply to it
+        raise ValueError(
+            "traced RoundParams support delivery='gather'|'scatter'; "
+            f"delivery={cfg.delivery!r} bakes static delays into the "
+            "permutation network")
     # deliver_phase cleared this round's arrival slots, so the ring's
     # valid slots are the messages still in flight; column r holds those
     # sent along rev[r], whose route is rev[r]'s: gather through rev
     inflight = (state.buf_valid.sum(0, dtype=torch.int32)[topo.rev]
                 if cfg.contention_backlog else None)
-    delay = edge_delays(topo, cfg, send_mask, inflight=inflight)
+    delay = edge_delays(topo, cfg, send_mask, inflight=inflight,
+                        params=params)
     wire_flow = state.flow
+    if topo.adv_corrupt_mask is not None:
+        _refuse_coloring(cfg, "Byzantine flow corruption")
+        gain = topo.adv_corrupt_gain
+        wire_flow = torch.where(_ex(topo.adv_corrupt_mask, wire_flow),
+                                wire_flow * _ex(gain, wire_flow), wire_flow)
     if cfg.delivery in ("gather", "benes", "benes_fused"):
         if cfg.delivery != "gather":
             if topo.rev_plan is None:
@@ -674,20 +797,23 @@ def send_messages(state: FlowUpdatingState, topo, cfg: RoundConfig,
 
 
 def fire_phase(state: FlowUpdatingState, topo, cfg: RoundConfig,
-               trigger) -> FlowUpdatingState:
+               trigger, params=None) -> FlowUpdatingState:
     """Tick, averaging, ledger update and message send."""
-    state, msg_est, send_mask = fire_core(state, topo, cfg, trigger)
-    return send_messages(state, topo, cfg, msg_est, send_mask)
+    state, msg_est, send_mask = fire_core(state, topo, cfg, trigger,
+                                          params=params)
+    return send_messages(state, topo, cfg, msg_est, send_mask,
+                         params=params)
 
 
 def round_step_aux(state: FlowUpdatingState, topo, cfg: RoundConfig,
                    params=None):
     """One full round, also returning the per-edge ``processed`` (drained
     this round) and ``send_mask`` (fired) masks."""
-    check_ported(cfg, params)
     state, processed = deliver_phase(state, topo, cfg)
-    state, msg_est, send_mask = fire_core(state, topo, cfg, processed)
-    state = send_messages(state, topo, cfg, msg_est, send_mask)
+    state, msg_est, send_mask = fire_core(state, topo, cfg, processed,
+                                          params=params)
+    state = send_messages(state, topo, cfg, msg_est, send_mask,
+                          params=params)
     return state, processed, send_mask
 
 
@@ -699,10 +825,10 @@ def round_step(state: FlowUpdatingState, topo, cfg: RoundConfig,
 
 def run_rounds(state: FlowUpdatingState, topo, cfg: RoundConfig,
                num_rounds: int, params=None) -> FlowUpdatingState:
-    """Run ``num_rounds`` rounds as a Python loop on the state's device."""
-    check_ported(cfg, params)
+    """Run ``num_rounds`` rounds as a Python loop on the state's device
+    (``params``: the traced knobs, :class:`RoundParams`)."""
     for _ in range(int(num_rounds)):
-        state = round_step(state, topo, cfg)
+        state = round_step(state, topo, cfg, params)
     return state
 
 
@@ -802,12 +928,12 @@ def run_rounds_telemetry(state: FlowUpdatingState, topo, cfg: RoundConfig,
         raise ValueError(
             "telemetry spec is disabled; run run_rounds() instead (the "
             "Engine.run_telemetry dispatcher handles this)")
-    check_ported(cfg, params)
     mean = torch.tensor(true_mean, dtype=state.value.dtype,
                         device=state.value.device)
     rec = SeriesRecorder(num_rounds)
     for i in range(int(num_rounds)):
-        state, processed, send_mask = round_step_aux(state, topo, cfg)
+        state, processed, send_mask = round_step_aux(state, topo, cfg,
+                                                     params)
         rec.put(i, telemetry_sample(state, topo, spec, mean, processed,
                                     send_mask))
     return state, rec.series()
@@ -933,14 +1059,13 @@ def run_rounds_fields(state: FlowUpdatingState, topo, cfg: RoundConfig,
         raise ValueError(
             f"num_rounds={num_rounds} must be a multiple of the field "
             f"stride {stride}")
-    check_ported(cfg, params)
     dev = state.value.device
     mean = torch.tensor(true_mean, dtype=state.value.dtype, device=dev)
     conv = torch.full(state.alive.shape, -1, dtype=torch.int32, device=dev)
     rec = SeriesRecorder(num_rounds // stride)
     for i in range(num_rounds // stride):
         for _ in range(stride):
-            state = round_step(state, topo, cfg)
+            state = round_step(state, topo, cfg, params)
         row, err = field_sample(state, topo, spec, mean)
         if spec.has("node_conv_round"):
             conv = frontier_update(conv, err, state.alive, state.t,

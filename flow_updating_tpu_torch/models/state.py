@@ -167,3 +167,61 @@ def state_from_numpy(fields, dtype=None, device=None) -> FlowUpdatingState:
                 t = t.to(dtype)
         out[f.name] = t.to(device)
     return FlowUpdatingState(**out)
+
+
+# ---- the sweep engine's lanes ---------------------------------------------
+
+#: fields laid out along the queue/ring axis first, lanes on axis 1
+_LANE_AXIS1 = ("pending_flow", "pending_est", "pending_valid",
+               "pending_stamp", "buf_flow", "buf_est", "buf_valid")
+
+
+def stack_lanes(states) -> FlowUpdatingState:
+    """B states of one shape laid end to end as one bucket state: node and
+    edge fields concatenated lane after lane (the FIFO and ring fields
+    along their edge axis), one round counter (the lanes must share it)
+    and a ``(B, 2)`` key."""
+    states = list(states)
+    t = states[0].t
+    for s in states[1:]:
+        if not torch.equal(s.t, t):
+            raise ValueError("the lanes of a bucket share one round "
+                             "counter; these states are at different "
+                             "rounds")
+    out = {"t": t, "key": torch.stack([s.key for s in states])}
+    for f in dataclasses.fields(FlowUpdatingState):
+        if f.name in out:
+            continue
+        out[f.name] = torch.cat([getattr(s, f.name) for s in states],
+                                dim=1 if f.name in _LANE_AXIS1 else 0)
+    return FlowUpdatingState(**out)
+
+
+def lane_state(state: FlowUpdatingState, lane: int,
+               lanes: int) -> FlowUpdatingState:
+    """Lane ``lane`` of a bucket state of ``lanes`` lanes, as a state of
+    its own (views of the bucket's tensors)."""
+    out = {"t": state.t, "key": state.key[lane]}
+    for f in dataclasses.fields(FlowUpdatingState):
+        if f.name in out:
+            continue
+        x = getattr(state, f.name)
+        axis = 1 if f.name in _LANE_AXIS1 else 0
+        n = x.shape[axis] // lanes
+        out[f.name] = x.narrow(axis, lane * n, n)
+    return FlowUpdatingState(**out)
+
+
+def bucket_from_numpy(fields, dtype=None, device=None) -> FlowUpdatingState:
+    """A bucket state from a JAX sweep bucket's stacked leaves (every leaf
+    ``(B, ...)``, read field by field as numpy), as :func:`state_from_numpy`
+    reads one state: lane ``b`` becomes lane ``b`` of the port's bucket."""
+    get = (fields.__getitem__ if isinstance(fields, dict)
+           else lambda n: getattr(fields, n))
+    leaves = {f.name: np.asarray(get(f.name))
+              for f in dataclasses.fields(FlowUpdatingState)}
+    lanes = leaves["key"].shape[0]
+    return stack_lanes(
+        state_from_numpy({k: v[b] for k, v in leaves.items()},
+                         dtype=dtype, device=device)
+        for b in range(lanes))

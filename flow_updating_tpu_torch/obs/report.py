@@ -4,7 +4,10 @@ Counterpart of a subset of ``flow_updating_tpu/obs/report.py``: the
 schema names, :func:`build_manifest` (``run --report``,
 ``flow-updating-run-report/v1``), :func:`build_plan_manifest` (``plan
 --report``, ``flow-updating-plan-report/v1``), :func:`build_field_manifest`
-(``inspect --report``, ``flow-updating-field-report/v1``) and
+(``inspect --report``, ``flow-updating-field-report/v1``),
+:func:`build_sweep_manifest` (``sweep --report``,
+``flow-updating-sweep-report/v1``), :func:`build_scenario_manifest`
+(``scenarios --report``, ``flow-updating-scenario-report/v1``) and
 :func:`write_report`.
 A manifest binds the invocation (argv and the resolved config), the
 topology (size and the checkpoint-grade content fingerprint), the
@@ -12,9 +15,8 @@ execution substrate (torch, CUDA, the device), the timings, the final
 report and — when telemetry ran — the full per-round series (or, in a
 field manifest, the per-node and per-edge fields and the global series
 reduced from them), in the JAX package's keys, so its ``doctor`` and
-``inspect`` judge the port's manifests.  The sweep, profile, service,
-query, recovery, scenario, audit and budget builders move with their
-ROADMAP items.
+``inspect`` judge the port's manifests.  The profile, service, query,
+recovery, audit and budget builders move with their ROADMAP items.
 """
 
 from __future__ import annotations
@@ -186,6 +188,51 @@ def build_field_manifest(*, argv=None, config=None, topo=None,
                 "derived_from": "fields",
                 "series": reduced,
             }
+    if extra:
+        manifest.update(extra)
+    return manifest
+
+
+def build_sweep_manifest(*, argv=None, config=None, instances=None,
+                         summary=None, timings=None, extra=None,
+                         device=None) -> dict:
+    """Assemble the sweep manifest: the run manifest's argv/config/
+    environment binding around one record per packed instance (each with
+    its topology fingerprint, params and convergence) and the sweep-level
+    ``summary`` (buckets, structures, timings)."""
+    manifest = {
+        "schema": SWEEP_SCHEMA,
+        "created_unix": round(time.time(), 3),
+        "argv": list(argv) if argv is not None else None,
+        "config": _configs(config),
+        "environment": environment_info(device),
+        "summary": dict(summary) if summary else None,
+        "timings": dict(timings) if timings else None,
+        "instances": list(instances) if instances is not None else [],
+    }
+    if extra:
+        manifest.update(extra)
+    return manifest
+
+
+def build_scenario_manifest(*, argv=None, scenarios=None, summary=None,
+                            timings=None, extra=None, device=None) -> dict:
+    """Assemble the scenario-conformance manifest: the argv/environment
+    binding around one record per executed scenario (its declaration, the
+    planted ground truth, per-seed sweep records with series, the
+    representative run's fields and blame — ``scenarios.run_scenarios``'
+    output).  The doctor judges each record against its declared
+    signature; the series live inside the records, so the healthy-run
+    series rules never judge a planted fault."""
+    manifest = {
+        "schema": SCENARIO_SCHEMA,
+        "created_unix": round(time.time(), 3),
+        "argv": list(argv) if argv is not None else None,
+        "environment": environment_info(device),
+        "summary": dict(summary) if summary else None,
+        "timings": dict(timings) if timings else None,
+        "scenarios": list(scenarios) if scenarios is not None else [],
+    }
     if extra:
         manifest.update(extra)
     return manifest

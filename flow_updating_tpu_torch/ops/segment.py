@@ -15,7 +15,8 @@ the drain's oldest-message pick — is a reduction over rows.
   ``segment_reduce`` takes floating payloads only: integer keys ride it
   as float64, which holds every int32 exactly.
 * ``rows_segment_*`` — the sweep engine's uniform-width row layout: the
-  ``W`` columns folded in edge order.
+  ``W`` columns folded in edge order (one gather of every slot, then W
+  combines).
 * ``ell_segment_*`` — the degree-bucketed out-edge ELL layout: a gather
   per bucket, a row reduction, and one ``(N,)`` unpermute.
 
@@ -68,11 +69,16 @@ def segment_all(pred: torch.Tensor, out_deg: torch.Tensor) -> torch.Tensor:
 # ---- the sweep engine's uniform-width row layout ---------------------------
 
 def _rows_fold(values, rows, init, combine):
+    """``init`` combined with each row's W slots in column order.  One
+    gather takes every slot at once, column by column (``rows.t()``: the
+    sweep packer stores the rows column-major, so each column is one
+    contiguous index run), then the W columns fold in order."""
     feat = values.shape[1:]
     xp = torch.cat([values, values.new_full((1,) + feat, init)])
+    cols = xp[rows.t()]                       # (W, N, ...)
     acc = values.new_full((rows.shape[0],) + feat, init)
     for w in range(rows.shape[1]):
-        acc = combine(acc, xp[rows[:, w]])
+        acc = combine(acc, cols[w])
     return acc
 
 

@@ -31,44 +31,55 @@ def _combine(left, right, up):
     return a_out, b_out, f1 | f2
 
 
-def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
-    """``[e0, o0, e1, o1, ...]`` along axis 0.  JAX interleaves by padding
+def _at(x: torch.Tensor, axis: int, s: slice) -> torch.Tensor:
+    return x[(slice(None),) * axis + (s,)]
+
+
+def _interleave(even: torch.Tensor, odd: torch.Tensor,
+                axis: int) -> torch.Tensor:
+    """``[e0, o0, e1, o1, ...]`` along ``axis``.  JAX interleaves by padding
     both with zeros and adding (OR for booleans), which turns a -0.0 into
     +0.0; the ``+ 0`` repeats that."""
-    n = even.shape[0] + odd.shape[0]
-    out = even.new_empty((n,) + even.shape[1:])
-    out[0::2] = even
-    out[1::2] = odd
+    shape = list(even.shape)
+    shape[axis] += odd.shape[axis]
+    out = even.new_empty(shape)
+    out[(slice(None),) * axis + (slice(0, None, 2),)] = even
+    out[(slice(None),) * axis + (slice(1, None, 2),)] = odd
     return out if out.dtype == torch.bool else out + 0
 
 
-def _scan(elems, up):
-    n = elems[0].shape[0]
+def _scan(elems, up, axis):
+    n = elems[0].shape[axis]
     if n < 2:
         return elems
-    reduced = _combine([e[0:n - 1:2] for e in elems],
-                       [e[1::2] for e in elems], up)
-    odd = _scan(reduced, up)
+    reduced = _combine([_at(e, axis, slice(0, n - 1, 2)) for e in elems],
+                       [_at(e, axis, slice(1, None, 2)) for e in elems], up)
+    odd = _scan(reduced, up, axis)
     if n % 2 == 0:
-        even = _combine([e[:-1] for e in odd],
-                        [e[2::2] for e in elems], up)
+        even = _combine([_at(e, axis, slice(None, -1)) for e in odd],
+                        [_at(e, axis, slice(2, None, 2)) for e in elems], up)
     else:
-        even = _combine(odd, [e[2::2] for e in elems], up)
-    even = [torch.cat([e[:1], r]) for e, r in zip(elems, even)]
-    return [_interleave(e, o) for e, o in zip(even, odd)]
+        even = _combine(odd, [_at(e, axis, slice(2, None, 2))
+                              for e in elems], up)
+    even = [torch.cat([_at(e, axis, slice(None, 1)), r], dim=axis)
+            for e, r in zip(elems, even)]
+    return [_interleave(e, o, axis) for e, o in zip(even, odd)]
 
 
 def segmented_affine_scan(a: torch.Tensor, b: torch.Tensor,
-                          seg_start: torch.Tensor):
+                          seg_start: torch.Tensor, axis: int = 0):
     """Inclusive scan of affine-map composition within segments.
 
     Element i carries ``x -> a[i] * x + b[i]``; ``seg_start[i]`` is True
     where a segment begins.  Returns ``(A, B)``: the composition of maps
     ``seg_first..i`` is ``x -> A[i] * x + B[i]``.  ``b`` may carry a
-    trailing feature axis; ``a`` and ``seg_start`` are 1-D."""
+    trailing feature axis beyond ``a`` and ``seg_start``.  The scan runs
+    along ``axis``; a leading axis before it (a sweep bucket's lanes,
+    ``axis=1``) holds independent scans, each paired from its own first
+    element as if it ran alone."""
     seg_start = seg_start.to(torch.bool)
     ext = b.dim() - a.dim()
     up = ((lambda m: m.reshape(m.shape + (1,) * ext)) if ext
           else (lambda m: m))
-    A, B, _ = _scan([a, b, seg_start], up)
+    A, B, _ = _scan([a, b, seg_start], up, axis)
     return A, B

@@ -436,6 +436,31 @@ class EdgeArrays:
     lat_rounds: torch.Tensor | None = None       # (E,) float32
     link_gather: torch.Tensor | None = None      # Topology.link_csr()
     link_lengths: torch.Tensor | None = None
+    # a sweep bucket (sweep/pack.py): B padded instances end to end, lane
+    # b's nodes and edges at [b*N_pad, (b+1)*N_pad) and [b*E_pad, ...)
+    lanes: int = 1
+    sweep_edge_rows: torch.Tensor | None = None  # (N, W) out-edge ids in
+    #                                  edge order, pad slot = E: every
+    #                                  per-node reduction folds its W
+    #                                  columns (ops/segment.rows_segment_*)
+    num_colors_arr: torch.Tensor | None = None   # the color count as a
+    #                                  tensor (0-d, or one per edge in a
+    #                                  bucket of lanes with other counts)
+    # the adversary's faults on the wire (scenarios/adversary.py); None =
+    # the family is absent and the round runs none of its operations.
+    # The values are 0-d, or one per node (lie) or edge (gain, window) in
+    # a bucket
+    adv_lie_mask: torch.Tensor | None = None     # (N,) bool: lying nodes
+    adv_lie_value: torch.Tensor | None = None    # the estimate they report
+    adv_corrupt_mask: torch.Tensor | None = None  # (E,) bool
+    adv_corrupt_gain: torch.Tensor | None = None  # wire-flow multiplier
+    adv_silent_mask: torch.Tensor | None = None  # (N,) bool: sends lost
+    adv_down_mask: torch.Tensor | None = None    # (E,) bool: sends lost
+    adv_down_from: torch.Tensor | None = None    # int32: first dead round
+    adv_down_until: torch.Tensor | None = None   # int32: first healed one
+
+    def replace(self, **kw) -> EdgeArrays:
+        return dataclasses.replace(self, **kw)
 
     @property
     def num_nodes(self) -> int:

@@ -11,6 +11,8 @@ mode (the default of the JAX releases this repo runs):
 
 * ``prng_key(seed)`` — the key ``(seed >> 32, seed & 0xFFFFFFFF)``;
 * ``split(key, n)`` — key ``i`` is ``threefry(key, (0, i))``;
+  a ``(B, 2)`` stack of keys (a sweep bucket's lanes) splits and draws
+  lane by lane, as under ``jax.vmap``;
 * ``fold_in(key, data)`` — ``threefry(key, (0, data mod 2^32))`` (the
   halo kernel gives shard ``s`` the key ``fold_in(PRNGKey(seed), s)``);
 * ``bernoulli(key, p, n, dtype)`` — counter ``i`` hashes to ``(b1, b2)``;
@@ -71,11 +73,19 @@ def _counters(n: int, device):
     return i >> 32, i & _M32
 
 
+def _hash(key: torch.Tensor, n: int):
+    """The words of counters ``0..n-1`` under each key of ``key`` (``(2,)``
+    or ``(..., 2)``): two ``(..., n)`` tensors."""
+    hi, lo = _counters(n, key.device)
+    return threefry2x32(key[..., 0, None], key[..., 1, None], hi, lo)
+
+
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """``jax.random.split(key, num)``: ``(num, 2)`` int64."""
-    hi, lo = _counters(num, key.device)
-    a, b = threefry2x32(key[0], key[1], hi, lo)
-    return torch.stack([a, b], dim=1)
+    """``jax.random.split(key, num)``: ``(num, 2)`` int64 for a ``(2,)``
+    key; a ``(B, 2)`` stack of keys splits lane by lane into ``(B, num,
+    2)``, as ``jax.vmap(jax.random.split)`` does."""
+    a, b = _hash(key, num)
+    return torch.stack([a, b], dim=-1)
 
 
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
@@ -90,9 +100,9 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
 
 def uniform(key: torch.Tensor, n: int,
             dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """``jax.random.uniform(key, (n,), dtype)`` in [0, 1)."""
-    hi, lo = _counters(n, key.device)
-    b1, b2 = threefry2x32(key[0], key[1], hi, lo)
+    """``jax.random.uniform(key, (n,), dtype)`` in [0, 1); ``(B, n)`` for a
+    ``(B, 2)`` stack of keys, lane by lane."""
+    b1, b2 = _hash(key, n)
     if dtype == torch.float32:
         bits = ((b1 ^ b2) >> 9) | 0x3F800000
         return bits.to(torch.int32).view(torch.float32) - 1.0
@@ -103,9 +113,11 @@ def uniform(key: torch.Tensor, n: int,
     raise ValueError(f"uniform draws float32 or float64, not {dtype}")
 
 
-def bernoulli(key: torch.Tensor, p: float, n: int,
+def bernoulli(key: torch.Tensor, p, n: int,
               dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``jax.random.bernoulli(key, p, (n,))`` (mode 'low') with ``p`` of
-    ``dtype``: ``(n,)`` bool."""
-    return uniform(key, n, dtype) < torch.tensor(p, dtype=dtype,
-                                                 device=key.device)
+    ``dtype``: ``(n,)`` bool.  For a ``(B, 2)`` stack of keys ``p`` is a
+    float or a ``(B,)`` tensor, one probability a lane, and the mask is
+    ``(B, n)``."""
+    p = torch.as_tensor(p, dtype=dtype, device=key.device)
+    return uniform(key, n, dtype) < p[..., None]

@@ -1303,3 +1303,98 @@ def test_doctor_live_run_on_card(card, argv, capsys):
     env = by["environment"]["evidence"]
     assert env["backend"] == "cuda"
     assert env["device_kind"] == torch.cuda.get_device_name(0)
+
+
+# ---- the sweep engine and the adversary (A10) ------------------------------
+
+def _leaves_equal(a, b, N, E) -> list:
+    """The leaves of two edge states that differ on the first N nodes and
+    E edges (the FIFO and ring fields on their edge axis)."""
+    import dataclasses
+
+    bad = []
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if f.name in ("value", "ticks", "last_avg", "fired", "alive"):
+            x, y = x[:N], y[:N]
+        elif f.name in ("flow", "est", "recv", "stamp", "edge_ok"):
+            x, y = x[:E], y[:E]
+        elif f.name not in ("t", "key"):
+            x, y = x[:, :E], y[:, :E]
+        if not torch.equal(x, y):
+            bad.append(f.name)
+    return bad
+
+
+@pytest.mark.parametrize("variant", ["collectall", "pairwise"])
+def test_sweep_bucket_lanes_equal_alone_on_card(card, variant):
+    """A 16-lane bucket on the card: every lane equals the same instance
+    packed alone (B = 1), every leaf bit for bit."""
+    from flow_updating_tpu_torch.models.state import lane_state
+    from flow_updating_tpu_torch.sweep import (
+        grid_instances,
+        pack_instances,
+        run_bucket,
+    )
+
+    cfg = RoundConfig.reference(variant)
+    topo = fat_tree(8, seed=1)
+    insts = grid_instances([("fat_tree:8", topo)], seeds=(0, 1),
+                           drop_rates=(0.05, 0.1), timeouts=(2, 4, 8, 16))
+    bucket = pack_instances(insts, cfg)[0]
+    assert bucket.size == 16
+    out = run_bucket(bucket, cfg, 40)
+    for lane, inst in enumerate(insts):
+        alone = pack_instances([inst], cfg)[0]
+        ref = lane_state(run_bucket(alone, cfg, 40), 0, 1)
+        got = lane_state(out, lane, 16)
+        assert not _leaves_equal(got, ref, topo.num_nodes, topo.num_edges)
+
+
+def test_traced_draw_equals_cpu_words(card):
+    """The traced loss draw (a (B, 2) stack of keys, float32 words) gives
+    the same masks on the card as on the CPU."""
+    from flow_updating_tpu_torch.utils import prng
+
+    keys = torch.stack([prng.prng_key(s, device="cpu") for s in range(8)])
+    p = torch.linspace(0.0, 1.0, 8, dtype=torch.float32)
+    want = prng.bernoulli(prng.split(keys).unbind(-2)[1], 1.0 - p, 4099)
+    got = prng.bernoulli(prng.split(keys.to(card)).unbind(-2)[1],
+                         (1.0 - p).to(card), 4099)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_engine_adversary_benes_fused_equals_segment_twin(card):
+    """``Engine(adversary=)`` on the ``benes_fused`` networks (B3 and B4
+    broadcast the masks) equals its ``segment``/``gather`` twin after the
+    timeout bootstrap, and differs from the honest run."""
+    from flow_updating_tpu_torch.models.rounds import node_estimates
+    from flow_updating_tpu_torch.ops import fused_passes
+    from flow_updating_tpu_torch.scenarios import Adversary
+
+    topo = fat_tree(8, seed=2)
+    adv = Adversary(lie_nodes=(3, 40), lie_value=5.0, silent_nodes=(7,),
+                    corrupt_edges=(1, 20), corrupt_gain=1.25)
+
+    def run(adversary, seg):
+        cfg = RoundConfig.reference("collectall", segment_impl=seg,
+                                    delivery="gather" if seg == "segment"
+                                    else seg)
+        eng = Engine(config=cfg, adversary=adversary).set_topology(topo)
+        eng.build(seed=0).run_rounds(70)
+        return node_estimates(eng.state, eng._topo_arrays), eng.state
+
+    wrappers = ("local_pass", "window_pass", "wide_pass", "wide2_pass",
+                "segscan_pass", "fill_pass")
+
+    def launches():
+        return sum(getattr(fused_passes, w).launches for w in wrappers)
+
+    before = launches()
+    fused, fs = run(adv, "benes_fused")
+    assert launches() > before
+    twin, ts = run(adv, "segment")
+    honest, _ = run(None, "segment")
+    assert torch.equal(fused, twin)
+    assert torch.equal(fs.flow, ts.flow)
+    assert not torch.equal(fused, honest)

@@ -243,7 +243,8 @@ def test_unported_items_raise_naming_them(graphs):
     A3 configs that used to raise here now run: robust clip and trim
     match JAX's round at 1e-9, and contention on a generator graph (no
     link model) raises JAX's ValueError; ``run_rounds_observed`` (ported)
-    samples the loop's own states."""
+    samples the loop's own states; traced params and ``adversary=`` (A10)
+    run."""
     jt, pt = graphs
     arrays = pt.device_arrays(device="cpu")
     cfg = RoundConfig.reference("collectall")
@@ -272,10 +273,18 @@ def test_unported_items_raise_naming_them(graphs):
     assert torch.equal(observed.flow, looped.flow)
     assert m["t"].tolist() == [10, 20]
     assert m["fired_total"][-1] == looped.fired.sum()
-    with pytest.raises(NotImplementedError, match="A10"):
-        rounds.run_rounds(state, arrays, cfg, 1, params=object())
-    with pytest.raises(NotImplementedError, match="A10"):
-        Engine(config=cfg, adversary=object(), device="cpu")
+    # traced RoundParams and adversary= run since A10: the traced path at
+    # the config's own values keeps the ledgers (tests/test_torch_sweep.py
+    # and test_torch_scenarios.py hold them against JAX)
+    from flow_updating_tpu_torch.models.config import RoundParams
+    from flow_updating_tpu_torch.scenarios import Adversary
+
+    traced = rounds.run_rounds(state, arrays, cfg, 20,
+                               params=RoundParams.from_config(
+                                   cfg, device="cpu"))
+    assert torch.equal(traced.flow, looped.flow)
+    honest = Engine(config=cfg, adversary=Adversary(), device="cpu")
+    assert honest.adversary is None
     for runner, item in ((rounds.run_rounds_chunked, "A13"),
                          (rounds.init_chunked_state, "A13")):
         with pytest.raises(NotImplementedError, match=item):
