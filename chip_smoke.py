@@ -84,7 +84,7 @@ and prints one JSON line per phase:
    host link per node, K = 2): device ms per call at ``contention_iters``
    0 and 4 and with backlog, two runs ``torch.equal``;
    ``des`` — the host DES on the fat tree (ticks per second at timeout
-   1 and 50, three repeats, the host CPU named), and the faithful edge
+   1 and 50, two repeats, the host CPU named), and the faithful edge
    round on the card reaching the DES fixed point on ``ring(24, 2)``;
 12. ``k5``    — kernel B5 (the per-shard banded round, the next round's
    fire folded into its merges) vs its plain version at 4 shards on
@@ -95,7 +95,7 @@ and prints one JSON line per phase:
    schedule (the interior launch, then one launch over both boundary
    ranges); device ms of a shard-round (interior plus boundary launch),
    of each launch, and of the fire-only launch apart, on the ring; then a
-   stress run, ``ring(20000, 2)`` over 4 shards for 500 rounds, whose
+   stress run, ``ring(20000, 2)`` over 4 shards for 250 rounds, whose
    ``'pallas'`` and ``'ppermute'`` exchanges equal each other and the
    single-device ``banded_fused`` round bit for bit;
 13. ``path_e`` — the sharded round: ``Engine`` with ``spmv='banded_fused'``
@@ -117,7 +117,7 @@ and prints one JSON line per phase:
    ``copy_``), and the call's bytes counted in 32-byte sectors (a floor
    below which no loads of whole sectors go; the bound stays the byte
    count); then a stress run of four shards on the card
-   (``erdos_renyi(4000, 6)``, faithful collect-all with message loss, 200
+   (``erdos_renyi(4000, 6)``, faithful collect-all with message loss, 50
    rounds) whose ``'overlap_pallas'`` state equals ``'ppermute'``'s;
 15. ``path_f`` — the halo edge round: ``Engine(config=RoundConfig.
    reference('collectall'), mesh=make_mesh(4), multichip='halo',
@@ -232,7 +232,7 @@ and prints one JSON line per phase:
    ``path_o`` — the sweep engine and the scenarios: O1
    ``cli.main(["sweep", ...])`` on the card over ``fat_tree:32`` x 8 seeds
    x 4 drop rates x 4 timeouts (128 lanes in one bucket of 1,310,720 node
-   and 7,340,032 edge slots, 200 faithful rounds with per-lane
+   and 7,340,032 edge slots, 100 faithful rounds with per-lane
    telemetry), its manifest judged by ``doctor`` (no ``fail``), then the
    same bucket timed (ms a bucket round by CUDA events; device ms, busy
    share and launches a round by the profiler; peak memory; lane-rounds a
@@ -249,6 +249,26 @@ and prints one JSON line per phase:
    launches against the plans over 20 rounds after the bootstrap,
    ``torch.equal`` to its ``segment``/``gather`` twin, away from the
    honest round;
+   ``path_p`` — the streaming service: P1 ``cli.main(["serve", ...])`` on
+   ``ring(1_000_000, 2)`` at capacity 1,048,576 (degree budget 6,
+   segments of 32 rounds, float32 fast collect-all) through 16 epochs of
+   a seeded churn script (64 joins wired by two edges each, 64 updates,
+   64 leaves, 8 suspends resumed at the next boundary and 8 edge removals
+   a boundary, an ``estimates 16`` read an epoch, a checkpoint after
+   epoch 8), ``compile_count`` 1 and ``doctor``'s verdict on its manifest
+   (the four service checks ``pass``); P2 a service with no events, 64
+   rounds ``torch.equal`` on every leaf to ``run_rounds(params=)`` on the
+   same arrays and within ``EDGE_TWIN_ATOL`` of the padded arrays without
+   rows (the card's CSR ``segment_reduce``), then ms a segment by CUDA
+   events under churn against the same arrays with no events, device ms,
+   busy share and launches a round, one boundary sample's ms, events a
+   second on the host and a checkpoint's save and restore; P3 P1's
+   epoch-8 archive restored and the script's last 8 epochs applied:
+   ``state_digest`` equal to P1's end; P4 a child ``serve --wal`` on
+   ``ring(100_000, 2)`` with churn and 1% loss killed with SIGKILL after
+   20 journal records, ``serve --wal --recover`` finishing the script:
+   the digest equal to an uninterrupted control's, ``doctor``'s
+   ``check_recovery`` ``pass`` and ``blame_recovery`` naming the kill;
 18. the ``{"kernels": [...]}`` line (launches from the main paths; times,
     errors and bounds measured in this run), then the nvidia-smi line,
     then ``{"ok": true, "device": {...}}`` as the last line.
@@ -300,7 +320,7 @@ REPS = 10               # calls per kernel timing (the profiler spends
 #                         rows: traces are most of the script's time)
 TRACES = 2              # profiler traces per device-time measurement
 PROFILE_ROUNDS = 5      # rounds per path under the profiler
-PROFILE_TRACES = 2      # profile: traces per path (the most device time
+PROFILE_TRACES = 1      # profile: traces per path (the most device time
 #                         counts)
 EDGE_BOOT = 50          # path D: the faithful timeout (no fire before it)
 EDGE_ROUNDS = 150       # path D: timed rounds after the bootstrap
@@ -311,9 +331,9 @@ SHARDS = 4              # k5, path E: shards of the mesh (all on one card)
 GRID_SIDE = 1000        # k5: grid2d(1000, 1000), the remainder-heavy plan
 HALO_ROUNDS = 100       # path F: timed rounds after the twin comparison
 STRESS_NODES = 4000     # k6: the stress run's erdos_renyi(4000, 6)
-STRESS_ROUNDS = 100     # k6: the stress run's rounds
+STRESS_ROUNDS = 50      # k6: the stress run's rounds
 RING_STRESS_N = 20000   # k5: the stress run's ring(20000, 2)
-RING_STRESS_ROUNDS = 500  # k5: the stress run's rounds
+RING_STRESS_ROUNDS = 250  # k5: the stress run's rounds
 PULL_SETS = 4           # k6: block sets the pull's timing turns over
 ROBUST_TOL = 0.05       # path G1: the trim's arming spread
 ROBUST_CLIP = 0.01      # path G2: the ledger clamp
@@ -324,12 +344,12 @@ SMALL6_SCALE = 100.0    # path H1/H2: latency scale of small6
 #: path H1/H2 message sizes: at 1e5 bytes every delay rounds to 1 round,
 #: at 1e6 the delays reach 5 rounds and the contention binds
 SMALL6_MSG_BYTES = (1e5, 1e6)
-DES_TICKS = 1200        # path H1/H2: rounds (ticks) of each curve
+DES_TICKS = 1120        # path H1/H2: rounds (ticks) of each curve
 OBS = 10                # path H1/H2: the curves' sampling interval
 LINK_SER_ROUNDS = 0.01  # path H3: a message's serialization, in rounds
 DES_BASE_TICKS = 3      # des: ticks of each timed DES run (k=160)
-DES_REPEATS = 3         # des: timed runs per timeout
-DES_FIXED_TICKS = 2000  # des: ring(24, 2) rounds to the fixed point
+DES_REPEATS = 2         # des: timed runs per timeout
+DES_FIXED_TICKS = 1000  # des: ring(24, 2) rounds to the fixed point
 C1_ROUNDS = 10          # c1: rounds of path E per measurement
 RESUME_ROUNDS = 20      # path I: rounds after each restore
 FAULT_BOOT = 60         # I2: rounds before the faults (past the timeout)
@@ -362,12 +382,12 @@ PLAN_MARGIN = 0.10      # L2: the choice within this share of the fastest
 #                         candidate's rate (doctor's plan_selection margin)
 L_F64_ROUNDS = 40       # L2: float64 rounds held to spmv='xla'
 L_F64_TOL = 1e-9        # L2: ... within this
-TELEMETRY_ROUNDS = 20   # L5: rounds of paths F and J3 under telemetry
+TELEMETRY_ROUNDS = 10   # L5: rounds of paths F and J3 under telemetry
 L_SERIES_RTOL = 1e-5    # L5: halo vs single-device float32 series, as a
 #                         share of each series' largest value (the
 #                         shards' partial sums add in another order)
-M_ROUNDS = 40           # path M: rounds of each fields run on A, B, C
-M_EDGE_ROUNDS = 20      # path M: ... on D
+M_ROUNDS = 20           # path M: rounds of each fields run on A, B, C
+M_EDGE_ROUNDS = 10      # path M: ... on D
 M_HALO_ROUNDS = 10      # path M: ... on F (FieldSpec.full() there is
 #                         ~260 MB a row: four shards of Eb edge slots)
 M_STRIDE = 10           # path M: the sparse stride (the dense one is 1)
@@ -386,14 +406,32 @@ O_SEEDS = 8             # O1: seeds of the grid (x 4 drops x 4 timeouts
 #                         = 128 lanes in one bucket)
 O_DROPS = "0,0.01,0.05,0.1"
 O_TIMEOUTS = "2,4,8,16"
-O_ROUNDS = 200          # O1: the sweep's rounds (with per-lane telemetry)
+O_ROUNDS = 100          # O1: the sweep's rounds (with per-lane telemetry)
 O_TIMED_ROUNDS = 20     # O1: bucket rounds timed by CUDA events
 O_CHECK_ROUNDS = 40     # O2: rounds before the lanes are compared
 O_LANES = (0, 63, 127)  # O2: the lanes held to B = 1 and to one instance
 O_PAIRWISE_SEEDS = 2    # O2: the pairwise grid (32 lanes)
 O_PAIRWISE_LANES = (0, 15, 31)
-O_SCENARIO_SEEDS = 2    # O3: seeds of each scenario's grid
+O_SCENARIO_SEEDS = 1    # O3: seeds of each scenario's grid
 O4_ROUNDS = 20          # O4: rounds after the timeout bootstrap
+P_CAPACITY = 1_048_576  # path P: the service's node slots (RING_N members)
+P_BUDGET = 6            # P: the degree budget (a ring node has 4)
+P_SEGMENT = 32          # P: rounds a segment
+P_EPOCHS = 16           # P1: epochs of the churn script (one run each)
+P_CKPT_EPOCH = 8        # P1: the checkpoint P3 restores, after this epoch
+P_JOINS = 64            # P1: joins a boundary (two add-edges each)
+P_UPDATES = 64          # P1: updates a boundary
+P_LEAVES = 64           # P1: leaves of earlier joiners a boundary
+P_SUSPENDS = 8          # P1: suspends a boundary (resumed at the next)
+P_REMOVES = 8           # P1: remove-edges a boundary
+P2_ROUNDS = 64          # P2: rounds of the no-event twin
+P_TIMED_SEGMENTS = 8    # P2: segments timed with and without churn
+P4_N = 100_000          # P4: the killed child's ring:P4_N:2
+P4_CAPACITY = 131_072   # P4: its node slots
+P4_SEGMENT = 16         # P4: rounds a segment (a run is two)
+P4_EPOCHS = 3           # P4: epochs of its script
+P4_DROP = 0.01          # P4: message loss
+P4_KILL_RECORDS = 20    # P4: WAL records before the SIGKILL
 
 #: NVIDIA H100 SXM data sheet: peak HBM rate (bytes/s) and float32 rate
 #: outside the tensor cores (FLOP/s)
@@ -4882,6 +4920,446 @@ def phase_path_o4(tree) -> dict:
             "max_abs_diff_to_honest": away}
 
 
+# ---- path P: the streaming service on the card -------------------------
+
+def _p_script(n: int, epochs: int, rounds: int, seed: int, *, joins: int,
+              updates: int, leaves: int, suspends: int, removes: int,
+              reads: bool = True) -> list:
+    """A seeded ``serve`` event script, one list of lines an epoch: at
+    each boundary the previous epoch's suspended members resume,
+    ``leaves`` of the oldest joiners leave (from the second epoch),
+    ``joins`` members join, each wired by two ``add-edge``s to initial
+    members never picked before, ``updates`` initial members take new
+    values, ``suspends`` initial members are suspended and ``removes`` of
+    this epoch's joiners drop their first edge; then ``run`` and (with
+    ``reads``) an ``estimates 16`` read.  The slots a join takes are the
+    service's (lowest free id first), simulated here."""
+    import heapq
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ends = iter(rng.permutation(n)[: epochs * joins * 2].tolist())
+    free = list(range(n, n + epochs * joins))
+    joiners, suspended, out = [], [], []
+    for epoch in range(epochs):
+        lines = [f"resume {i}" for i in suspended]
+        if epoch:
+            for j in joiners[:leaves]:
+                lines.append(f"leave {j}")
+                heapq.heappush(free, j)
+            joiners = joiners[leaves:]
+        fresh = []
+        for _ in range(joins):
+            j = heapq.heappop(free)
+            a, b = next(ends), next(ends)
+            lines += [f"join {rng.uniform(-1, 1)!r}", f"add-edge {j} {a}",
+                      f"add-edge {j} {b}"]
+            fresh.append((j, a))
+        joiners += [j for j, _ in fresh]
+        for i in rng.choice(n, updates, replace=False).tolist():
+            lines.append(f"update {i} {rng.uniform(-1, 1)!r}")
+        suspended = rng.choice(n, suspends, replace=False).tolist()
+        lines += [f"suspend {i}" for i in suspended]
+        lines += [f"remove-edge {j} {a}" for j, a in fresh[:removes]]
+        lines.append(f"run {rounds}")
+        if reads:
+            lines.append("estimates 16")
+        out.append(lines)
+    return out
+
+
+def _p_events(script) -> int:
+    """Membership and edge events in a list of script lines."""
+    return sum(1 for line in script
+               if line.split()[0] not in ("run", "estimates", "checkpoint"))
+
+
+def _p_verdict(report: str) -> dict:
+    """``doctor`` through the CLI on a saved manifest: exit code and every
+    check's status."""
+    rc, out = _cli_json(["doctor", report])
+    return {"rc": rc, "overall": out["overall"],
+            "checks": {c["name"]: c["status"] for c in out["checks"]}}
+
+
+def phase_path_p1(tmp) -> tuple:
+    """P1: ``cli.main(["serve", ...])`` on the card over ``ring:RING_N:2``
+    at capacity ``P_CAPACITY``, degree budget 6, segments of 32 rounds,
+    float32 fast collect-all, through ``P_EPOCHS`` epochs of the seeded
+    churn script (a checkpoint after epoch ``P_CKPT_EPOCH``), with
+    ``--report``, ``--metrics`` and a checkpoint at exit; the summary's
+    ``compile_count`` 1 and ``doctor``'s whole verdict on the manifest
+    (its four service checks ``pass``)."""
+    import contextlib
+    import io
+
+    from flow_updating_tpu_torch import cli
+
+    epochs = _p_script(RING_N, P_EPOCHS, P_SEGMENT, SEED, joins=P_JOINS,
+                       updates=P_UPDATES, leaves=P_LEAVES,
+                       suspends=P_SUSPENDS, removes=P_REMOVES)
+    mid = os.path.join(tmp, "p1_mid.npz")
+    end = os.path.join(tmp, "p1_end.npz")
+    epochs[P_CKPT_EPOCH - 1].append(f"checkpoint {mid}")
+    events = os.path.join(tmp, "p1_events.txt")
+    with open(events, "w") as f:
+        f.write("\n".join(line for ep in epochs for line in ep) + "\n")
+    report = os.path.join(tmp, "p1.json")
+    metrics = os.path.join(tmp, "p1.prom")
+    argv = ["serve", "--generator", f"ring:{RING_N}:2",
+            "--capacity", str(P_CAPACITY), "--degree-budget",
+            str(P_BUDGET), "--segment-rounds", str(P_SEGMENT),
+            "--dtype", "float32", "--events", events, "--report", report,
+            "--metrics", metrics, "--checkpoint", end]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    serve_s = time.perf_counter() - t0
+    lines = [json.loads(x) for x in buf.getvalue().strip().splitlines()]
+    summary, reads = lines[-1], lines[:-1]
+    if rc != 0 or summary["compile_count"] != 1:
+        raise AssertionError(f"P1: serve exited {rc}: {summary}")
+    if len(reads) != P_EPOCHS:
+        raise AssertionError(f"P1: {len(reads)} estimates reads")
+    t0 = time.perf_counter()
+    verdict = _p_verdict(report)
+    doctor_s = time.perf_counter() - t0
+    for name in ("service_compile", "service_capacity", "service_mass",
+                 "service_churn_recovery"):
+        if verdict["checks"].get(name) != "pass":
+            raise AssertionError(f"P1: doctor {name}: {verdict}")
+    with open(report) as f:
+        manifest = json.load(f)
+    block = manifest["service"]
+    with open(metrics) as f:
+        prom = f.read()
+    out = {"topology": f"ring:{RING_N}:2", "capacity": P_CAPACITY,
+           "edge_capacity": block["capacity"]["edges"],
+           "epochs": P_EPOCHS, "rounds": summary["t"],
+           "events": summary["events"], "event_counts": block[
+               "event_counts"], "compile_count": summary["compile_count"],
+           "live": summary["live"], "members": summary["members"],
+           "rmse": summary["rmse"],
+           "mass_residual": summary["mass_residual"],
+           "reads": len(reads), "serve_s": serve_s,
+           "setup_s": manifest["timings"]["setup_s"],
+           "checkpoint_save_s": manifest["timings"]["checkpoint_s"],
+           "doctor": verdict, "doctor_s": doctor_s,
+           "mirror_probe": block["mirror_probe"],
+           "metrics_lines": len(prom.splitlines()),
+           "archive_bytes": {"mid": os.path.getsize(mid),
+                             "end": os.path.getsize(end)}}
+    return out, (epochs, mid, end)
+
+
+def phase_path_p2(ring_topo) -> dict:
+    """P2: a service at P1's size with no events, 64 rounds, every leaf
+    ``torch.equal`` to ``run_rounds(params=)`` from the same state on the
+    same arrays (the same row matrix), and within ``EDGE_TWIN_ATOL`` of
+    the padded arrays without rows (the card's CSR ``segment_reduce``;
+    integer and bool leaves equal).  Then the measurements: ms a segment
+    by CUDA events under churn (one epoch of P1's script a segment,
+    boundary samples included) against the same arrays with no events
+    (``churn_overhead_pct``), device ms a round, busy share and launches
+    a round by the profiler, one boundary sample's ms (and of the copy of
+    ``flow`` to the host it holds) and events a second on the host."""
+    import dataclasses
+    import statistics
+
+    import torch
+
+    from flow_updating_tpu_torch import cli
+    from flow_updating_tpu_torch.models.rounds import run_rounds
+    from flow_updating_tpu_torch.models.state import FlowUpdatingState
+    from flow_updating_tpu_torch.service import ServiceEngine
+    from flow_updating_tpu_torch.topology.padding import pad_topology_to
+    from torch.profiler import ProfilerActivity, profile
+
+    def clone(st):
+        return FlowUpdatingState(**{f.name: getattr(st, f.name).clone()
+                                    for f in dataclasses.fields(st)})
+
+    t0 = time.perf_counter()
+    svc = ServiceEngine(ring_topo, P_CAPACITY, degree_budget=P_BUDGET,
+                        segment_rounds=P_SEGMENT, seed=SEED)
+    build_s = time.perf_counter() - t0
+    cfg, params = svc.config, svc.params
+    start = clone(svc.state)
+    ref = run_rounds(clone(start), svc.arrays, cfg, P2_ROUNDS,
+                     params=params)
+    svc.run(P2_ROUNDS)
+    unequal = [f.name for f in dataclasses.fields(ref)
+               if not torch.equal(getattr(ref, f.name),
+                                  getattr(svc.state, f.name))]
+    if unequal or svc.compile_count != 1:
+        raise AssertionError(f"P2: leaves {unequal} differ from the plain "
+                             f"rounds ({svc.compile_count} signatures)")
+    padded = pad_topology_to(ring_topo, P_CAPACITY + 1, svc.edge_capacity,
+                             spread="last")
+    csr = run_rounds(clone(start), padded.device_arrays(), cfg, P2_ROUNDS,
+                     params=params)
+    del padded
+    diff, int_equal = 0.0, True
+    for f in dataclasses.fields(csr):
+        a, b = getattr(csr, f.name), getattr(svc.state, f.name)
+        if a.is_floating_point():
+            diff = max(diff, float((a - b).abs().max()))
+        else:
+            int_equal &= bool(torch.equal(a, b))
+    if diff > EDGE_TWIN_ATOL or not int_equal:
+        raise AssertionError(f"P2: the CSR twin is {diff} away "
+                             f"(integer leaves equal: {int_equal})")
+    del csr, ref
+
+    # ms a segment: the same arrays with no events, then under churn
+    epochs = _p_script(RING_N, P_TIMED_SEGMENTS + 1, P_SEGMENT, SEED + 1,
+                       joins=P_JOINS, updates=P_UPDATES, leaves=P_LEAVES,
+                       suspends=P_SUSPENDS, removes=P_REMOVES,
+                       reads=False)
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    st = clone(svc.state)
+    st = run_rounds(st, svc.arrays, cfg, P_SEGMENT, params=params)
+    torch.cuda.synchronize()
+    ev0.record()
+    for _ in range(P_TIMED_SEGMENTS):
+        st = run_rounds(st, svc.arrays, cfg, P_SEGMENT, params=params)
+    ev1.record()
+    torch.cuda.synchronize()
+    static_ms = ev0.elapsed_time(ev1) / P_TIMED_SEGMENTS
+    del st
+    joined = []
+
+    def apply(lines):
+        for line in lines:
+            for _, verb, a in cli._parse_service_events([line]):
+                cli._apply_service_event(svc, verb, a, joined)
+
+    apply(epochs[0])                              # warm the event path
+    torch.cuda.synchronize()
+    host_s, n_events = [], 0
+    ev0.record()
+    for lines in epochs[1:]:
+        t1 = time.perf_counter()
+        apply(lines[:-1])
+        torch.cuda.synchronize()
+        host_s.append(time.perf_counter() - t1)
+        n_events += _p_events(lines)
+        apply(lines[-1:])
+    ev1.record()
+    torch.cuda.synchronize()
+    churn_ms = ev0.elapsed_time(ev1) / P_TIMED_SEGMENTS
+    if svc.compile_count != 1:
+        raise AssertionError(f"P2: {svc.compile_count} signatures")
+
+    # device time of a segment under the profiler
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        svc.state = run_rounds(svc.state, svc.arrays, cfg, P_SEGMENT,
+                               params=params)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t1) * 1e6
+    device = _device_rows(prof, P_SEGMENT)
+    busy_us = sum(us for _, us, _ in device)
+
+    sample_ms, flow_ms = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        svc._sample("probe")
+        sample_ms.append((time.perf_counter() - t1) * 1e3)
+        t1 = time.perf_counter()
+        svc.state.flow.cpu()          # the one copy a sample's residual reads
+        flow_ms.append((time.perf_counter() - t1) * 1e3)
+    return {"rounds": P2_ROUNDS, "build_s": build_s,
+            "equal_to_plain_rows": True,
+            "csr_twin_max_abs_diff": diff, "csr_twin_int_equal": int_equal,
+            "segment_rounds": P_SEGMENT,
+            "timed_segments": P_TIMED_SEGMENTS,
+            "static_ms_per_segment": static_ms,
+            "churn_ms_per_segment": churn_ms,
+            "churn_overhead_pct": 100.0 * (churn_ms / static_ms - 1.0),
+            "events_per_segment": n_events / P_TIMED_SEGMENTS,
+            "host_events_per_s": n_events / sum(host_s),
+            "device_ms_per_round": busy_us / 1e3,
+            "wall_ms_per_round": wall_us / P_SEGMENT / 1e3,
+            "busy_share": busy_us * P_SEGMENT / wall_us,
+            "launches_per_round": sum(c for _, _, c in device),
+            "top": [{"kernel": k[:80], "ms_per_round": us / 1e3,
+                     "calls_per_round": c}
+                    for k, us, c in sorted(device, key=lambda r: -r[1])[:5]],
+            "boundary_sample_ms": statistics.median(sample_ms),
+            "flow_copy_ms": statistics.median(flow_ms),
+            "flow_bytes": svc.state.flow.numel()
+            * svc.state.flow.element_size(),
+            "compile_count": svc.compile_count}
+
+
+def phase_path_p3(p1_files) -> dict:
+    """P3: P1's epoch-``P_CKPT_EPOCH`` archive restored on a new engine,
+    the script's later epochs applied to it: its ``state_digest`` equals
+    P1's end state (the archive P1 wrote at exit)."""
+    import torch
+
+    from flow_updating_tpu_torch import cli
+    from flow_updating_tpu_torch.service import ServiceEngine
+
+    epochs, mid, end = p1_files
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    svc = ServiceEngine.restore_checkpoint(mid)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    joined = []
+    t0 = time.perf_counter()
+    lines = [ln for ep in epochs[P_CKPT_EPOCH:] for ln in ep
+             if not ln.startswith("estimates")]
+    for _, verb, a in cli._parse_service_events(lines):
+        cli._apply_service_event(svc, verb, a, joined)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    end_svc = ServiceEngine.restore_checkpoint(end)
+    torch.cuda.synchronize()
+    end_restore_s = time.perf_counter() - t0
+    want, got = end_svc.state_digest(), svc.state_digest()
+    if got != want or svc.compile_count != 1:
+        raise AssertionError(f"P3: digest {got} != {want} "
+                             f"({svc.compile_count} signatures)")
+    return {"restored_epoch": P_CKPT_EPOCH, "restore_s": restore_s,
+            "end_restore_s": end_restore_s,
+            "archive_bytes": os.path.getsize(mid),
+            "epochs_applied": P_EPOCHS - P_CKPT_EPOCH,
+            "apply_s": replay_s, "digest_equal": True, "digest": got,
+            "compile_count": svc.compile_count}
+
+
+def phase_path_p4(tmp) -> dict:
+    """P4: a child process runs ``serve --wal DIR --checkpoint-every 2`` on
+    ``ring:P4_N:2`` with churn and message loss and is killed with SIGKILL
+    once ``scan_wal`` reads ``P4_KILL_RECORDS`` records; ``serve --wal DIR
+    --recover`` finishes the script from the record after the journal's
+    last.  Its end state's digest equals an uninterrupted control's,
+    ``doctor`` gives ``check_recovery`` ``pass`` on the recovery manifest
+    (control digests as its ``verify`` block) and ``blame_recovery``
+    names the kill."""
+    import signal
+    import subprocess
+
+    from flow_updating_tpu_torch.obs.inspect import blame_recovery
+    from flow_updating_tpu_torch.obs.report import (
+        build_recovery_manifest,
+        write_report,
+    )
+    from flow_updating_tpu_torch.resilience.wal import scan_wal
+    from flow_updating_tpu_torch.service import ServiceEngine
+
+    script = [ln for ep in _p_script(
+        P4_N, P4_EPOCHS, 2 * P4_SEGMENT, SEED + 2, joins=8, updates=8,
+        leaves=4, suspends=2, removes=2, reads=False) for ln in ep]
+    full = os.path.join(tmp, "p4_events.txt")
+    with open(full, "w") as f:
+        f.write("\n".join(script) + "\n")
+    base = ["serve", "--generator", f"ring:{P4_N}:2", "--capacity",
+            str(P4_CAPACITY), "--degree-budget", "6", "--segment-rounds",
+            str(P4_SEGMENT), "--drop-rate", str(P4_DROP), "--dtype",
+            "float32"]
+    wal_dir = os.path.join(tmp, "p4_wal")
+    wal_log = os.path.join(wal_dir, "wal.log")
+    env = {**os.environ, "PYTHONPATH": ROOT}
+    t0 = time.perf_counter()
+    child = subprocess.Popen(
+        [sys.executable, "-m", "flow_updating_tpu_torch", *base,
+         "--events", full, "--wal", wal_dir, "--checkpoint-every", "2"],
+        cwd=ROOT, env=env, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE)
+    seen = 0
+    try:
+        while child.poll() is None and time.perf_counter() - t0 < 120:
+            if os.path.exists(wal_log):
+                try:
+                    seen = len(scan_wal(wal_log)[0])
+                except ValueError:
+                    seen = 0
+                if seen >= P4_KILL_RECORDS:
+                    child.send_signal(signal.SIGKILL)
+                    break
+            time.sleep(0.01)
+    finally:
+        if child.poll() is None and seen < P4_KILL_RECORDS:
+            child.kill()
+        rc = child.wait()
+        err = child.stderr.read().decode(errors="replace")
+        child.stderr.close()
+    child_s = time.perf_counter() - t0
+    if rc != -signal.SIGKILL or seen < P4_KILL_RECORDS:
+        raise AssertionError(f"P4: the child exited {rc} before the kill "
+                             f"({seen} records): {err[-2000:]}")
+    records, torn = scan_wal(wal_log)
+    last = int(records[-1]["seq"]) if records else 0
+    rest = os.path.join(tmp, "p4_rest.txt")
+    with open(rest, "w") as f:
+        f.write("\n".join(script[last:]) + "\n")
+
+    ctrl_end = os.path.join(tmp, "p4_ctrl.npz")
+    t0 = time.perf_counter()
+    rc, _ = _cli_json(base + ["--events", full, "--checkpoint", ctrl_end])
+    ctrl_s = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"P4: the control exited {rc}")
+    rec_end = os.path.join(tmp, "p4_rec.npz")
+    report = os.path.join(tmp, "p4.json")
+    t0 = time.perf_counter()
+    rc, out = _cli_json(["serve", "--wal", wal_dir, "--recover",
+                         "--events", rest, "--report", report,
+                         "--checkpoint", rec_end])
+    recover_call_s = time.perf_counter() - t0
+    if rc != 0 or not out["durability"]["recovered"]:
+        raise AssertionError(f"P4: the recovery exited {rc}: {out}")
+    with open(report) as f:
+        manifest = json.load(f)
+    recovery = manifest["recovery"]
+    want = ServiceEngine.restore_checkpoint(ctrl_end).state_digest()
+    got = ServiceEngine.restore_checkpoint(rec_end).state_digest()
+    recovery["verify"] = {"exact": got == want, "recovered_digest": got,
+                          "control_digest": want}
+    path = os.path.join(tmp, "p4_recovery.json")
+    write_report(path, build_recovery_manifest(
+        recovery=recovery, service=manifest["service"],
+        extra={"config": manifest["config"],
+               "serving_trace": manifest.get("serving_trace")}))
+    verdict = _p_verdict(path)
+    blame = blame_recovery({"recovery": recovery})
+    if got != want:
+        raise AssertionError(f"P4: recovered digest {got} != control "
+                             f"{want}")
+    for name in ("wal_replay_exact", "ring_integrity"):
+        if verdict["checks"].get(name) != "pass":
+            raise AssertionError(f"P4: doctor {name}: {verdict}")
+    if blame["top"] not in ("kill_at_segment", "kill_mid_checkpoint",
+                            "truncate_wal_tail"):
+        raise AssertionError(f"P4: blame names {blame}")
+    fsync = (manifest.get("serving_trace") or {}).get("metrics", {}) \
+        .get("histograms", {}).get("wal_fsync_seconds") or {}
+    return {"topology": f"ring:{P4_N}:2", "capacity": P4_CAPACITY,
+            "drop_rate": P4_DROP, "script_records": len(script),
+            "killed_at_records": seen, "wal_records": len(records),
+            "torn_bytes": torn, "child_s": child_s,
+            "replay": recovery["replay"],
+            "ring_used": recovery["ring"]["used"],
+            "recover_s": manifest["timings"]["setup_s"],
+            "recover_call_s": recover_call_s, "control_s": ctrl_s,
+            "digest_equal": True, "doctor": verdict,
+            "blame_top": blame["top"],
+            "wal_fsync_s_per_record": (fsync["sum"] / fsync["count"]
+                                       if fsync.get("count") else None),
+            "wal_fsync_records": fsync.get("count")}
+
+
 def main() -> int:
     import torch
 
@@ -5104,6 +5582,21 @@ def main() -> int:
     o4 = path_o["o4"]
     emit({"phase": "path_o", "wall_s": time.perf_counter() - t0,
           "launches": {"b3": o4["b3_launches"], "b4": o4["b4_launches"]}})
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+        path_p = {}
+        path_p["p1"], p1_files = phase_path_p1(tmp)
+        emit({"phase": "path_p", "part": "p1", **path_p["p1"]})
+        path_p["p2"] = phase_path_p2(ring_topo)
+        emit({"phase": "path_p", "part": "p2",
+              "topology": f"ring:{RING_N}:2", **path_p["p2"]})
+        path_p["p3"] = phase_path_p3(p1_files)
+        del p1_files
+        emit({"phase": "path_p", "part": "p3", **path_p["p3"]})
+        path_p["p4"] = phase_path_p4(tmp)
+        emit({"phase": "path_p", "part": "p4", **path_p["p4"]})
+    emit({"phase": "path_p", "wall_s": time.perf_counter() - t0})
 
     emit({"phase": "timing", "timed_by_cuda_events": EVENT_TIMED})
     emit({"kernels": [

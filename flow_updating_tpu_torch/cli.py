@@ -1,11 +1,11 @@
 """Command-line entry point: the ``run``, ``oracle``, ``plan``, ``inspect``,
-``obs``, ``sweep``, ``scenarios`` and ``doctor`` subcommands.
+``obs``, ``sweep``, ``scenarios``, ``serve`` and ``doctor`` subcommands.
 
 Counterpart of ``flow_updating_tpu/cli.py``'s ``run``, ``oracle``,
-``plan``, ``inspect``, ``obs export-trace``, ``sweep``, ``scenarios`` and
-``doctor``.
+``plan``, ``inspect``, ``obs export-trace``, ``sweep``, ``scenarios``,
+``serve`` and ``doctor``.
 They take the same flags, so a JAX command line carries over, plus
-``--device`` (``cuda``, the default, or ``cpu``) for ``run``.  Topology
+``--device`` (``cuda``, the default, or ``cpu``).  Topology
 from ``--platform``/``--deployment`` XML or a synthetic ``--generator``;
 watcher sampling every ``--observe-every`` simulated seconds until
 ``--until``, or exactly ``--rounds``, or ``--until-rmse``.  Prints one
@@ -64,6 +64,16 @@ buckets and advances each bucket's lanes together on ``--device``;
 ``--seeds``, ``--perturb``) and exits 1 when a declared signature
 fails; the ``agg_*`` aggregate cases and ``sweep --profile`` exit naming
 their ROADMAP items.
+
+``serve`` runs the streaming service (``flow_updating_tpu_torch.service``)
+on ``--device``: an event script (``--events FILE`` or ``-``) of ``run``,
+``join``, ``leave``, ``update``, ``add-edge``, ``remove-edge``,
+``suspend``, ``resume``, ``estimates`` and ``checkpoint`` lines, then
+``--rounds``; one JSON summary (``compile_count`` counts dispatch
+signatures: 1), ``--report`` (``flow-updating-service-report/v1``),
+``--metrics`` (Prometheus text), ``--checkpoint`` / ``--resume`` (service
+archives of either package), ``--wal DIR`` (journal + checkpoint ring)
+and ``--wal DIR --recover``.
 
 ``doctor`` judges saved manifests (run, plan, field and every other
 ``flow-updating-*-report/v1`` kind, either package's), ``--baselines``
@@ -895,7 +905,7 @@ def cmd_sweep(args) -> int:
 
 #: the aggregate fault cases of the JAX ``scenarios`` subcommand run the
 #: serving stack's fabric
-_AGG_ITEM = "the serving stack (A11)"
+_AGG_ITEM = "the serving stack (A11 part 2)"
 
 
 def cmd_scenarios(args) -> int:
@@ -971,6 +981,265 @@ def cmd_scenarios(args) -> int:
         out["report_path"] = args.report
     print(json.dumps(out))
     return health.exit_code(checks, strict=args.strict)
+
+
+def _parse_service_events(lines):
+    """Parse a ``serve`` event script into (lineno, verb, args) tuples.
+
+    Grammar (one event per line, ``#`` comments):
+
+    ``run K`` | ``join V[,V...]`` | ``leave IDS`` | ``update ID V[,V...]``
+    | ``add-edge U V`` | ``remove-edge U V`` | ``suspend IDS`` |
+    ``resume IDS`` | ``estimates [MAX_STALENESS]`` | ``checkpoint PATH``
+    """
+    def _ids(tok):
+        return [int(x) for x in tok.split(",")]
+
+    def _vals(tok):
+        v = [float(x) for x in tok.split(",")]
+        return v[0] if len(v) == 1 else v
+
+    out = []
+    for lineno, raw in enumerate(lines, start=1):
+        line = raw.split("#", 1)[0].strip()
+        if not line:
+            continue
+        toks = line.split()
+        verb, rest = toks[0], toks[1:]
+        try:
+            if verb == "run":
+                out.append((lineno, "run", (int(rest[0]),)))
+            elif verb == "join":
+                out.append((lineno, "join", (_vals(rest[0]),)))
+            elif verb in ("leave", "suspend", "resume"):
+                out.append((lineno, verb, (_ids(rest[0]),)))
+            elif verb == "update":
+                out.append((lineno, "update", (_ids(rest[0]),
+                                               _vals(rest[1]))))
+            elif verb in ("add-edge", "remove-edge"):
+                out.append((lineno, verb, (int(rest[0]), int(rest[1]))))
+            elif verb == "estimates":
+                k = int(rest[0]) if rest else None
+                out.append((lineno, "estimates", (k,)))
+            elif verb == "checkpoint":
+                out.append((lineno, "checkpoint", (rest[0],)))
+            else:
+                raise SystemExit(
+                    f"events line {lineno}: unknown verb {verb!r} "
+                    "(valid: run, join, leave, update, add-edge, "
+                    "remove-edge, suspend, resume, estimates, "
+                    "checkpoint)")
+        except (IndexError, ValueError) as err:
+            raise SystemExit(
+                f"events line {lineno}: cannot parse {line!r} ({err})"
+            ) from err
+    return out
+
+
+def _apply_service_event(svc, verb: str, a, joined: list) -> None:
+    """Apply one parsed event-script line to ``svc`` (a join's slot is
+    appended to ``joined``; an ``estimates`` read prints one JSON line)."""
+    import numpy as np
+
+    if verb == "run":
+        svc.run(a[0])
+    elif verb == "join":
+        joined.append(svc.join(np.asarray(a[0])))
+    elif verb == "leave":
+        svc.leave(a[0])
+    elif verb == "suspend":
+        svc.suspend(a[0])
+    elif verb == "resume":
+        svc.resume(a[0])
+    elif verb == "update":
+        ids = a[0]
+        vals = np.asarray([a[1]] * len(ids))
+        if svc.feature_shape and np.ndim(a[1]) == 0:
+            raise ValueError(f"scalar update value for feature shape "
+                             f"{svc.feature_shape}")
+        svc.update(ids, vals)
+    elif verb == "add-edge":
+        svc.add_edges([a])
+    elif verb == "remove-edge":
+        svc.remove_edges([a])
+    elif verb == "estimates":
+        ids, est = svc.estimates(max_staleness=a[0])
+        print(json.dumps({"t": svc.clock, "live": len(ids),
+                          "mean_estimate": float(np.mean(est)),
+                          "max_staleness": a[0]}))
+    elif verb == "checkpoint":
+        svc.save_checkpoint(a[0])
+
+
+def cmd_serve(args) -> int:
+    """``serve``: the streaming service — one set of tensors at a fixed
+    capacity on ``--device``, scripted (or stdin) membership events
+    applied as indexed writes between segments, one dispatch signature
+    throughout (``flow_updating_tpu_torch.service``).  Prints one JSON
+    summary; ``--report`` writes a ``flow-updating-service-report/v1``
+    manifest, ``--metrics`` the Prometheus text, ``--wal`` journals and
+    rings, ``--recover`` rebuilds from a journal."""
+    from flow_updating_tpu_torch.models.config import RoundConfig
+    from flow_updating_tpu_torch.service import ServiceEngine
+    from flow_updating_tpu_torch.utils.device import resolve_device
+
+    _refuse_later_flags(args)
+    try:
+        resolve_device(args.device)
+    except RuntimeError as err:
+        raise SystemExit(str(err)) from err
+    t_start = time.perf_counter()
+    if args.recover:
+        if not args.wal:
+            raise SystemExit(
+                "serve: --recover needs --wal DIR (the durability "
+                "directory the crashed service was journaling into)")
+        try:
+            svc = ServiceEngine.recover(args.wal, device=args.device)
+        except ValueError as err:
+            raise SystemExit(f"serve: {err}") from err
+        topo = None
+    elif args.resume:
+        try:
+            svc = ServiceEngine.restore_checkpoint(args.resume,
+                                                   device=args.device)
+        except ValueError as err:
+            raise SystemExit(f"serve: {err}") from err
+        topo = None
+    else:
+        topo = _build_topology(args)
+        maker = (RoundConfig.reference
+                 if args.fire_policy == "reference" else RoundConfig.fast)
+        kw = dict(variant="collectall", dtype=args.dtype,
+                  drop_rate=args.drop_rate, drain=0)
+        if args.timeout is not None:
+            kw["timeout"] = args.timeout
+        if args.fire_policy == "reference":
+            kw["pending_depth"] = 1
+        try:
+            cfg = maker(**kw)
+            svc = ServiceEngine(
+                topo, args.capacity or topo.num_nodes,
+                degree_budget=args.degree_budget or None,
+                edge_capacity=args.edge_capacity or None,
+                config=cfg, segment_rounds=args.segment_rounds,
+                seed=args.seed, device=args.device)
+        except ValueError as err:
+            raise SystemExit(
+                f"invalid service configuration: {err}") from err
+    setup_s = time.perf_counter() - t_start
+    if args.wal and not args.recover:
+        try:
+            svc.enable_durability(args.wal,
+                                  checkpoint_every=args.checkpoint_every,
+                                  retain=args.retain)
+        except (ValueError, OSError) as err:
+            raise SystemExit(
+                f"serve: cannot arm durability: {err}") from err
+
+    if args.events == "-":
+        events = _parse_service_events(sys.stdin.readlines())
+    elif args.events:
+        try:
+            with open(args.events) as f:
+                events = _parse_service_events(f.readlines())
+        except OSError as err:
+            raise SystemExit(f"serve: cannot read events: {err}") from err
+    else:
+        events = []
+
+    joined = []
+    for lineno, verb, a in events:
+        try:
+            _apply_service_event(svc, verb, a, joined)
+        except (ValueError, RuntimeError) as err:
+            raise SystemExit(
+                f"serve: events line {lineno}: {err}") from err
+    if args.rounds:
+        try:
+            svc.run(args.rounds)
+        except ValueError as err:
+            raise SystemExit(f"serve: {err}") from err
+
+    report = svc.convergence_report()
+    timings = {"setup_s": setup_s}
+    if args.checkpoint:
+        t0 = time.perf_counter()
+        svc.save_checkpoint(args.checkpoint)
+        timings["checkpoint_s"] = time.perf_counter() - t0
+    block = svc.service_block()
+    out = {
+        "t": svc.clock,
+        "live": svc.live_count,
+        "members": svc.member_count,
+        "epochs": len(svc.history),
+        "events": block["events_total"],
+        "compile_count": block["compile_count"],
+        "rmse": report["rmse"],
+        "mass_residual": report["mass_residual"],
+    }
+    if joined:
+        out["joined"] = joined
+    resil = svc.resilience_block()
+    if resil is not None:
+        out["durability"] = {
+            "dir": resil.get("dir"),
+            "wal_seq": (resil.get("wal") or {}).get("last_seq"),
+            "recovered": svc._recovery is not None,
+        }
+    # the flight recorder: built after the resilience block so doctor's
+    # metrics_consistency compares same-moment facts
+    trace = svc.serving_trace_block()
+    if args.metrics:
+        if svc.metrics is None:
+            raise SystemExit(
+                "serve: --metrics needs the flight recorder (it is on "
+                "by default; this engine was restored from an archive "
+                "written without it)")
+        with open(args.metrics, "w") as f:
+            f.write(svc.metrics.to_prometheus())
+        out["metrics_path"] = args.metrics
+    if args.report:
+        from flow_updating_tpu_torch.obs.report import (
+            build_service_manifest,
+            write_report,
+        )
+
+        extra = {}
+        if resil is not None:
+            extra["recovery"] = resil
+        if trace is not None:
+            extra["serving_trace"] = trace
+        write_report(args.report, build_service_manifest(
+            argv=getattr(args, "_argv", None), config=svc.config,
+            topo=topo, service=block, series=svc.boundary_series(),
+            report=report, extra=extra or None, device=svc.device,
+            timings={**timings, "wall_s": time.perf_counter() - t_start}))
+        out["report_path"] = args.report
+    print(json.dumps(out))
+    return 0
+
+
+def _add_durability_flags(p, prog: str) -> None:
+    """The crash-safety flag set of ``serve`` (the JAX CLI shares it with
+    ``query``)."""
+    p.add_argument("--wal", metavar="DIR",
+                   help="durability directory: journal every event in "
+                        "an fsync'd CRC-framed WAL and write automatic "
+                        "ring checkpoints — a SIGKILL at any point "
+                        f"recovers bit-exactly via `{prog} --wal DIR "
+                        "--recover`")
+    p.add_argument("--checkpoint-every", type=int, default=8,
+                   metavar="K",
+                   help="ring cadence: one checkpoint every K segments "
+                        "(with --wal)")
+    p.add_argument("--retain", type=int, default=3, metavar="N",
+                   help="ring retention: keep the newest N checkpoints "
+                        "(corrupt newest falls back to next)")
+    p.add_argument("--recover", action="store_true",
+                   help="rebuild the engine from --wal DIR (newest "
+                        "valid ring checkpoint + WAL replay) instead "
+                        "of building fresh")
 
 
 def _add_topology_flags(ap: argparse.ArgumentParser) -> None:
@@ -1371,6 +1640,72 @@ def build_parser() -> argparse.ArgumentParser:
                     help="accepted for command-line compatibility with "
                          "the JAX CLI; no effect (see --device)")
     sc.set_defaults(fn=cmd_scenarios)
+
+    sv = sub.add_parser(
+        "serve",
+        help="streaming service: one set of tensors at a fixed capacity "
+             "runs in segments on --device while members join, leave, "
+             "update values and rewire edges between segments — one "
+             "dispatch signature, per-feature mass conserved, "
+             "doctor-checkable flow-updating-service-report/v1 manifests")
+    sv.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="where the service runs: the CUDA card (default) "
+                         "or the host CPU")
+    sv.add_argument("--backend", default="auto",
+                    choices=("auto", "cpu", "jax_tpu"),
+                    help="accepted for command-line compatibility with "
+                         "the JAX CLI; no effect (see --device)")
+    _add_topology_flags(sv)
+    sv.add_argument("--capacity", type=int, default=0,
+                    help="maximum concurrent members (node slots; "
+                         "default: the initial topology's node count — "
+                         "no join headroom)")
+    sv.add_argument("--edge-capacity", type=int, default=0,
+                    help="total directed edge slots (default: initial "
+                         "edges + headroom for the spare node slots)")
+    sv.add_argument("--degree-budget", type=int, default=0,
+                    help="per-member degree budget W (row-matrix width; "
+                         "default: the initial max degree — no add-edge "
+                         "headroom beyond freed slots)")
+    sv.add_argument("--segment-rounds", type=int, default=32,
+                    help="segment length; events apply between segments "
+                         "and `run` counts must be multiples")
+    sv.add_argument("--rounds", type=int, default=0,
+                    help="extra rounds after the event script (a whole "
+                         "number of segments)")
+    sv.add_argument("--events", metavar="FILE",
+                    help="event script ('-' = stdin): run K / join V / "
+                         "leave IDS / update IDS V / add-edge U V / "
+                         "remove-edge U V / suspend IDS / resume IDS / "
+                         "estimates [K] / checkpoint PATH")
+    sv.add_argument("--fire-policy", default="every_round",
+                    choices=("every_round", "reference"),
+                    help="collect-all firing rule (the service runs "
+                         "variant=collectall with unbounded drain)")
+    sv.add_argument("--timeout", type=int, default=None,
+                    help="collect-all tick timeout (reference firing)")
+    sv.add_argument("--drop-rate", type=float, default=0.0,
+                    help="per-message loss probability")
+    sv.add_argument("--dtype", default="float32",
+                    choices=("float32", "float64"))
+    _add_durability_flags(sv, "serve")
+    sv.add_argument("--resume", metavar="CKPT",
+                    help="restore a service checkpoint (either package's) "
+                         "instead of building from a topology (bit-exact "
+                         "resume)")
+    sv.add_argument("--checkpoint", metavar="PATH",
+                    help="save a service checkpoint at exit")
+    sv.add_argument("--report", metavar="PATH",
+                    help="write the flow-updating-service-report/v1 "
+                         "manifest (capacity accounting, per-epoch mass "
+                         "history, dispatch-signature count) to PATH")
+    sv.add_argument("--metrics", metavar="PATH",
+                    help="write the flight recorder's streaming metrics "
+                         "as Prometheus text exposition to PATH at exit")
+    sv.add_argument("--trace-dir", metavar="DIR",
+                    help="profiler capture of the serving body (ROADMAP "
+                         "A14; exits naming it)")
+    sv.set_defaults(fn=cmd_serve, latency_scale=0.0, msg_bytes=104.0)
 
     dr = sub.add_parser(
         "doctor",

@@ -7,16 +7,18 @@ schema names, :func:`build_manifest` (``run --report``,
 (``inspect --report``, ``flow-updating-field-report/v1``),
 :func:`build_sweep_manifest` (``sweep --report``,
 ``flow-updating-sweep-report/v1``), :func:`build_scenario_manifest`
-(``scenarios --report``, ``flow-updating-scenario-report/v1``) and
-:func:`write_report`.
+(``scenarios --report``, ``flow-updating-scenario-report/v1``),
+:func:`build_service_manifest` (``serve --report``,
+``flow-updating-service-report/v1``), :func:`build_recovery_manifest`
+(``flow-updating-recovery-report/v1``) and :func:`write_report`.
 A manifest binds the invocation (argv and the resolved config), the
 topology (size and the checkpoint-grade content fingerprint), the
 execution substrate (torch, CUDA, the device), the timings, the final
 report and — when telemetry ran — the full per-round series (or, in a
 field manifest, the per-node and per-edge fields and the global series
 reduced from them), in the JAX package's keys, so its ``doctor`` and
-``inspect`` judge the port's manifests.  The profile, service, query,
-recovery, audit and budget builders move with their ROADMAP items.
+``inspect`` judge the port's manifests.  The profile, query, audit and
+budget builders move with their ROADMAP items.
 """
 
 from __future__ import annotations
@@ -233,6 +235,69 @@ def build_scenario_manifest(*, argv=None, scenarios=None, summary=None,
         "timings": dict(timings) if timings else None,
         "scenarios": list(scenarios) if scenarios is not None else [],
     }
+    if extra:
+        manifest.update(extra)
+    return manifest
+
+
+def build_service_manifest(*, argv=None, config=None, topo=None,
+                           service=None, series=None, report=None,
+                           timings=None, extra=None, device=None) -> dict:
+    """Assemble the service manifest: the run manifest's argv/config/
+    environment binding around a live engine's ``service`` block
+    (``ServiceEngine.service_block()``).  ``series`` is the boundary-sample
+    series (one row per segment boundary), embedded under the standard
+    ``telemetry`` key so the doctor's series checks run unchanged;
+    ``topo`` is the initial topology (the graph is mutable state
+    afterwards — the epochs record how it evolved)."""
+    manifest = {
+        "schema": SERVICE_SCHEMA,
+        "created_unix": round(time.time(), 3),
+        "argv": list(argv) if argv is not None else None,
+        "config": _configs(config),
+        "topology": topology_summary(topo) if topo is not None else None,
+        "environment": environment_info(device),
+        "timings": dict(timings) if timings else None,
+        "report": report,
+        "service": dict(service) if service else None,
+    }
+    if series:
+        manifest["telemetry"] = {
+            "metrics": [k for k in series if k != "t"],
+            "rounds": len(series.get("t", ())),
+            "derived_from": "segment_boundaries",
+            "series": {k: list(v) for k, v in series.items()},
+        }
+    if extra:
+        manifest.update(extra)
+    return manifest
+
+
+def build_recovery_manifest(*, argv=None, config=None, recovery=None,
+                            service=None, query=None, timings=None,
+                            extra=None, device=None) -> dict:
+    """Assemble the crash-recovery manifest: the argv/config/environment
+    binding around one ``recovery`` block
+    (``ServiceEngine.resilience_block()``: WAL accounting with torn-tail
+    truncation, the ring scan with per-archive integrity verdicts and the
+    fallback chain, the replay record, and — when a harness planted a
+    fault — its ``ground_truth`` and ``verify`` blocks).  The doctor judges
+    it with ``check_recovery``; ``inspect --blame`` ranks the faults that
+    explain it.  The post-recovery ``service`` block rides along so the
+    service SLO checks run on the recovered engine too."""
+    manifest = {
+        "schema": RECOVERY_SCHEMA,
+        "created_unix": round(time.time(), 3),
+        "argv": list(argv) if argv is not None else None,
+        "config": _configs(config),
+        "environment": environment_info(device),
+        "timings": dict(timings) if timings else None,
+        "recovery": dict(recovery) if recovery else None,
+    }
+    if service:
+        manifest["service"] = dict(service)
+    if query:
+        manifest["query"] = dict(query)
     if extra:
         manifest.update(extra)
     return manifest

@@ -22,9 +22,15 @@ its vectors in the kernel's padded node layout — ``(M,)`` for
 ``NodeKernel``, ``(S, M/S)`` for the sharded banded kernel.  A restore
 reads the leaves as stored: the archive's dtype is the dtype.
 
-The actor flavour (``save_actor_checkpoint``, ROADMAP A8) and the service
-flavour (``save_service_checkpoint``, A11) are not ported; they raise
-naming their item.
+The service flavour (:func:`save_service_checkpoint`,
+:func:`load_service_checkpoint`) archives a ``ServiceEngine``: the state
+leaves plus the dynamic topology the membership events produced (the
+``svc.*`` host mirrors of :data:`_SERVICE_TOPO_KEYS`) and the capacity,
+epoch and flight-recorder meta, versioned apart
+(:data:`SERVICE_FORMAT_VERSION`) in the JAX package's layout, so a
+service archive of either package restores in the other.  The actor
+flavour (``save_actor_checkpoint``, ROADMAP A8) is not ported; it raises
+naming its item.
 """
 
 from __future__ import annotations
@@ -50,6 +56,16 @@ from flow_updating_tpu_torch.utils.device import resolve_device
 # 2: pending_* mailbox arrays gained a leading depth axis (Q, E) and the
 #    pending_stamp field — v1 checkpoints cannot resume.
 FORMAT_VERSION = 2
+
+# Service checkpoints version their own schema on top of the archive
+# format (the JAX package's numbers): the dynamic-topology mirror set is
+# part of the contract.  Version 2 may carry the query fabric's lane
+# tables under meta["query"]; version-1 archives carry none and still
+# restore (a ServiceEngine restore ignores the block either way).
+SERVICE_FORMAT_VERSION = 2
+SERVICE_READ_VERSIONS = (1, 2)
+_SERVICE_TOPO_KEYS = ("src", "dst", "rev", "out_deg", "rows", "delay",
+                      "free_nodes", "free_edges", "member")
 
 _NODE_FIELDS = ("t", "S", "G", "avg_prev", "A_prev")
 _STATE_FIELDS = {
@@ -280,7 +296,99 @@ save_actor_checkpoint = _not_ported("save_actor_checkpoint",
                                     "host actors (A8)")
 load_actor_checkpoint = _not_ported("load_actor_checkpoint",
                                     "host actors (A8)")
-save_service_checkpoint = _not_ported("save_service_checkpoint",
-                                      "the serving stack (A11)")
-load_service_checkpoint = _not_ported("load_service_checkpoint",
-                                      "the serving stack (A11)")
+
+# ---- service checkpoints (ServiceEngine) --------------------------------
+#
+# A service checkpoint is a run checkpoint plus the dynamic topology the
+# membership events have produced: the live src/dst/rev/out_deg/row-
+# matrix/delay mirrors, the free-slot lists and the member mask.  There
+# is no topology fingerprint: the graph is mutable state, not an input.
+
+def save_service_checkpoint(path: str, state: FlowUpdatingState,
+                            cfg: RoundConfig, topo_arrays: dict,
+                            meta: dict) -> None:
+    """Write one atomic service checkpoint (state + dynamic topology +
+    capacity metadata).  ``topo_arrays`` must carry exactly the
+    :data:`_SERVICE_TOPO_KEYS` host mirrors; ``meta`` is the JSON
+    capacity / epoch block :func:`load_service_checkpoint` returns."""
+    missing = set(_SERVICE_TOPO_KEYS) - set(topo_arrays)
+    if missing:
+        raise ValueError(
+            f"service checkpoint needs topology mirrors {sorted(missing)}")
+    arrays = {f"state.{k}": np.asarray(v)
+              for k, v in state.numpy().items()}
+    for key in _SERVICE_TOPO_KEYS:
+        arrays[f"svc.{key}"] = np.asarray(topo_arrays[key])
+    manifest = {
+        "format_version": FORMAT_VERSION,
+        "state_class": type(state).__name__,
+        "service_version": SERVICE_FORMAT_VERSION,
+        "config": dataclasses.asdict(cfg),
+        "dtypes": {k: str(v.dtype) for k, v in arrays.items()},
+        "service": dict(meta),
+        "extra": {},
+    }
+    _write_archive(path, manifest, arrays)
+
+
+def load_service_checkpoint(path: str, device=None):
+    """Read a service checkpoint: ``(state, config, topo_arrays, meta)``,
+    the state on ``device`` (the card unless ``'cpu'`` is given) and the
+    mirrors as numpy arrays.  A non-service archive, a schema version
+    this runtime does not read, or a truncated or incomplete mirror set
+    raises a ValueError naming the file and the fix."""
+    device = resolve_device(device)
+    with _open_archive(path) as z:
+        manifest = _read_manifest(z, path)
+        if "service_version" not in manifest:
+            raise ValueError(
+                f"checkpoint {path}: not a service checkpoint "
+                f"(state_class={manifest.get('state_class')!r}, no "
+                "service_version) — service archives are written by "
+                "ServiceEngine.save_checkpoint; plain run checkpoints "
+                "restore via Engine.restore_checkpoint")
+        got = manifest["service_version"]
+        if got not in SERVICE_READ_VERSIONS:
+            readable = "/".join(str(v) for v in SERVICE_READ_VERSIONS)
+            raise ValueError(
+                f"checkpoint {path}: service schema version {got}, but "
+                f"this runtime reads versions {readable} (writes "
+                f"{SERVICE_FORMAT_VERSION}) — re-create the checkpoint "
+                "with the current code")
+        try:
+            fields = {k[len("state."):]: z[k] for k in z.files
+                      if k.startswith("state.")}
+            svc = {k[len("svc."):]: z[k] for k in z.files
+                   if k.startswith("svc.")}
+        except (zipfile.BadZipFile, zlib.error, EOFError, OSError,
+                ValueError) as exc:
+            # member reads are lazy: in-place corruption (a flipped byte,
+            # a torn copy) surfaces here, not at open
+            raise ValueError(
+                f"checkpoint {path}: archive member unreadable "
+                f"({type(exc).__name__}: {exc}) — the file is corrupt "
+                "(bitflip or torn copy); restore from an older "
+                "checkpoint") from exc
+    want = set(_STATE_FIELDS["FlowUpdatingState"])
+    have = set(fields)
+    if have != want:
+        raise ValueError(
+            f"checkpoint {path}: state fields mismatch — missing "
+            f"{sorted(want - have)}, unexpected {sorted(have - want)} "
+            "(truncated archive, or saved by an incompatible version)")
+    missing = set(_SERVICE_TOPO_KEYS) - set(svc)
+    if missing:
+        raise ValueError(
+            f"checkpoint {path}: service topology mirrors missing "
+            f"{sorted(missing)} (truncated archive?)")
+    saved_dtypes = manifest.get("dtypes", {})
+    for name, arr in fields.items():
+        saved = saved_dtypes.get(f"state.{name}")
+        if saved is not None and str(arr.dtype) != saved:
+            raise ValueError(
+                f"checkpoint {path}: leaf {name!r} dtype {arr.dtype} "
+                f"does not match its manifest entry {saved!r} (corrupt "
+                "archive?)")
+    cfg = RoundConfig(**manifest["config"])
+    state = state_from_numpy(fields, device=device)
+    return state, cfg, svc, manifest.get("service", {})

@@ -469,13 +469,24 @@ def test_topology_mismatch_rejected(tmp_path):
         Engine(device="cpu").set_topology(other).restore_checkpoint(path)
 
 
-def test_unported_flavours_raise_naming_items():
+def test_unported_flavours_raise_naming_items(tmp_path):
     for fn, item in ((ck.save_actor_checkpoint, "A8"),
-                     (ck.load_actor_checkpoint, "A8"),
-                     (ck.save_service_checkpoint, "A11"),
-                     (ck.load_service_checkpoint, "A11")):
+                     (ck.load_actor_checkpoint, "A8")):
         with pytest.raises(NotImplementedError, match=item):
             fn("x.npz")
+    # the service flavour is ported: a bare round trip of state + mirrors
+    cfg = RoundConfig.fast()
+    st = init_state(pgen.ring(6, k=1, seed=0), cfg, device="cpu")
+    mirrors = {k: np.arange(4, dtype=np.int32) for k in ck._SERVICE_TOPO_KEYS}
+    path = str(tmp_path / "svc.npz")
+    ck.save_service_checkpoint(path, st, cfg, mirrors, {"capacity": 6})
+    got, got_cfg, got_mirrors, meta = ck.load_service_checkpoint(
+        path, device="cpu")
+    assert got_cfg == cfg and meta == {"capacity": 6}
+    for name, want in st.numpy().items():
+        np.testing.assert_array_equal(got.numpy()[name], want)
+    for k in ck._SERVICE_TOPO_KEYS:
+        np.testing.assert_array_equal(got_mirrors[k], mirrors[k])
 
 
 def test_restore_needs_no_build_and_lands_on_the_engine_device(tmp_path):

@@ -5,7 +5,8 @@ Every test here needs an NVIDIA GPU with ``nvcc`` and skips without one
 at every tile —, B4's scan (every tile too) and fill, B5 and B6;
 the edge kernel's Beneš routes, the sharded banded round and the halo
 edge round on the card; checkpoints restored onto the card and faults
-that keep the state there).
+that keep the state there; the streaming service's no-event round, its
+one dispatch signature across 100 events and a mid-churn restore).
 This file imports no JAX, so it also runs where JAX is absent, without the
 suite's JAX-pinning conftest:
 
@@ -1398,3 +1399,77 @@ def test_engine_adversary_benes_fused_equals_segment_twin(card):
     assert torch.equal(fused, twin)
     assert torch.equal(fs.flow, ts.flow)
     assert not torch.equal(fused, honest)
+
+
+def _card_service(card, **kw):
+    from flow_updating_tpu_torch.service import ServiceEngine
+
+    topo = ring(200, 2, seed=1)
+    cfg = RoundConfig.fast(variant="collectall", **kw)
+    return ServiceEngine(topo, 256, degree_budget=6, config=cfg,
+                         segment_rounds=8, seed=4, device=card), topo
+
+
+def test_noop_service_equals_plain_rounds_on_card(card):
+    from flow_updating_tpu_torch.models.rounds import run_rounds
+
+    svc, _ = _card_service(card)
+    state = type(svc.state)(**{k: v.clone()
+                               for k, v in vars(svc.state).items()})
+    ref = run_rounds(state, svc.arrays, svc.config, 64, params=svc.params)
+    svc.run(64)
+    for name, want in vars(ref).items():
+        assert torch.equal(getattr(svc.state, name), want), name
+    assert svc.state.flow.device.type == card.type
+    if card.type == "cuda":
+        assert svc.service_block()["mirror_probe"]["skipped"]
+
+
+def test_service_one_signature_across_100_events_on_card(card):
+    svc, _ = _card_service(card, drop_rate=0.05)
+    svc.run(8)
+    rng = np.random.default_rng(0)
+    held, events = [], 0
+    while events < 100:
+        if held and (len(held) >= 12 or rng.random() < 0.4):
+            svc.leave([held.pop()])
+            events += 1
+        else:
+            slot = svc.join(float(rng.random()))
+            svc.add_edges([(slot, int(rng.integers(200)))])
+            svc.update([slot], [float(rng.random())])
+            held.append(slot)
+            events += 3
+        svc.run(8)
+    assert svc.compile_count == 1
+    assert np.isfinite(svc.mass_residual()).all()
+    for name in ("src", "dst", "rev", "out_deg", "delay",
+                 "sweep_edge_rows"):
+        assert getattr(svc.arrays, name).device.type == card.type, name
+
+
+def test_service_mid_churn_restore_on_card_bit_for_bit(card, tmp_path):
+    from flow_updating_tpu_torch.service import ServiceEngine
+
+    svc, _ = _card_service(card, drop_rate=0.05)
+
+    def churn(s, rng):
+        j = s.join(float(rng.random()))
+        s.add_edges([(j, 3), (j, 77)])
+        s.suspend([9])
+        s.remove_edges([(j, 3)])
+        s.run(16)
+        s.resume([9])
+        s.leave([j, 150])
+        s.update([4], [0.5])
+        s.run(16)
+
+    svc.run(16)
+    churn(svc, np.random.default_rng(1))
+    path = str(tmp_path / "svc.npz")
+    svc.save_checkpoint(path)
+    twin = ServiceEngine.restore_checkpoint(path, device=card)
+    for s in (svc, twin):
+        churn(s, np.random.default_rng(2))
+    assert twin.state_digest() == svc.state_digest()
+    assert twin.compile_count == 1

@@ -201,6 +201,7 @@ def test_help_lists_both_subcommands(capsys):
     with pytest.raises(SystemExit):
         port_cli.main(["--help"])
     # the plan subcommand joined run and oracle in A5, inspect and obs in
-    # A9 part 2, doctor in A9 part 3, sweep and scenarios in A10
-    assert "{run,oracle,plan,inspect,obs,sweep,scenarios,doctor}" in \
-        capsys.readouterr().out
+    # A9 part 2, doctor in A9 part 3, sweep and scenarios in A10, serve in
+    # A11 part 1
+    assert "{run,oracle,plan,inspect,obs,sweep,scenarios,serve,doctor}" \
+        in capsys.readouterr().out
