@@ -269,6 +269,26 @@ and prints one JSON line per phase:
    20 journal records, ``serve --wal --recover`` finishing the script:
    the digest equal to an uninterrupted control's, ``doctor``'s
    ``check_recovery`` ``pass`` and ``blame_recovery`` naming the kill;
+   ``path_q`` — the query and aggregate fabric: Q1 ``cli.main(["query",
+   ...])`` at the acceptance size (``erdos_renyi(99_000, 6)``, capacity
+   100,000, degree budget 24, 1,024 lanes, segments of 8 rounds, eps
+   1e-2, 1,536 queries of 35 members arriving Poisson(512) a boundary,
+   float32) with ``--report`` and ``--metrics``: ``compile_count`` 1, a
+   recycled lane, every query retired, ``doctor``'s four query checks
+   ``pass``, queries retired a second and peak memory; Q2 a fabric of
+   that size with 1% loss and join/add-edge/leave churn: one lane
+   ``torch.equal`` to an isolated one-query fabric on every lane plane,
+   free lanes at exactly 0.0 residual at every boundary, and ms a
+   segment, the lane probe's ms, device ms and launches a round; Q3 an
+   ``AggregateFabric`` at ``aggregate_smoke.py``'s size (10,000
+   members, 32 lanes): all five kinds, a second wave into retired lanes,
+   ``compile_count`` exactly 2, every read against its numpy oracle,
+   ``doctor``'s aggregate checks ``pass``; Q4 a child ``query --wal``
+   killed with SIGKILL at a seeded segment, ``query --wal --recover``:
+   the digest equal to an uninterrupted control's, then a NaN-poisoned
+   lane under the watchdog quarantined with every other lane
+   ``torch.equal`` to an unpoisoned control.  Path Q launches no kernel
+   of the port (the fabric runs the plain row fold);
 18. the ``{"kernels": [...]}`` line (launches from the main paths; times,
     errors and bounds measured in this run), then the nvidia-smi line,
     then ``{"ok": true, "device": {...}}`` as the last line.
@@ -348,7 +368,7 @@ DES_TICKS = 1120        # path H1/H2: rounds (ticks) of each curve
 OBS = 10                # path H1/H2: the curves' sampling interval
 LINK_SER_ROUNDS = 0.01  # path H3: a message's serialization, in rounds
 DES_BASE_TICKS = 3      # des: ticks of each timed DES run (k=160)
-DES_REPEATS = 2         # des: timed runs per timeout
+DES_REPEATS = 1         # des: timed runs per timeout
 DES_FIXED_TICKS = 1000  # des: ring(24, 2) rounds to the fixed point
 C1_ROUNDS = 10          # c1: rounds of path E per measurement
 RESUME_ROUNDS = 20      # path I: rounds after each restore
@@ -432,6 +452,26 @@ P4_SEGMENT = 16         # P4: rounds a segment (a run is two)
 P4_EPOCHS = 3           # P4: epochs of its script
 P4_DROP = 0.01          # P4: message loss
 P4_KILL_RECORDS = 20    # P4: WAL records before the SIGKILL
+Q_NODES = 99_000        # path Q: erdos_renyi(99_000, avg_degree=6) members
+Q_CAPACITY = 100_000    # Q: node slots
+Q_BUDGET = 24           # Q: the degree budget
+Q_LANES = 1024          # Q: query lanes
+Q_SEGMENT = 8           # Q: rounds a segment
+Q_EPS = 1e-2            # Q: the retirement tolerance
+Q_QUERIES = 1536        # Q1: queries offered (1.5 x lanes)
+Q_COHORT = 35           # Q1: cohort members (the mean of 8-63)
+Q_ROUNDS = 4096         # Q1: the round budget (it stops once all retire)
+Q2_SEGMENTS = 4         # Q2: segments after the target's admission
+Q2_DROP = 0.01          # Q2: message loss
+Q2_TIMED_SEGMENTS = 2   # Q2: segments timed by CUDA events
+Q3_NODES = 10_000       # Q3: erdos_renyi(10_000, 6), aggregate_smoke's
+Q3_LANES = 32           # Q3: lanes shared by every kind
+Q3_EVENTS = 16          # Q3: churn events between segments
+Q3_QEPS = 0.34          # Q3: the quantile's rank tolerance (3 brackets)
+Q4_NODES = 10_000       # Q4: the killed child's erdos_renyi:Q4_NODES:6
+Q4_LANES = 32           # Q4: its lanes
+Q4_KILL_SEGMENT = 5     # Q4: the child is killed once this segment's run
+#                         record is journaled
 
 #: NVIDIA H100 SXM data sheet: peak HBM rate (bytes/s) and float32 rate
 #: outside the tensor cores (FLOP/s)
@@ -5360,6 +5400,518 @@ def phase_path_p4(tmp) -> dict:
             "wal_fsync_records": fsync.get("count")}
 
 
+# ---- path Q: the query and aggregate fabric on the card ------------------
+
+def _q_cohort_queries(rng, members, n: int) -> list:
+    """``n`` random-cohort mean queries of 8-63 members (the acceptance
+    script's draw): ``(values, sorted cohort)`` pairs."""
+    import numpy as np
+
+    out = []
+    for _ in range(n):
+        m = int(rng.integers(8, 64))
+        cohort = rng.choice(members, size=m, replace=False)
+        out.append((rng.random(m), np.sort(cohort)))
+    return out
+
+
+def phase_path_q1(tmp) -> dict:
+    """Q1: ``cli.main(["query", ...])`` on the card at the acceptance size
+    (``erdos_renyi:Q_NODES:6``, capacity ``Q_CAPACITY``, degree budget
+    ``Q_BUDGET``, ``Q_LANES`` lanes, segments of ``Q_SEGMENT`` rounds,
+    eps ``Q_EPS``, ``Q_QUERIES`` queries of ``Q_COHORT`` members arriving
+    Poisson(``Q_LANES / 2``) a boundary, float32) with ``--report`` and
+    ``--metrics``: ``compile_count`` 1, at least one lane recycled, every
+    offered query retired, ``doctor``'s four query checks ``pass``."""
+    import torch
+
+    report = os.path.join(tmp, "q1.json")
+    metrics = os.path.join(tmp, "q1.prom")
+    argv = ["query", "--generator", f"erdos_renyi:{Q_NODES}:6",
+            "--seed", str(SEED), "--capacity", str(Q_CAPACITY),
+            "--degree-budget", str(Q_BUDGET), "--lanes", str(Q_LANES),
+            "--segment-rounds", str(Q_SEGMENT),
+            "--queries", str(Q_QUERIES),
+            "--arrival-rate", str(Q_LANES / 2 / Q_SEGMENT),
+            "--cohort-frac", repr(Q_COHORT / Q_NODES),
+            "--eps", repr(Q_EPS), "--rounds", str(Q_ROUNDS),
+            "--dtype", "float32", "--report", report, "--metrics", metrics]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rc, summary = _cli_json(argv)
+    query_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if rc != 0 or summary["compile_count"] != 1:
+        raise AssertionError(f"Q1: query exited {rc}: {summary}")
+    if summary["completed"] != Q_QUERIES or summary["submitted"] \
+            != Q_QUERIES or summary["active"] or summary["queued"]:
+        raise AssertionError(f"Q1: not every query retired: {summary}")
+    with open(report) as f:
+        manifest = json.load(f)
+    block = manifest["query"]
+    lanes_used = {q["lane"] for q in block["queries"]}
+    recycled = Q_QUERIES - len(lanes_used)
+    if recycled < 1:
+        raise AssertionError("Q1: no lane was recycled")
+    free_resid = max(b["max_resid_free"] for b in block["boundaries"])
+    t0 = time.perf_counter()
+    verdict = _p_verdict(report)
+    doctor_s = time.perf_counter() - t0
+    for name in ("query_compile", "query_lanes", "query_lane_mass",
+                 "query_admission"):
+        if verdict["checks"].get(name) != "pass":
+            raise AssertionError(f"Q1: doctor {name}: {verdict}")
+    with open(metrics) as f:
+        prom = f.read()
+    wall_s = manifest["timings"]["wall_s"]
+    segments = summary["t"] // Q_SEGMENT
+    return {"topology": f"erdos_renyi:{Q_NODES}:6",
+            "capacity": Q_CAPACITY, "lanes": Q_LANES,
+            "edge_capacity": block["service"]["capacity"]["edges"],
+            "degree_budget": Q_BUDGET, "segment_rounds": Q_SEGMENT,
+            "eps": Q_EPS, "queries": Q_QUERIES, "cohort": Q_COHORT,
+            "rounds": summary["t"], "segments": segments,
+            "completed": summary["completed"],
+            "compile_count": summary["compile_count"],
+            "lanes_used": len(lanes_used), "recycled_admissions": recycled,
+            "peak_active": block["lanes"]["peak_active"],
+            "admission_latency": block["admission_latency"],
+            "convergence_latency": block["convergence_latency"],
+            "max_resid_free": free_resid,
+            "query_s": query_s, "setup_s": manifest["timings"]["setup_s"],
+            "stream_wall_s": wall_s,
+            "ms_per_segment": 1e3 * wall_s / segments,
+            "queries_retired_per_s": summary["completed"] / wall_s,
+            "peak_memory_bytes": peak,
+            "doctor": verdict, "doctor_s": doctor_s,
+            "metrics_lines": len(prom.splitlines())}
+
+
+def phase_path_q2() -> dict:
+    """Q2: a fabric at Q1's size with ``Q2_DROP`` loss: busy lanes admitted,
+    then a target query (never retiring) into lane L and into a one-query
+    fabric of the same capacity and seed, both driven through the same
+    join/add-edge/leave churn; after ``Q2_SEGMENTS`` segments lane L of
+    every lane plane is ``torch.equal`` to the isolated lane, the shared
+    control planes are equal, and every boundary's free lanes carry a
+    residual of exactly 0.0.  Then the measurements: ms a segment (CUDA
+    events, the boundary included), the lane probe's ms, and device ms,
+    busy share and launches a round by the profiler."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from flow_updating_tpu_torch.models.config import RoundConfig
+    from flow_updating_tpu_torch.models.rounds import run_rounds
+    from flow_updating_tpu_torch.query import QueryFabric
+    from flow_updating_tpu_torch.query.fabric import LANE_PLANES
+    from flow_updating_tpu_torch.topology.generators import erdos_renyi
+    from torch.profiler import ProfilerActivity, profile
+
+    topo = erdos_renyi(Q_NODES, avg_degree=6, seed=SEED)
+    cfg = RoundConfig.fast(variant="collectall", drop_rate=Q2_DROP)
+    kw = dict(capacity=Q_CAPACITY, degree_budget=Q_BUDGET, config=cfg,
+              segment_rounds=Q_SEGMENT, seed=SEED, conv_eps=Q_EPS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    busy = QueryFabric(topo, lanes=Q_LANES, **kw)
+    build_s = time.perf_counter() - t0
+    iso = QueryFabric(topo, lanes=1, **kw)
+    rng = np.random.default_rng(SEED + 3)
+    members = np.arange(Q_NODES)
+    for vals, cohort in _q_cohort_queries(rng, members, Q_LANES // 2):
+        busy.submit(vals, cohort=cohort)
+    for f in (busy, iso):
+        f.run(Q_SEGMENT)
+    t_vals, t_cohort = _q_cohort_queries(rng, members, 1)[0]
+    lane = busy._queries[busy.submit(t_vals, cohort=t_cohort,
+                                     eps=1e-30)]["lane"]
+    iso.submit(t_vals, cohort=t_cohort, eps=1e-30)
+    held = []
+    for seg in range(Q2_SEGMENTS):
+        for vals, cohort in _q_cohort_queries(rng, members,
+                                              Q_LANES // 4):
+            busy.submit(vals, cohort=cohort)
+        ends = rng.choice(members, size=2, replace=False).tolist()
+        for f in (busy, iso):
+            j = f.join()
+            f.add_edges([(j, ends[0]), (j, ends[1])])
+        held.append(j)
+        if seg % 2:
+            for f in (busy, iso):
+                f.leave([held[0]])
+            held.pop(0)
+        for f in (busy, iso):
+            f.run(Q_SEGMENT)
+    unequal = [n for n in LANE_PLANES
+               if not torch.equal(getattr(busy.svc.state, n)[..., lane],
+                                  getattr(iso.svc.state, n)[..., 0])]
+    unequal += [n for n in ("t", "key", "alive", "edge_ok", "ticks",
+                            "fired", "recv", "stamp", "pending_valid",
+                            "buf_valid")
+                if not torch.equal(getattr(busy.svc.state, n),
+                                   getattr(iso.svc.state, n))]
+    if unequal:
+        raise AssertionError(f"Q2: lane {lane} differs from the isolated "
+                             f"fabric in {unequal}")
+    free_resid = [b["max_resid_free"] for b in busy._boundaries]
+    if any(r != 0.0 for r in free_resid):
+        raise AssertionError(f"Q2: free-lane residuals {free_resid}")
+    if busy.retired_total < 1 or busy.compile_count != 1:
+        raise AssertionError(f"Q2: {busy.retired_total} retired, "
+                             f"{busy.compile_count} signatures")
+    retired = busy.retired_total
+    del iso
+
+    # the measurements, on the busy fabric
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    ev0.record()
+    for _ in range(Q2_TIMED_SEGMENTS):
+        busy.run(Q_SEGMENT)
+    ev1.record()
+    torch.cuda.synchronize()
+    seg_ms = ev0.elapsed_time(ev1) / Q2_TIMED_SEGMENTS
+    probe_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        busy._probe_fresh()
+        probe_ms.append((time.perf_counter() - t1) * 1e3)
+    svc = busy.svc
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for _ in range(Q_SEGMENT):      # a round at a time, as run() does
+            svc.state = run_rounds(svc.state, svc.arrays, svc.config, 1,
+                                   params=svc.params)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t1) * 1e6
+    device = _device_rows(prof, Q_SEGMENT)
+    busy_us = sum(us for _, us, _ in device)
+    plane = svc.state.flow
+    return {"topology": f"erdos_renyi:{Q_NODES}:6", "lanes": Q_LANES,
+            "drop_rate": Q2_DROP, "build_s": build_s, "lane": lane,
+            "segments": Q2_SEGMENTS + 1, "lane_equal_to_isolated": True,
+            "boundaries": len(free_resid), "free_resid_max": 0.0,
+            "retired": retired, "compile_count": busy.compile_count,
+            "timed_segments": Q2_TIMED_SEGMENTS,
+            "ms_per_segment": seg_ms,
+            "lane_probe_ms": statistics.median(probe_ms),
+            "device_ms_per_round": busy_us / 1e3,
+            "wall_ms_per_round": wall_us / Q_SEGMENT / 1e3,
+            "busy_share": busy_us * Q_SEGMENT / wall_us,
+            "launches_per_round": sum(c for _, _, c in device),
+            "top": [{"kernel": k[:80], "ms_per_round": us / 1e3,
+                     "calls_per_round": c}
+                    for k, us, c in sorted(device, key=lambda r: -r[1])[:5]],
+            "edge_plane_bytes": plane.numel() * plane.element_size(),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+
+
+def phase_path_q3(tmp) -> dict:
+    """Q3: an ``AggregateFabric`` at ``scripts/aggregate_smoke.py``'s size
+    (``erdos_renyi:Q3_NODES:6``, capacity + 64, ``Q3_LANES`` lanes, degree
+    budget 24, segments of 8, eps 1e-3) under join/add-edge/leave churn:
+    the sum/count lanes and a standing window (restreamed three times)
+    first, one segment on the plain round, then max, min and quantile
+    (``lane_modes`` installed); a second wave of the four value kinds
+    into the retired lanes.  ``compile_count`` exactly 2, every read
+    against its numpy oracle, ``doctor``'s aggregate checks ``pass``."""
+    import numpy as np
+
+    from flow_updating_tpu_torch.aggregates import AggregateFabric
+    from flow_updating_tpu_torch.obs.report import (
+        build_query_manifest,
+        write_report,
+    )
+    from flow_updating_tpu_torch.topology.generators import erdos_renyi
+
+    t0 = time.perf_counter()
+    topo = erdos_renyi(Q3_NODES, avg_degree=6, seed=SEED)
+    fab = AggregateFabric(topo, lanes=Q3_LANES, capacity=Q3_NODES + 64,
+                          degree_budget=24, segment_rounds=8, seed=SEED,
+                          conv_eps=1e-3, probe_manifest=True)
+    rng = np.random.default_rng(SEED)
+    members = fab.svc.live_ids()
+
+    def cohort(m):
+        return np.sort(rng.choice(members, size=m, replace=False))
+
+    def submit(wave, kinds):
+        for label, kind, params in kinds:
+            c = cohort(int(rng.integers(64, 256)))
+            vals = rng.random(c.size)
+            wave[label] = (fab.submit_aggregate(kind, vals, c, **params),
+                           vals)
+
+    wave1, wave2 = {}, {}
+    submit(wave1, [("sum_count", "sum_count", {})])
+    win_cohort = cohort(128)
+    win_vals = [rng.random(128)]
+    win_aid = fab.submit_aggregate("windowed_mean", win_vals[0],
+                                   win_cohort, window=4)
+    fab.run(8)                           # the plain round: signature 1
+    if fab.compile_count != 1 or fab.extrema_installed:
+        raise AssertionError(f"Q3: {fab.compile_count} signatures before "
+                             "the first extrema admission")
+    extrema = [("max", "max", {}), ("min", "min", {}),
+               ("quantile", "quantile", {"q": 0.5, "qeps": Q3_QEPS})]
+    submit(wave1, extrema)
+    held, state = [], {"events": 0, "pushes": 0, "rounds": 8}
+
+    def churn(budget):
+        while state["events"] < Q3_EVENTS and budget > 0:
+            if held and rng.random() < 0.4:
+                fab.leave([held.pop()])
+                state["events"] += 1
+                budget -= 1
+            else:
+                slot = fab.join()
+                fab.add_edges([(slot, int(rng.integers(0, Q3_NODES)))])
+                held.append(slot)
+                state["events"] += 2
+                budget -= 2
+
+    def done(wave):
+        return all(fab.read_aggregate(a)["status"] == "done"
+                   for a, _ in wave.values())
+
+    while not done(wave1) and state["rounds"] < 4096:
+        churn(6)
+        if state["pushes"] < 3 and state["rounds"] % 32 == 0:
+            batch = rng.random(128)
+            win_vals.append(batch)
+            if not fab.push(win_aid, batch)["neutral"]:
+                raise AssertionError("Q3: a restream moved the residual")
+            state["pushes"] += 1
+        fab.run(8)
+        state["rounds"] += 8
+    submit(wave2, [("sum_count", "sum_count", {})] + extrema)
+    while not done(wave2) and state["rounds"] < 8192:
+        churn(6)
+        fab.run(8)
+        state["rounds"] += 8
+    if fab.compile_count != 2:
+        raise AssertionError(f"Q3: {fab.compile_count} signatures "
+                             "(budget: the plain round + lane_modes = 2)")
+    errors = {}
+    for name, wave in (("wave1", wave1), ("wave2", wave2)):
+        if not done(wave):
+            raise AssertionError(f"Q3: {name} not done")
+        for label, (aid, vals) in wave.items():
+            res = fab.read_aggregate(aid, max_staleness=None)["result"]
+            got = float(res["mean"] if label == "sum_count"
+                        else res["value"])
+            truth = {"sum_count": float(np.mean(vals)),
+                     "max": float(np.max(vals)),
+                     "min": float(np.min(vals)),
+                     "quantile": float(np.sort(vals)[
+                         int(np.ceil(0.5 * vals.size)) - 1])}[label]
+            if label == "sum_count":
+                bound = float(res["mean_error_bound"]) + 1e-9
+            elif label == "quantile":
+                bound = Q3_QEPS * (float(res["hi"]) - float(res["lo"])) \
+                    + 1e-9
+            else:
+                bound = 1e-6
+            errors[f"{name}.{label}"] = [abs(got - truth), bound]
+            if abs(got - truth) > bound:
+                raise AssertionError(f"Q3: {name}/{label} read {got!r} vs "
+                                     f"{truth!r} (bound {bound:.3g})")
+    win = fab.read_aggregate(win_aid, max_staleness=None)["result"]
+    win_truth = float(np.mean(np.concatenate(win_vals[-4:])))
+    report = os.path.join(tmp, "q3.json")
+    write_report(report, build_query_manifest(
+        argv=["path_q3"], config=fab.svc.config, topo=topo,
+        query=fab.query_block(),
+        extra={"aggregates": fab.aggregate_block()}))
+    verdict = _p_verdict(report)
+    for name in ("aggregate_read", "aggregate_extrema_monotone",
+                 "aggregate_kind_census", "query_compile",
+                 "query_lane_mass"):
+        if verdict["checks"].get(name) != "pass":
+            raise AssertionError(f"Q3: doctor {name}: {verdict}")
+    return {"topology": f"erdos_renyi:{Q3_NODES}:6", "lanes": Q3_LANES,
+            "kinds": fab.aggregate_block()["kinds"],
+            "compile_count": fab.compile_count,
+            "events": state["events"], "pushes": state["pushes"],
+            "rounds": state["rounds"], "read_errors": errors,
+            "window_mean": win["mean"], "window_host_mean": win_truth,
+            "doctor": verdict, "q3_s": time.perf_counter() - t0}
+
+
+def _q4_ops(n: int, lanes: int, queries: int, rate: float,
+            cohort_frac: float, seed: int, segments: int) -> list:
+    """The journal records ``query`` writes for its Poisson arrivals (one
+    ``submit`` a query, one ``run`` a segment), drawn as the subcommand
+    draws them: ``("submit", values, cohort)`` and ``("run", rounds)``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 1)
+    members = np.arange(n, dtype=np.int32)
+    m = max(1, int(round(n * cohort_frac)))
+    ops, submitted = [], 0
+    for _ in range(segments):
+        arrivals = min(int(rng.poisson(rate * Q_SEGMENT)),
+                       queries - submitted)
+        for _ in range(arrivals):
+            cohort = rng.choice(members, size=m, replace=False)
+            ops.append(("submit", rng.random(m), np.sort(cohort)))
+            submitted += 1
+        ops.append(("run", Q_SEGMENT))
+    return ops
+
+
+def phase_path_q4(tmp) -> dict:
+    """Q4: a child process runs ``query --wal DIR --checkpoint-every 4
+    --watchdog`` on ``erdos_renyi:Q4_NODES:6`` (``Q4_LANES`` lanes, 1%
+    loss) and is killed with SIGKILL once the run record of segment
+    ``Q4_KILL_SEGMENT`` is journaled; ``query --wal DIR --recover`` (in
+    this process) rebuilds it, and its ``state_digest`` equals a fabric
+    driven through the same journal records without a crash; ``doctor``
+    gives ``wal_replay_exact`` ``pass``.  Then a NaN-poisoned lane under
+    the watchdog: quarantined (reason ``nan``, residual after the scrub
+    exactly 0.0), every other lane plane ``torch.equal`` to an
+    unpoisoned control."""
+    import signal
+    import subprocess
+
+    import numpy as np
+    import torch
+
+    from flow_updating_tpu_torch.models.config import RoundConfig
+    from flow_updating_tpu_torch.query import QueryFabric
+    from flow_updating_tpu_torch.query.fabric import LANE_PLANES
+    from flow_updating_tpu_torch.resilience.wal import scan_wal
+    from flow_updating_tpu_torch.topology.generators import erdos_renyi
+
+    queries, rate, frac = 4 * Q4_LANES, 2.0, 40 / Q4_NODES
+    base = ["--generator", f"erdos_renyi:{Q4_NODES}:6", "--seed",
+            str(SEED), "--capacity", str(Q4_NODES + 64),
+            "--degree-budget", "24", "--lanes", str(Q4_LANES),
+            "--segment-rounds", str(Q_SEGMENT), "--queries", str(queries),
+            "--arrival-rate", repr(rate), "--cohort-frac", repr(frac),
+            "--eps", "1e-3", "--drop-rate", "0.01", "--dtype", "float32"]
+    wal_dir = os.path.join(tmp, "q4_wal")
+    wal_log = os.path.join(wal_dir, "wal.log")
+    env = {**os.environ, "PYTHONPATH": ROOT}
+    t0 = time.perf_counter()
+    child = subprocess.Popen(
+        [sys.executable, "-m", "flow_updating_tpu_torch", "query", *base,
+         "--rounds", str(Q_ROUNDS), "--wal", wal_dir,
+         "--checkpoint-every", "4", "--watchdog"],
+        cwd=ROOT, env=env, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE)
+    runs = 0
+    try:
+        while child.poll() is None and time.perf_counter() - t0 < 180:
+            if os.path.exists(wal_log):
+                try:
+                    runs = sum(1 for r in scan_wal(wal_log)[0]
+                               if r["kind"] == "run")
+                except ValueError:
+                    runs = 0
+                if runs >= Q4_KILL_SEGMENT:
+                    child.send_signal(signal.SIGKILL)
+                    break
+            time.sleep(0.005)
+    finally:
+        if child.poll() is None and runs < Q4_KILL_SEGMENT:
+            child.kill()
+        rc = child.wait()
+        err = child.stderr.read().decode(errors="replace")
+        child.stderr.close()
+    child_s = time.perf_counter() - t0
+    if rc != -signal.SIGKILL or runs < Q4_KILL_SEGMENT:
+        raise AssertionError(f"Q4: the child exited {rc} before the kill "
+                             f"({runs} runs): {err[-2000:]}")
+    records, torn = scan_wal(wal_log)
+    last = int(records[-1]["seq"]) if records else 0
+    report = os.path.join(tmp, "q4.json")
+    rec_end = os.path.join(tmp, "q4_rec.npz")
+    t0 = time.perf_counter()
+    rc, out = _cli_json(["query", "--wal", wal_dir, "--recover",
+                         "--queries", "0", "--rounds", "0", "--report",
+                         report, "--checkpoint", rec_end])
+    recover_call_s = time.perf_counter() - t0
+    if rc != 0 or not out["durability"]["recovered"]:
+        raise AssertionError(f"Q4: the recovery exited {rc}: {out}")
+    got = QueryFabric.restore_checkpoint(rec_end).state_digest()
+    # the control: the same fabric driven through the journal's records
+    # (the subcommand's own draws) with no crash
+    topo = erdos_renyi(Q4_NODES, avg_degree=6, seed=SEED)
+    cfg = RoundConfig.fast(variant="collectall", drop_rate=0.01)
+    ctrl = QueryFabric(topo, lanes=Q4_LANES, capacity=Q4_NODES + 64,
+                       degree_budget=24, config=cfg,
+                       segment_rounds=Q_SEGMENT, seed=SEED,
+                       conv_eps=1e-3).attach_watchdog()
+    ops = _q4_ops(Q4_NODES, Q4_LANES, queries, rate, frac, SEED,
+                  Q4_KILL_SEGMENT + 2)[:last]
+    for op in ops:
+        if op[0] == "submit":
+            ctrl.submit(op[1], cohort=op[2])
+        else:
+            ctrl.run(op[1])
+    want = ctrl.state_digest()
+    with open(report) as f:
+        manifest = json.load(f)
+    recovery = manifest["recovery"]
+    verdict = _p_verdict(report)
+    if got != want:
+        raise AssertionError(f"Q4: recovered digest {got} != control "
+                             f"{want} ({last} records)")
+    if verdict["checks"].get("wal_replay_exact") != "pass":
+        raise AssertionError(f"Q4: doctor wal_replay_exact: {verdict}")
+
+    # a NaN-poisoned lane under the watchdog, against a clean twin
+    def build():
+        f = QueryFabric(topo, lanes=Q4_LANES, capacity=Q4_NODES + 64,
+                        degree_budget=24, config=cfg,
+                        segment_rounds=Q_SEGMENT, seed=SEED,
+                        conv_eps=1e-30).attach_watchdog()
+        rng = np.random.default_rng(SEED + 5)
+        for vals, cohort in _q_cohort_queries(rng, np.arange(Q4_NODES),
+                                              Q4_LANES // 2):
+            f.submit(vals, cohort=cohort)
+        f.run(2 * Q_SEGMENT)
+        return f
+
+    sick, clean = build(), build()
+    lane = Q4_LANES // 4
+    sick.svc.state.est[:, lane] = float("nan")
+    sick.svc.state.flow[:, lane] = float("nan")
+    for f in (sick, clean):
+        f.run(2 * Q_SEGMENT)
+    acts = sick._watchdog.block()["actions"]
+    if [(a["lane"], a["reason"], a["post_scrub_residual"])
+            for a in acts] != [(lane, "nan", 0.0)]:
+        raise AssertionError(f"Q4: watchdog actions {acts}")
+    keep = torch.tensor([ln for ln in range(Q4_LANES) if ln != lane],
+                        device=sick.device)
+    unequal = [n for n in LANE_PLANES if not torch.equal(
+        getattr(sick.svc.state, n).index_select(-1, keep),
+        getattr(clean.svc.state, n).index_select(-1, keep))]
+    if unequal or sick.mass_residual()[lane] != 0.0:
+        raise AssertionError(f"Q4: the quarantine touched {unequal}")
+    fsync = (manifest.get("serving_trace") or {}).get("metrics", {}) \
+        .get("histograms", {}).get("wal_fsync_seconds") or {}
+    return {"topology": f"erdos_renyi:{Q4_NODES}:6", "lanes": Q4_LANES,
+            "drop_rate": 0.01, "killed_after_runs": runs,
+            "wal_records": len(records), "torn_bytes": torn,
+            "child_s": child_s, "replay": recovery["replay"],
+            "ring_used": recovery["ring"]["used"],
+            "recover_s": manifest["timings"]["setup_s"],
+            "recover_call_s": recover_call_s, "digest_equal": True,
+            "doctor": verdict, "quarantine": acts[0],
+            "other_lanes_equal": True,
+            "wal_fsync_s_per_record": (fsync["sum"] / fsync["count"]
+                                       if fsync.get("count") else None)}
+
+
 def main() -> int:
     import torch
 
@@ -5597,6 +6149,27 @@ def main() -> int:
         path_p["p4"] = phase_path_p4(tmp)
         emit({"phase": "path_p", "part": "p4", **path_p["p4"]})
     emit({"phase": "path_p", "wall_s": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
+    reset_counts()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_query_") as tmp:
+        path_q = {"q1": phase_path_q1(tmp)}
+        emit({"phase": "path_q", "part": "q1", **path_q["q1"]})
+        torch.cuda.empty_cache()
+        path_q["q2"] = phase_path_q2()
+        emit({"phase": "path_q", "part": "q2", **path_q["q2"]})
+        torch.cuda.empty_cache()
+        path_q["q3"] = phase_path_q3(tmp)
+        emit({"phase": "path_q", "part": "q3", **path_q["q3"]})
+        path_q["q4"] = phase_path_q4(tmp)
+        emit({"phase": "path_q", "part": "q4", **path_q["q4"]})
+    # the fabric runs the plain row fold: no kernel of the port launches
+    q_launches = {"k1": neighbor_sum_ell.launches,
+                  "k2": fused_banded_round.launches, "b3": b3_launches(),
+                  "b4": b4_launches(), "b5": b5_launches(),
+                  "b6": b6_launches()}
+    emit({"phase": "path_q", "wall_s": time.perf_counter() - t0,
+          "launches": q_launches})
 
     emit({"phase": "timing", "timed_by_cuda_events": EVENT_TIMED})
     emit({"kernels": [

@@ -15,7 +15,11 @@ paths (``parallel/``: the sharded banded and Beneš rounds, the pod-sharded
 fat-tree stencil and the halo edge round), the topology compiler
 (RCM + banded plan), the ``Engine`` façade and the ``run`` CLI, with
 node and link faults and checkpoints in the JAX package's archive layout
-(``utils/checkpoint.py``).  The TPU kernels on those paths are
+(``utils/checkpoint.py``), the sweep engine and the scenario registry,
+``doctor``, and the serving stack: the streaming service
+(``service/``), the query fabric (``query/``), the aggregate fabric
+(``aggregates/``), the lane watchdog and the WAL + checkpoint-ring
+durability (``resilience/``).  The TPU kernels on those paths are
 hand-written CUDA for Hopper (``csrc/``): the ELL neighbor sum, the
 one-kernel banded round, the fused Beneš passes and the segmented scan /
 fill-forward.  Everything runs on the CUDA card

@@ -1,9 +1,11 @@
 """Command-line entry point: the ``run``, ``oracle``, ``plan``, ``inspect``,
-``obs``, ``sweep``, ``scenarios``, ``serve`` and ``doctor`` subcommands.
+``obs``, ``sweep``, ``scenarios``, ``serve``, ``query`` and ``doctor``
+subcommands.
 
 Counterpart of ``flow_updating_tpu/cli.py``'s ``run``, ``oracle``,
 ``plan``, ``inspect``, ``obs export-trace``, ``sweep``, ``scenarios``,
-``serve`` and ``doctor``.
+``serve``, ``query`` and ``doctor``; ``chaos`` exits naming its ROADMAP
+item.
 They take the same flags, so a JAX command line carries over, plus
 ``--device`` (``cuda``, the default, or ``cpu``).  Topology
 from ``--platform``/``--deployment`` XML or a synthetic ``--generator``;
@@ -62,8 +64,9 @@ buckets and advances each bucket's lanes together on ``--device``;
 ``--report`` writes a ``flow-updating-sweep-report/v1`` manifest.
 ``scenarios`` runs the conformance registry (``--list``, names,
 ``--seeds``, ``--perturb``) and exits 1 when a declared signature
-fails; the ``agg_*`` aggregate cases and ``sweep --profile`` exit naming
-their ROADMAP items.
+fails; the ``agg_*`` names run the aggregate-kind fault cases, one
+mixed-kind ``AggregateFabric`` each; ``sweep --profile`` exits naming
+its ROADMAP item.
 
 ``serve`` runs the streaming service (``flow_updating_tpu_torch.service``)
 on ``--device``: an event script (``--events FILE`` or ``-``) of ``run``,
@@ -74,6 +77,15 @@ signatures: 1), ``--report`` (``flow-updating-service-report/v1``),
 ``--metrics`` (Prometheus text), ``--checkpoint`` / ``--resume`` (service
 archives of either package), ``--wal DIR`` (journal + checkpoint ring)
 and ``--wal DIR --recover``.
+
+``query`` runs the multi-tenant query fabric
+(``flow_updating_tpu_torch.query``) on ``--device``: Poisson arrivals
+(``--arrival-rate`` a round, ``--queries`` in all) of random-cohort
+(``--cohort-frac``) mean queries admit into free lanes of ``--lanes``;
+converged lanes retire and recycle between segments.  One JSON summary
+in the JAX CLI's keys; ``--report`` (``flow-updating-query-report/v1``),
+``--metrics``, ``--checkpoint`` / ``--resume``, ``--wal DIR``
+(``--recover``), ``--watchdog``, ``--mixing``, ``--admit-policy``.
 
 ``doctor`` judges saved manifests (run, plan, field and every other
 ``flow-updating-*-report/v1`` kind, either package's), ``--baselines``
@@ -903,11 +915,6 @@ def cmd_sweep(args) -> int:
     return 0
 
 
-#: the aggregate fault cases of the JAX ``scenarios`` subcommand run the
-#: serving stack's fabric
-_AGG_ITEM = "the serving stack (A11 part 2)"
-
-
 def cmd_scenarios(args) -> int:
     """``scenarios``: the adversarial conformance suite
     (``flow_updating_tpu_torch.scenarios``) — run registered scenarios on
@@ -916,6 +923,7 @@ def cmd_scenarios(args) -> int:
     ``flow-updating-scenario-report/v1`` manifest, and judge every
     scenario's declared signature.  Exit 1 on any failing clause (on a
     warning too under ``--strict``)."""
+    from flow_updating_tpu_torch.aggregates import AGG_SCENARIOS
     from flow_updating_tpu_torch.scenarios.registry import (
         REGISTRY,
         get_scenario,
@@ -930,17 +938,23 @@ def cmd_scenarios(args) -> int:
                 "config": dict(scn.config),
                 "signature": [dict(c) for c in scn.signature],
             } for name, scn in REGISTRY.items()}
-        print(f"# the sweep-grid registry; the agg_* aggregate scenarios "
-              f"are the ROADMAP item '{_AGG_ITEM}', not ported yet",
-              file=sys.stderr)
+        for name, scn in AGG_SCENARIOS.items():
+            rec = scn.describe()
+            rec.pop("name", None)
+            listing[name] = rec
         print(json.dumps(listing))
         return 0
     names = list(args.names) or None
-    agg = [n for n in (names or []) if n.startswith("agg_")]
-    if agg:
-        raise SystemExit(
-            f"scenarios: the aggregate scenarios ({', '.join(agg)}) are "
-            f"the ROADMAP item '{_AGG_ITEM}', not ported yet")
+    agg_names = [n for n in (names or []) if n in AGG_SCENARIOS]
+    if agg_names:
+        # the per-kind aggregate fault cases run one mixed-kind fabric
+        # each, not a seed grid: the whole invocation goes to that runner
+        if len(agg_names) != len(names):
+            raise SystemExit(
+                "scenarios: aggregate scenarios "
+                f"({', '.join(agg_names)}) cannot mix with sweep-grid "
+                "scenarios in one invocation")
+        return _run_aggregate_scenarios_cli(args, names)
     for n in names or ():
         try:
             get_scenario(n)
@@ -973,6 +987,53 @@ def cmd_scenarios(args) -> int:
         "seeds": summary["seeds"],
         "sweep_compiles": summary["sweep_compiles"],
         "wall_s": summary["wall_s"],
+        "checks": [c.to_jsonable() for c in checks],
+    }
+    if args.perturb:
+        out["perturb"] = args.perturb
+    if args.report:
+        out["report_path"] = args.report
+    print(json.dumps(out))
+    return health.exit_code(checks, strict=args.strict)
+
+
+def _run_aggregate_scenarios_cli(args, names) -> int:
+    """The ``scenarios`` body for the aggregate-kind fault cases: each
+    named case's mixed-kind fabric under its planted adversary on
+    ``--device``, the per-kind ``agg_*`` clauses judged, exit 1 on any
+    failing clause (``--perturb remove_adversary`` is the negative
+    control and fails by design)."""
+    if args.perturb and args.perturb != "remove_adversary":
+        raise SystemExit(
+            f"scenarios: aggregate scenarios support --perturb "
+            f"remove_adversary only (got {args.perturb!r})")
+    from flow_updating_tpu_torch.aggregates import (
+        aggregate_scenario_manifest,
+        run_aggregate_scenarios,
+    )
+    from flow_updating_tpu_torch.obs import health
+    from flow_updating_tpu_torch.utils.device import resolve_device
+
+    try:
+        resolve_device(args.device)
+    except RuntimeError as err:
+        raise SystemExit(str(err)) from err
+    t0 = time.perf_counter()
+    records, summary = run_aggregate_scenarios(
+        names, perturb=args.perturb or None, device=args.device)
+    manifest = aggregate_scenario_manifest(
+        records, summary, argv=getattr(args, "_argv", None),
+        device=args.device)
+    if args.report:
+        from flow_updating_tpu_torch.obs.report import write_report
+
+        write_report(args.report, manifest)
+    checks = health.check_scenario_conformance(manifest)
+    out = {
+        "overall": health.overall(checks),
+        "scenarios": summary["scenarios"],
+        "kinds": summary["kinds"],
+        "wall_s": round(time.perf_counter() - t0, 3),
         "checks": [c.to_jsonable() for c in checks],
     }
     if args.perturb:
@@ -1220,9 +1281,184 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def cmd_query(args) -> int:
+    """``query``: the multi-tenant query fabric — one set of
+    ``(capacity, lanes)`` service tensors on ``--device`` serving a
+    stream of cohort aggregates: Poisson arrivals admit into free lanes
+    (one dispatch signature), per-lane convergence retires and recycles
+    lanes between segments (``flow_updating_tpu_torch.query``)."""
+    import numpy as np
+
+    from flow_updating_tpu_torch.models.config import RoundConfig
+    from flow_updating_tpu_torch.query import QueryFabric
+    from flow_updating_tpu_torch.utils.device import resolve_device
+
+    try:
+        resolve_device(args.device)
+    except RuntimeError as err:
+        raise SystemExit(str(err)) from err
+    t_start = time.perf_counter()
+    if args.recover:
+        if not args.wal:
+            raise SystemExit(
+                "query: --recover needs --wal DIR (the durability "
+                "directory the crashed fabric was journaling into)")
+        try:
+            fab = QueryFabric.recover(args.wal, device=args.device)
+        except ValueError as err:
+            raise SystemExit(f"query: {err}") from err
+        topo = None
+    elif args.resume:
+        try:
+            fab = QueryFabric.restore_checkpoint(args.resume,
+                                                 device=args.device)
+        except ValueError as err:
+            raise SystemExit(f"query: {err}") from err
+        topo = None
+    else:
+        topo = _build_topology(args)
+        maker = (RoundConfig.reference
+                 if args.fire_policy == "reference" else RoundConfig.fast)
+        kw = dict(variant="collectall", dtype=args.dtype,
+                  drop_rate=args.drop_rate, drain=0)
+        if args.timeout is not None:
+            kw["timeout"] = args.timeout
+        if args.fire_policy == "reference":
+            kw["pending_depth"] = 1
+        mix = None
+        if args.mixing:
+            # the a-priori spectral gap prices admissions (and fills the
+            # manifest's mixing block)
+            from flow_updating_tpu_torch.obs.spectral import mixing_report
+
+            mix = mixing_report(topo, eps=args.eps, device=args.device)
+        try:
+            cfg = maker(**kw)
+            fab = QueryFabric(
+                topo, lanes=args.lanes,
+                capacity=args.capacity or None,
+                degree_budget=args.degree_budget or None,
+                edge_capacity=args.edge_capacity or None,
+                config=cfg, segment_rounds=args.segment_rounds,
+                seed=args.seed, conv_eps=args.eps,
+                admission_slo_rounds=args.admission_slo or None,
+                convergence_slo_rounds=args.convergence_slo or None,
+                forecast=False if args.no_forecast else None,
+                admit_policy=args.admit_policy, mixing=mix,
+                device=args.device)
+        except ValueError as err:
+            raise SystemExit(f"invalid query configuration: {err}") from err
+    setup_s = time.perf_counter() - t_start
+    if args.watchdog and fab._watchdog is None:
+        fab.attach_watchdog()
+    if args.wal and not args.recover:
+        try:
+            fab.enable_durability(args.wal,
+                                  checkpoint_every=args.checkpoint_every,
+                                  retain=args.retain)
+        except (ValueError, OSError) as err:
+            raise SystemExit(f"query: cannot arm durability: {err}") from err
+
+    # Poisson arrivals: random-cohort mean queries submitted at
+    # --arrival-rate a round until --queries have been offered, then
+    # drain (stop early once every query retires)
+    rng = np.random.default_rng(args.seed + 1)
+    seg = fab.svc.segment_rounds
+    t0 = time.perf_counter()
+    submitted = rounds_run = 0
+    while rounds_run < args.rounds:
+        arrivals = min(int(rng.poisson(args.arrival_rate * seg)),
+                       args.queries - submitted)
+        if arrivals:
+            members = fab.svc.live_ids()
+            m = max(1, int(round(len(members) * args.cohort_frac)))
+        for _ in range(arrivals):
+            cohort = rng.choice(members, size=m, replace=False)
+            fab.submit(rng.random(m), cohort=np.sort(cohort))
+            submitted += 1
+        try:
+            fab.run(seg)
+        except ValueError as err:
+            raise SystemExit(f"query: {err}") from err
+        rounds_run += seg
+        if args.queries and submitted >= args.queries \
+                and not fab.active_lanes and not fab.queued:
+            break
+    wall_s = time.perf_counter() - t0
+
+    block = fab.query_block()
+    out = {
+        "t": fab.clock,
+        "lanes": fab.lanes,
+        "submitted": submitted,
+        "completed": block["retired_total"],
+        "active": block["lanes"]["active"],
+        "queued": block["lanes"]["queued"],
+        "compile_count": block["compile_count"],
+        "admission_p95": block["admission_latency"].get("p95"),
+        "wall_s": round(wall_s, 3),
+    }
+    fb = block.get("forecast")
+    if isinstance(fb, dict) and fb.get("enabled"):
+        out["at_risk"] = fb["at_risk_total"]
+        out["deferred"] = fb["deferred_total"]
+        if fb.get("p90_abs_log_ratio") is not None:
+            out["forecast_p90_abs_log_ratio"] = fb["p90_abs_log_ratio"]
+    timings = {"setup_s": setup_s, "wall_s": wall_s}
+    if args.checkpoint:
+        t1 = time.perf_counter()
+        fab.save_checkpoint(args.checkpoint)
+        timings["checkpoint_s"] = time.perf_counter() - t1
+    resil = fab.resilience_block()
+    if resil is not None:
+        out["durability"] = {
+            "dir": resil.get("dir"),
+            "wal_seq": (resil.get("wal") or {}).get("last_seq"),
+            "recovered": fab._recovery is not None,
+            "quarantined": fab.quarantined_total,
+        }
+    # the flight recorder: built after the resilience block so doctor's
+    # metrics_consistency compares same-moment facts
+    trace = fab.serving_trace_block()
+    if args.metrics:
+        if fab.metrics is None:
+            raise SystemExit(
+                "query: --metrics needs the flight recorder (it is on "
+                "by default; this fabric was restored from an archive "
+                "written without it)")
+        with open(args.metrics, "w") as f:
+            f.write(fab.metrics.to_prometheus())
+        out["metrics_path"] = args.metrics
+    if args.report:
+        from flow_updating_tpu_torch.obs.report import (
+            build_query_manifest,
+            write_report,
+        )
+
+        extra = {}
+        if resil is not None:
+            extra["recovery"] = resil
+        if trace is not None:
+            extra["serving_trace"] = trace
+        write_report(args.report, build_query_manifest(
+            argv=getattr(args, "_argv", None), config=fab.svc.config,
+            topo=topo, query=block, timings=timings,
+            extra=extra or None, device=fab.device))
+        out["report_path"] = args.report
+    print(json.dumps(out))
+    return 0
+
+
+def cmd_chaos(args) -> int:
+    """``chaos``: the infrastructure-fault conformance suite of the JAX
+    CLI — not ported yet."""
+    raise SystemExit(
+        "chaos is the ROADMAP item 'the chaos registry and harness (A11 "
+        "part 3)', not ported yet")
+
+
 def _add_durability_flags(p, prog: str) -> None:
-    """The crash-safety flag set of ``serve`` (the JAX CLI shares it with
-    ``query``)."""
+    """The crash-safety flag set ``serve`` and ``query`` share."""
     p.add_argument("--wal", metavar="DIR",
                    help="durability directory: journal every event in "
                         "an fsync'd CRC-framed WAL and write automatic "
@@ -1706,6 +1942,109 @@ def build_parser() -> argparse.ArgumentParser:
                     help="profiler capture of the serving body (ROADMAP "
                          "A14; exits naming it)")
     sv.set_defaults(fn=cmd_serve, latency_scale=0.0, msg_bytes=104.0)
+
+    qr = sub.add_parser(
+        "query",
+        help="multi-tenant query fabric: concurrent cohort aggregates on "
+             "one set of service tensors on --device — Poisson arrivals "
+             "admit into free payload lanes (one dispatch signature), "
+             "per-lane convergence retires and recycles lanes between "
+             "segments, doctor-checkable flow-updating-query-report/v1 "
+             "manifests")
+    qr.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="where the fabric runs: the CUDA card (default) "
+                         "or the host CPU")
+    qr.add_argument("--backend", default="auto",
+                    choices=("auto", "cpu", "jax_tpu"),
+                    help="accepted for command-line compatibility with "
+                         "the JAX CLI; no effect (see --device)")
+    _add_topology_flags(qr)
+    qr.add_argument("--lanes", type=int, default=64,
+                    help="concurrent-query capacity (the payload width "
+                         "D; admission beyond it queues)")
+    qr.add_argument("--capacity", type=int, default=0,
+                    help="maximum concurrent members (node slots; "
+                         "default: the initial topology's node count)")
+    qr.add_argument("--edge-capacity", type=int, default=0,
+                    help="total directed edge slots (default: initial "
+                         "edges + headroom)")
+    qr.add_argument("--degree-budget", type=int, default=0,
+                    help="per-member degree budget W (default: the "
+                         "initial max degree)")
+    qr.add_argument("--segment-rounds", type=int, default=32,
+                    help="segment length; lanes admit and retire at "
+                         "segment boundaries")
+    qr.add_argument("--queries", type=int, default=16,
+                    help="total queries to offer (0 = just run "
+                         "--rounds)")
+    qr.add_argument("--arrival-rate", type=float, default=0.25,
+                    help="Poisson arrival rate (queries per round)")
+    qr.add_argument("--cohort-frac", type=float, default=0.25,
+                    help="cohort size as a fraction of live members "
+                         "(random member subsets)")
+    qr.add_argument("--rounds", type=int, default=4096,
+                    help="round budget (the stream stops early once "
+                         "every offered query retires)")
+    qr.add_argument("--eps", type=float, default=1e-6,
+                    help="default per-query convergence tolerance "
+                         "(relative estimate spread for retirement)")
+    qr.add_argument("--admission-slo", type=int, default=0,
+                    help="admission-latency SLO in rounds (doctor's "
+                         "query_admission budget; default: 2 segments)")
+    qr.add_argument("--convergence-slo", type=int, default=0,
+                    help="convergence-latency SLO in rounds (doctor's "
+                         "slo_latency p95 target; default: undeclared)")
+    qr.add_argument("--no-forecast", action="store_true",
+                    help="disable the per-lane convergence forecaster "
+                         "(on by default with the flight recorder)")
+    qr.add_argument("--admit-policy", default="observe",
+                    choices=("observe", "strict"),
+                    help="forecast-aware admission: 'observe' flags "
+                         "provably-over-SLO queries at_risk but admits "
+                         "them; 'strict' defers them at the door "
+                         "(needs --mixing and --convergence-slo)")
+    qr.add_argument("--mixing", action="store_true",
+                    help="estimate the topology's spectral gap up front "
+                         "(obs/spectral.py, cached) and price admissions "
+                         "against it; the manifest gains a mixing block")
+    qr.add_argument("--fire-policy", default="every_round",
+                    choices=("every_round", "reference"),
+                    help="collect-all firing rule")
+    qr.add_argument("--timeout", type=int, default=None,
+                    help="collect-all tick timeout (reference firing)")
+    qr.add_argument("--drop-rate", type=float, default=0.0,
+                    help="per-message loss probability")
+    qr.add_argument("--dtype", default="float32",
+                    choices=("float32", "float64"))
+    _add_durability_flags(qr, "query")
+    qr.add_argument("--watchdog", action="store_true",
+                    help="arm the inline lane watchdog: NaN/divergence "
+                         "lanes are quarantined mass-neutrally between "
+                         "segments, admissions back off when lanes are "
+                         "exhausted")
+    qr.add_argument("--resume", metavar="CKPT",
+                    help="restore a query-fabric checkpoint (either "
+                         "package's, lane tables included) instead of "
+                         "building fresh")
+    qr.add_argument("--checkpoint", metavar="PATH",
+                    help="save a query-fabric checkpoint at exit")
+    qr.add_argument("--report", metavar="PATH",
+                    help="write the flow-updating-query-report/v1 "
+                         "manifest (lane and dispatch accounting, "
+                         "admission latency vs SLO, per-boundary "
+                         "lane-mass rows) to PATH")
+    qr.add_argument("--metrics", metavar="PATH",
+                    help="write the flight recorder's streaming metrics "
+                         "as Prometheus text exposition to PATH at exit")
+    qr.set_defaults(fn=cmd_query, latency_scale=0.0, msg_bytes=104.0)
+
+    ch = sub.add_parser(
+        "chaos",
+        help="infrastructure-fault conformance suite (ROADMAP A11 part "
+             "3; exits naming it)")
+    ch.add_argument("names", nargs="*", metavar="FAULT")
+    ch.add_argument("--list", action="store_true")
+    ch.set_defaults(fn=cmd_chaos)
 
     dr = sub.add_parser(
         "doctor",

@@ -66,9 +66,14 @@ rows into preallocated device tensors and read nothing back inside the
 loop; :func:`run_rounds_streamed` reads one watcher sample between
 chunks.
 
+Per-lane reduction modes (``EdgeArrays.lane_modes``, the aggregate
+fabric's extrema lanes): on the collect-all round with an ``(N, D)``
+payload, a lane in mode 1 (max) or 2 (min) runs a latching consensus
+instead of the mean ledger; mode 0 lanes keep the plain writes bit for
+bit, and a round without the leaf runs none of it.
+
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item: the chunked runners (A13).  The per-lane reduction modes of
-the aggregates layer are A11's.
+ROADMAP item: the chunked runners (A13).
 """
 
 from __future__ import annotations
@@ -372,7 +377,13 @@ def fire_core(state: FlowUpdatingState, topo, cfg: RoundConfig, trigger,
     # planned segment networks they share one batched extraction.  Vector
     # payloads take the per-op path.
     vec = state.flow.dim() > 1
+    if topo.lane_modes is not None and (cfg.variant != COLLECTALL or not vec):
+        raise ValueError(
+            "per-lane reduction modes (flow_updating_tpu_torch.aggregates) "
+            "ride the collectall vector-payload round; build the fabric "
+            "with variant='collectall' and a (N, D) lane payload")
     all_heard = None
+    new_value = None
     if topo.seg_plan is not None and cfg.variant == COLLECTALL and not vec:
         xs = [(state.flow, "sum"), (state.est, "sum")]
         if cfg.fire_policy != "every_round":
@@ -435,6 +446,31 @@ def fire_core(state: FlowUpdatingState, topo, cfg: RoundConfig, trigger,
                                    state.flow)
             new_est = torch.where(fire_ex, avg_e, state.est)
             msg_est = avg_e
+        if topo.lane_modes is not None:
+            # extrema lanes (mode 1 max, 2 min) run a latching consensus:
+            # their flow never moves (the estimate is the value column and
+            # the ledger residual stays +-0.0), the est ledger keeps the
+            # last value heard per in-edge, and a firing node latches the
+            # extremum of its own estimate and every last-heard neighbor
+            # value into its value column and sends it.  0 is the identity
+            # both ways (max lanes carry values >= 0, min lanes <= 0), so
+            # unheard edges, free lanes and ghosts stay on the all-zero
+            # fixed point.  Mode 0 lanes keep the elements written above.
+            modes = topo.lane_modes
+            ext_lane = modes > 0                     # (D,) per-lane mask
+            is_max = modes == 1
+            ext_n = torch.where(
+                is_max,
+                torch.maximum(estimate, _seg_max(state.est, topo, 0)),
+                torch.minimum(estimate, _seg_min(state.est, topo, 0)))
+            ext_e = _bcast(ext_n, topo)
+            new_value = torch.where(ext_lane & _ex(fire_n, ext_n),
+                                    ext_n, state.value)
+            new_flow = torch.where(ext_lane, state.flow, new_flow)
+            new_est = torch.where(ext_lane,
+                                  torch.where(fire_ex, ext_e, state.est),
+                                  new_est)
+            msg_est = torch.where(ext_lane, ext_e, msg_est)
         send_mask = fire_e
         ticks = torch.where(fire_n, 0, ticks)
         recv = recv & ~fire_e
@@ -554,6 +590,9 @@ def fire_core(state: FlowUpdatingState, topo, cfg: RoundConfig, trigger,
     state = state.replace(flow=new_flow, est=new_est, recv=recv,
                           ticks=ticks, stamp=stamp, last_avg=last_avg,
                           fired=fired_ctr, key=key)
+    if new_value is not None:
+        # extrema lanes latch their consensus into the value column
+        state = state.replace(value=new_value)
     return state, msg_est, send_mask
 
 

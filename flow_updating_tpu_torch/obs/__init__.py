@@ -17,7 +17,9 @@ side and the topology-resolved side.
   trace-event documents;
 * :mod:`.spectral` — the diffusion operator's spectral gap
   (``mixing_report``), persisted in the autotune cache;
-* :mod:`.forecast` — ``fit_log_decay``, the log-spread fit;
+* :mod:`.forecast` — ``fit_log_decay``, the log-spread fit, and
+  ``LaneForecaster``, the query fabric's per-lane ETA;
+* :mod:`.metrics`, :mod:`.spans` — the serving flight recorder;
 * :mod:`.profile` — the payload-bytes and fused-round attributions.
 """
 

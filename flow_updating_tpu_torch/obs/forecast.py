@@ -1,10 +1,20 @@
-"""Log-spread decay fit (counterpart of a subset of
-``flow_updating_tpu/obs/forecast.py``).
+"""Online per-lane convergence forecasting for the query fabric.
 
-:func:`fit_log_decay` is the least-squares line through ``ln(spread)``
-that the mixing probe's measured provenance (:mod:`.spectral`) rides.
-The online per-lane forecaster (``LaneForecaster``) moves with the query
-fabric (ROADMAP A11).
+Counterpart of ``flow_updating_tpu/obs/forecast.py``.  The fabric's
+segment-boundary lane probe (``query/fabric.py`` ``_lane_probe``) reduces
+the estimate matrix to five ``(lanes,)`` vectors per boundary; this
+module turns that stream into a forecast.  The estimate spread contracts
+geometrically, so on a log axis the trailing spread window is a line:
+its slope is the measured contraction rate, and extrapolating it to the
+lane's retirement threshold (``eps * scale`` for the spread, ``eps *
+max(1, |mass|)`` for the ledger residual — the fabric's two-signal
+verdict) gives ``eta_rounds`` with a band from the slope's standard
+error.
+
+Everything here is host float math over numbers the fabric already
+holds: no device work, and with the forecaster off the fabric evolves
+bit for bit as with it on.  :func:`fit_log_decay` also serves the
+mixing probe's measured provenance (:mod:`.spectral`).
 """
 
 from __future__ import annotations
@@ -55,3 +65,117 @@ def fit_log_decay(ts, ys) -> dict | None:
         "slope_stderr": stderr / math.sqrt(sxx),
         "points": n,
     }
+
+
+def _eta_from_fit(fit: dict, threshold: float, now: float):
+    """Rounds from ``now`` until the fitted line crosses
+    ``ln(threshold)`` — None when the fit is flat/rising (never
+    crosses) or the threshold is non-positive."""
+    if fit is None or threshold <= 0.0:
+        return None
+    slope = fit["slope"]
+    if slope >= _FLAT_SLOPE:
+        return None
+    t_star = (math.log(threshold) - fit["intercept"]) / slope
+    return max(0.0, t_star - float(now))
+
+
+class LaneForecaster:
+    """Trailing per-lane probe windows + the ETA extrapolation.
+
+    ``observe()`` is fed once per (lane, boundary) from the fabric's
+    existing probe vectors; ``forecast()`` fits the window and returns
+    the lane's ETA record.  ``clear()`` drops a lane's window at
+    retire/quarantine/recycle time (the same hygiene the watchdog
+    applies to its ``_lane_trend`` — a recycled lane must not inherit
+    the retired query's decay history).
+    """
+
+    def __init__(self, window: int = 8, min_points: int = 3):
+        if window < 2:
+            raise ValueError(f"window={window} must be >= 2")
+        if not (2 <= min_points <= window):
+            raise ValueError(
+                f"min_points={min_points} must be in [2, window={window}]")
+        self.window = int(window)
+        self.min_points = int(min_points)
+        #: lane -> list of (t, spread, scale, |resid|, |mass|) rows,
+        #: trailing ``window`` entries
+        self._hist: dict[int, list] = {}
+
+    def observe(self, lane: int, t: int, *, spread: float, scale: float,
+                resid: float, mass: float) -> None:
+        rows = self._hist.setdefault(int(lane), [])
+        rows.append((int(t), float(spread), float(scale),
+                     abs(float(resid)), abs(float(mass))))
+        if len(rows) > self.window:
+            del rows[:len(rows) - self.window]
+
+    def clear(self, lane: int) -> None:
+        self._hist.pop(int(lane), None)
+
+    def clear_all(self) -> None:
+        self._hist.clear()
+
+    def points(self, lane: int) -> int:
+        return len(self._hist.get(int(lane), ()))
+
+    def forecast(self, lane: int, eps: float, *, now: int) -> dict:
+        """The lane's ETA record at round ``now``:
+
+        * ``status`` — ``"warming"`` (window below ``min_points``),
+          ``"flat"`` (no signal is decaying), or ``"ok"``;
+        * ``eta_rounds`` — predicted rounds until BOTH retirement
+          signals cross their thresholds (the max of the per-signal
+          ETAs: the verdict needs spread AND residual settled);
+        * ``eta_lo`` / ``eta_hi`` — the slope +/- 1 stderr band of the
+          governing signal's fit;
+        * ``rate`` — per-round contraction of the governing signal
+          (``exp(slope)``; the measured twin of the spectral
+          ``lambda2``).
+        """
+        rows = self._hist.get(int(lane), ())
+        out = {"status": "warming", "eta_rounds": None, "eta_lo": None,
+               "eta_hi": None, "rate": None, "points": len(rows)}
+        if len(rows) < self.min_points:
+            return out
+        t_last, spread_last, scale_last, resid_last, mass_last = rows[-1]
+        ts = [r[0] for r in rows]
+        signals = (
+            # (latest value, threshold, series)
+            (spread_last, float(eps) * max(1.0, scale_last),
+             [r[1] for r in rows]),
+            (resid_last, float(eps) * max(1.0, mass_last),
+             [r[3] for r in rows]),
+        )
+        etas = []
+        for latest, threshold, ys in signals:
+            if latest <= threshold:
+                etas.append((0.0, None))       # already settled
+                continue
+            fit = fit_log_decay(ts, ys)
+            eta = _eta_from_fit(fit, threshold, now)
+            if eta is None:
+                etas.append((None, fit))
+                continue
+            etas.append((eta, fit))
+        if any(eta is None for eta, _ in etas):
+            out["status"] = "flat"
+            return out
+        eta, fit = max(etas, key=lambda ef: ef[0])
+        out["status"] = "ok"
+        out["eta_rounds"] = float(eta)
+        if fit is not None:
+            out["rate"] = math.exp(fit["slope"])
+            # eta ~ remaining-log-depth / |slope|, so a +/-1 stderr
+            # slope perturbation maps to eta * |slope| / (|slope| -/+ se)
+            se = fit["slope_stderr"]
+            m = abs(fit["slope"])
+            out["eta_lo"] = float(eta * m / (m + se)) if m + se > 0 \
+                else 0.0
+            out["eta_hi"] = (float(eta * m / (m - se))
+                             if m - se > 0 else float("inf"))
+        else:
+            # the governing signal was already settled (eta 0 on both)
+            out["eta_lo"] = out["eta_hi"] = 0.0
+        return out

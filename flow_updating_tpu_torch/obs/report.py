@@ -9,16 +9,18 @@ schema names, :func:`build_manifest` (``run --report``,
 ``flow-updating-sweep-report/v1``), :func:`build_scenario_manifest`
 (``scenarios --report``, ``flow-updating-scenario-report/v1``),
 :func:`build_service_manifest` (``serve --report``,
-``flow-updating-service-report/v1``), :func:`build_recovery_manifest`
-(``flow-updating-recovery-report/v1``) and :func:`write_report`.
+``flow-updating-service-report/v1``), :func:`build_query_manifest`
+(``query --report``, ``flow-updating-query-report/v1``),
+:func:`build_recovery_manifest` (``flow-updating-recovery-report/v1``)
+and :func:`write_report`.
 A manifest binds the invocation (argv and the resolved config), the
 topology (size and the checkpoint-grade content fingerprint), the
 execution substrate (torch, CUDA, the device), the timings, the final
 report and — when telemetry ran — the full per-round series (or, in a
 field manifest, the per-node and per-edge fields and the global series
 reduced from them), in the JAX package's keys, so its ``doctor`` and
-``inspect`` judge the port's manifests.  The profile, query, audit and
-budget builders move with their ROADMAP items.
+``inspect`` judge the port's manifests.  The profile, audit and budget
+builders move with their ROADMAP items.
 """
 
 from __future__ import annotations
@@ -268,6 +270,31 @@ def build_service_manifest(*, argv=None, config=None, topo=None,
             "derived_from": "segment_boundaries",
             "series": {k: list(v) for k, v in series.items()},
         }
+    if extra:
+        manifest.update(extra)
+    return manifest
+
+
+def build_query_manifest(*, argv=None, config=None, topo=None,
+                         query=None, timings=None, extra=None,
+                         device=None) -> dict:
+    """Assemble the query-fabric manifest: the run manifest's argv/config/
+    environment binding around a ``query`` block
+    (``QueryFabric.query_block()`` — lane and dispatch accounting, the
+    admission-latency distribution against its SLO, per-boundary
+    lane-mass rows, per-query lifecycle records with results).  The
+    doctor judges it with ``check_query``; ``topo`` is the initial
+    topology (membership is mutable state afterwards)."""
+    manifest = {
+        "schema": QUERY_SCHEMA,
+        "created_unix": round(time.time(), 3),
+        "argv": list(argv) if argv is not None else None,
+        "config": _configs(config),
+        "topology": topology_summary(topo) if topo is not None else None,
+        "environment": environment_info(device),
+        "timings": dict(timings) if timings else None,
+        "query": dict(query) if query else None,
+    }
     if extra:
         manifest.update(extra)
     return manifest

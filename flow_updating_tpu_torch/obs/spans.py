@@ -12,8 +12,8 @@ replay evidence, which ``doctor``'s ``span_complete`` check audits.
 
 Per-query chains (``submitted``, ``admitted@lane{L}``, ``segment``,
 ``converged``, ``read``, ``retired`` / ``quarantined`` / ``deferred``)
-are the query fabric's (ROADMAP A11 part 2); the recorder keeps the
-whole vocabulary so a fabric manifest of either package loads here.
+are the query fabric's (:mod:`flow_updating_tpu_torch.query`); a fabric
+manifest of either package loads here.
 Engine-level spans live on their own track: ``recovery`` and the
 watchdog's ``degraded`` episodes.
 """

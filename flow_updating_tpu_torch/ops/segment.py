@@ -68,17 +68,30 @@ def segment_all(pred: torch.Tensor, out_deg: torch.Tensor) -> torch.Tensor:
 
 # ---- the sweep engine's uniform-width row layout ---------------------------
 
+#: the largest ``(W, N, ...)`` gather :func:`_rows_fold` makes at once;
+#: above it each column is gathered on its own (the same fold, so the
+#: same bits) — a 1024-lane query fabric at 100,001 node slots and W = 24
+#: would otherwise hold 9.8 GB for every reduction
+ROWS_GATHER_MAX_BYTES = 1 << 30
+
+
 def _rows_fold(values, rows, init, combine):
     """``init`` combined with each row's W slots in column order.  One
     gather takes every slot at once, column by column (``rows.t()``: the
     sweep packer stores the rows column-major, so each column is one
-    contiguous index run), then the W columns fold in order."""
+    contiguous index run), then the W columns fold in order; a gather
+    above :data:`ROWS_GATHER_MAX_BYTES` goes one column at a time."""
     feat = values.shape[1:]
     xp = torch.cat([values, values.new_full((1,) + feat, init)])
-    cols = xp[rows.t()]                       # (W, N, ...)
+    rt = rows.t()
+    if rows.numel() * xp[0].numel() * xp.element_size() \
+            <= ROWS_GATHER_MAX_BYTES:
+        cols = xp[rt]                         # (W, N, ...)
+    else:
+        cols = None
     acc = values.new_full((rows.shape[0],) + feat, init)
     for w in range(rows.shape[1]):
-        acc = combine(acc, cols[w])
+        acc = combine(acc, xp[rt[w]] if cols is None else cols[w])
     return acc
 
 

@@ -28,9 +28,9 @@ wire to hide.
 
 What waits: ``probe='aot'`` ranks by the compiler's cost analysis of the
 lowered candidates, and ``FLOW_UPDATING_ROOFLINE`` annotates a probe
-record with roofline fractions — both ROADMAP A14; ``autotune_metrics``
-(the Prometheus face of the cache) moves with the metrics registry,
-ROADMAP A11.
+record with roofline fractions — both ROADMAP A14.
+:func:`autotune_metrics` is the cache's Prometheus face: its counters
+(and a record's measured rates) into a ``MetricsRegistry``.
 """
 
 from __future__ import annotations
@@ -732,6 +732,33 @@ def autotune_fused(topo, cfg, *, backend: str | None = None,
             "'profiling and analysis (A14)', not ported yet")
     _store_autotune_entry(path, key, entry)
     return {**entry, "cache": "miss"}
+
+
+def autotune_metrics(registry, record: dict | None = None) -> None:
+    """Export the autotune cache counters (and, when a record is given,
+    its per-family measured rates and roofline fracs) into a
+    :class:`~flow_updating_tpu_torch.obs.metrics.MetricsRegistry` — the
+    Prometheus face of the measured-probe cache."""
+    registry.set_counter("autotune_cache_hits_total",
+                         AUTOTUNE_CACHE_STATS["hits"])
+    registry.set_counter("autotune_cache_misses_total",
+                         AUTOTUNE_CACHE_STATS["misses"])
+    registry.set_counter("autotune_probes_total", PROBE_COUNT)
+    if not isinstance(record, dict):
+        return
+
+    def _slug(s: str) -> str:
+        return "".join(c if c.isalnum() else "_" for c in s).strip("_")
+
+    for label, rate in (record.get("measured_rounds_per_sec")
+                        or {}).items():
+        if isinstance(rate, (int, float)):
+            registry.set_gauge(f"autotune_rate_{_slug(label)}",
+                               float(rate))
+    for label, frac in (record.get("roofline_frac") or {}).items():
+        if isinstance(frac, (int, float)):
+            registry.set_gauge(f"autotune_roofline_frac_{_slug(label)}",
+                               float(frac))
 
 
 def select_plan(topo, cfg, *, backend: str | None = None,

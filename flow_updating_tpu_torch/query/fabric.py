@@ -1,0 +1,1258 @@
+"""The query fabric: the payload feature axis promoted to a query axis.
+
+Counterpart of ``flow_updating_tpu/query/fabric.py``.  The ``(N, D)``
+payload machinery evolves D independent scalar protocol instances that
+share one set of messages (the control planes never grow a feature axis,
+so firing, delivery and loss decisions are payload-independent).  The
+fabric makes each lane a *query*:
+
+* **lane layout** — one :class:`~flow_updating_tpu_torch.service.
+  ServiceEngine` at ``(capacity+1, edge_capacity)`` node and edge slots x
+  ``lanes`` payload lanes.  A free lane is all-zero on every payload plane
+  (``value``, ``flow``, ``est``, ``last_avg`` and the pending and ring
+  payload planes); zero is a fixed point of the per-lane dynamics, so a
+  free lane stays exactly zero through any number of rounds, and a later
+  admission into it starts as a fresh fabric's lane would;
+* **admission** — ``submit`` binds a query (cohort ids and one value per
+  member) to the lowest free lane (a heap, the service's free-node list
+  applied to the lane axis): one ``index_copy_`` of the value column into
+  the same tensor between segments, so admission never adds a dispatch
+  signature (``compile_count`` stays 1).  Nodes outside the cohort carry
+  0 on that lane and still relay, so the lane converges to
+  ``sum(cohort values) / live`` network-wide;
+* **bit-exactness** — lane ``d`` equals, bit for bit, an isolated
+  one-query fabric of the same capacity and seed driven through the same
+  membership events: the control plane is shared and payload-independent,
+  the lane starts from the all-zero fixed point, and the admission write
+  is exactly the isolated run's value update;
+* **convergence and recycling** — between segments one lane probe
+  (:func:`_lane_probe`) reduces the estimate matrix on the device to
+  five ``(lanes,)`` vectors (max, min and sum of live estimates, the
+  ledger-form mass residual, the live count), so the ``(n_cap, lanes)``
+  matrix never reaches the host.  A lane whose live spread is within its
+  ``eps`` (relative to scale) AND whose ledger residual has settled is
+  retired: its result is recorded, its payload columns are zeroed in
+  place (``index_fill_`` on the last axis), and it returns to the heap;
+* **bounded-staleness reads** — ``read(qid, max_staleness=k)`` serves the
+  boundary probe while it is at most ``k`` rounds old; membership and
+  query events invalidate it.
+
+Result semantics: a lane's converged estimate is ``sum(cohort values
+alive at read time) / live``; the fabric reports ``sum`` (the lane's live
+mass) and ``mean`` (``sum / |cohort ∩ alive|``).
+
+The flight recorder (:mod:`~flow_updating_tpu_torch.obs.metrics`,
+:mod:`~flow_updating_tpu_torch.obs.spans`), the per-lane forecaster
+(:class:`~flow_updating_tpu_torch.obs.forecast.LaneForecaster`), the lane
+watchdog (:mod:`~flow_updating_tpu_torch.resilience.watchdog`) and the
+WAL + checkpoint-ring durability (``kind='query'``) ride the boundaries
+on the host; archives and durability directories are the JAX package's
+layout, readable by either package.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import heapq
+import math
+
+import numpy as np
+import torch
+
+from flow_updating_tpu_torch.models.config import COLLECTALL, RoundConfig
+from flow_updating_tpu_torch.obs.forecast import (
+    FORECAST_BAND,
+    LaneForecaster,
+)
+from flow_updating_tpu_torch.obs.metrics import MetricsRegistry
+from flow_updating_tpu_torch.obs.spans import SpanRecorder
+from flow_updating_tpu_torch.service import ServiceEngine
+from flow_updating_tpu_torch.service.engine import _host, _signature
+from flow_updating_tpu_torch.topology.padding import masked_values
+
+#: the payload planes a lane owns a column of (last axis); the control
+#: planes are shared by every lane and never written per lane
+LANE_PLANES = ("value", "flow", "est", "last_avg", "pending_flow",
+               "pending_est", "buf_flow", "buf_est")
+
+
+def _lane_probe(state, arrays):
+    """Per-lane boundary statistics, reduced on the device: the
+    ``(n_cap, lanes)`` estimate matrix never reaches the host.  Returns
+    ``(max, min, sum, mass_residual, live)`` — the first four ``(lanes,)``
+    over live nodes, ``mass_residual`` in the service's ledger form
+    (``-sum(flow[e] for live src[e])``, exactly 0.0 on a scrubbed free
+    lane).  A NaN anywhere in a lane's live estimates or flows reaches
+    its entries as NaN (``amax``/``amin``/``sum`` propagate it)."""
+    from flow_updating_tpu_torch.models.rounds import node_estimates
+
+    est = node_estimates(state, arrays)            # (n_cap, lanes)
+    am = state.alive[:, None]
+    mx = torch.where(am, est, -math.inf).amax(0)
+    mn = torch.where(am, est, math.inf).amin(0)
+    s = torch.where(am, est, 0.0).sum(0)
+    live = state.alive.sum()
+    src_alive = state.alive[arrays.src][:, None]
+    resid = -torch.where(src_alive, state.flow, 0.0).sum(0)
+    return mx, mn, s, resid, live
+
+
+class QueryFabric:
+    """A multi-tenant query engine over one set of service tensors
+    (module docstring).
+
+    Parameters
+    ----------
+    topo:
+        Initial membership graph (members 0..N-1).
+    lanes:
+        Concurrent-query capacity D — the payload width.
+    capacity / degree_budget / edge_capacity / segment_rounds / seed:
+        Forwarded to the underlying :class:`ServiceEngine` (node-slot
+        capacity defaults to the initial member count).
+    config:
+        A :class:`RoundConfig` in the service domain; default
+        ``RoundConfig.fast(variant='collectall')``.
+    conv_eps:
+        Default per-query convergence tolerance: a lane retires when its
+        live estimate spread is within ``eps * scale`` (``scale = max(1,
+        |estimate|)``) and its ledger residual within ``eps * max(1,
+        |mass|)``.  ``submit(eps=...)`` overrides per query.
+    admission_slo_rounds:
+        The admission-latency SLO recorded in the manifest (doctor's
+        ``query_admission`` judges the measured p95).  Default: two
+        segments.
+    device:
+        Where the tensors live: the card unless ``'cpu'`` is given.
+    """
+
+    def __init__(self, topo, *, lanes: int, capacity: int | None = None,
+                 degree_budget: int | None = None,
+                 edge_capacity: int | None = None,
+                 config: RoundConfig | None = None,
+                 segment_rounds: int = 32, seed: int = 0,
+                 conv_eps: float = 1e-6,
+                 admission_slo_rounds: int | None = None,
+                 probe_manifest: bool = False,
+                 convergence_slo_rounds: int | None = None,
+                 observe: bool = True,
+                 forecast: bool | None = None,
+                 admit_policy: str = "observe",
+                 mixing: dict | None = None,
+                 forecast_window: int = 8,
+                 device=None):
+        if lanes < 1:
+            raise ValueError(f"lanes={lanes} must be >= 1")
+        if conv_eps <= 0:
+            raise ValueError(f"conv_eps={conv_eps} must be > 0")
+        if admit_policy not in ("observe", "strict"):
+            raise ValueError(
+                f"admit_policy={admit_policy!r} must be 'observe' "
+                "(flag at-risk queries and admit them anyway) or "
+                "'strict' (defer them)")
+        cfg = config or RoundConfig.fast(variant=COLLECTALL)
+        cap = topo.num_nodes if capacity is None else int(capacity)
+        self.svc = ServiceEngine(
+            topo, cap, degree_budget=degree_budget,
+            edge_capacity=edge_capacity, config=cfg,
+            segment_rounds=segment_rounds, seed=seed,
+            values=np.zeros((topo.num_nodes, int(lanes))),
+            # the fabric owns the one flight recorder of the stack
+            boundary_samples=False, observe=False, device=device)
+        self.lanes = int(lanes)
+        self.conv_eps = float(conv_eps)
+        self.admission_slo_rounds = (2 * self.svc.segment_rounds
+                                     if admission_slo_rounds is None
+                                     else int(admission_slo_rounds))
+        self.convergence_slo_rounds = (None if convergence_slo_rounds
+                                       is None
+                                       else int(convergence_slo_rounds))
+        self._free_lanes = list(range(self.lanes))
+        heapq.heapify(self._free_lanes)
+        self._lane_q: list = [None] * self.lanes    # lane -> active qid
+        self._queries: dict = {}                    # qid -> record
+        self._queue: list = []                      # waiting qids (FIFO)
+        self._next_qid = 0
+        self._probe = None            # boundary probe cache (dict)
+        self._boundaries: list = []   # one row per segment boundary
+        # opt-in: the probe vectors of every boundary in the manifest, so
+        # the aggregate read math is auditable offline
+        self.probe_manifest = bool(probe_manifest)
+        self._probe_rows: list = []
+        self._latencies: list = []    # admission latencies (rounds)
+        self.admitted_total = 0
+        self.retired_total = 0
+        self.peak_active = 0
+        self.quarantined_total = 0
+        # the serving flight recorder, sampled at the boundaries this
+        # class owns; observe=False turns the whole plane off
+        self.metrics = MetricsRegistry() if observe else None
+        self.spans = SpanRecorder() if observe else None
+        # the per-lane forecaster rides the same probe vectors on the
+        # host (on with the flight recorder by default)
+        self.admit_policy = admit_policy
+        self._forecaster = (LaneForecaster(window=forecast_window)
+                            if (observe if forecast is None
+                                else bool(forecast)) else None)
+        self._mixing = dict(mixing) if mixing else None
+        self._lane_eta: dict = {}         # lane -> latest forecast
+        self._forecast_ratios: list = []  # eta_predicted/rounds_actual
+        self.at_risk_total = 0
+        self.deferred_total = 0
+        self._conv_latencies: list = []   # admit->retire rounds
+        self._degraded_spanned = 0        # closed episodes span-recorded
+        self._watchdog = None
+        self._watchdog_pending_state = None
+        self._probe_signatures: set = set()
+        self._init_resilience()
+
+    # ---- resilience (flow_updating_tpu_torch.resilience) -----------------
+    def _init_resilience(self) -> None:
+        self._wal = None
+        self._ring = None
+        self._resil_dir = None
+        self._replaying = False
+        self._wal_applied_seq = 0
+        self._recovery = None
+
+    def _journal(self, kind: str, args: dict) -> None:
+        if self._wal is not None and not self._replaying:
+            self._wal_applied_seq = self._wal.append(kind, args,
+                                                     self.clock)
+            if self.metrics is not None:
+                self.metrics.observe("wal_fsync_seconds",
+                                     self._wal.last_fsync_s)
+
+    def enable_durability(self, directory: str, *,
+                          checkpoint_every: int = 8, retain: int = 3,
+                          fsync: bool = True) -> QueryFabric:
+        """Arm the fabric's event WAL + checkpoint ring: submissions,
+        query updates and membership events journal through the fabric,
+        so a replay drives the fabric's own lifecycle.  Recover with
+        :meth:`recover`."""
+        from flow_updating_tpu_torch.resilience.recover import (
+            arm_durability,
+        )
+
+        arm_durability(self, directory, kind="query",
+                       checkpoint_every=checkpoint_every,
+                       retain=retain, fsync=fsync)
+        return self
+
+    @classmethod
+    def recover(cls, directory: str, device=None) -> QueryFabric:
+        """Rebuild the fabric journaled in ``directory`` on ``device``
+        (newest valid ring checkpoint + WAL replay; the watchdog
+        re-attaches from the directory config) — bit for bit the
+        uninterrupted run."""
+        from flow_updating_tpu_torch.resilience.recover import recover
+
+        return recover(directory, kind="query", device=device)
+
+    def attach_watchdog(self, config=None) -> QueryFabric:
+        """Arm the inline lane watchdog
+        (:class:`~flow_updating_tpu_torch.resilience.watchdog.Watchdog`):
+        NaN, divergent and stalled lanes are quarantined mass-neutrally
+        at segment boundaries, admissions back off when lanes are
+        exhausted.  With durability armed, the config persists to the
+        directory so :meth:`recover` re-arms it."""
+        from flow_updating_tpu_torch.resilience.recover import (
+            _write_config,
+            read_config,
+        )
+        from flow_updating_tpu_torch.resilience.watchdog import (
+            Watchdog,
+            WatchdogConfig,
+        )
+
+        if config is None:
+            config = WatchdogConfig()
+        self._watchdog = Watchdog(config)
+        if self._watchdog_pending_state is not None:
+            # a restored checkpoint's watchdog runtime (backoff counters,
+            # open episode, stall windows): the admission schedule
+            # continues where the dead process stopped
+            self._watchdog.load_state(self._watchdog_pending_state)
+            self._watchdog_pending_state = None
+        if self._resil_dir is not None:
+            doc = read_config(self._resil_dir)
+            doc["watchdog"] = config.to_jsonable()
+            _write_config(self._resil_dir, doc)
+        return self
+
+    def attach_mixing(self, record: dict | None) -> QueryFabric:
+        """Attach an a-priori mixing record (:func:`~flow_updating_tpu_
+        torch.obs.spectral.mixing_report`): its spectral gap prices
+        admissions before a lane has probe history — a query whose
+        predicted rounds to eps (``ln(1/eps)/gap``) exceeds the declared
+        convergence SLO is flagged ``at_risk`` (and deferred under
+        ``admit_policy='strict'``)."""
+        self._mixing = dict(record) if record else None
+        return self
+
+    def _admission_eta(self, q: dict) -> float | None:
+        """The a-priori rounds-to-eps estimate at admission time (None
+        without forecasting and a mixing record)."""
+        if self._forecaster is None or self._mixing is None:
+            return None
+        gap = self._mixing.get("gap")
+        if not isinstance(gap, (int, float)) or not gap > 0:
+            return None
+        return (max(0.0, math.log(1.0 / q["eps"]))
+                / float(gap)) if q["eps"] < 1.0 else 0.0
+
+    def state_digest(self) -> str:
+        """sha256 over the service digest and the lane tables."""
+        h = hashlib.sha256()
+        h.update(self.svc.state_digest().encode())
+        h.update(repr(sorted(self._free_lanes)).encode())
+        h.update(repr(self._lane_q).encode())
+        h.update(repr(self._queue).encode())
+        h.update(repr(self._next_qid).encode())
+        return h.hexdigest()
+
+    def resilience_block(self) -> dict | None:
+        """The manifest's ``recovery`` block (see
+        ``ServiceEngine.resilience_block``); None with durability off
+        and no watchdog attached."""
+        if self._wal is None and self._recovery is None \
+                and self._watchdog is None:
+            return None
+        out = {"dir": self._resil_dir, "kind": "query"}
+        if self._recovery is not None:
+            out.update(self._recovery)
+        if self._wal is not None:
+            # live accounting wins over the recovery-time scan, so
+            # doctor's metrics_consistency compares same-moment figures
+            wal = dict(out.get("wal") or {})
+            wal.update(self._wal.block())
+            out["wal"] = wal
+        if self._ring is not None:
+            ring = dict(out.get("ring") or {})
+            ring.update(self._ring.block())
+            out["ring"] = ring
+        if self._watchdog is not None:
+            out["watchdog"] = self._watchdog.block()
+        return out
+
+    # ---- views -----------------------------------------------------------
+    @property
+    def device(self) -> torch.device:
+        return self.svc.device
+
+    @property
+    def clock(self) -> int:
+        return self.svc.clock
+
+    @property
+    def compile_count(self) -> int:
+        """Distinct dispatch signatures of the fabric's segments since
+        construction (``ServiceEngine.compile_count``): 1 across every
+        admission, retirement and membership event."""
+        return self.svc.compile_count
+
+    @property
+    def probe_compile_count(self) -> int:
+        """Distinct signatures the lane probe ran with (1; 2 once an
+        aggregate fabric installs its lane modes)."""
+        return len(self._probe_signatures)
+
+    @property
+    def active_lanes(self) -> int:
+        return self.lanes - len(self._free_lanes)
+
+    @property
+    def queued(self) -> int:
+        return len(self._queue)
+
+    def query(self, qid: int) -> dict:
+        """The query's current record (a copy; values stream omitted)."""
+        q = self._queries[qid]
+        return {k: v for k, v in q.items() if not k.startswith("_")}
+
+    # ---- membership passthrough -----------------------------------------
+    # Churn goes through the service engine unchanged; the fabric keeps
+    # the cohort bookkeeping (a departed member leaves every cohort) and
+    # invalidates the probe.  Passthrough journaling comes after the
+    # delegated call succeeds: the call validates and applies as a whole,
+    # and no ring write can come between (ring writes happen only inside
+    # run()), so a crash mid-event loses at most that unacknowledged
+    # event.
+
+    def join(self) -> int:
+        """Admit one member (0 on every in-flight lane; it enters later
+        queries' cohorts).  Returns the slot id."""
+        slot = self.svc.join(np.zeros(self.lanes))
+        self._journal("join", {})
+        self._probe = None
+        return slot
+
+    def leave(self, ids) -> QueryFabric:
+        self.svc.leave(ids)
+        self._journal("leave", {"ids": [int(i) for i in
+                                        np.atleast_1d(np.asarray(ids))]})
+        gone = {int(i) for i in np.atleast_1d(np.asarray(ids, np.int64))}
+        for q in self._queries.values():
+            if q["status"] in ("queued", "active") and \
+                    not gone.isdisjoint(q["cohort"]):
+                keep = [i not in gone for i in q["cohort"]]
+                q["cohort"] = [i for i, k in zip(q["cohort"], keep) if k]
+                if q.get("_values") is not None:
+                    q["_values"] = q["_values"][np.asarray(keep, bool)]
+        self._probe = None
+        return self
+
+    def add_edges(self, pairs) -> QueryFabric:
+        self.svc.add_edges(pairs)
+        self._journal("add_edges",
+                      {"pairs": [[int(u), int(v)] for u, v in pairs]})
+        self._probe = None
+        return self
+
+    def remove_edges(self, pairs) -> QueryFabric:
+        self.svc.remove_edges(pairs)
+        self._journal("remove_edges",
+                      {"pairs": [[int(u), int(v)] for u, v in pairs]})
+        self._probe = None
+        return self
+
+    def suspend(self, ids) -> QueryFabric:
+        self.svc.suspend(ids)
+        self._journal("suspend", {"ids": [int(i) for i in
+                                          np.atleast_1d(np.asarray(ids))]})
+        self._probe = None
+        return self
+
+    def resume(self, ids) -> QueryFabric:
+        self.svc.resume(ids)
+        self._journal("resume", {"ids": [int(i) for i in
+                                         np.atleast_1d(np.asarray(ids))]})
+        self._probe = None
+        return self
+
+    # ---- query lifecycle -------------------------------------------------
+    def submit(self, values, cohort=None, *, eps: float | None = None,
+               tag=None) -> int:
+        """Submit one query: aggregate ``values`` over ``cohort`` (member
+        slot ids; ``None`` = every live member).  ``values`` is one scalar
+        per cohort member, or one scalar for the whole cohort.  Returns
+        the query id; the query admits into the lowest free lane now or
+        waits in FIFO order for a retirement to free one."""
+        if cohort is None:
+            cohort = self.svc.live_ids()
+        cohort = np.atleast_1d(np.asarray(cohort, np.int64))
+        self.svc._check_member(cohort, "submit")
+        if np.unique(cohort).size != cohort.size:
+            raise ValueError("submit: duplicate cohort ids")
+        vals = np.asarray(values, np.float64)
+        if vals.ndim == 0:
+            vals = np.full(cohort.shape, float(vals))
+        if vals.shape != cohort.shape:
+            raise ValueError(
+                f"submit: values shape {vals.shape} != cohort shape "
+                f"{cohort.shape} (one value per cohort member, or one "
+                "scalar for all)")
+        self._journal("submit", {
+            "values": vals.tolist(),
+            "cohort": [int(i) for i in cohort],
+            "eps": eps, "tag": tag,
+        })
+        qid = self._next_qid
+        self._next_qid += 1
+        self._queries[qid] = {
+            "qid": qid,
+            "status": "queued",
+            "lane": None,
+            "submit_round": self.clock,
+            "admit_round": None,
+            "done_round": None,
+            "cohort": [int(i) for i in cohort],
+            "cohort_size": int(cohort.size),
+            "eps": self.conv_eps if eps is None else float(eps),
+            "tag": tag,
+            "result": None,
+            # the watchdog's divergence reference: a healthy lane's
+            # estimate scale is bounded by its own input magnitude
+            "value_scale": float(np.max(np.abs(vals)))
+            if vals.size else 1.0,
+            "_values": vals,
+        }
+        self._queue.append(qid)
+        if self.spans is not None:
+            self.spans.submitted(qid, self.clock)
+        if self.metrics is not None:
+            self.metrics.inc("queries_submitted_total")
+        self._admit_free()
+        return qid
+
+    def update_query(self, qid: int, ids, values) -> QueryFabric:
+        """Overwrite part of an active query's value stream (the lane
+        re-converges on the new cohort total).  ``ids`` must be live
+        cohort members of ``qid``."""
+        q = self._queries[qid]
+        if q["status"] != "active":
+            raise ValueError(
+                f"update_query: query {qid} is {q['status']} (only "
+                "active queries hold a lane)")
+        ids = np.atleast_1d(np.asarray(ids, np.int64))
+        bad = sorted(set(int(i) for i in ids) - set(q["cohort"]))
+        if bad:
+            raise ValueError(
+                f"update_query: nodes {bad} are not in query {qid}'s "
+                "cohort")
+        vals = np.asarray(values, np.float64)
+        if vals.shape != ids.shape:
+            raise ValueError(
+                f"update_query: values shape {vals.shape} != ids shape "
+                f"{ids.shape}")
+        self._journal("update_query", {
+            "qid": int(qid), "ids": [int(i) for i in ids],
+            "values": vals.tolist()})
+        q["value_scale"] = max(float(q.get("value_scale", 1.0)),
+                               float(np.max(np.abs(vals)))
+                               if vals.size else 1.0)
+        value = self.svc.state.value
+        dev = value.device
+        value.index_put_(
+            (torch.tensor(ids, dtype=torch.int64, device=dev),
+             torch.full((ids.size,), q["lane"], dtype=torch.int64,
+                        device=dev)),
+            torch.tensor(vals, dtype=value.dtype, device=dev))
+        self._probe = None
+        return self
+
+    def _admit_free(self) -> int:
+        """Bind waiting queries to free lanes — one ``index_copy_`` of
+        their value columns into the value tensor.  Runs at submit time
+        and at every segment boundary (after retirements).
+
+        Forecast-aware admission: with a mixing record attached, a query
+        whose a-priori ETA exceeds the declared convergence SLO is
+        flagged ``at_risk`` and, under ``admit_policy='strict'``,
+        deferred — a terminal state that never holds a lane."""
+        if not self._queue or not self._free_lanes:
+            return 0
+        slo = self.convergence_slo_rounds
+        n_cap = self.svc._n_cap
+        lanes, cols = [], []
+        while self._queue and self._free_lanes:
+            qid = self._queue.pop(0)
+            q = self._queries[qid]
+            eta0 = self._admission_eta(q)
+            if slo is not None and eta0 is not None and eta0 > slo:
+                q["at_risk"] = True
+                q["eta_admission"] = round(float(eta0), 3)
+                self.at_risk_total += 1
+                if self.metrics is not None:
+                    self.metrics.inc("queries_at_risk_total")
+                if self.spans is not None:
+                    self.spans.annotate(
+                        qid, at_risk=True,
+                        eta_admission=round(float(eta0), 3))
+                if self.admit_policy == "strict":
+                    q.update(status="deferred", done_round=self.clock)
+                    q["_values"] = None
+                    self.deferred_total += 1
+                    if self.spans is not None:
+                        self.spans.deferred(
+                            qid, self.clock,
+                            eta_rounds=round(float(eta0), 3),
+                            slo_rounds=int(slo))
+                    if self.metrics is not None:
+                        self.metrics.inc("queries_deferred_total")
+                    continue
+            lane = heapq.heappop(self._free_lanes)
+            cohort = np.asarray(q["cohort"], np.int64)
+            cols.append(masked_values(q["_values"], n_cap, cohort))
+            q.update(status="active", lane=lane,
+                     admit_round=self.clock)
+            q["_values"] = None
+            self._lane_q[lane] = qid
+            self._latencies.append(self.clock - q["submit_round"])
+            if self.spans is not None:
+                self.spans.admitted(qid, lane, self.clock)
+            if self.metrics is not None:
+                self.metrics.observe("admission_latency_rounds",
+                                     self.clock - q["submit_round"])
+            lanes.append(lane)
+        if not lanes:
+            return 0          # every candidate deferred: no device work
+        value = self.svc.state.value
+        dev = value.device
+        value.index_copy_(
+            1, torch.tensor(lanes, dtype=torch.int64, device=dev),
+            torch.tensor(np.stack(cols, axis=1), dtype=value.dtype,
+                         device=dev))
+        self.admitted_total += len(lanes)
+        if self.metrics is not None:
+            self.metrics.inc("queries_admitted_total", len(lanes))
+        self.peak_active = max(self.peak_active, self.active_lanes)
+        self._probe = None
+        return len(lanes)
+
+    def _scrub_lanes(self, lanes) -> None:
+        """Return lanes to the all-zero fixed point: every payload
+        plane's lane columns zeroed in place (the shared control planes
+        belong to every lane and stay).  After the scrub the lane's
+        ledger residual is exactly 0.0 and its next admission starts as
+        a fresh fabric's lane would."""
+        st = self.svc.state
+        li = torch.tensor(list(lanes), dtype=torch.int64,
+                          device=st.value.device)
+        for name in LANE_PLANES:
+            plane = getattr(st, name)
+            plane.index_fill_(plane.dim() - 1, li, 0)
+
+    def _quarantine(self, items) -> list:
+        """Watchdog-ordered lane quarantine: scrub each pathological
+        lane back to the exact-zero fixed point (the retirement scrub;
+        every other lane untouched), return the lanes to the heap and
+        mark the queries ``quarantined``.  ``items``: ``[(lane, qid,
+        reason, evidence), ...]``.  Returns one action record per lane
+        with the post-scrub ledger residual off a fresh probe (exactly
+        0.0 — doctor's ``quarantine_mass`` evidence)."""
+        lanes = [lane for lane, *_ in items]
+        self._scrub_lanes(lanes)
+        for lane, qid, reason, _ev in items:
+            q = self._queries[qid]
+            q.update(status="quarantined", done_round=self.clock,
+                     result=None)
+            q.pop("_forecast_total", None)
+            self._lane_q[lane] = None
+            heapq.heappush(self._free_lanes, lane)
+            if self._forecaster is not None:
+                self._forecaster.clear(lane)
+                self._lane_eta.pop(lane, None)
+            if self.spans is not None:
+                self.spans.quarantined(qid, self.clock, reason=reason)
+        self.quarantined_total += len(items)
+        if self.metrics is not None:
+            self.metrics.inc("queries_quarantined_total", len(items))
+        self._probe = None
+        probe = self._probe_fresh()
+        return [{
+            "t": self.clock,
+            "lane": int(lane),
+            "qid": int(qid),
+            "reason": reason,
+            "evidence": evidence,
+            # abs(): the ledger form of a scrubbed lane sums zeros to
+            # -0.0; the record reads "exactly 0.0"
+            "post_scrub_residual": float(np.abs(probe["resid"][lane])),
+        } for lane, qid, reason, evidence in items]
+
+    # ---- execution -------------------------------------------------------
+    def run(self, rounds: int) -> QueryFabric:
+        """Advance ``rounds`` (a whole number of segments).  At every
+        segment boundary: probe the lanes, retire and recycle the
+        converged ones, admit waiting queries into the freed lanes, and
+        record one boundary row (the doctor's SLO inputs)."""
+        from flow_updating_tpu_torch.models.rounds import run_rounds
+
+        if rounds < 0:
+            raise ValueError("rounds must be >= 0")
+        seg = self.svc.segment_rounds
+        if rounds % seg:
+            raise ValueError(
+                f"rounds={rounds} must be a whole number of segments "
+                f"(segment_rounds={seg}) — the zero-recompile contract "
+                "fixes the segment length")
+        self._journal("run", {"rounds": int(rounds)})
+        svc = self.svc
+        # membership events queued on the service since the last segment
+        # belong to the fabric's timeline, not a service epoch
+        svc._pending_events = []
+        for _ in range(rounds // seg):
+            svc._signatures.add(("run_rounds",) + _signature(
+                svc.state, svc.arrays, svc.params))
+            with torch.profiler.record_function("fu.segment"):
+                # a round at a time through svc.state: one call of seg
+                # rounds would keep the segment's first state alive to its
+                # end (~23 GB of payload planes at 1024 lanes and
+                # 100,001 node slots); the rounds are the same either way
+                for _ in range(seg):
+                    svc.state = run_rounds(svc.state, svc.arrays,
+                                           svc.config, 1,
+                                           params=svc.params)
+            with torch.profiler.record_function("fu.boundary"):
+                self._boundary()
+            svc._pending_events = []
+        if self._ring is not None and rounds:
+            wrote = self._ring.tick(self, self._wal_applied_seq,
+                                    segments=rounds // seg)
+            if wrote and self.metrics is not None:
+                self.metrics.inc("checkpoints_written_total")
+                self.metrics.observe("checkpoint_write_seconds",
+                                     self._ring.last_write_s)
+        return self
+
+    def _boundary(self) -> dict:
+        if self.spans is not None:
+            # close one segment span per active query before the
+            # watchdog and retirement verdicts stamp terminals here
+            self.spans.boundary(self.clock)
+        probe = self._probe_fresh()
+        if self._watchdog is not None:
+            # the watchdog rides this probe; a quarantine scrubs lane
+            # columns, so the verdicts below take a fresh probe
+            if self._watchdog.inspect(self, probe):
+                probe = self._probe_fresh()
+        mx, mn = probe["max"], probe["min"]
+        resid, live = probe["resid"], probe["live"]
+        if self.probe_manifest:
+            self._probe_rows.append({
+                "t": self.clock,
+                "live": int(live),
+                "max": [float(x) for x in mx],
+                "min": [float(x) for x in mn],
+                "sum": [float(x) for x in probe["sum"]],
+                "resid": [float(x) for x in resid],
+                # lane -> qid at this boundary (recycling re-keys lanes)
+                "lane_q": [None if x is None else int(x)
+                           for x in self._lane_q],
+            })
+        active = [ln for ln in range(self.lanes)
+                  if self._lane_q[ln] is not None]
+        free = [ln for ln in range(self.lanes)
+                if self._lane_q[ln] is None]
+        if self._forecaster is not None:
+            # every active lane's trailing window off this probe; the
+            # first warm forecast banks the query's predicted total
+            for ln in active:
+                q = self._queries[self._lane_q[ln]]
+                self._forecaster.observe(
+                    ln, self.clock,
+                    spread=float(mx[ln] - mn[ln]),
+                    scale=max(1.0, abs(float(mx[ln])),
+                              abs(float(mn[ln]))),
+                    resid=float(resid[ln]),
+                    mass=float(probe["sum"][ln]))
+                fc = self._forecaster.forecast(ln, q["eps"],
+                                               now=self.clock)
+                self._lane_eta[ln] = fc
+                if fc["status"] == "ok" \
+                        and q.get("_forecast_total") is None:
+                    q["_forecast_total"] = (
+                        (self.clock - q["admit_round"])
+                        + fc["eta_rounds"])
+        # retire converged lanes (admitted lanes are first probed after a
+        # full segment: admission runs after this step)
+        done = []
+        for ln in active:
+            q = self._queries[self._lane_q[ln]]
+            r = self._lane_result(probe, q)
+            # standing queries (windowed aggregate lanes) serve until
+            # released — convergence does not retire them
+            if r.pop("converged") and not q.get("standing"):
+                r["rounds"] = self.clock - q["admit_round"]
+                q.update(status="done", done_round=self.clock, result=r)
+                done.append(ln)
+                self._conv_latencies.append(int(r["rounds"]))
+                if self._forecaster is not None:
+                    pred = q.pop("_forecast_total", None)
+                    if pred is not None and r["rounds"] > 0:
+                        ratio = float(pred) / float(r["rounds"])
+                        self._forecast_ratios.append(ratio)
+                        q["forecast_ratio"] = round(ratio, 6)
+                        if self.metrics is not None:
+                            self.metrics.observe(
+                                "forecast_abs_log_ratio",
+                                abs(math.log(max(ratio, 1e-12))))
+                    if self.metrics is not None:
+                        self.metrics.observe(
+                            f"lane{ln}_convergence_rounds",
+                            r["rounds"])
+                if self.spans is not None:
+                    self.spans.converged(q["qid"], self.clock)
+                    self.spans.retired(q["qid"], self.clock)
+                if self.metrics is not None:
+                    self.metrics.observe("convergence_latency_rounds",
+                                         r["rounds"])
+        if done:
+            self._scrub_lanes(done)
+            for ln in done:
+                self._lane_q[ln] = None
+                heapq.heappush(self._free_lanes, ln)
+                if self._watchdog is not None:
+                    # a recycled lane must not inherit the retired
+                    # query's stall window ...
+                    self._watchdog._lane_trend.pop(ln, None)
+                if self._forecaster is not None:
+                    # ... nor its decay history
+                    self._forecaster.clear(ln)
+                    self._lane_eta.pop(ln, None)
+            self.retired_total += len(done)
+            if self.metrics is not None:
+                self.metrics.inc("queries_retired_total", len(done))
+            self._probe = None   # lane columns changed under the probe
+        if self._watchdog is not None \
+                and not self._watchdog.admission_allowed(self):
+            admitted = 0         # degraded mode: backoff defers this one
+        else:
+            admitted = self._admit_free()
+        if self._watchdog is not None:
+            self._watchdog.after_admission(self)
+            if self.spans is not None:
+                # closed lane-exhaustion episodes become engine-level
+                # ``degraded`` spans (the cursor rides checkpoints with
+                # the watchdog state: no double recording after recovery)
+                closed = [e for e in self._watchdog.degraded
+                          if e.get("end_t") is not None]
+                for ep in closed[self._degraded_spanned:]:
+                    self.spans.engine_span(
+                        "degraded", ep["start_t"], ep["end_t"],
+                        boundaries=ep["boundaries"],
+                        max_backoff=ep["max_backoff"],
+                        peak_queued=ep["peak_queued"])
+                self._degraded_spanned = len(closed)
+            if self.metrics is not None:
+                self.metrics.set_counter(
+                    "watchdog_backoff_episodes_total",
+                    len(self._watchdog.degraded))
+                self.metrics.set_counter(
+                    "watchdog_deferred_admissions_total",
+                    self._watchdog.deferred_admissions)
+        act_idx = np.asarray(active, np.int64)
+        spread_a = (mx[act_idx] - mn[act_idx]) if active else \
+            np.zeros(0)
+        scale = float(np.max(np.abs(np.stack([mx[act_idx],
+                                              mn[act_idx]])))) \
+            if active else 0.0
+        row = {
+            "t": self.clock,
+            "live": int(live),
+            "active_lanes": len(active),
+            "free_lanes": len(free),
+            "queued": len(self._queue),
+            "scale": scale,
+            "max_spread": float(np.max(spread_a)) if active else 0.0,
+            "max_resid_active": (float(np.max(np.abs(resid[act_idx])))
+                                 if active else 0.0),
+            "max_resid_free": (float(np.max(np.abs(
+                resid[np.asarray(free, np.int64)]))) if free else 0.0),
+            "retired": len(done),
+            "admitted": admitted,
+        }
+        self._boundaries.append(row)
+        if self.metrics is not None:
+            self.metrics.inc("boundaries_total")
+            gauges = {
+                "lanes_active": self.active_lanes,
+                "lanes_free": len(self._free_lanes),
+                "queue_depth": len(self._queue),
+                "live_members": int(live),
+            }
+            if self._wal is not None:
+                gauges["wal_last_seq"] = self._wal.last_seq
+                gauges["wal_fsync_seconds_total"] = \
+                    self._wal.fsync_seconds_total
+            if self._ring is not None:
+                gauges["checkpoint_writes"] = self._ring.written_total
+                gauges["checkpoint_write_seconds_total"] = \
+                    self._ring.write_seconds_total
+            self.metrics.sample_row(self.clock, **gauges)
+        return row
+
+    # ---- reads -----------------------------------------------------------
+    def _lane_result(self, probe: dict, q: dict) -> dict:
+        """The two-signal convergence verdict and the lane's result
+        fields, in one place for retirement and :meth:`read`.  Converged
+        needs the live spread within ``eps * scale`` AND the ledger
+        residual within ``eps * max(1, |mass|)`` — on a symmetric query
+        every estimate is equal from round one while mass is still in
+        flight, so the spread alone would accept a wrong result."""
+        ln = q["lane"]
+        spread = float(probe["max"][ln] - probe["min"][ln])
+        scale = max(1.0, abs(float(probe["max"][ln])),
+                    abs(float(probe["min"][ln])))
+        total = float(probe["sum"][ln])
+        live = probe["live"]
+        settled = (abs(float(probe["resid"][ln]))
+                   <= q["eps"] * max(1.0, abs(total)))
+        cohort_live = int(sum(bool(probe["alive"][i])
+                              for i in q["cohort"]))
+        return {
+            "sum": total,
+            "mean": total / cohort_live if cohort_live else None,
+            "estimate": total / live if live else None,
+            "spread": spread,
+            "converged": bool(np.isfinite(spread)
+                              and spread <= q["eps"] * scale
+                              and settled),
+            "cohort_live": cohort_live,
+        }
+
+    def _probe_fresh(self) -> dict:
+        """Run the lane probe and bring its vectors to the host in one
+        copy (plus the alive mask)."""
+        svc = self.svc
+        self._probe_signatures.add(_signature(svc.state, svc.arrays))
+        with torch.profiler.record_function("fu.lane_probe"):
+            mx, mn, s, resid, live = _lane_probe(svc.state, svc.arrays)
+            vec = _host(torch.stack([mx, mn, s, resid]))
+            alive = _host(svc.state.alive)
+        self._probe = {
+            "t": self.clock,
+            "max": vec[0], "min": vec[1],
+            "sum": vec[2], "resid": vec[3],
+            "live": int(alive.sum()),
+            "alive": alive,
+        }
+        return self._probe
+
+    def read(self, qid: int, max_staleness: int | None = None) -> dict:
+        """The query's current answer.  Completed queries return their
+        recorded result, queued ones their position, active ones a live
+        read off the boundary probe — the cached one while it is at most
+        ``max_staleness`` rounds old (``None`` forces a fresh probe)."""
+        q = self._queries[qid]
+        base = {"qid": qid, "status": q["status"], "t": self.clock}
+        if q["status"] == "done":
+            if self.spans is not None:
+                self.spans.read(qid, self.clock)
+            out = {**base, "t": q["done_round"], "staleness": 0,
+                   "converged": True, **q["result"]}
+            if "forecast_ratio" in q:
+                out["forecast_ratio"] = q["forecast_ratio"]
+            if q.get("at_risk"):
+                out["at_risk"] = True   # admitted over-SLO (observe policy)
+            return out
+        if q["status"] == "quarantined":
+            # the watchdog scrubbed the lane: no result
+            return {**base, "t": q["done_round"], "converged": False,
+                    "quarantined": True}
+        if q["status"] == "deferred":
+            # strict admission turned it away: the a-priori ETA is the
+            # read's answer
+            return {**base, "t": q["done_round"], "converged": False,
+                    "deferred": True, "at_risk": True,
+                    "eta_rounds": q.get("eta_admission"),
+                    "slo_rounds": self.convergence_slo_rounds}
+        if q["status"] == "queued":
+            return {**base, "queue_position":
+                    self._queue.index(qid),
+                    "waited_rounds": self.clock - q["submit_round"]}
+        probe = self._probe
+        if (max_staleness is None or probe is None
+                or self.clock - probe["t"] > max_staleness):
+            probe = self._probe_fresh()
+        out = {
+            **base,
+            "t": probe["t"],
+            "staleness": self.clock - probe["t"],
+            **self._lane_result(probe, q),
+        }
+        if self._forecaster is not None:
+            # the ETA off the latest boundary forecast (a read never
+            # refits)
+            fc = self._lane_eta.get(q["lane"])
+            if fc is None:
+                out["forecast_status"] = "warming"
+            else:
+                out["forecast_status"] = fc["status"]
+                if fc["status"] == "ok":
+                    out["eta_rounds"] = fc["eta_rounds"]
+                    out["eta_lo"] = fc["eta_lo"]
+                    out["eta_hi"] = fc["eta_hi"]
+            if q.get("at_risk"):
+                out["at_risk"] = True
+        return out
+
+    def mass_residual(self) -> np.ndarray:
+        """(lanes,) per-lane live-mass residual in the ledger form
+        (exactly 0.0 on scrubbed free lanes)."""
+        return np.atleast_1d(self.svc.mass_residual())
+
+    # ---- manifest --------------------------------------------------------
+    def query_block(self) -> dict:
+        """The manifest's ``query`` block — the inputs of ``doctor``'s
+        fabric checks (``obs/health.check_query``): lane and compile
+        accounting, the admission-latency distribution against its SLO,
+        and the per-boundary lane-mass rows."""
+        lat = np.asarray(self._latencies, np.float64)
+        latency = {"count": int(lat.size), "slo_rounds":
+                   self.admission_slo_rounds}
+        if lat.size:
+            latency.update({
+                "p50": float(np.percentile(lat, 50)),
+                "p95": float(np.percentile(lat, 95)),
+                "p99": float(np.percentile(lat, 99)),
+                "max": float(lat.max()),
+            })
+        conv = np.asarray(self._conv_latencies, np.float64)
+        conv_latency = {"count": int(conv.size), "slo_rounds":
+                        self.convergence_slo_rounds}
+        if conv.size:
+            conv_latency.update({
+                "p50": float(np.percentile(conv, 50)),
+                "p95": float(np.percentile(conv, 95)),
+                "p99": float(np.percentile(conv, 99)),
+                "max": float(conv.max()),
+            })
+        qs = []
+        for q in self._queries.values():
+            rec = {k: v for k, v in q.items() if not k.startswith("_")}
+            if rec.get("tag") is None:
+                rec.pop("tag", None)
+            rec.pop("cohort", None)   # ids can be 100k+ wide; keep size
+            qs.append(rec)
+        out = {
+            "lanes": {
+                "capacity": self.lanes,
+                "active": self.active_lanes,
+                "free": len(self._free_lanes),
+                "queued": len(self._queue),
+                "peak_active": self.peak_active,
+            },
+            "compile_count": self.compile_count,
+            "probe_compile_count": self.probe_compile_count,
+            "segment_rounds": self.svc.segment_rounds,
+            "admitted_total": self.admitted_total,
+            "retired_total": self.retired_total,
+            "quarantined_total": self.quarantined_total,
+            "admission_latency": latency,
+            "convergence_latency": conv_latency,
+            "boundaries": [dict(b) for b in self._boundaries],
+            "queries": qs,
+            "service": self.svc.service_block(),
+            "dtype": self.svc.config.dtype,
+        }
+        if self.probe_manifest:
+            out["probe_rows"] = [dict(r) for r in self._probe_rows]
+        if self._forecaster is not None:
+            out["forecast"] = self._forecast_block()
+        return out
+
+    def _forecast_block(self) -> dict:
+        """The ``forecast`` sub-block of the query manifest — doctor's
+        ``forecast_calibrated`` and ``slo_admission`` inputs."""
+        ratios = [float(r) for r in self._forecast_ratios]
+        fore = {
+            "enabled": True,
+            "admit_policy": self.admit_policy,
+            "window": self._forecaster.window,
+            "min_points": self._forecaster.min_points,
+            "band": FORECAST_BAND,
+            "ratios": [round(r, 6) for r in ratios],
+            "at_risk_total": self.at_risk_total,
+            "deferred_total": self.deferred_total,
+        }
+        pos = [r for r in ratios if r > 0 and math.isfinite(r)]
+        if pos:
+            logs = np.abs(np.log(np.asarray(pos)))
+            fore["p90_abs_log_ratio"] = float(np.percentile(logs, 90))
+            fore["in_band_frac"] = float(
+                np.mean(logs <= math.log(FORECAST_BAND)))
+        if self._mixing is not None:
+            fore["mixing"] = dict(self._mixing)
+        return fore
+
+    # ---- serving flight recorder -----------------------------------------
+    def _refresh_obs_gauges(self) -> None:
+        """Point-in-time gauges, refreshed when the trace block is built
+        (doctor's ``metrics_consistency`` compares them to the manifest
+        written at the same moment)."""
+        m = self.metrics
+        m.set_gauge("lanes_active", self.active_lanes)
+        m.set_gauge("lanes_free", len(self._free_lanes))
+        m.set_gauge("queue_depth", len(self._queue))
+        m.set_gauge("compile_count", self.compile_count)
+        m.set_gauge("probe_compile_count", self.probe_compile_count)
+        if self._forecaster is not None:
+            for ln, fc in sorted(self._lane_eta.items()):
+                if fc.get("status") == "ok":
+                    m.set_gauge(f"lane{ln}_eta_rounds",
+                                float(fc["eta_rounds"]))
+        if self._wal is not None:
+            m.set_gauge("wal_last_seq", self._wal.last_seq)
+            m.set_gauge("wal_fsync_seconds_total",
+                        self._wal.fsync_seconds_total)
+        if self._ring is not None:
+            m.set_gauge("checkpoint_writes", self._ring.written_total)
+            m.set_gauge("checkpoint_write_seconds_total",
+                        self._ring.write_seconds_total)
+        if self._watchdog is not None:
+            m.set_counter("watchdog_backoff_episodes_total",
+                          len(self._watchdog.degraded))
+            m.set_counter("watchdog_deferred_admissions_total",
+                          self._watchdog.deferred_admissions)
+
+    def serving_trace_block(self) -> dict | None:
+        """The manifest's ``serving_trace`` block
+        (``flow-updating-serving-trace/v1``): declared SLO targets, the
+        metrics registry and every span chain.  None with
+        ``observe=False``."""
+        if self.metrics is None:
+            return None
+        from flow_updating_tpu_torch.obs.report import SERVING_TRACE_SCHEMA
+
+        self._refresh_obs_gauges()
+        return {
+            "schema": SERVING_TRACE_SCHEMA,
+            "slo": {
+                "admission_p95_rounds": self.admission_slo_rounds,
+                "convergence_p95_rounds": self.convergence_slo_rounds,
+            },
+            "metrics": self.metrics.block(),
+            "spans": (self.spans.block()
+                      if self.spans is not None else None),
+        }
+
+    # ---- durability ------------------------------------------------------
+    def save_checkpoint(self, path: str,
+                        extra_meta: dict | None = None) -> QueryFabric:
+        """One archive: the service checkpoint plus the fabric's lane
+        tables under ``meta['query']`` (service schema version 2, the
+        JAX package's layout).  ``extra_meta`` merges further JSON blocks
+        (the checkpoint ring's ``resilience`` binding rides here)."""
+        queries = []
+        for q in self._queries.values():
+            rec = {k: v for k, v in q.items() if not k.startswith("_")}
+            if q.get("_values") is not None:
+                rec["values"] = [float(v) for v in q["_values"]]
+            queries.append(rec)
+        qmeta = {
+            "lanes": self.lanes,
+            "conv_eps": self.conv_eps,
+            "admission_slo_rounds": self.admission_slo_rounds,
+            "free_lanes": sorted(self._free_lanes),
+            "lane_q": list(self._lane_q),
+            "queue": list(self._queue),
+            "next_qid": self._next_qid,
+            "admitted_total": self.admitted_total,
+            "retired_total": self.retired_total,
+            "peak_active": self.peak_active,
+            "latencies": [int(x) for x in self._latencies],
+            "quarantined_total": self.quarantined_total,
+            "queries": queries,
+            "convergence_slo_rounds": self.convergence_slo_rounds,
+            "conv_latencies": [int(x) for x in self._conv_latencies],
+            "observe": self.metrics is not None,
+            "admit_policy": self.admit_policy,
+            # the forecasting config and banked reconciliations persist
+            # so a WAL replay re-derives the same admission decisions;
+            # the trailing fit windows re-warm from live probes
+            "forecast": {
+                "enabled": self._forecaster is not None,
+                "window": (self._forecaster.window
+                           if self._forecaster is not None else None),
+                "min_points": (self._forecaster.min_points
+                               if self._forecaster is not None
+                               else None),
+                "ratios": [float(r) for r in self._forecast_ratios],
+                "at_risk_total": self.at_risk_total,
+                "deferred_total": self.deferred_total,
+                "mixing": self._mixing,
+            },
+        }
+        if self._watchdog is not None:
+            qmeta["watchdog_state"] = self._watchdog.state_dict()
+        if self.metrics is not None:
+            # the black box rides every ring archive: a recovered
+            # fabric's trace continues the pre-crash one
+            qmeta["obs"] = {
+                "metrics": self.metrics.state_dict(),
+                "spans": (self.spans.state_dict()
+                          if self.spans is not None else None),
+                "degraded_spanned": self._degraded_spanned,
+            }
+        self.svc.save_checkpoint(
+            path, extra_meta={"query": qmeta, **(extra_meta or {})})
+        return self
+
+    @classmethod
+    def restore_checkpoint(cls, path: str, device=None) -> QueryFabric:
+        """Rebuild a fabric from :meth:`save_checkpoint`'s archive (or the
+        JAX package's) on ``device`` — same lanes, same in-flight
+        queries, bit-exact state."""
+        from flow_updating_tpu_torch.service.aliasing import (
+            assert_no_shared_mirrors,
+        )
+        from flow_updating_tpu_torch.utils.checkpoint import (
+            _open_archive,
+            _read_manifest,
+        )
+
+        svc = ServiceEngine.restore_checkpoint(path, device=device)
+        with _open_archive(path) as z:
+            manifest = _read_manifest(z, path)
+        qmeta = (manifest.get("service") or {}).get("query")
+        if qmeta is None:
+            raise ValueError(
+                f"checkpoint {path}: no query lane tables — a plain "
+                "service checkpoint (service schema version "
+                f"{manifest.get('service_version')}) restores via "
+                "ServiceEngine.restore_checkpoint; query fabrics are "
+                "saved by QueryFabric.save_checkpoint")
+        lanes = int(qmeta["lanes"])
+        if svc.feature_shape != (lanes,):
+            raise ValueError(
+                f"checkpoint {path}: lane table says {lanes} lanes but "
+                f"the state payload is {svc.feature_shape}")
+        self = object.__new__(cls)
+        self.svc = svc
+        self.lanes = lanes
+        self.conv_eps = float(qmeta["conv_eps"])
+        self.admission_slo_rounds = int(qmeta["admission_slo_rounds"])
+        self._free_lanes = [int(x) for x in qmeta["free_lanes"]]
+        heapq.heapify(self._free_lanes)
+        self._lane_q = [None if x is None else int(x)
+                        for x in qmeta["lane_q"]]
+        self._queue = [int(x) for x in qmeta["queue"]]
+        self._next_qid = int(qmeta["next_qid"])
+        self._queries = {}
+        for rec in qmeta["queries"]:
+            q = dict(rec)
+            q["_values"] = (np.asarray(q.pop("values"), np.float64)
+                            if "values" in q else None)
+            self._queries[int(q["qid"])] = q
+        self.admitted_total = int(qmeta["admitted_total"])
+        self.retired_total = int(qmeta["retired_total"])
+        self.peak_active = int(qmeta["peak_active"])
+        self.quarantined_total = int(qmeta.get("quarantined_total", 0))
+        self._latencies = [int(x) for x in qmeta["latencies"]]
+        self.convergence_slo_rounds = qmeta.get("convergence_slo_rounds")
+        if self.convergence_slo_rounds is not None:
+            self.convergence_slo_rounds = int(self.convergence_slo_rounds)
+        self._conv_latencies = [int(x) for x in
+                                qmeta.get("conv_latencies", [])]
+        self.admit_policy = str(qmeta.get("admit_policy", "observe"))
+        fq = qmeta.get("forecast") or {}
+        on = (bool(fq["enabled"]) if "enabled" in fq
+              else bool(qmeta.get("observe", False)))
+        self._forecaster = (LaneForecaster(
+            window=int(fq.get("window") or 8),
+            min_points=int(fq.get("min_points") or 3))
+            if on else None)
+        self._mixing = (dict(fq["mixing"])
+                        if fq.get("mixing") else None)
+        self._forecast_ratios = [float(r)
+                                 for r in fq.get("ratios") or ()]
+        self.at_risk_total = int(fq.get("at_risk_total", 0))
+        self.deferred_total = int(fq.get("deferred_total", 0))
+        self._lane_eta = {}
+        obs = qmeta.get("obs")
+        if obs is not None:
+            self.metrics = MetricsRegistry.load_state(obs["metrics"])
+            self.spans = (SpanRecorder.load_state(obs["spans"])
+                          if obs.get("spans") is not None else None)
+            self._degraded_spanned = int(obs.get("degraded_spanned", 0))
+        else:
+            # archives written without the flight recorder restore with
+            # the plane as the saver had it
+            on = bool(qmeta.get("observe", False))
+            self.metrics = MetricsRegistry() if on else None
+            self.spans = SpanRecorder() if on else None
+            self._degraded_spanned = 0
+        self._probe = None
+        self._boundaries = []
+        self.probe_manifest = False
+        self._probe_rows = []
+        self._watchdog = None
+        # the watchdog runtime rides the archive; attach_watchdog (called
+        # by recover() with the persisted config) resumes it
+        self._watchdog_pending_state = qmeta.get("watchdog_state")
+        self._probe_signatures = set()
+        self._init_resilience()
+        assert_no_shared_mirrors(self)
+        return self

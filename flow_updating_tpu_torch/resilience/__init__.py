@@ -9,15 +9,18 @@ other:
 * :mod:`.ring` — automatic checkpoint ring (every K segments, N
   retained, atomic writes, integrity sidecars, a corrupt newest archive
   falls back to the next);
-* :mod:`.recover` — arm durability on a live ``ServiceEngine``; rebuild
-  one from its directory by checkpoint restore + WAL replay (bit-exact
-  against the uninterrupted run).
+* :mod:`.recover` — arm durability on a live ``ServiceEngine`` or
+  ``QueryFabric``; rebuild one from its directory by checkpoint restore
+  + WAL replay (bit-exact against the uninterrupted run);
+* :mod:`.watchdog` — the query fabric's inline lane watchdog (NaN,
+  divergence and stall quarantine; admission backoff).
 
-Surface: ``ServiceEngine.enable_durability`` / ``.recover`` and ``serve
---wal DIR`` (``--recover``); manifests carry the ``recovery`` block that
-``obs.health.check_recovery`` judges.  The lane watchdog, the chaos
-registry and the query fabric's durability are the ROADMAP item A11
-part 2.
+Surface: ``ServiceEngine.enable_durability`` / ``.recover``,
+``QueryFabric.enable_durability`` / ``.attach_watchdog`` / ``.recover``
+and ``serve|query --wal DIR`` (``--recover``, ``query --watchdog``);
+manifests carry the ``recovery`` block that ``obs.health.check_recovery``
+judges.  The chaos registry and the ``chaos`` subcommand are the ROADMAP
+item A11 part 3.
 """
 
 from flow_updating_tpu_torch.resilience.recover import (
@@ -27,9 +30,15 @@ from flow_updating_tpu_torch.resilience.recover import (
 )
 from flow_updating_tpu_torch.resilience.ring import CheckpointRing
 from flow_updating_tpu_torch.resilience.wal import WriteAheadLog, scan_wal
+from flow_updating_tpu_torch.resilience.watchdog import (
+    Watchdog,
+    WatchdogConfig,
+)
 
 __all__ = [
     "CheckpointRing",
+    "Watchdog",
+    "WatchdogConfig",
     "WriteAheadLog",
     "arm_durability",
     "read_config",

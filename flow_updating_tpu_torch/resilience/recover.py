@@ -4,9 +4,10 @@ Counterpart of ``flow_updating_tpu/resilience/recover.py``, on the same
 directory layout, so a directory either package armed recovers in the
 other:
 
-* ``resilience.json`` — which engine kind lives here, the ring cadence
-  and retention, the fsync policy, the watchdog config (written once at
-  :func:`arm_durability`);
+* ``resilience.json`` — which engine kind lives here (``service`` or
+  ``query``), the ring cadence and retention, the fsync policy, the
+  watchdog config (written at :func:`arm_durability`; rewritten when a
+  watchdog attaches later);
 * ``wal.log`` — the CRC-framed event journal (:mod:`.wal`);
 * ``ckpt-*.npz`` (+ ``.sha.json`` sidecars) — the checkpoint ring
   (:mod:`.ring`).
@@ -18,8 +19,8 @@ checkpoint's ``wal_seq`` through the engine's own event methods — the
 events are deterministic edits and the loss draws come from the key the
 archive carries, so the recovered state is bit-exact against the
 uninterrupted run — then keep journaling where the dead process stopped.
-The query fabric's kind (``kind='query'``) and its watchdog are the
-ROADMAP item A11 part 2.
+A query fabric's directory re-attaches its watchdog from the config, and
+its replay drives the fabric's own submissions and query updates.
 """
 
 from __future__ import annotations
@@ -35,7 +36,6 @@ from flow_updating_tpu_torch.resilience.wal import WriteAheadLog
 
 CONFIG_NAME = "resilience.json"
 WAL_NAME = "wal.log"
-_QUERY_ITEM = "the query fabric (A11 part 2)"
 
 
 def _write_config(directory: str, doc: dict) -> None:
@@ -53,8 +53,9 @@ def read_config(directory: str) -> dict:
     except FileNotFoundError:
         raise ValueError(
             f"{directory}: no {CONFIG_NAME} — not a durability "
-            "directory (arm one with ServiceEngine.enable_durability, "
-            "or the serve CLI's --wal DIR)") from None
+            "directory (arm one with ServiceEngine.enable_durability / "
+            "QueryFabric.enable_durability, or the serve/query CLIs' "
+            "--wal DIR)") from None
     except ValueError as exc:
         raise ValueError(
             f"{path}: corrupt durability config ({exc}) — re-arm the "
@@ -69,16 +70,13 @@ def arm_durability(engine, directory: str, *, kind: str,
     continuing it would splice two engines' timelines; only
     :func:`recover` continues a journal), and writes the genesis
     checkpoint so a crash one event later already has a recovery base."""
-    if kind == "query":
-        raise NotImplementedError(
-            f"durability for kind='query' is the ROADMAP item "
-            f"'{_QUERY_ITEM}', not ported yet")
     if engine._wal is not None:
         raise ValueError(
             "durability is already armed on this engine (one WAL per "
             "engine; re-arming would fork the journal)")
     os.makedirs(directory, exist_ok=True)
     ring = CheckpointRing(directory, every=checkpoint_every, retain=retain)
+    wd = getattr(engine, "_watchdog", None)
     wal_path = os.path.join(directory, WAL_NAME)
     if ring.indices() or os.path.exists(wal_path):
         raise ValueError(
@@ -91,7 +89,7 @@ def arm_durability(engine, directory: str, *, kind: str,
         "checkpoint_every": int(checkpoint_every),
         "retain": int(retain),
         "fsync": bool(fsync),
-        "watchdog": None,
+        "watchdog": wd.config.to_jsonable() if wd is not None else None,
     })
     wal = WriteAheadLog(wal_path, fsync=fsync)
     engine._wal = wal
@@ -140,10 +138,11 @@ def recover(directory: str, *, kind: str | None = None,
             f"{directory}: armed for a {cfg.get('kind')!r} engine, "
             f"recover(kind={kind!r}) cannot reinterpret it")
     if kind == "query":
-        raise NotImplementedError(
-            f"recovering a query fabric is the ROADMAP item "
-            f"'{_QUERY_ITEM}', not ported yet")
-    from flow_updating_tpu_torch.service import ServiceEngine
+        from flow_updating_tpu_torch.query import QueryFabric as engine_cls
+    else:
+        from flow_updating_tpu_torch.service import (
+            ServiceEngine as engine_cls,
+        )
     from flow_updating_tpu_torch.service.aliasing import (
         assert_no_shared_mirrors,
     )
@@ -157,8 +156,8 @@ def recover(directory: str, *, kind: str | None = None,
             scanned.append({**cand, "status": "older-unused"})
             continue
         try:
-            engine = ServiceEngine.restore_checkpoint(cand["path"],
-                                                      device=device)
+            engine = engine_cls.restore_checkpoint(cand["path"],
+                                                   device=device)
         except ValueError as exc:
             scanned.append({**cand, "status": "restore-failed",
                             "error": str(exc)})
@@ -186,6 +185,13 @@ def recover(directory: str, *, kind: str | None = None,
     engine._ring = ring
     engine._resil_dir = directory
     engine._wal_applied_seq = base_seq
+    if kind == "query" and cfg.get("watchdog") is not None:
+        from flow_updating_tpu_torch.resilience.watchdog import (
+            WatchdogConfig,
+        )
+
+        engine.attach_watchdog(WatchdogConfig.from_jsonable(
+            cfg["watchdog"]))
 
     events = rounds = 0
     if replay:
@@ -193,7 +199,7 @@ def recover(directory: str, *, kind: str | None = None,
         try:
             for rec in to_apply:
                 engine._wal_applied_seq = int(rec["seq"])
-                _apply_record(engine, rec)
+                _apply_record(engine, kind, rec)
                 if rec["kind"] == "run":
                     rounds += int(rec["args"]["rounds"])
                 else:
@@ -252,7 +258,7 @@ def recover(directory: str, *, kind: str | None = None,
     return engine
 
 
-def _apply_record(engine, rec: dict) -> None:
+def _apply_record(engine, kind: str, rec: dict) -> None:
     """Re-apply one journaled event through the engine's own event
     method (the replay side of the write-ahead contract; journaling is
     suppressed by ``_replaying``)."""
@@ -260,7 +266,10 @@ def _apply_record(engine, rec: dict) -> None:
     if ev == "run":
         engine.run(int(a["rounds"]))
     elif ev == "join":
-        engine.join(np.asarray(a["value"], np.float64))
+        if kind == "query":
+            engine.join()
+        else:
+            engine.join(np.asarray(a["value"], np.float64))
     elif ev == "leave":
         engine.leave(a["ids"])
     elif ev == "update":
@@ -273,8 +282,15 @@ def _apply_record(engine, rec: dict) -> None:
         engine.suspend(a["ids"])
     elif ev == "resume":
         engine.resume(a["ids"])
+    elif ev == "submit":
+        engine.submit(np.asarray(a["values"], np.float64),
+                      cohort=a["cohort"], eps=a.get("eps"),
+                      tag=a.get("tag"))
+    elif ev == "update_query":
+        engine.update_query(int(a["qid"]), a["ids"],
+                            np.asarray(a["values"], np.float64))
     else:
         raise ValueError(
             f"wal record seq {rec.get('seq')}: unknown event kind "
-            f"{ev!r} — the journal was written by a newer version, by a "
-            "query fabric, or is not a flow_updating_tpu WAL")
+            f"{ev!r} — the journal was written by a newer version "
+            "(or is not a flow_updating_tpu WAL)")

@@ -12,8 +12,9 @@
 * :mod:`.aliasing` — the probe that no device leaf shares memory with
   a host mirror.
 
-The query fabric that wraps a ``ServiceEngine`` is the ROADMAP item A11
-part 2.
+The query fabric (:mod:`flow_updating_tpu_torch.query`) and the aggregate
+fabric (:mod:`flow_updating_tpu_torch.aggregates`) wrap a
+``ServiceEngine``.
 """
 
 from flow_updating_tpu_torch.service.engine import (

@@ -10,8 +10,11 @@ a CPU tensor, would share that buffer, and the host edit would apply the
 event to the device leaf a second time.  The engine therefore builds
 every device leaf from a mirror with a copy, and this probe proves it:
 ``np.shares_memory`` over every CPU tensor leaf of ``state`` and
-``arrays`` against every numpy mirror.  Tensors on the card cannot alias
-host memory, so the probe returns the ``skipped`` record there.
+``arrays`` against every numpy mirror.  A query or aggregate fabric is
+probed through its ``svc``, against the service's mirrors and the
+fabric's own (the aggregate fabric's lane-mode vector).  Tensors on the
+card cannot alias host memory, so the probe returns the ``skipped``
+record there.
 """
 
 from __future__ import annotations
@@ -48,12 +51,17 @@ def _device_leaves(obj):
 def shared_mirror_report(engine) -> dict:
     """The ``mirror_probe`` record a service manifest embeds:
     ``{"checked": n_pairs, "shared": [{"leaf", "mirror"}, ...]}`` —
-    ``shared`` must be empty."""
-    leaves = list(_device_leaves(engine))
+    ``shared`` must be empty.  ``engine`` is a ``ServiceEngine`` or a
+    fabric (probed through its ``svc``)."""
+    target = getattr(engine, "svc", engine)
+    leaves = list(_device_leaves(target))
     if any(t.device.type != "cpu" for _, t in leaves):
         return {"checked": 0, "shared": [],
                 "skipped": "non-cpu backend (host buffers are copied)"}
-    mirrors = _host_mirrors(engine)
+    mirrors = _host_mirrors(target)
+    if target is not engine:
+        mirrors.update({f"fabric.{k}": v
+                        for k, v in _host_mirrors(engine).items()})
     shared, checked = [], 0
     for label, leaf in leaves:
         view = leaf.detach().numpy()

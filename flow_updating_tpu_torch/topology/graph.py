@@ -458,6 +458,12 @@ class EdgeArrays:
     adv_down_mask: torch.Tensor | None = None    # (E,) bool: sends lost
     adv_down_from: torch.Tensor | None = None    # int32: first dead round
     adv_down_until: torch.Tensor | None = None   # int32: first healed one
+    # per-lane reduction modes of the aggregate fabric (aggregates/): a
+    # (D,) int32 over the payload lane axis — 0 the additive mean ledger
+    # (the plain protocol), 1 max consensus, 2 min consensus.  None = no
+    # mode selection and no operation of it in the round; once installed
+    # every mode change is a write into the same tensor
+    lane_modes: torch.Tensor | None = None
 
     def replace(self, **kw) -> EdgeArrays:
         return dataclasses.replace(self, **kw)

@@ -6,7 +6,10 @@ at every tile —, B4's scan (every tile too) and fill, B5 and B6;
 the edge kernel's Beneš routes, the sharded banded round and the halo
 edge round on the card; checkpoints restored onto the card and faults
 that keep the state there; the streaming service's no-event round, its
-one dispatch signature across 100 events and a mid-churn restore).
+one dispatch signature across 100 events and a mid-churn restore; the
+query fabric's lane parity, its exact-zero scrub, the aggregate fabric's
+dispatch budget of 2 and a query archive from the CPU restored on the
+card).
 This file imports no JAX, so it also runs where JAX is absent, without the
 suite's JAX-pinning conftest:
 
@@ -29,6 +32,7 @@ from flow_updating_tpu_torch.plan import banded_remainder_sum, compile_topology
 from flow_updating_tpu_torch.topology.generators import (
     barabasi_albert,
     community,
+    erdos_renyi,
     fat_tree,
     ring,
 )
@@ -1473,3 +1477,112 @@ def test_service_mid_churn_restore_on_card_bit_for_bit(card, tmp_path):
         churn(s, np.random.default_rng(2))
     assert twin.state_digest() == svc.state_digest()
     assert twin.compile_count == 1
+
+
+def _card_fabric(card, lanes, cls=None, **kw):
+    from flow_updating_tpu_torch.query import QueryFabric
+
+    cfg = RoundConfig.fast(variant="collectall", drop_rate=0.01)
+    return (cls or QueryFabric)(
+        erdos_renyi(200, avg_degree=8.0, seed=1), lanes=lanes,
+        capacity=256, degree_budget=32, config=cfg, segment_rounds=8,
+        seed=4, device=card, **kw)
+
+
+def test_query_lane_equals_isolated_fabric_on_card(card):
+    """One lane of a busy fabric equals a one-query fabric of the same
+    capacity and seed through the same churn, under loss, on the card."""
+    from flow_updating_tpu_torch.query.fabric import LANE_PLANES
+
+    busy = _card_fabric(card, 16, conv_eps=1e-30)
+    iso = _card_fabric(card, 1, conv_eps=1e-30)
+    rng = np.random.default_rng(0)
+    for _ in range(9):
+        m = int(rng.integers(4, 30))
+        busy.submit(rng.random(m),
+                    cohort=np.sort(rng.choice(200, m, replace=False)))
+    busy.run(16)
+    iso.run(16)
+    cohort = np.sort(rng.choice(200, 20, replace=False))
+    vals = rng.normal(size=20)
+    lane = busy._queries[busy.submit(vals, cohort=cohort)]["lane"]
+    iso.submit(vals, cohort=cohort)
+    for f in (busy, iso):
+        j = f.join()
+        f.add_edges([(j, 3), (j, 90)])
+        f.suspend([7])
+        f.run(16)
+        f.resume([7])
+        f.leave([j])
+        f.run(24)
+    for name in LANE_PLANES:
+        assert torch.equal(getattr(busy.svc.state, name)[..., lane],
+                           getattr(iso.svc.state, name)[..., 0]), name
+    assert torch.equal(busy.svc.state.key, iso.svc.state.key)
+    assert busy.compile_count == iso.compile_count == 1
+
+
+def test_query_scrub_leaves_exact_zero_residual_on_card(card):
+    fab = _card_fabric(card, 8, conv_eps=1e-2)
+    rng = np.random.default_rng(1)
+    for _ in range(6):
+        for _ in range(int(rng.integers(1, 4))):
+            m = int(rng.integers(4, 30))
+            fab.submit(rng.random(m),
+                       cohort=np.sort(rng.choice(200, m, replace=False)))
+        fab.run(16)
+        free = [ln for ln in range(8) if fab._lane_q[ln] is None]
+        assert all(fab.mass_residual()[ln] == 0.0 for ln in free)
+    assert fab.retired_total > 0
+    assert all(b["max_resid_free"] == 0.0 for b in fab._boundaries)
+    assert fab.compile_count == 1
+    if card.type == "cuda":
+        assert fab.query_block()["service"]["mirror_probe"]["skipped"]
+
+
+def test_aggregate_dispatch_budget_two_on_card(card):
+    from flow_updating_tpu_torch.aggregates import AggregateFabric
+
+    fab = _card_fabric(card, 12, cls=AggregateFabric, conv_eps=1e-6)
+    rng = np.random.default_rng(2)
+    vals = rng.uniform(-1.0, 3.0, 200)
+    a_sc = fab.submit_aggregate("sum_count", vals)
+    fab.run(16)
+    assert fab.compile_count == 1 and not fab.extrema_installed
+    a_mx = fab.submit_aggregate("max", vals)
+    a_q = fab.submit_aggregate("quantile", vals, q=0.5, qeps=0.25)
+    modes = fab.svc.arrays.lane_modes
+    assert modes.device.type == card.type
+    for _ in range(12):
+        fab.run(16)
+    fab.submit_aggregate("min", vals)   # a mode change: the same tensor
+    fab.run(16)
+    assert fab.svc.arrays.lane_modes is modes
+    assert fab.compile_count == 2
+    # float32 lanes: the shifted lattice rounds once each way
+    assert abs(fab.read_aggregate(a_mx)["result"]["value"] - vals.max()) \
+        <= 4 * np.spacing(np.float32(vals.max() - vals.min()))
+    q = fab.read_aggregate(a_q)["result"]
+    true_q = np.sort(vals)[int(np.ceil(0.5 * 200)) - 1]
+    assert abs(q["value"] - true_q) <= q["error_bound"] + 1e-6
+    r = fab.read_aggregate(a_sc)["result"]
+    assert abs(r["sum"] - vals.sum()) <= r["error_bound"] + 1e-3
+
+
+def test_query_archive_from_the_cpu_restores_on_card(card, tmp_path):
+    from flow_updating_tpu_torch.query import QueryFabric
+
+    host = _card_fabric(torch.device("cpu"), 4, conv_eps=1e-3)
+    rng = np.random.default_rng(3)
+    for _ in range(5):
+        host.submit(rng.random(10),
+                    cohort=np.sort(rng.choice(200, 10, replace=False)))
+    host.run(24)
+    path = str(tmp_path / "fab.npz")
+    host.save_checkpoint(path)
+    fab = QueryFabric.restore_checkpoint(path, device=card)
+    assert fab.svc.state.flow.device.type == card.type
+    assert fab.state_digest() == host.state_digest()
+    assert fab.query_block()["queries"] == host.query_block()["queries"]
+    fab.run(64)
+    assert fab.compile_count == 1 and fab.retired_total >= 1

@@ -2,9 +2,9 @@
 resilience``) against the JAX package's.
 
 Counterparts of ``tests/test_resilience.py``'s WAL, ring and service
-recovery tests and its ``serve --wal`` / ``--recover`` CLI test, at their
-sizes (the fabric, watchdog and chaos tests belong to ROADMAP A11 part
-2):
+recovery tests, its fabric and watchdog tests and its ``serve --wal`` /
+``--recover`` CLI test, at their sizes (the chaos tests belong to ROADMAP
+A11 part 3):
 
 * the WAL's CRC frames, its torn tail truncated on open, and a non-WAL
   file named; each package's journal read by the other's ``scan_wal``;
@@ -13,8 +13,8 @@ sizes (the fabric, watchdog and chaos tests belong to ROADMAP A11 part
 * ``recover()`` bit for bit (``state_digest``) against the uninterrupted
   run with churn and message loss, past a corrupt newest archive, with a
   torn WAL tail, with a stale temp swept, restored leaves never aliasing
-  a host mirror, and the refusals (an unarmed or a used directory, the
-  query kind);
+  a host mirror, and the refusals (an unarmed or a used directory, a
+  service archive under the query kind);
 * directories that cross: a JAX-armed directory recovers in the port to
   within 1e-9 of JAX's own recovery (bit for bit in fact), and a
   port-armed one in JAX;
@@ -300,6 +300,9 @@ def test_arm_refuses_a_used_directory(tmp_path):
 
 
 def test_query_kind_names_a11_part_2(tmp_path):
+    """A service directory relabelled ``kind='query'``: the query kind
+    is recovered by the query fabric now, which refuses the plain
+    service archives it finds (no lane tables) and names every one."""
     d = str(tmp_path / "dur")
     _small_service().enable_durability(d)
     with open(os.path.join(d, "resilience.json")) as f:
@@ -307,7 +310,7 @@ def test_query_kind_names_a11_part_2(tmp_path):
     doc["kind"] = "query"
     with open(os.path.join(d, "resilience.json"), "w") as f:
         json.dump(doc, f)
-    with pytest.raises(NotImplementedError, match="A11 part 2"):
+    with pytest.raises(ValueError, match="no ring checkpoint restores"):
         port_recover(d, device="cpu")
     with pytest.raises(ValueError, match="cannot reinterpret"):
         port_recover(d, kind="service", device="cpu")
@@ -391,3 +394,284 @@ def test_cli_serve_wal_then_recover_reports_doctor_clean(tmp_path, capsys):
     assert "recovery_blame" in verdict
     with pytest.raises(SystemExit, match="--recover needs --wal"):
         port_main(["serve", "--device", "cpu", "--recover"])
+
+
+# ---- the query fabric's durability and the lane watchdog ------------------
+
+def _small_fabric(seed=0, lanes=4, eps=1e-3, cls=None):
+    """JAX's ``_small_fabric`` (float32, 5% loss) in either package."""
+    if cls is None:
+        from flow_updating_tpu_torch.query import QueryFabric
+
+        return QueryFabric(pgen.erdos_renyi(48, avg_degree=8.0, seed=2),
+                           lanes=lanes, capacity=48,
+                           config=RoundConfig.fast(variant="collectall",
+                                                   drop_rate=0.05),
+                           segment_rounds=8, seed=seed, conv_eps=eps,
+                           device="cpu")
+    return cls(jgen.erdos_renyi(48, avg_degree=8.0, seed=2), lanes=lanes,
+               capacity=48, config=JaxConfig.fast(variant="collectall",
+                                                  drop_rate=0.05),
+               segment_rounds=8, seed=seed, conv_eps=eps)
+
+
+def _drive_fabric(fab, rng):
+    fab.submit(rng.random(3), cohort=[1, 5, 9])
+    fab.run(16)
+    fab.suspend([7])
+    fab.submit(rng.random(2), cohort=[2, 3])
+    fab.run(16)
+    fab.resume([7])
+    fab.run(16)
+
+
+def test_fabric_recover_is_bitexact_with_lanes_in_flight(tmp_path):
+    from flow_updating_tpu_torch.query import QueryFabric
+
+    d = str(tmp_path / "dur")
+    fab = _small_fabric().enable_durability(d, checkpoint_every=2,
+                                            retain=3)
+    ctrl = _small_fabric()
+    _drive_fabric(fab, np.random.default_rng(3))
+    _drive_fabric(ctrl, np.random.default_rng(3))
+    statuses = {q["qid"]: q["status"] for q in fab._queries.values()}
+    fab.submit([0.5, 0.25], cohort=[4, 6])   # journaled after the ring
+    ctrl.submit([0.5, 0.25], cohort=[4, 6])
+    del fab
+    rec = QueryFabric.recover(d, device="cpu")
+    assert rec.state_digest() == ctrl.state_digest()
+    assert rec.compile_count == 0            # nothing run since restore
+    assert rec._recovery["replay"]["records_replayed"] >= 1
+    statuses[max(statuses) + 1] = "active"
+    assert {q["qid"]: q["status"]
+            for q in rec._queries.values()} == statuses
+    rec.run(16)
+    ctrl.run(16)
+    assert rec.state_digest() == ctrl.state_digest()
+    assert rec.compile_count == 1
+
+
+@pytest.mark.parametrize("armed_by", ["jax", "port"])
+def test_query_durability_directory_recovers_in_the_other_package(
+        tmp_path, armed_by):
+    import jax
+
+    from flow_updating_tpu.query import QueryFabric as JaxFabric
+    from flow_updating_tpu_torch.query import QueryFabric
+
+    d = str(tmp_path / "dur")
+    with jax.disable_jit():         # the steady oracle (ROADMAP C11)
+        fab = _small_fabric(cls=JaxFabric if armed_by == "jax" else None)
+        fab.attach_watchdog()
+        fab.enable_durability(d, checkpoint_every=2, retain=3, fsync=False)
+        _drive_fabric(fab, np.random.default_rng(4))
+        fab.leave([11])             # journaled after the last ring
+        want = fab.state_digest()
+        del fab
+        port = QueryFabric.recover(d, device="cpu")
+        assert port._watchdog is not None
+        assert port.state_digest() == want
+        block = port.resilience_block()
+        jax_rec = JaxFabric.recover(d)
+        assert jax_rec.state_digest() == want
+    assert block["kind"] == "query"
+    manifest = json.loads(json.dumps(build_recovery_manifest(
+        recovery=block, query=port.query_block(), device="cpu"),
+        default=str))
+    mine = [(c.name, c.status) for c in health.diagnose_manifest(manifest)]
+    theirs = [(c.name, c.status)
+              for c in jhealth.diagnose_manifest(manifest)]
+    assert mine == theirs
+    assert dict(mine)["wal_replay_exact"] == "pass"
+
+
+def test_watchdog_quarantines_nan_lane_mass_neutrally():
+    fab = _small_fabric(lanes=4).attach_watchdog()
+    ctrl = _small_fabric(lanes=4).attach_watchdog()
+    for f in (fab, ctrl):
+        f.submit([1.0, 2.0], cohort=[3, 7])
+        f.submit([5.0], cohort=[0])
+        f.run(16)
+    lane = next(ln for ln, q in enumerate(fab._lane_q) if q is not None)
+    qid = fab._lane_q[lane]
+    fab.svc.state.est[:, lane] = float("nan")
+    fab.svc.state.flow[:, lane] = float("nan")
+    fab.run(16)
+    ctrl.run(16)
+    wd = fab._watchdog.block()
+    assert wd["quarantined_total"] == 1
+    act = wd["actions"][0]
+    assert (act["lane"], act["qid"], act["reason"]) == (lane, qid, "nan")
+    assert act["post_scrub_residual"] == 0.0
+    assert abs(float(fab.mass_residual()[lane])) == 0.0
+    assert fab.read(qid)["quarantined"] is True
+    # every other lane and the control plane equal the unpoisoned run
+    for name in ("value", "flow", "est", "last_avg", "pending_flow",
+                 "pending_est", "buf_flow", "buf_est"):
+        a, b = getattr(fab.svc.state, name), getattr(ctrl.svc.state, name)
+        keep = [ln for ln in range(4) if ln != lane]
+        assert torch.equal(a[..., keep], b[..., keep]), name
+    for name in ("ticks", "alive", "edge_ok", "recv", "stamp", "key"):
+        assert torch.equal(getattr(fab.svc.state, name),
+                           getattr(ctrl.svc.state, name)), name
+    fab.submit([4.0], cohort=[11])
+    fab.run(16)
+    assert fab.compile_count == 1
+
+
+def test_watchdog_quarantines_divergence_by_value_scale():
+    fab = _small_fabric(lanes=2).attach_watchdog()
+    fab.submit([1.0], cohort=[4])
+    fab.run(8)
+    lane = next(ln for ln, q in enumerate(fab._lane_q) if q is not None)
+    fab.svc.state.est[:, lane] = 1e12
+    fab.run(8)
+    acts = fab._watchdog.block()["actions"]
+    assert [a["reason"] for a in acts] == ["divergence"]
+    assert acts[0]["post_scrub_residual"] == 0.0
+
+
+def test_admission_backoff_bounds_degraded_mode_as_jax():
+    """A queue storm on two lanes: the port's watchdog records the same
+    degraded episodes, backoffs and deferred admissions as JAX's."""
+    import jax
+
+    from flow_updating_tpu.query import QueryFabric as JaxFabric
+
+    blocks = []
+    for cls in (None, JaxFabric):
+        fab = _small_fabric(lanes=2, eps=1e-2, cls=cls).attach_watchdog()
+        rng = np.random.default_rng(5)
+        for _ in range(10):
+            fab.submit([float(rng.random())],
+                       cohort=[int(rng.integers(0, 48))])
+        with jax.disable_jit():
+            for _ in range(40):
+                fab.run(8)
+                if fab.queued == 0 and fab.active_lanes == 0:
+                    break
+        blocks.append((fab._watchdog.block(), fab._watchdog.state_dict()))
+    (wd, st), (jwd, jst) = blocks
+    assert wd["degraded"] and wd["deferred_admissions"] > 0
+    assert all(e["end_t"] is not None for e in wd["degraded"])
+    assert wd == jwd and st == jst
+    by_name = {c.name: c for c in health.check_recovery(
+        {"watchdog": wd, "replay": None})}
+    assert by_name["degraded_mode_bounded"].status == health.PASS
+
+
+def test_watchdog_armed_recovery_is_bitexact_mid_backoff(tmp_path):
+    from flow_updating_tpu_torch.query import QueryFabric
+
+    d = str(tmp_path / "dur")
+
+    def build(arm):
+        fab = _small_fabric(lanes=2, eps=1e-2)
+        fab.attach_watchdog()
+        if arm:
+            fab.enable_durability(d, checkpoint_every=2, retain=3)
+        return fab
+
+    def drive(fab, phase):
+        rng = np.random.default_rng(11)
+        if phase == 0:
+            for _ in range(8):
+                fab.submit([float(rng.random())],
+                           cohort=[int(rng.integers(0, 48))])
+            fab.run(32)
+        else:
+            fab.run(48)
+
+    fab = build(arm=True)
+    ctrl = build(arm=False)
+    drive(fab, 0)
+    drive(ctrl, 0)
+    assert fab._watchdog.block()["deferred_admissions"] > 0
+    del fab
+    rec = QueryFabric.recover(d, device="cpu")
+    assert rec._watchdog is not None
+    drive(rec, 1)
+    drive(ctrl, 1)
+    assert rec.state_digest() == ctrl.state_digest()
+    a, b = rec._watchdog.block(), ctrl._watchdog.block()
+    assert a["degraded"] == b["degraded"]
+    assert a["deferred_admissions"] == b["deferred_admissions"]
+
+
+def test_retired_lane_does_not_inherit_stall_window():
+    from flow_updating_tpu_torch.resilience.watchdog import WatchdogConfig
+
+    fab = _small_fabric(lanes=1, eps=1e-2)
+    fab.attach_watchdog(WatchdogConfig(stall_boundaries=3))
+    q1 = fab.submit([2.0], cohort=[5])
+    for _ in range(30):
+        fab.run(8)
+        if fab.read(q1)["status"] == "done":
+            break
+    assert fab.read(q1)["status"] == "done"
+    assert fab._watchdog._lane_trend == {}
+    q2 = fab.submit([3.0], cohort=[9])
+    fab.run(8)
+    assert fab.read(q2).get("quarantined") is None
+    assert fab._watchdog.block()["quarantined_total"] == 0
+
+
+def test_watchdog_config_and_state_round_trip_as_jax():
+    from flow_updating_tpu.resilience.watchdog import (
+        Watchdog as JaxWatchdog,
+    )
+    from flow_updating_tpu.resilience.watchdog import (
+        WatchdogConfig as JaxWatchdogConfig,
+    )
+    from flow_updating_tpu_torch.resilience import Watchdog, WatchdogConfig
+
+    cfg = WatchdogConfig(diverge_factor=1e3, stall_boundaries=2,
+                         backoff_max=4)
+    doc = cfg.to_jsonable()
+    assert doc == JaxWatchdogConfig(**doc).to_jsonable()
+    assert WatchdogConfig.from_jsonable({**doc, "unknown": 1}) == cfg
+    state = {"actions": [{"lane": 1, "reason": "nan"}],
+             "degraded": [{"start_t": 8, "end_t": None, "boundaries": 2,
+                           "max_backoff": 2, "peak_queued": 5}],
+             "deferred_admissions": 3, "open_episode": 0, "backoff": 4,
+             "skip": 1, "lane_trend": {"2": [1, 0.5]}}
+    mine, ref = Watchdog(cfg), JaxWatchdog(JaxWatchdogConfig(**doc))
+    mine.load_state(state)
+    ref.load_state(state)
+    assert mine.state_dict() == ref.state_dict() == state
+    assert mine.block() == ref.block()
+
+
+def test_cli_query_wal_then_recover_reports_doctor_clean(tmp_path,
+                                                         capsys):
+    from flow_updating_tpu.cli import main as jax_main
+
+    d = str(tmp_path / "dur")
+    args = ["--generator", "erdos_renyi:48:6", "--seed", "1",
+            "--lanes", "4", "--queries", "6", "--segment-rounds", "8",
+            "--eps", "1e-3", "--cohort-frac", "0.2",
+            "--admission-slo", "256"]
+    rc = port_main(["query", "--device", "cpu", *args, "--rounds", "256",
+                    "--wal", d, "--checkpoint-every", "2", "--watchdog"])
+    assert rc == 0
+    first = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert first["durability"]["wal_seq"] >= 4
+    assert first["durability"]["quarantined"] == 0
+    report = str(tmp_path / "recovered.json")
+    rc = port_main(["query", "--device", "cpu", "--wal", d, "--recover",
+                    "--queries", "0", "--rounds", "16", "--segment-rounds",
+                    "8", "--report", report])
+    assert rc == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["durability"]["recovered"] and out["t"] == first["t"] + 16
+    with open(report) as f:
+        manifest = json.load(f)
+    assert manifest["recovery"]["kind"] == "query"
+    assert manifest["recovery"]["watchdog"]["quarantined_total"] == 0
+    assert port_main(["doctor", report]) == 0
+    names = {c["name"]: c["status"] for c in
+             json.loads(capsys.readouterr().out)["checks"]}
+    assert names["wal_replay_exact"] == "pass"
+    assert names["query_lane_mass"] == "pass"
+    assert jax_main(["doctor", report]) == 0
+    capsys.readouterr()

@@ -528,7 +528,9 @@ def _last_json(capsys):
 def test_scenarios_cli(tmp_path, capsys):
     assert port_main(["scenarios", "--list"]) == 0
     listing = _last_json(capsys)
-    assert list(listing) == list(jregistry.REGISTRY)
+    from flow_updating_tpu.aggregates import AGG_SCENARIOS as JAX_AGG
+
+    assert list(listing) == list(jregistry.REGISTRY) + list(JAX_AGG)
     path = tmp_path / "scn.json"
     rc = port_main(["scenarios", "--device", "cpu", "--seeds", "1",
                     "byzantine_lie", "silent_node", "--report", str(path)])
@@ -541,7 +543,10 @@ def test_scenarios_cli(tmp_path, capsys):
     rc = port_main(["scenarios", "--device", "cpu", "--seeds", "1",
                     "byzantine_lie", "--perturb", "remove_adversary"])
     assert rc == 1 and _last_json(capsys)["overall"] == "fail"
-    with pytest.raises(SystemExit, match="A11"):
-        port_main(["scenarios", "agg_byzantine_lie"])
+    # the aggregate cases run their own fabric: they cannot share an
+    # invocation with the sweep grid (tests/test_torch_aggregates.py
+    # runs them)
+    with pytest.raises(SystemExit, match="cannot mix"):
+        port_main(["scenarios", "agg_byzantine_lie", "byzantine_lie"])
     with pytest.raises(SystemExit, match="did you mean"):
         port_main(["scenarios", "byzantine_lei"])

@@ -2,9 +2,8 @@
 ``obs/spans.py`` and the service's recorder hooks) against the JAX
 package's.
 
-Counterparts of ``tests/test_serving_obs.py``'s tests that touch no query
-fabric (the fabric's chains, watchdog and chaos traces are ROADMAP A11
-part 2):
+Counterparts of ``tests/test_serving_obs.py``'s tests (its chaos
+subprocess test belongs to ROADMAP A11 part 3):
 
 * the registry's counters, gauges and windowed histograms, and its
   Prometheus text byte for byte equal to JAX's registry fed the same
@@ -16,7 +15,14 @@ part 2):
 * the black box survives a crash: a recovered service carries its
   pre-crash counters, one ``recovery`` span with the replay evidence,
   and passes ``span_complete`` and ``metrics_consistency``; a
-  replay-disabled control fails ``span_complete``.
+  replay-disabled control fails ``span_complete``;
+* the query fabric's recorder: gap-free per-query chains and exact
+  counters, ``observe=False`` bit-pure, no second recorder in the inner
+  service, a recovered fabric's chains continuous with a ``recovery``
+  span, watchdog quarantines and degraded episodes as spans and
+  counters, the manifest rendered as a Chrome trace, and ``query
+  --metrics --report`` judged ``--strict`` by both doctors; the fabric's
+  serving-trace block equal to JAX's fabric driven the same way.
 """
 
 import json
@@ -218,3 +224,224 @@ def test_black_box_survives_recovery_and_stamps_recovery_span(tmp_path,
         assert rec.state_digest() != ctrl.state_digest()
         assert checks["span_complete"].status == health.FAIL
         assert "replayed 0 of 1" in checks["span_complete"].summary
+
+
+# ---- the query fabric's flight recorder ---------------------------------
+
+def _fabric(seed=0, lanes=4, eps=1e-3, **kw):
+    from flow_updating_tpu_torch.query import QueryFabric
+
+    topo = pgen.erdos_renyi(48, avg_degree=8.0, seed=2)
+    cfg = RoundConfig.fast(variant="collectall", drop_rate=0.05)
+    return QueryFabric(topo, lanes=lanes, capacity=48, config=cfg,
+                       segment_rounds=8, seed=seed, conv_eps=eps,
+                       device="cpu", **kw)
+
+
+def _drive_fabric(fab, rng, n=6):
+    for _ in range(n):
+        fab.submit(rng.random(3), cohort=[1, 5, 9])
+    for _ in range(24):
+        fab.run(8)
+        if fab.retired_total >= n and fab.active_lanes == 0:
+            break
+
+
+def test_fabric_records_gap_free_chains_and_exact_counters():
+    import numpy as np
+
+    fab = _fabric(convergence_slo_rounds=400, admission_slo_rounds=64)
+    _drive_fabric(fab, np.random.default_rng(3))
+    assert fab.retired_total >= 6
+    for qid, chain in fab.spans.block()["queries"].items():
+        terms = [c for c in chain if c["name"] in ("retired", "quarantined")]
+        assert terms, f"qid {qid} never terminated"
+        assert health._span_chain_gap(chain, terms[0]["t0"]) is None
+    m = fab.metrics
+    assert m.counter("queries_submitted_total") == 6
+    assert m.counter("queries_retired_total") == fab.retired_total
+    conv = fab.query_block()["convergence_latency"]
+    assert conv["count"] == fab.retired_total and conv["slo_rounds"] == 400
+    assert conv["p95"] >= conv["p50"] > 0
+    trace = fab.serving_trace_block()
+    checks = {c.name: c for c in health.check_serving_trace(
+        trace, query=fab.query_block())}
+    jchecks = {c.name: c for c in jhealth.check_serving_trace(
+        json.loads(json.dumps(trace)),
+        query=json.loads(json.dumps(fab.query_block())))}
+    assert {k: c.status for k, c in checks.items()} == \
+        {k: c.status for k, c in jchecks.items()}
+    for name in ("span_complete", "metrics_consistency", "slo_latency"):
+        assert checks[name].status == health.PASS, name
+
+
+def test_fabric_serving_trace_equals_jax():
+    """The same script through both fabrics (eager JAX, the steady
+    oracle of ROADMAP C11): equal span chains and equal counters."""
+    import jax
+    import numpy as np
+
+    from flow_updating_tpu.models.config import RoundConfig as JaxConfig
+    from flow_updating_tpu.query import QueryFabric as JaxFabric
+    from flow_updating_tpu.topology import generators as jgen
+
+    j = JaxFabric(jgen.erdos_renyi(48, avg_degree=8.0, seed=2), lanes=4,
+                  capacity=48, config=JaxConfig.fast(
+                      variant="collectall", drop_rate=0.05, dtype="float64"),
+                  segment_rounds=8, seed=0, conv_eps=1e-3)
+    from flow_updating_tpu_torch.query import QueryFabric
+
+    p = QueryFabric(pgen.erdos_renyi(48, avg_degree=8.0, seed=2), lanes=4,
+                    capacity=48, config=RoundConfig.fast(
+                        variant="collectall", drop_rate=0.05,
+                        dtype="float64"),
+                    segment_rounds=8, seed=0, conv_eps=1e-3, device="cpu")
+    with jax.disable_jit():
+        _drive_fabric(j, np.random.default_rng(3))
+    _drive_fabric(p, np.random.default_rng(3))
+    assert p.state_digest() == j.state_digest()
+    assert p.spans.block() == json.loads(json.dumps(j.spans.block()))
+    pc = p.serving_trace_block()["metrics"]["counters"]
+    jc = j.serving_trace_block()["metrics"]["counters"]
+    assert pc == jc
+
+
+def test_fabric_observe_off_is_bit_pure_and_recorder_free():
+    import numpy as np
+
+    fab, twin = _fabric(observe=True), _fabric(observe=False)
+    _drive_fabric(fab, np.random.default_rng(3))
+    _drive_fabric(twin, np.random.default_rng(3))
+    assert twin.metrics is None and twin.spans is None
+    assert twin.serving_trace_block() is None
+    assert fab.state_digest() == twin.state_digest()
+    assert fab.compile_count == twin.compile_count == 1
+    assert fab.svc.metrics is None, (
+        "the fabric owns the one flight recorder; the inner service "
+        "keeps none")
+
+
+def test_fabric_black_box_survives_recovery_and_stamps_recovery_span(
+        tmp_path):
+    import numpy as np
+
+    from flow_updating_tpu_torch.query import QueryFabric
+
+    d = str(tmp_path / "dur")
+    fab = _fabric().enable_durability(d, checkpoint_every=2, retain=3)
+    ctrl = _fabric()
+    _drive_fabric(fab, np.random.default_rng(3), n=4)
+    _drive_fabric(ctrl, np.random.default_rng(3), n=4)
+    pre_chains = {q: [c["name"] for c in ch]
+                  for q, ch in fab.spans.block()["queries"].items()}
+    del fab
+    rec = QueryFabric.recover(d, device="cpu")
+    post = rec.spans.block()["queries"]
+    for qid, names in pre_chains.items():
+        assert [c["name"] for c in post[qid]] == names
+    rspans = [s for s in rec.spans.block()["engine"]
+              if s["name"] == "recovery"]
+    assert len(rspans) == 1 and rspans[0]["replay_enabled"]
+    assert rspans[0]["records_replayed"] == rspans[0]["records_pending"]
+    assert rec.metrics.counter("recoveries_total") == 1
+    rec.run(16)
+    ctrl.run(16)
+    assert rec.state_digest() == ctrl.state_digest()
+    checks = {c.name: c for c in health.check_serving_trace(
+        rec.serving_trace_block(), query=rec.query_block(),
+        recovery=rec.resilience_block())}
+    assert checks["metrics_consistency"].status == health.PASS
+    assert checks["span_complete"].status == health.PASS
+
+
+def test_watchdog_quarantine_and_backoff_surface_in_the_black_box():
+    import numpy as np
+
+    fab = _fabric(lanes=2, eps=1e-2).attach_watchdog()
+    rng = np.random.default_rng(5)
+    for _ in range(10):
+        fab.submit([float(rng.random())], cohort=[int(rng.integers(0, 48))])
+    for _ in range(40):
+        fab.run(8)
+        if fab.queued == 0 and fab.active_lanes == 0:
+            break
+    wd = fab._watchdog.block()
+    assert wd["degraded"], "storm never entered degraded mode"
+    m, spans = fab.metrics, fab.spans.block()
+    assert m.counter("watchdog_backoff_episodes_total") == len(wd["degraded"])
+    assert m.counter("watchdog_deferred_admissions_total") == \
+        wd["deferred_admissions"]
+    degraded = [s for s in spans["engine"] if s["name"] == "degraded"]
+    closed = [e for e in wd["degraded"] if e["end_t"] is not None]
+    assert len(degraded) == len(closed)
+    for s, e in zip(degraded, closed):
+        assert (s["t0"], s["t1"]) == (e["start_t"], e["end_t"])
+    fab2 = _fabric(lanes=2).attach_watchdog()
+    fab2.submit([1.0], cohort=[4])
+    fab2.run(8)
+    lane = next(ln for ln, q in enumerate(fab2._lane_q) if q is not None)
+    qid = fab2._lane_q[lane]
+    fab2.svc.state.est[:, lane] = float("nan")
+    fab2.run(8)
+    chain = fab2.spans.chain(qid)
+    quar = [c for c in chain if c["name"] == "quarantined"]
+    assert len(quar) == 1 and quar[0]["reason"]
+    assert fab2.metrics.counter("queries_quarantined_total") == 1
+    assert health._span_chain_gap(chain, quar[0]["t0"]) is None
+
+
+def test_serving_manifest_renders_as_chrome_trace():
+    import numpy as np
+
+    from flow_updating_tpu_torch.obs.report import build_query_manifest
+    from flow_updating_tpu_torch.obs.trace import (
+        serving_manifest_to_chrome_trace,
+    )
+
+    fab = _fabric()
+    _drive_fabric(fab, np.random.default_rng(3))
+    manifest = build_query_manifest(
+        argv=["test"], query=fab.query_block(),
+        extra={"serving_trace": fab.serving_trace_block()}, device="cpu")
+    doc = serving_manifest_to_chrome_trace(manifest)
+    by_ph = {}
+    for e in doc["traceEvents"]:
+        by_ph.setdefault(e["ph"], []).append(e)
+    lanes = {e["args"]["name"] for e in by_ph["M"]
+             if e["name"] == "thread_name"}
+    assert any(n.startswith("lane ") for n in lanes)
+    queries = [e for e in by_ph["X"] if e.get("cat") == "query"]
+    segs = [e for e in by_ph["X"] if e.get("cat") == "segment"]
+    assert len(queries) == fab.retired_total
+    assert segs and all(s["dur"] > 0 for s in segs)
+    assert by_ph.get("C"), "no counter samples rendered"
+
+
+def test_cli_query_report_embeds_trace_and_doctor_judges_it(tmp_path,
+                                                            capsys):
+    from flow_updating_tpu.cli import main as jax_main
+    from flow_updating_tpu_torch.cli import main as port_main
+
+    report = str(tmp_path / "q.json")
+    prom = str(tmp_path / "q.prom")
+    rc = port_main(["query", "--device", "cpu",
+                    "--generator", "erdos_renyi:48:8", "--seed", "3",
+                    "--lanes", "4", "--segment-rounds", "8",
+                    "--queries", "4", "--eps", "1e-3", "--rounds", "400",
+                    "--admission-slo", "64", "--convergence-slo", "400",
+                    "--metrics", prom, "--report", report])
+    assert rc == 0
+    capsys.readouterr()
+    with open(report) as f:
+        manifest = json.load(f)
+    trace = manifest["serving_trace"]
+    assert trace["schema"] == "flow-updating-serving-trace/v1"
+    assert trace["slo"]["convergence_p95_rounds"] == 400
+    assert "fu_queries_retired_total" in open(prom).read()
+    assert port_main(["doctor", report, "--strict"]) == 0
+    assert jax_main(["doctor", report, "--strict"]) == 0
+    capsys.readouterr()
+    out = str(tmp_path / "q.trace.json")
+    assert port_main(["obs", "export-trace", report, "--output", out]) == 0
+    with open(out) as f:
+        assert json.load(f)["traceEvents"]
