@@ -289,6 +289,28 @@ and prints one JSON line per phase:
    lane under the watchdog quarantined with every other lane
    ``torch.equal`` to an unpoisoned control.  Path Q launches no kernel
    of the port (the fabric runs the plain row fold);
+   ``path_s`` — actors: S1 ``push_sum_actor()`` through
+   ``Engine.register_actor`` on the k=160 fat tree for 200 rounds (the
+   totals of ``s`` and ``w`` within 1e-5 at every sample, the rmse
+   falling, K1 launched twice a round per non-empty in-edge bucket, a
+   second run and a resume from the round-100 actor archive
+   ``torch.equal``, ``sum_to_dst`` against its plain version; ms, device
+   ms and launches a round); S2 the collect-all ``Peer`` of
+   ``examples/torch_host_actors.py`` on small6 through
+   ``Engine(host_actors=True)``: converged, stopped by ``kill_all``,
+   replayed exactly; S3 ``estimate_count``/``sum`` (float64, node round
+   through K1) and ``estimate_min``/``max`` on the k=160 fat tree: within
+   1e-3, exact;
+   ``path_r`` — the chaos registry: ten ``chaos`` CLI processes started
+   at once, each with its child on the card: R1 all seven faults at
+   ``erdos_renyi(10_000, 8)`` x 32 lanes, 28 ops (every process exit 0,
+   ``doctor --strict`` on each manifest but the storm's
+   ``forecast_calibrated``, which the JAX package's own manifest fails
+   too, ``blame_top`` the fault, the five kill and tamper recoveries'
+   digests equal to their controls, the NaN lane's others equal and free
+   lanes at 0.0, the storm drained); R2 ``--perturb`` for
+   ``kill_at_segment``, ``bitflip_archive`` and ``nan_poison_lane`` at
+   625 members: each signature and ``doctor --strict`` fail;
 18. the ``{"kernels": [...]}`` line (launches from the main paths; times,
     errors and bounds measured in this run), then the nvidia-smi line,
     then ``{"ok": true, "device": {...}}`` as the last line.
@@ -338,7 +360,7 @@ WARMUP = 5              # rounds before the timed ones
 REPS = 10               # calls per kernel timing (the profiler spends
 #                         ~50-70 host us an event turning a trace into
 #                         rows: traces are most of the script's time)
-TRACES = 2              # profiler traces per device-time measurement
+TRACES = 1              # profiler traces per device-time measurement
 PROFILE_ROUNDS = 5      # rounds per path under the profiler
 PROFILE_TRACES = 1      # profile: traces per path (the most device time
 #                         counts)
@@ -364,7 +386,9 @@ SMALL6_SCALE = 100.0    # path H1/H2: latency scale of small6
 #: path H1/H2 message sizes: at 1e5 bytes every delay rounds to 1 round,
 #: at 1e6 the delays reach 5 rounds and the contention binds
 SMALL6_MSG_BYTES = (1e5, 1e6)
-DES_TICKS = 1120        # path H1/H2: rounds (ticks) of each curve
+DES_TICKS = 1120        # path H1/H2: rounds (ticks) of each 1e6 curve
+DES_TICKS_1E5 = 400     # path H1/H2: ... of each 1e5 curve (their latest
+#                         crossing is round 210)
 OBS = 10                # path H1/H2: the curves' sampling interval
 LINK_SER_ROUNDS = 0.01  # path H3: a message's serialization, in rounds
 DES_BASE_TICKS = 3      # des: ticks of each timed DES run (k=160)
@@ -472,6 +496,28 @@ Q4_NODES = 10_000       # Q4: the killed child's erdos_renyi:Q4_NODES:6
 Q4_LANES = 32           # Q4: its lanes
 Q4_KILL_SEGMENT = 5     # Q4: the child is killed once this segment's run
 #                         record is journaled
+R_NODES = 10_000        # R1: chaos --nodes (JAX's scripts/chaos_smoke.py
+#                         floor of 10,000 members)
+R_LANES = 32            # R1, R2: chaos --lanes (path Q4's)
+R_OPS = 28              # R1, R2: chaos --ops (the scripted events)
+R2_NODES = R_NODES // 16    # R2: the perturbed runs' members (JAX's
+#                             nodes // 16)
+R2_FAULTS = ("kill_at_segment", "bitflip_archive", "nan_poison_lane")
+R_TIMEOUT_S = 420       # R: each chaos process's limit
+R_BACKEND = "cuda"      # R: where every recovery and control must run
+#: R1: doctor --strict checks that the JAX package's own manifest of the
+#: same fault fails at these sizes (ROADMAP C12: at 10,000 x 32 the
+#: storm banks one forecast ratio of 17.4 against a band of 2, in both
+#: packages alike); any other failing check fails path R
+R_REFERENCE_FAILS = {"admission_storm": {"forecast_calibrated"}}
+S_ROUNDS = 200          # S1: push-sum rounds on the fat tree
+S_CKPT_ROUND = 100      # S1: the actor checkpoint's round
+S_SAMPLE = 20           # S1: rounds between conservation samples
+S_MASS_RTOL = 1e-5      # S1: JAX's tolerance (tests/test_actor.py:56)
+S_TIMED_ROUNDS = 20     # S1: rounds timed by CUDA events after the run
+S2_DEADLINE = 400.0     # S2: the watcher's kill_all (simulated s)
+S2_UNTIL = 500.0        # S2: the run's horizon (simulated s)
+S3_ROUNDS = 200         # S3: rounds of each mean run (count and sum)
 
 #: NVIDIA H100 SXM data sheet: peak HBM rate (bytes/s) and float32 rate
 #: outside the tensor cores (FLOP/s)
@@ -2522,14 +2568,14 @@ def _small6(msg_bytes: float):
         msg_bytes=msg_bytes)
 
 
-def _observed(topo, cfg, device) -> list:
-    """The rmse curve of ``DES_TICKS`` rounds, sampled every ``OBS``."""
+def _observed(topo, cfg, device, ticks: int) -> list:
+    """The rmse curve of ``ticks`` rounds, sampled every ``OBS``."""
     from flow_updating_tpu_torch.models import rounds
     from flow_updating_tpu_torch.models.state import init_state
 
     _, m = rounds.run_rounds_observed(
         init_state(topo, cfg, device=device),
-        topo.device_arrays(device=device), cfg, DES_TICKS, OBS,
+        topo.device_arrays(device=device), cfg, ticks, OBS,
         topo.true_mean)
     return m["rmse"].cpu().tolist()
 
@@ -2571,6 +2617,7 @@ def phase_path_h(tree) -> dict:
     h1, h2 = {}, {}
     for mb in SMALL6_MSG_BYTES:
         topo = _small6(mb)
+        ticks = DES_TICKS if mb == SMALL6_MSG_BYTES[1] else DES_TICKS_1E5
         D = topo.contended_max_delay()
         h1[f"{mb:g}"] = cells = {"delay_depth": D,
                                  "max_static_delay": topo.max_delay}
@@ -2579,10 +2626,10 @@ def phase_path_h(tree) -> dict:
                                         contention=True,
                                         contention_backlog=True,
                                         dtype="float64")
-            card = _observed(topo, cfg, "cuda")
-            host = _observed(topo, cfg, "cpu")
+            card = _observed(topo, cfg, "cuda", ticks)
+            host = _observed(topo, cfg, "cpu", ticks)
             des = native.des_run_contend(
-                topo, variant, timeout=50, ticks=DES_TICKS, obs_every=OBS,
+                topo, variant, timeout=50, ticks=ticks, obs_every=OBS,
                 clamp_d=D, backlog=True)[0]
             got = {f"{th:g}": {"kernel": _rounds_to(card, th, OBS),
                                "host": _rounds_to(host, th, OBS),
@@ -2600,9 +2647,9 @@ def phase_path_h(tree) -> dict:
             eng = Engine(config=RoundConfig.fidelity(variant,
                                                      dtype="float64"))
             eng.set_topology(topo).build(latency_scale=SMALL6_SCALE)
-            card = _observed(topo, eng.config, "cuda")
+            card = _observed(topo, eng.config, "cuda", ticks)
             lmm = native.des_run_contend(
-                topo, variant, timeout=50, ticks=DES_TICKS, obs_every=OBS,
+                topo, variant, timeout=50, ticks=ticks, obs_every=OBS,
                 clamp_d=eng.config.delay_depth, lmm=True)[0]
             fid[variant] = {
                 "delay_depth": eng.config.delay_depth,
@@ -2665,7 +2712,8 @@ def phase_path_h(tree) -> dict:
     return {"h1": h1, "h2": h2, "h3": h3,
             "small6": {"latency_scale": SMALL6_SCALE,
                        "msg_bytes": list(SMALL6_MSG_BYTES),
-                       "ticks": DES_TICKS, "obs_every": OBS}}
+                       "ticks": [DES_TICKS_1E5, DES_TICKS],
+                       "obs_every": OBS}}
 
 
 def host_cpu() -> dict:
@@ -5912,6 +5960,365 @@ def phase_path_q4(tmp) -> dict:
                                        if fsync.get("count") else None)}
 
 
+# ---- path R: the chaos registry on the card -------------------------------
+
+def _chaos_argv(name: str, nodes: int, outdir: str, perturb: bool) -> list:
+    return [sys.executable, "-m", "flow_updating_tpu_torch", "chaos", name,
+            "--nodes", str(nodes), "--lanes", str(R_LANES), "--ops",
+            str(R_OPS), "--outdir", outdir,
+            *(["--perturb"] if perturb else [])]
+
+
+def _run_chaos_processes(jobs, tmp) -> dict:
+    """Start one ``chaos`` CLI process per ``(key, argv)`` job at once (each
+    starts its own child on the card), wait for all under ``R_TIMEOUT_S``
+    each, and return ``{key: (rc, wall_s, last JSON line, stderr tail)}``.
+    A process still running at its limit is killed, as are all others
+    once one fails to start."""
+    # two host threads a process: ten processes share the host's cores
+    env = {**os.environ, "PYTHONPATH": ROOT, "OMP_NUM_THREADS": "2"}
+    procs, ended = {}, {}
+    try:
+        for key, argv in jobs:
+            out = open(os.path.join(tmp, f"{key}.out"), "w+")
+            err = open(os.path.join(tmp, f"{key}.err"), "w+")
+            procs[key] = (subprocess.Popen(argv, cwd=ROOT, env=env,
+                                           stdout=out, stderr=err),
+                          out, err, time.perf_counter())
+        while len(ended) < len(procs):
+            for key, (proc, _, _, t0) in procs.items():
+                if key not in ended and proc.poll() is not None:
+                    ended[key] = time.perf_counter() - t0
+                elif key not in ended and \
+                        time.perf_counter() - t0 > R_TIMEOUT_S:
+                    raise AssertionError(f"R {key}: still running after "
+                                         f"{R_TIMEOUT_S} s")
+            time.sleep(0.2)
+        done = {}
+        for key, (proc, out, err, _) in procs.items():
+            out.seek(0)
+            err.seek(0)
+            lines = out.read().strip().splitlines()
+            done[key] = (proc.returncode, ended[key],
+                         json.loads(lines[-1]) if lines else None,
+                         err.read()[-3000:])
+        return done
+    finally:
+        for proc, out, err, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+            err.close()
+
+
+def phase_path_r(tmp) -> dict:
+    """R: the whole chaos registry through ``chaos`` on the card (R1, at
+    ``R_NODES`` members and ``R_LANES`` lanes), and ``--perturb`` for one
+    fault per recovery mechanism (R2: the WAL, the ring's fallback, the
+    watchdog, at ``R2_NODES``), all ten CLI processes started at once.
+    Gates: every process exits 0 (no violated contract); each R1 manifest
+    passes ``doctor --strict`` but for the checks of
+    ``R_REFERENCE_FAILS``, and ``blame_top`` is its fault; the five
+    kill and tamper faults recover to the control's digest; the NaN lane
+    leaves every other lane equal to its control (``verify.exact``) with
+    the free-lane residual exactly 0.0 at every boundary; the storm's
+    queue drains; each R2 manifest fails its signature and ``doctor
+    --strict``."""
+    import torch
+
+    from flow_updating_tpu_torch.resilience.chaos import CHAOS_REGISTRY
+
+    torch.cuda.empty_cache()
+    r1_dir = os.path.join(tmp, "r1")
+    r2_dir = os.path.join(tmp, "r2")
+    names = sorted(CHAOS_REGISTRY)
+    jobs = [(f"r1_{n}", _chaos_argv(n, R_NODES, r1_dir, False))
+            for n in names]
+    jobs += [(f"r2_{n}", _chaos_argv(n, R2_NODES, r2_dir, True))
+             for n in R2_FAULTS]
+    t0 = time.perf_counter()
+    done = _run_chaos_processes(jobs, tmp)
+    procs_s = time.perf_counter() - t0
+    r1, r2, bad = {}, {}, []
+    for key, (rc, wall, out, err) in done.items():
+        if rc != 0 or out is None or out["violations"]:
+            bad.append(f"R {key}: chaos exited {rc}: {out}\n{err}")
+            continue
+        res = out["results"][0]
+        with open(res["manifest_path"]) as f:
+            man = json.load(f)
+        drc, doc = _doctor_cli(["--strict", res["manifest_path"]])
+        st = _statuses(doc["checks"])
+        name = res["fault"]
+        env = man["environment"]
+        row = {"wall_s": wall, "overall": res["overall"],
+               "blame_top": res["blame_top"], "doctor_rc": drc,
+               "statuses": st, "timings": man.get("timings")}
+        if env.get("backend") != R_BACKEND:
+            bad.append(f"R {key}: the recovery ran on {env}")
+        if key.startswith("r2_"):
+            if res["overall"] != "fail" or drc != 1:
+                bad.append(f"R2 {name}: the perturbed run passed its "
+                           f"signature: {res}, doctor {drc}")
+            r2[name] = row
+            continue
+        r1[name] = row
+        failing = {c for c, v in st.items() if v == "fail"}
+        row["reference_fails"] = sorted(failing)
+        if not failing <= R_REFERENCE_FAILS.get(name, set()) \
+                or drc != (1 if failing else 0) \
+                or res["blame_top"] != name:
+            fails = [c for c in doc["checks"] if c["status"] == "fail"]
+            bad.append(f"R1 {name}: doctor {drc}, blame "
+                       f"{res['blame_top']}: {fails}")
+        fault = CHAOS_REGISTRY[name]
+        rec = man["recovery"]
+        if fault.kill:
+            v = rec["verify"]
+            if not (v["exact"] and v["recovered_digest"]
+                    == v["control_digest"]):
+                bad.append(f"R1 {name}: recovery not exact: {v}")
+            row["records_replayed"] = rec["replay"]["records_replayed"]
+            row["fallbacks"] = rec["ring"]["fallbacks"]
+        if fault.inject == "nan_lane":
+            v = rec["verify"]
+            free = [b["max_resid_free"] for b in man["query"]["boundaries"]]
+            if not v["exact"] or any(x != 0.0 for x in free) \
+                    or st.get("quarantine_mass") != "pass":
+                bad.append(f"R1 {name}: lanes {v}, free-lane residuals "
+                           f"{free}, {st}")
+            row["poisoned_lane"] = v["poisoned_lane"]
+            row["boundaries"] = len(free)
+        if fault.inject == "storm":
+            last = man["query"]["boundaries"][-1]
+            if last["queued"] != 0 \
+                    or st.get("degraded_mode_bounded") != "pass":
+                bad.append(f"R1 {name}: the storm did not drain: {last}, "
+                           f"{st}")
+            row["admitted_total"] = man["query"]["admitted_total"]
+    if bad:
+        raise AssertionError("path R:\n" + "\n".join(bad))
+    return {"r1": r1, "r2": r2, "processes": len(jobs),
+            "processes_wall_s": procs_s,
+            "r1_args": {"nodes": R_NODES, "lanes": R_LANES, "ops": R_OPS},
+            "r2_args": {"nodes": R2_NODES, "lanes": R_LANES, "ops": R_OPS}}
+
+
+# ---- path S: actors on the card ---------------------------------------------
+
+def _same_carry(a, b) -> bool:
+    import torch
+
+    from flow_updating_tpu_torch.utils.checkpoint import tree_leaves_with_path
+
+    la, lb = tree_leaves_with_path(a), tree_leaves_with_path(b)
+    return len(la) == len(lb) and all(
+        ka == kb and torch.equal(va, vb) for (ka, va), (kb, vb)
+        in zip(la, lb))
+
+
+def _push_sum_engine(tree):
+    from flow_updating_tpu_torch import Engine, push_sum_actor
+
+    eng = Engine().set_topology(tree)
+    return eng.register_actor("pushsum", push_sum_actor())
+
+
+def phase_path_s1(tree, tmp) -> dict:
+    """S1: ``push_sum_actor()`` through ``Engine.register_actor`` on the
+    full fat tree, ``S_ROUNDS`` rounds.  Gates: the total of ``s`` and of
+    ``w`` (state plus outbox, summed in float64) within ``S_MASS_RTOL`` of
+    the start at every sample, the rmse falling, K1 launched twice a round
+    per non-empty in-edge bucket; a second run ``torch.equal``; the
+    archive of round ``S_CKPT_ROUND`` restored into a fresh engine and
+    resumed ``torch.equal`` to the uninterrupted run; ``sum_to_dst`` on the
+    card within K1's float32 tolerance (rtol = atol = 1e-6) of its plain
+    version.  Then ms a round by CUDA events and the profiler's device ms
+    and launches a round."""
+    import numpy as np
+    import torch
+
+    from flow_updating_tpu_torch.ops.spmv import neighbor_sum, neighbor_sum_ell
+
+    t0 = time.perf_counter()
+    eng = _push_sum_engine(tree).build()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    view = eng._node_kernel.view
+    buckets = sum(1 for m in view.ell if m.shape[0] and m.shape[1])
+    mean = tree.true_mean
+    mass0 = (float(np.sum(tree.values.astype(np.float32),
+                          dtype=np.float64)), float(tree.num_nodes))
+
+    def masses():
+        st, out = eng.state
+        return [float(st[k].double().sum() + out[k].double().sum())
+                for k in ("s", "w")]
+
+    def rmse():
+        est = eng._node_kernel._estimate(eng.state).double()
+        return float(torch.sqrt(torch.mean((est - mean) ** 2)))
+
+    path = os.path.join(tmp, "push_sum.npz")
+    samples = [{"t": 0, "rmse": rmse(), "mass_rel_err": [0.0, 0.0]}]
+    reset_counts()
+    t1 = time.perf_counter()
+    for t in range(S_SAMPLE, S_ROUNDS + 1, S_SAMPLE):
+        eng.run_rounds(S_SAMPLE)
+        m = masses()
+        samples.append({"t": t, "rmse": rmse(),
+                        "mass_rel_err": [abs(m[i] - mass0[i]) / mass0[i]
+                                         for i in range(2)]})
+        if t == S_CKPT_ROUND:
+            eng.save_checkpoint(path)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t1
+    launches = neighbor_sum_ell.launches
+    if launches != 2 * S_ROUNDS * buckets:
+        raise AssertionError(f"S1: K1 launched {launches} times in "
+                             f"{S_ROUNDS} rounds, expected "
+                             f"{2 * S_ROUNDS * buckets}")
+    worst = max(max(x["mass_rel_err"]) for x in samples)
+    if worst > S_MASS_RTOL:
+        raise AssertionError(f"S1: mass drifted {worst} (> {S_MASS_RTOL})")
+    if not samples[-1]["rmse"] < samples[0]["rmse"] / 10:
+        raise AssertionError(f"S1: the rmse did not fall: {samples}")
+    twin = _push_sum_engine(tree).build()
+    twin.run_rounds(S_ROUNDS)
+    rerun_equal = _same_carry(eng.state, twin.state)
+    del twin
+    t2 = time.perf_counter()
+    resumed = _push_sum_engine(tree)
+    resumed.restore_checkpoint(path)
+    restore_s = time.perf_counter() - t2
+    if resumed.clock != float(S_CKPT_ROUND):
+        raise AssertionError(f"S1: restored clock {resumed.clock}")
+    resumed.run_rounds(S_ROUNDS - S_CKPT_ROUND)
+    resume_equal = _same_carry(eng.state, resumed.state)
+    del resumed
+    if not (rerun_equal and resume_equal):
+        raise AssertionError(f"S1: second run equal {rerun_equal}, resumed "
+                             f"run equal {resume_equal}")
+    x = eng.state[1]["s"].contiguous()
+    got = view.sum_to_dst(x)
+    plain = neighbor_sum(x, view.ell)[view.ell_inv]
+    err = float((got - plain).abs().max())
+    if not torch.allclose(got, plain, rtol=1e-6, atol=1e-6):
+        raise AssertionError(f"S1: sum_to_dst off its plain version by {err}")
+    ms = _timed_rounds(eng, S_TIMED_ROUNDS) / S_TIMED_ROUNDS
+    prof = profile_rounds(eng, PROFILE_ROUNDS)
+    return {"topology": f"fat_tree:{FAT_TREE_K}", "nodes": tree.num_nodes,
+            "directed_edges": tree.num_edges, "rounds": S_ROUNDS,
+            "build_s": build_s, "run_s": run_s, "restore_s": restore_s,
+            "archive_bytes": os.path.getsize(path),
+            "k1_launches": launches, "nonempty_in_edge_buckets": buckets,
+            "samples": samples, "mass_rel_err_max": worst,
+            "rerun_equal": rerun_equal, "resume_equal": resume_equal,
+            "sum_to_dst_max_abs_err": err, "ms_per_round": ms,
+            "profile": prof}
+
+
+def _s2_run(example) -> dict:
+    from flow_updating_tpu_torch import s4u
+    from flow_updating_tpu_torch.engine import Engine
+
+    example.global_values.clear()
+    eng = Engine(host_actors=True)
+    eng.load_platform(os.path.join(ROOT, "examples/platforms/small6.xml"))
+    eng.register_actor("peer", example.Peer)
+    eng.load_deployment(os.path.join(
+        ROOT, "examples/deployments/small6_actors.xml"))
+    s4u.Actor.create("watcher", s4u.Host.by_name("Lisboa"),
+                     example.watcher, S2_DEADLINE, 10.0)
+    eng.run_until(S2_UNTIL)
+    des = eng._hostdes
+    alive = [c.name for c in des.actors if not c.done]
+    des.shutdown()
+    return {"clock": eng.clock, "alive_after_kill_all": alive,
+            "mirrors": {k: dict(v)
+                        for k, v in example.global_values.items()}}
+
+
+def phase_path_s2() -> dict:
+    """S2: the reference-style collect-all ``Peer`` of
+    ``examples/torch_host_actors.py`` (written against the port's ``s4u``)
+    on ``small6`` through ``Engine(host_actors=True)``.  Gates: every
+    peer's last average within 0.05 of the true mean, every actor stopped
+    by the watcher's ``kill_all``, and a second run replaying the same
+    mirrors exactly."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_host_actors", os.path.join(ROOT,
+                                          "examples/torch_host_actors.py"))
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    t0 = time.perf_counter()
+    a = _s2_run(example)
+    run_s = time.perf_counter() - t0
+    b = _s2_run(example)
+    values = a["mirrors"]["value"]
+    mean = sum(values.values()) / len(values)
+    err = max(abs(v - mean) for v in a["mirrors"]["last_avg"].values())
+    if len(a["mirrors"]["last_avg"]) != 6 or err > 0.05:
+        raise AssertionError(f"S2: the peers did not converge: {a}")
+    if a["alive_after_kill_all"] or a["clock"] != S2_UNTIL:
+        raise AssertionError(f"S2: actors left running: {a}")
+    if a["mirrors"] != b["mirrors"]:
+        raise AssertionError("S2: the second run replayed another "
+                             "trajectory")
+    return {"peers": len(values), "true_mean": mean,
+            "max_abs_err": err, "replay_equal": True, "run_s": run_s,
+            "last_avg": a["mirrors"]["last_avg"]}
+
+
+def phase_path_s3(tree) -> dict:
+    """S3: ``estimate_count``, ``estimate_sum``, ``estimate_min`` and
+    ``estimate_max`` on the full fat tree, the mean runs on the node round
+    through K1 (``spmv='pallas'``, float64).  Gates: count and sum within
+    rel 1e-3 of the truth (``tests/test_robustness.py``'s bounds), min and
+    max exact at every node."""
+    import numpy as np
+
+    from flow_updating_tpu_torch import (
+        RoundConfig,
+        estimate_count,
+        estimate_max,
+        estimate_min,
+        estimate_sum,
+    )
+    from flow_updating_tpu_torch.ops.spmv import neighbor_sum_ell
+
+    cfg = RoundConfig.fast(variant="collectall", kernel="node",
+                           spmv="pallas", dtype="float64")
+    out, times = {}, {}
+    reset_counts()
+    for name, fn in (("count", lambda: estimate_count(tree, cfg,
+                                                      S3_ROUNDS)),
+                     ("sum", lambda: estimate_sum(tree, cfg, S3_ROUNDS)),
+                     ("min", lambda: estimate_min(tree)),
+                     ("max", lambda: estimate_max(tree))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        times[name] = time.perf_counter() - t0
+    launches = neighbor_sum_ell.launches
+    n, total = tree.num_nodes, float(tree.values.sum())
+    errs = {"count": float(np.max(np.abs(out["count"] / n - 1))),
+            "sum": float(np.max(np.abs(out["sum"] / total - 1)))}
+    if max(errs.values()) > 1e-3:
+        raise AssertionError(f"S3: count/sum off the truth: {errs}")
+    if not ((out["min"] == tree.values.min()).all()
+            and (out["max"] == tree.values.max()).all()):
+        raise AssertionError("S3: min/max are not exact")
+    if not launches:
+        raise AssertionError("S3: the mean runs launched no K1")
+    return {"rounds": S3_ROUNDS, "dtype": "float64",
+            "count_rel_err": errs["count"], "sum_rel_err": errs["sum"],
+            "min_exact": True, "max_exact": True, "k1_launches": launches,
+            "seconds": times}
+
+
 def main() -> int:
     import torch
 
@@ -6171,13 +6578,32 @@ def main() -> int:
     emit({"phase": "path_q", "wall_s": time.perf_counter() - t0,
           "launches": q_launches})
 
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_actor_") as tmp:
+        path_s = {"s1": phase_path_s1(tree, tmp)}
+    emit({"phase": "path_s", "part": "s1", **path_s["s1"]})
+    path_s["s2"] = phase_path_s2()
+    emit({"phase": "path_s", "part": "s2", **path_s["s2"]})
+    path_s["s3"] = phase_path_s3(tree)
+    emit({"phase": "path_s", "part": "s3", **path_s["s3"]})
+    s_launches = {"k1": path_s["s1"]["k1_launches"]
+                  + path_s["s3"]["k1_launches"]}
+    emit({"phase": "path_s", "wall_s": time.perf_counter() - t0,
+          "launches": s_launches})
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_chaos_") as tmp:
+        path_r = phase_path_r(tmp)
+    emit({"phase": "path_r", "wall_s": time.perf_counter() - t0, **path_r})
+
     emit({"phase": "timing", "timed_by_cuda_events": EVENT_TIMED})
     emit({"kernels": [
         {"name": "spmv_ell", "route": "cuda",
          "source": "flow_updating_tpu_torch/csrc/spmv_ell.cu",
          "replaces": "flow_updating_tpu/ops/pallas_spmv.py:35",
          "launches": (path_a["k1_launches"] + l_launches["k1"]
-                      + m_launches["k1"] + n_launches["k1"]),
+                      + m_launches["k1"] + n_launches["k1"]
+                      + s_launches["k1"]),
          "parity": "float32 rtol=atol=1e-6, float64 1e-12, dyadic exact",
          "max_abs_err": k1["max_abs_err_float32"],
          "ms": k1["ms"], "call_ms": k1["call_ms"],

@@ -18,8 +18,11 @@ node and link faults and checkpoints in the JAX package's archive layout
 (``utils/checkpoint.py``), the sweep engine and the scenario registry,
 ``doctor``, and the serving stack: the streaming service
 (``service/``), the query fabric (``query/``), the aggregate fabric
-(``aggregates/``), the lane watchdog and the WAL + checkpoint-ring
-durability (``resilience/``).  The TPU kernels on those paths are
+(``aggregates/``), the lane watchdog, the WAL + checkpoint-ring
+durability and the chaos harness (``resilience/``), custom actors
+(``models/actor.py``: ``VectorActor`` tensor protocols, push-sum) and the
+host actor runtime (``s4u.py``, ``Engine(host_actors=True)``), and the
+derived aggregates (``models/aggregates.py``).  The TPU kernels on those paths are
 hand-written CUDA for Hopper (``csrc/``): the ELL neighbor sum, the
 one-kernel banded round, the fused Beneš passes and the segmented scan /
 fill-forward.  Everything runs on the CUDA card
@@ -29,6 +32,18 @@ unless the caller passes ``device='cpu'``.
 __version__ = "0.1.0"
 
 from flow_updating_tpu_torch.engine import Engine
+from flow_updating_tpu_torch.models.actor import (
+    TopoView,
+    VectorActor,
+    push_sum_actor,
+)
+from flow_updating_tpu_torch.models.aggregates import (
+    estimate_count,
+    estimate_max,
+    estimate_min,
+    estimate_sum,
+    estimate_weighted_mean,
+)
 from flow_updating_tpu_torch.models.config import RoundConfig
 from flow_updating_tpu_torch.models.rounds import (
     node_estimates,
@@ -53,9 +68,17 @@ __all__ = [
     "NodeKernel",
     "RoundConfig",
     "Topology",
+    "TopoView",
+    "VectorActor",
     "build_topology",
+    "estimate_count",
+    "estimate_max",
+    "estimate_min",
+    "estimate_sum",
+    "estimate_weighted_mean",
     "init_state",
     "node_estimates",
+    "push_sum_actor",
     "round_step",
     "run_rounds",
     "state_from_numpy",

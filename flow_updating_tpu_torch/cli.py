@@ -1,11 +1,10 @@
 """Command-line entry point: the ``run``, ``oracle``, ``plan``, ``inspect``,
-``obs``, ``sweep``, ``scenarios``, ``serve``, ``query`` and ``doctor``
-subcommands.
+``obs``, ``sweep``, ``scenarios``, ``serve``, ``query``, ``chaos`` and
+``doctor`` subcommands.
 
 Counterpart of ``flow_updating_tpu/cli.py``'s ``run``, ``oracle``,
 ``plan``, ``inspect``, ``obs export-trace``, ``sweep``, ``scenarios``,
-``serve``, ``query`` and ``doctor``; ``chaos`` exits naming its ROADMAP
-item.
+``serve``, ``query``, ``chaos`` and ``doctor``.
 They take the same flags, so a JAX command line carries over, plus
 ``--device`` (``cuda``, the default, or ``cpu``).  Topology
 from ``--platform``/``--deployment`` XML or a synthetic ``--generator``;
@@ -1450,11 +1449,65 @@ def cmd_query(args) -> int:
 
 
 def cmd_chaos(args) -> int:
-    """``chaos``: the infrastructure-fault conformance suite of the JAX
-    CLI — not ported yet."""
-    raise SystemExit(
-        "chaos is the ROADMAP item 'the chaos registry and harness (A11 "
-        "part 3)', not ported yet")
+    """``chaos``: the infrastructure-fault conformance suite
+    (:mod:`flow_updating_tpu_torch.resilience.chaos`) — inject each
+    registered fault into a real subprocess run on ``--device``, exercise
+    the declared recovery machinery, doctor-assert the recovery signature
+    and require ``inspect --blame`` to name the planted fault at rank 1.
+    With ``--perturb`` the recovery is disabled and the signature is
+    EXPECTED to fail (the negative control).  Exit 1 on any violated
+    contract."""
+    from flow_updating_tpu_torch.resilience.chaos import (
+        CHAOS_REGISTRY,
+        get_fault,
+        run_chaos,
+    )
+    from flow_updating_tpu_torch.utils.device import resolve_device
+
+    if args.list:
+        print(json.dumps({
+            name: {"summary": f.summary, "kind": f.kind,
+                   "kill": f.kill, "tamper": f.tamper,
+                   "inject": f.inject, "watchdog": f.watchdog}
+            for name, f in CHAOS_REGISTRY.items()}))
+        return 0
+    names = list(args.names) or sorted(CHAOS_REGISTRY)
+    for n in names:
+        try:
+            get_fault(n)
+        except ValueError as err:
+            raise SystemExit(f"chaos: {err}") from err
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as err:
+        raise SystemExit(str(err)) from err
+    results, bad = [], []
+    for n in names:
+        try:
+            out = run_chaos(
+                n, nodes=args.nodes, lanes=args.lanes,
+                segment_rounds=args.segment_rounds, n_ops=args.ops,
+                seed=args.seed, outdir=args.outdir,
+                perturb=args.perturb, device=device)
+        except (ValueError, RuntimeError) as err:
+            raise SystemExit(f"chaos: {n}: {err}") from err
+        if args.perturb:
+            # the recovery-disabled control MUST fail its signature
+            ok = out["exit_code"] != 0
+        else:
+            ok = out["exit_code"] == 0 and out["blame_top"] == n
+        if not ok:
+            bad.append(n)
+        results.append({k: out[k] for k in
+                        ("fault", "perturb", "overall", "blame_top",
+                         "manifest_path")})
+    print(json.dumps({
+        "faults": names,
+        "perturb": bool(args.perturb),
+        "violations": bad,
+        "results": results,
+    }))
+    return 1 if bad else 0
 
 
 def _add_durability_flags(p, prog: str) -> None:
@@ -2040,10 +2093,38 @@ def build_parser() -> argparse.ArgumentParser:
 
     ch = sub.add_parser(
         "chaos",
-        help="infrastructure-fault conformance suite (ROADMAP A11 part "
-             "3; exits naming it)")
-    ch.add_argument("names", nargs="*", metavar="FAULT")
-    ch.add_argument("--list", action="store_true")
+        help="infrastructure-fault conformance: inject each registered "
+             "infra fault (SIGKILL, torn WAL, corrupt/bitflipped "
+             "checkpoint, NaN-poisoned lane, admission storm) into a "
+             "real subprocess run on --device, doctor-assert the "
+             "declared recovery signature, and require blame to name "
+             "the planted fault at rank 1 "
+             "(flow_updating_tpu_torch.resilience.chaos)")
+    ch.add_argument("names", nargs="*", metavar="FAULT",
+                    help="registered fault names (default: the whole "
+                         "registry; see --list)")
+    ch.add_argument("--list", action="store_true",
+                    help="print the fault registry and exit")
+    ch.add_argument("--nodes", type=int, default=128,
+                    help="scripted-run member count")
+    ch.add_argument("--lanes", type=int, default=8,
+                    help="query-lane capacity for fabric faults")
+    ch.add_argument("--segment-rounds", type=int, default=8)
+    ch.add_argument("--ops", type=int, default=28,
+                    help="scripted event-stream length (one WAL record "
+                         "per op)")
+    ch.add_argument("--seed", type=int, default=0)
+    ch.add_argument("--outdir", default="obs-artifacts",
+                    help="where the flow-updating-recovery-report/v1 "
+                         "manifests land")
+    ch.add_argument("--perturb", action="store_true",
+                    help="negative control: disable the recovery "
+                         "machinery — every signature is EXPECTED to "
+                         "fail")
+    ch.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="where the children, the recoveries and the "
+                         "controls run: the CUDA card (default) or the "
+                         "host CPU")
     ch.set_defaults(fn=cmd_chaos)
 
     dr = sub.add_parser(

@@ -72,9 +72,16 @@ every ``segment_impl`` and ``delivery`` (the masks ride the planned
 networks like every other broadcast); a mesh, the node kernel and fast
 pairwise refuse it with the JAX engine's messages.
 
+Custom actors (ROADMAP A8): ``register_actor(name, VectorActor)`` runs
+a population-wide tensor protocol through
+:class:`~flow_updating_tpu_torch.models.actor.ActorKernel` on the engine's
+device (its in-edge sums through kernel K1 on the card), with actor
+checkpoints; ``Engine(host_actors=True)`` runs ANY Python callable on the
+host DES of :mod:`~flow_updating_tpu_torch.s4u` (reference semantics, host
+speed), spawned at ``load_deployment`` and driven by ``run_until``.
+
 What the JAX engine does beyond that raises ``NotImplementedError``
-naming its ROADMAP item: GSPMD's mesh paths, ``host_actors`` and custom
-actors.
+naming its ROADMAP item: GSPMD's mesh paths.
 
 Simulated-time convention: one round == ``TICK_INTERVAL`` (1.0) simulated
 seconds, the reference peers' loop cadence.
@@ -136,6 +143,16 @@ class _NetzoneShim:
         return name
 
 
+def _shutdown_des(des) -> None:
+    """Finalizer of a host_actors engine: join its actor threads and
+    retire its DES as the active runtime."""
+    from flow_updating_tpu_torch import s4u
+
+    des.shutdown()
+    if s4u._CURRENT_DES is des:
+        s4u._CURRENT_DES = None
+
+
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is the ROADMAP item '{item}', not ported yet")
@@ -151,6 +168,11 @@ class Engine:
                  plan="off", adversary=None, device=None):
         # the argument list mirrors the JAX Engine so call sites carry
         # over; what this package does not run yet is refused up front
+        if host_actors and mesh is not None:
+            raise ValueError(
+                "host_actors=True runs Python bytecode on the host; it "
+                "cannot shard over a device mesh — drop mesh=, or "
+                "express the protocol as a VectorActor")
         if multichip not in ("auto", "halo", "pod"):
             raise ValueError(f"unknown multichip mode {multichip!r}")
         if halo not in HALO_MODES:
@@ -177,8 +199,6 @@ class Engine:
                 raise TypeError(
                     f"plan= takes 'off', 'auto', an ExecutionPlan or a "
                     f"PlanDecision; got {type(plan).__name__}")
-        if host_actors:
-            raise _not_ported("host_actors=True", "host actors (A8)")
         self.argv = list(argv) if argv else []
         self.config = self._apply_argv_cfg(config or RoundConfig.fast())
         self.device = resolve_device(device)
@@ -223,6 +243,11 @@ class Engine:
         # the same for the last run_fields call, with the recorded bytes
         # and the final copy's share
         self.field_timings: dict = {}
+        # host-fidelity mode: arbitrary Python actors on the s4u host DES
+        # (flow_updating_tpu_torch.s4u) instead of tensor kernels — the
+        # explicit opt-in for the reference's register_actor(<any class>)
+        self.host_actors = bool(host_actors)
+        self._hostdes = None
 
     def _apply_argv_cfg(self, cfg: RoundConfig) -> RoundConfig:
         """Consume SimGrid-style ``--cfg=key:value`` flags from argv: every
@@ -277,11 +302,19 @@ class Engine:
     # ---- the halo kernel ---------------------------------------------------
     @property
     def _halo_mode(self) -> bool:
-        return self.mesh is not None and self.multichip == "halo"
+        return self.mesh is not None and self.multichip == "halo" \
+            and self._custom_actor is None
 
     @property
     def _pod_mode(self) -> bool:
-        return self.mesh is not None and self.multichip == "pod"
+        return self.mesh is not None and self.multichip == "pod" \
+            and self._custom_actor is None
+
+    @property
+    def _node_like(self) -> bool:
+        """Dispatch through the node-kernel interface (the built-in
+        node-collapsed kernel, or an ActorKernel driving a VectorActor)."""
+        return self.config.kernel == "node" or self._custom_actor is not None
 
     @property
     def _kernel_kind(self) -> str:
@@ -289,7 +322,7 @@ class Engine:
         dispatches on."""
         return ("halo" if self._halo_mode else
                 "pod" if self._pod_mode else
-                "node" if self.config.kernel == "node" else "edge")
+                "node" if self._node_like else "edge")
 
     @property
     def _ledger_dtype_bytes(self) -> int:
@@ -366,21 +399,97 @@ class Engine:
         return self
 
     def register_actor(self, name: str, fn=None) -> Engine:
-        """Register a deployable actor.  ``fn=None`` selects the built-in
-        gossip protocol (the reference's ``register_actor("peer", Peer)``
-        maps to this plus config); custom actors are a later item."""
-        if fn is not None:
-            raise _not_ported(f"register_actor({name!r}, <custom actor>)",
-                              "host actors (A8)")
+        """Register a deployable actor.
+
+        ``fn=None`` selects the built-in gossip protocols (variant via
+        ``RoundConfig.variant``) — the reference's
+        ``register_actor("peer", Peer)`` maps to this plus config.
+
+        ``fn`` may also be a :class:`~flow_updating_tpu_torch.models.actor.
+        VectorActor`: the vetted extension point for custom protocols,
+        written as population-wide tensor functions and run round after
+        round on the engine's device like the built-in kernels.
+
+        With ``Engine(host_actors=True)``, ``fn`` may be ANY Python
+        callable/class — the reference's ``register_actor("peer", Peer)``
+        surface (``flowupdating-collectall.py:156``) — executed on the
+        deterministic host DES (:mod:`flow_updating_tpu_torch.s4u`) at
+        host speed.  Without that opt-in, anything else raises: per-actor
+        Python bytecode cannot run on the card, and silently recording it
+        would make users think their callable runs."""
+        if self.host_actors:
+            if fn is not None and not callable(fn):
+                raise TypeError(
+                    f"register_actor({name!r}): {type(fn).__name__} is "
+                    "not callable")
+            self._registered[name] = fn
+            return self
+        from flow_updating_tpu_torch.models.actor import VectorActor
+
+        if fn is not None and not isinstance(fn, VectorActor):
+            raise TypeError(
+                f"register_actor({name!r}): got {type(fn).__name__}; "
+                "per-actor Python callables cannot execute on the card.  "
+                "Pass None to select the built-in protocols "
+                "(RoundConfig.variant), express the protocol as a "
+                "flow_updating_tpu_torch.models.actor.VectorActor — "
+                "population-wide (N,)/(E,) tensor functions run round "
+                "after round on the device — or opt into the "
+                "host-fidelity runtime with Engine(host_actors=True) to "
+                "run arbitrary Python actors on the s4u host DES "
+                "(reference semantics, host speed, not the card)")
         self._registered[name] = fn
         return self
+
+    @property
+    def _custom_actor(self):
+        for fn in self._registered.values():
+            if fn is not None:
+                return fn
+        return None
 
     def load_deployment(self, path: str,
                         function: str | None = None) -> Engine:
         if function is None and len(self._registered) == 1:
             function = next(iter(self._registered))
         self.deployment = load_deployment(path, function=function)
+        if self.host_actors:
+            # spawn reference-style now, so a driver-level Actor.create
+            # (e.g. the watcher, collectall.py:162) finds a live runtime
+            # between load_deployment and run_until
+            self._host_spawn_deployment()
         return self
+
+    def _host_des(self):
+        """The lazily created s4u host DES (host_actors mode).  It becomes
+        the active runtime; when the engine is dropped its actor threads
+        are killed and joined (``HostDes.shutdown``)."""
+        import weakref
+
+        from flow_updating_tpu_torch import s4u
+
+        if self._hostdes is None:
+            self._hostdes = s4u.HostDes(platform=self.platform,
+                                        event_log=self.event_log)
+            s4u._CURRENT_DES = self._hostdes
+            weakref.finalize(self, _shutdown_des, self._hostdes)
+        return self._hostdes
+
+    def _host_spawn_deployment(self) -> None:
+        """Instantiate each deployment actor SimGrid-style: the registered
+        class is constructed with the deployment's string args *inside the
+        actor context* and then called (``flowupdating-collectall.py:
+        156-157`` + ``actors.xml:4-7``)."""
+        des = self._host_des()
+        for spec in self.deployment.actors:
+            fn = self._registered.get(spec.function)
+            if fn is None:
+                raise RuntimeError(
+                    f"deployment binds function {spec.function!r} but no "
+                    "callable was registered for it (host_actors mode "
+                    "has no built-in protocol fallback)")
+            des.spawn(spec.host, des.host(spec.host),
+                      lambda _f=fn, _a=spec.args: _f(*_a)(), ())
 
     def set_topology(self, topo: Topology) -> Engine:
         self.topology = topo
@@ -402,6 +511,25 @@ class Engine:
         one)."""
         if self.adversary is not None:
             self._check_adversary()
+        if self._custom_actor is not None:
+            from flow_updating_tpu_torch.models.actor import ActorKernel
+
+            if self.mesh is not None and self.multichip in ("halo", "pod"):
+                raise ValueError(
+                    f"multichip={self.multichip!r} drives a built-in "
+                    "kernel; custom VectorActors distribute via GSPMD — "
+                    "use multichip='auto'")
+            if latency_scale > 0.0 or self.topology.max_delay > 1:
+                raise ValueError(
+                    "VectorActor rounds are unit-delay synchronous; "
+                    "latency-warped delivery applies to the built-in "
+                    "edge kernel only")
+            self._node_kernel = ActorKernel(self.topology,
+                                            self._custom_actor,
+                                            mesh=self.mesh,
+                                            device=self.device)
+            self._topo_arrays = None
+            return
         if self._halo_mode:
             self._prepare_halo(latency_scale)
             return
@@ -486,7 +614,8 @@ class Engine:
     def _check_adversary(self) -> None:
         """``adversary=`` runs on the single-device edge round's message
         wire, as in the JAX engine."""
-        if self.mesh is not None:
+        if (self.mesh is not None or self.host_actors
+                or self._custom_actor is not None):
             raise ValueError(
                 "adversary= injects faults into the single-device "
                 "edge kernel's wire; multi-chip / host-actor / "
@@ -515,10 +644,12 @@ class Engine:
         row in original node order."""
         if self.plan_spec in (None, "off"):
             return
-        if self.mesh is not None:
+        if (self.mesh is not None or self.host_actors
+                or self._custom_actor is not None):
             logger.info(
-                "plan=%r: multi-chip dispatch is not planned yet; keeping "
-                "the configured execution mode", self.plan_spec)
+                "plan=%r: multi-chip / custom-actor dispatch is not "
+                "planned yet; keeping the configured execution mode",
+                self.plan_spec)
             return
         from flow_updating_tpu_torch.plan import ExecutionPlan, select_plan
         from flow_updating_tpu_torch.plan.select import PlanDecision
@@ -632,7 +763,7 @@ class Engine:
 
             self.state = sharded.init_plan_state(
                 self._halo_plan, self.config, self.mesh, seed=seed)
-        elif self.config.kernel == "node":
+        elif self._node_like:
             self.state = self._node_kernel.init_state()
         else:
             self.state = init_state(self.topology, self.config, seed=seed,
@@ -679,6 +810,12 @@ class Engine:
         sample global state every ``time_interval`` simulated seconds, and
         at ``run_until`` stop all peers.  A watcher whose deadline lies in
         the future revives a previously stopped run."""
+        if self.host_actors:
+            raise NotImplementedError(
+                "host_actors mode runs watchers as ordinary s4u actors, "
+                "exactly like the reference: "
+                "s4u.Actor.create('watcher', host, fn, deadline, every) "
+                "(see examples/torch_host_actors.py::watcher)")
         if self._killed and float(run_until) > self._clock:
             logger.info("[%0.1f] watcher: reviving peers (new deadline "
                         "%.1f)", self._clock, float(run_until))
@@ -694,6 +831,11 @@ class Engine:
     def global_values(self) -> dict:
         """The reference's ``global_values`` mirror: per-host value and
         last_avg keyed by host name (``collectall.py:47-63,131``)."""
+        if self.host_actors:
+            raise NotImplementedError(
+                "host_actors mode: state lives inside the user's Python "
+                "actors — keep your own global_values mirror like the "
+                "reference does (examples/torch_host_actors.py)")
         if self.state is None:
             return {}
         names = self.topology.names or tuple(
@@ -704,7 +846,7 @@ class Engine:
             value = self.topology.values
             last_avg = sharded.gather_node_array(
                 [st.last_avg for st in self.state.shards], self._halo_plan)
-        elif self.config.kernel == "node":
+        elif self._node_like:
             value = self.topology.values
             last_avg = self._node_kernel.last_avg(self.state)
         else:
@@ -716,13 +858,19 @@ class Engine:
         }
 
     def estimates(self) -> np.ndarray:
+        if self.host_actors:
+            raise NotImplementedError(
+                "host_actors mode: state lives inside the user's Python "
+                "actors (the reference keeps its own global_values mirror, "
+                "collectall.py:131) — expose it from the actor, as "
+                "examples/torch_host_actors.py does")
         if self.state is None:
             raise RuntimeError("engine not built")
         if self._halo_mode:
             from flow_updating_tpu_torch.parallel import sharded
 
             return sharded.gather_estimates(self.state, self._halo_plan)
-        if self.config.kernel == "node":
+        if self._node_like:
             return self._node_kernel.estimates(self.state)
         return rounds.node_estimates(self.state,
                                      self._topo_arrays).cpu().numpy()
@@ -850,6 +998,16 @@ class Engine:
 
         if self.state is None:
             raise RuntimeError("engine not built — nothing to checkpoint")
+        if self._custom_actor is not None:
+            from flow_updating_tpu_torch.utils.checkpoint import (
+                save_actor_checkpoint,
+            )
+
+            save_actor_checkpoint(
+                path, self.state, self._custom_actor.name,
+                topo=self.topology,
+                extra={"clock": self._clock, "killed": self._killed})
+            return self
         state = self.state
         if self._halo_mode:
             from flow_updating_tpu_torch.parallel import sharded
@@ -874,6 +1032,21 @@ class Engine:
         from flow_updating_tpu_torch.utils.checkpoint import read_checkpoint
 
         self._resolve_topology()
+        if self._custom_actor is not None:
+            # a VectorActor restore runs the actor's init once: the fresh
+            # carry is the template the archive is checked against
+            from flow_updating_tpu_torch.utils.checkpoint import (
+                load_actor_checkpoint,
+            )
+
+            self._prepare_arrays()
+            template = self._node_kernel.init_state()
+            self.state, extra = load_actor_checkpoint(
+                path, template, self._custom_actor.name,
+                topo=self.topology)
+            self._clock = float(extra.get("clock", 0.0))
+            self._killed = bool(extra.get("killed", False))
+            return self
         cls_name, fields, cfg, extra = read_checkpoint(path,
                                                        topo=self.topology)
         want = "NodeSyncState" if cfg.kernel == "node" \
@@ -951,7 +1124,7 @@ class Engine:
             self.state = sharded.run_rounds_sharded(
                 self.state, self._halo_plan, self.config, self.mesh, n,
                 arrays=self._halo_arrays, halo=self._halo_wire)
-        elif self.config.kernel == "node":
+        elif self._node_like:
             self.state = self._node_kernel.run(self.state, n)
         else:
             self.state = rounds.run_rounds(self.state, self._topo_arrays,
@@ -989,6 +1162,11 @@ class Engine:
         if not spec.enabled or self._killed or n <= 0:
             self.run_rounds(n)
             return TelemetrySeries.empty()
+        if self._custom_actor is not None:
+            raise NotImplementedError(
+                "telemetry series cover the built-in kernels; a custom "
+                "VectorActor defines its own carry — sample it from the "
+                "actor's rounds instead")
         kind = self._kernel_kind
         spec = spec.for_kernel(kind)
         t0 = time.perf_counter()
@@ -1056,6 +1234,11 @@ class Engine:
         if not spec.enabled or self._killed or n <= 0:
             self.run_rounds(n)
             return FieldSeries.empty()
+        if self._custom_actor is not None:
+            raise NotImplementedError(
+                "field series cover the built-in kernels; a custom "
+                "VectorActor defines its own carry — sample it from the "
+                "actor's rounds instead")
         kind = self._kernel_kind
         spec = spec.for_kernel(kind)
         if not spec.enabled:
@@ -1196,6 +1379,12 @@ class Engine:
             return self
         if n % observe_every:
             raise ValueError("num_rounds must be a multiple of observe_every")
+        if self._custom_actor is not None:
+            if not self._killed and n > 0:
+                self.state = self._node_kernel.run_streamed(
+                    self.state, n, observe_every, emit)
+            self._clock += n * TICK_INTERVAL
+            return self
         if self.config.kernel == "edge":
             if not self._killed and n > 0:
                 self.state = rounds.run_rounds_streamed(
@@ -1243,11 +1432,22 @@ class Engine:
                     [st.fired for st in self.state.shards],
                     self._halo_plan).sum()))
 
+    def _host_run_until(self, t_end: float) -> Engine:
+        """host_actors mode: drive the s4u DES (actors were spawned at
+        ``load_deployment``; any extras via ``s4u.Actor.create``)."""
+        des = self._host_des()
+        des.run_until(float(t_end))
+        self._clock = des.clock
+        return self
+
     def run_until(self, t_end: float) -> Engine:
         """Advance simulated time to ``t_end``, honoring watchers: chunks
         of rounds between sampling points, callbacks at each sample, and a
         hard stop of peer execution at a watcher's ``until`` (after which
-        the clock still advances to ``t_end``)."""
+        the clock still advances to ``t_end``).  In host_actors mode the
+        s4u DES runs to ``t_end`` instead."""
+        if self.host_actors:
+            return self._host_run_until(t_end)
         if self.state is None:
             self.build()
         events = sorted(

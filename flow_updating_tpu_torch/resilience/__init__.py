@@ -13,14 +13,18 @@ other:
   ``QueryFabric``; rebuild one from its directory by checkpoint restore
   + WAL replay (bit-exact against the uninterrupted run);
 * :mod:`.watchdog` — the query fabric's inline lane watchdog (NaN,
-  divergence and stall quarantine; admission backoff).
+  divergence and stall quarantine; admission backoff);
+* :mod:`.chaos` — the infra-fault registry (kill, torn WAL, corrupt or
+  bitflipped archives, NaN poison, admission storm), each injected into
+  a real subprocess run on the caller's device with its recovery
+  signature doctor-asserted and ``inspect --blame`` naming the planted
+  fault.
 
 Surface: ``ServiceEngine.enable_durability`` / ``.recover``,
 ``QueryFabric.enable_durability`` / ``.attach_watchdog`` / ``.recover``
 and ``serve|query --wal DIR`` (``--recover``, ``query --watchdog``);
-manifests carry the ``recovery`` block that ``obs.health.check_recovery``
-judges.  The chaos registry and the ``chaos`` subcommand are the ROADMAP
-item A11 part 3.
+the ``chaos`` subcommand; manifests carry the ``recovery`` block that
+``obs.health.check_recovery`` judges.
 """
 
 from flow_updating_tpu_torch.resilience.recover import (

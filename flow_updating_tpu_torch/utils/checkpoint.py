@@ -29,8 +29,10 @@ leaves plus the dynamic topology the membership events produced (the
 epoch and flight-recorder meta, versioned apart
 (:data:`SERVICE_FORMAT_VERSION`) in the JAX package's layout, so a
 service archive of either package restores in the other.  The actor
-flavour (``save_actor_checkpoint``, ROADMAP A8) is not ported; it raises
-naming its item.
+flavour (:func:`save_actor_checkpoint`, :func:`load_actor_checkpoint`)
+archives a :class:`~flow_updating_tpu_torch.models.actor.VectorActor`'s
+carry under the JAX package's leaf keys, so an actor archive of either
+package restores in the other too.
 """
 
 from __future__ import annotations
@@ -282,20 +284,164 @@ def load_checkpoint(path: str, topo=None, device=None):
                           **vecs), cfg, extra)
 
 
-def _not_ported(name: str, item: str):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name}() is the ROADMAP item '{item}', not ported yet")
+# ---- VectorActor carries (user-defined nested containers) ---------------
+#
+# A custom actor's state is an arbitrary nest of dicts, lists and tuples
+# of tensors, so the archive keys are the JAX package's key paths of its
+# leaves (``jax.tree_util.keystr``: ``[0]['s']``, ``.field`` for a
+# namedtuple), and restore is TEMPLATE-based: the caller passes a freshly
+# initialized carry from the SAME actor code, and every template leaf is
+# filled from the archive (exact key set, shape and dtype required).  This
+# binds a checkpoint to the actor's current structure the way the
+# fingerprint binds it to the graph: a protocol change between save and
+# restore fails loudly instead of filling the wrong leaves.
 
-    fn.__name__ = fn.__qualname__ = name
-    fn.__doc__ = f"The JAX package's ``{name}``: ROADMAP item {item}."
-    return fn
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
-save_actor_checkpoint = _not_ported("save_actor_checkpoint",
-                                    "host actors (A8)")
-load_actor_checkpoint = _not_ported("load_actor_checkpoint",
-                                    "host actors (A8)")
+def tree_leaves_with_path(tree, prefix: str = "") -> list:
+    """``[(keystr, leaf)]`` in ``jax.tree_util.tree_leaves_with_path``'s
+    order and key spelling: dict keys sorted, ``[repr(key)]``; list and
+    tuple items ``[i]``; namedtuple fields ``.name``; ``None`` holds no
+    leaf; anything else is a leaf."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        out = []
+        for k in sorted(tree):
+            out += tree_leaves_with_path(tree[k], f"{prefix}[{k!r}]")
+        return out
+    if _is_namedtuple(tree):
+        out = []
+        for name in tree._fields:
+            out += tree_leaves_with_path(getattr(tree, name),
+                                         f"{prefix}.{name}")
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = []
+        for i, v in enumerate(tree):
+            out += tree_leaves_with_path(v, f"{prefix}[{i}]")
+        return out
+    return [(prefix, tree)]
+
+
+def _tree_replace(tree, leaves: dict, prefix: str = ""):
+    """``tree`` with every leaf replaced by ``leaves[keystr]``."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return type(tree)((k, _tree_replace(tree[k], leaves,
+                                            f"{prefix}[{k!r}]"))
+                          for k in tree)
+    if _is_namedtuple(tree):
+        return type(tree)(*(_tree_replace(getattr(tree, n), leaves,
+                                          f"{prefix}.{n}")
+                            for n in tree._fields))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_replace(v, leaves, f"{prefix}[{i}]")
+                          for i, v in enumerate(tree))
+    return leaves[prefix]
+
+
+def _host_leaf(v) -> np.ndarray:
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    return np.asarray(v)
+
+
+def save_actor_checkpoint(path, carry, actor_name: str, topo=None,
+                          extra: dict | None = None) -> None:
+    """Write a VectorActor carry (module comment above) as one atomic
+    archive in the JAX package's layout (``leaf<keystr>`` arrays,
+    ``state_class`` ``ActorCarry``, the actor's name and the topology
+    fingerprint), so either package restores it."""
+    arrays = {f"leaf{kp}": _host_leaf(v)
+              for kp, v in tree_leaves_with_path(carry)}
+    manifest = {
+        "format_version": FORMAT_VERSION,
+        "state_class": "ActorCarry",
+        "actor": actor_name,
+        "topology": topology_fingerprint(topo) if topo is not None else None,
+        "dtypes": {k: str(v.dtype) for k, v in arrays.items()},
+        "extra": extra or {},
+    }
+    _write_archive(path, manifest, arrays)
+
+
+def load_actor_checkpoint(path, template, actor_name: str, topo=None):
+    """Restore a carry saved by :func:`save_actor_checkpoint` (by either
+    package).
+
+    ``template``: a freshly initialized carry from the same actor on the
+    same topology — its structure defines what the archive must contain.
+    Returns ``(carry, extra)``; each leaf lands on its template leaf's
+    device with the archive's dtype, which must be the template's."""
+    with _open_archive(path) as z:
+        manifest = _read_manifest(z, path)
+        if manifest.get("state_class") != "ActorCarry":
+            raise ValueError(
+                f"not a VectorActor checkpoint "
+                f"(state_class={manifest.get('state_class')!r})")
+        if manifest.get("actor") != actor_name:
+            raise ValueError(
+                f"checkpoint was saved by actor {manifest.get('actor')!r}, "
+                f"restoring under {actor_name!r}")
+        try:
+            saved = {k: z[k] for k in z.files if k.startswith("leaf")}
+        except (zipfile.BadZipFile, zlib.error, EOFError, OSError,
+                ValueError) as exc:
+            raise ValueError(
+                f"checkpoint {path}: archive member unreadable "
+                f"({type(exc).__name__}: {exc}) — the file is corrupt "
+                "(bitflip or torn copy); restore from an older "
+                "checkpoint") from exc
+    if topo is not None and manifest.get("topology"):
+        if topology_fingerprint(topo) != manifest["topology"]:
+            raise ValueError(
+                "actor checkpoint was taken on a different topology")
+    paths = tree_leaves_with_path(template)
+    want = {f"leaf{kp}" for kp, _ in paths}
+    if want != set(saved):
+        raise ValueError(
+            "actor checkpoint structure does not match the current "
+            f"actor's init: missing {sorted(want - set(saved))}, "
+            f"unexpected {sorted(set(saved) - want)} (the protocol "
+            "changed since the save?)")
+    saved_dtypes = manifest.get("dtypes", {})
+    leaves = {}
+    for kp, tleaf in paths:
+        key = f"leaf{kp}"
+        arr = saved[key]
+        tshape = tuple(np.shape(tleaf))
+        if arr.shape != tshape:
+            raise ValueError(
+                f"actor checkpoint leaf {kp} has shape {arr.shape}, "
+                f"current actor expects {tshape}")
+        man_dtype = saved_dtypes.get(key)
+        if man_dtype is not None and str(arr.dtype) != man_dtype:
+            raise ValueError(
+                f"actor checkpoint leaf {kp} dtype {arr.dtype} does not "
+                f"match its manifest entry {man_dtype!r} (corrupt "
+                "archive?)")
+        if isinstance(tleaf, torch.Tensor):
+            got = torch.from_numpy(np.ascontiguousarray(arr))
+            if got.dtype != tleaf.dtype:
+                raise ValueError(
+                    f"actor checkpoint leaf {kp} restores as {got.dtype}, "
+                    f"but the current actor's init produces {tleaf.dtype} "
+                    "— the protocol's precision changed since the save")
+            leaves[kp] = got.to(tleaf.device)
+        else:
+            tdtype = np.asarray(tleaf).dtype
+            if arr.dtype != tdtype:
+                raise ValueError(
+                    f"actor checkpoint leaf {kp} restores as {arr.dtype}, "
+                    f"but the current actor's init produces {tdtype} — "
+                    "the protocol's precision changed since the save")
+            leaves[kp] = arr
+    return _tree_replace(template, leaves), manifest.get("extra", {})
+
 
 # ---- service checkpoints (ServiceEngine) --------------------------------
 #

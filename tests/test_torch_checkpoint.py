@@ -470,10 +470,23 @@ def test_topology_mismatch_rejected(tmp_path):
 
 
 def test_unported_flavours_raise_naming_items(tmp_path):
-    for fn, item in ((ck.save_actor_checkpoint, "A8"),
-                     (ck.load_actor_checkpoint, "A8")):
-        with pytest.raises(NotImplementedError, match=item):
-            fn("x.npz")
+    # the actor flavour is ported (A8): a bare round trip of a nested
+    # carry, its leaves back on the template's device in their dtypes
+    carry = ({"s": torch.arange(4.0), "w": torch.ones(4)},
+             [torch.zeros(6, dtype=torch.float64),
+              torch.arange(3, dtype=torch.int32)])
+    apath = str(tmp_path / "actor.npz")
+    ck.save_actor_checkpoint(apath, carry, "probe", extra={"clock": 7.0})
+    template = ({"s": torch.zeros(4), "w": torch.zeros(4)},
+                [torch.ones(6, dtype=torch.float64),
+                 torch.zeros(3, dtype=torch.int32)])
+    got, extra = ck.load_actor_checkpoint(apath, template, "probe")
+    assert extra == {"clock": 7.0}
+    for (k1, a), (k2, b) in zip(ck.tree_leaves_with_path(got),
+                                ck.tree_leaves_with_path(carry)):
+        assert k1 == k2 and torch.equal(a, b), k1
+    with pytest.raises(ValueError, match="saved by actor"):
+        ck.load_actor_checkpoint(apath, template, "other")
     # the service flavour is ported: a bare round trip of state + mirrors
     cfg = RoundConfig.fast()
     st = init_state(pgen.ring(6, k=1, seed=0), cfg, device="cpu")

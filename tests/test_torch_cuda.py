@@ -1586,3 +1586,70 @@ def test_query_archive_from_the_cpu_restores_on_card(card, tmp_path):
     assert fab.query_block()["queries"] == host.query_block()["queries"]
     fab.run(64)
     assert fab.compile_count == 1 and fab.retired_total >= 1
+
+
+@pytest.mark.parametrize("name", ["kill_at_segment", "nan_poison_lane"])
+def test_chaos_fault_on_card(card, tmp_path, name):
+    """One fault of the registry through a real child on the card: the
+    child, the recovery and the control all run there, the signature
+    passes, blame names the fault, the recovery is exact."""
+    from flow_updating_tpu_torch.resilience.chaos import run_chaos
+
+    out = run_chaos(name, nodes=200, lanes=8, segment_rounds=8, n_ops=20,
+                    seed=0, outdir=str(tmp_path), device=card)
+    assert out["exit_code"] == 0, out["checks"]
+    assert out["blame_top"] == name
+    assert out["verify"]["exact"]
+    bad = run_chaos(name, nodes=200, lanes=8, segment_rounds=8, n_ops=20,
+                    seed=0, outdir=str(tmp_path), device=card, perturb=True)
+    assert bad["exit_code"] == 1
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6),
+                                       (torch.float64, 1e-12)])
+def test_push_sum_sum_to_dst_through_k1_on_card(card, dtype, tol):
+    """``TopoView.sum_to_dst`` of an (E,) leaf launches K1 once per
+    non-empty in-edge bucket and agrees with its plain version."""
+    from flow_updating_tpu_torch.models.actor import TopoView
+
+    topo = fat_tree(8)
+    view = TopoView.from_topology(topo, card)
+    x = torch.from_numpy(np.random.default_rng(0).uniform(
+        -1, 1, topo.num_edges)).to(card, dtype)
+    before = neighbor_sum_ell.launches
+    got = view.sum_to_dst(x)
+    assert neighbor_sum_ell.launches - before == sum(
+        1 for m in view.ell if m.shape[0] and m.shape[1])
+    plain = neighbor_sum(x, view.ell)[view.ell_inv]
+    torch.testing.assert_close(got, plain, rtol=tol, atol=tol)
+    host = TopoView.from_topology(topo, "cpu").sum_to_dst(x.cpu())
+    torch.testing.assert_close(got.cpu(), host, rtol=tol, atol=tol)
+
+
+def test_actor_checkpoint_resumes_bit_for_bit_on_card(card, tmp_path):
+    from flow_updating_tpu_torch.models.actor import push_sum_actor
+    from flow_updating_tpu_torch.utils.checkpoint import (
+        tree_leaves_with_path,
+    )
+
+    topo = fat_tree(8)
+
+    def engine():
+        e = Engine(device=card).set_topology(topo)
+        return e.register_actor("pushsum", push_sum_actor())
+
+    a = engine().build()
+    a.run_rounds(37)
+    path = str(tmp_path / "actor.npz")
+    a.save_checkpoint(path)
+    a.run_rounds(50)
+    b = engine()
+    b.restore_checkpoint(path)
+    b.run_rounds(50)
+    twin = engine().build()
+    twin.run_rounds(87)
+    for (ka, va), (kb, vb), (_, vt) in zip(
+            tree_leaves_with_path(a.state), tree_leaves_with_path(b.state),
+            tree_leaves_with_path(twin.state)):
+        assert ka == kb and va.device.type == card.type
+        assert torch.equal(va, vb) and torch.equal(va, vt), ka

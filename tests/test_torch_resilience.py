@@ -3,8 +3,8 @@ resilience``) against the JAX package's.
 
 Counterparts of ``tests/test_resilience.py``'s WAL, ring and service
 recovery tests, its fabric and watchdog tests and its ``serve --wal`` /
-``--recover`` CLI test, at their sizes (the chaos tests belong to ROADMAP
-A11 part 3):
+``--recover`` CLI test, at their sizes (its chaos tests have their
+counterparts in ``tests/test_torch_chaos.py``):
 
 * the WAL's CRC frames, its torn tail truncated on open, and a non-WAL
   file named; each package's journal read by the other's ``scan_wal``;

@@ -3,7 +3,8 @@
 package's.
 
 Counterparts of ``tests/test_serving_obs.py``'s tests (its chaos
-subprocess test belongs to ROADMAP A11 part 3):
+subprocess test has its counterpart in ``tests/test_torch_chaos.py``,
+``test_kill_trace_is_continuous_and_control_fails``):
 
 * the registry's counters, gauges and windowed histograms, and its
   Prometheus text byte for byte equal to JAX's registry fed the same

@@ -274,9 +274,13 @@ def test_unported_configs_raise_naming_their_item():
     with pytest.raises(ValueError, match="drives the edge kernel"):
         Engine(config=node, mesh=mesh, multichip="halo",
                device="cpu").set_topology(topo).build()
-    with pytest.raises(NotImplementedError, match="host actors"):
-        Engine(config=node, host_actors=True, device="cpu")
+    # host actors run (A8): the mode takes any callable, refuses a mesh
+    assert Engine(config=node, host_actors=True,
+                  device="cpu").register_actor("peer", fn=print).host_actors
+    with pytest.raises(ValueError, match="host_actors"):
+        Engine(config=node, host_actors=True, mesh=mesh, device="cpu")
     e = Engine(argv=["--cfg=spmv:banded"], config=node, device="cpu")
     assert e.config.spmv == "banded"
-    with pytest.raises(NotImplementedError, match="host actors"):
+    # outside it a custom actor must be a VectorActor (A8)
+    with pytest.raises(TypeError, match="VectorActor"):
         e.register_actor("peer", fn=print)
