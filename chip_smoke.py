@@ -179,6 +179,18 @@ and prints one JSON line per phase:
    for paths E and F also the union of the busy intervals of their
    streams and the share of the copies' time that another stream's
    kernel overlaps (path F: its ``'overlap'`` twin, whose wire is copies);
+   ``path_t`` — ``Engine.profile(roofline=True)`` on every kernel kind at
+   full width: T1 path A (K1), T2 path B (K2), T3 path D (B3, B4), T4
+   path E (B5), T5 path F (B6, with a ``torch.profiler`` trace: the
+   overlap measured from it and ``trace_complete``); each gated on the
+   engine's state equal before and after, a run after the profile equal
+   to one before it, ``roofline_frac`` in (0, 1], the launches a round
+   equal to the plans' counts, and a small twin (``fat_tree(8)``,
+   ``ring(4096, 2)``, four shards for T4 and T5) counting the same bytes
+   and flops on the card as on the CPU; T5 also runs the ``profile``
+   subcommand as a process on ``fat_tree:32`` over four shards, ``doctor``
+   on its manifest through the CLI and in memory (equal verdicts) and
+   ``regress`` of the manifest against itself (exit 0);
    ``path_l`` — ``plan='auto'`` and telemetry: L0 the gather ratio (the
    node/xla gather of the neighbor slots against a streamed copy of as
    many float32 elements, device time) on the fat tree and
@@ -518,11 +530,22 @@ S_TIMED_ROUNDS = 20     # S1: rounds timed by CUDA events after the run
 S2_DEADLINE = 400.0     # S2: the watcher's kill_all (simulated s)
 S2_UNTIL = 500.0        # S2: the run's horizon (simulated s)
 S3_ROUNDS = 200         # S3: rounds of each mean run (count and sum)
+T_ROUNDS = 4            # T: rounds of each Engine.profile (counted, timed)
+T5_ROUNDS = 2           # T5: path F's rounds (its round is ~40 ms)
+T_RING_N = 4096         # T2, T4: the ring twin, ring(4096, 2)
+T5_CLI_GENERATOR = "fat_tree:32"    # T5: the profile CLI process's graph
+T5_CLI_TIMEOUT_S = 300  # T5: its time limit
+T_TWIN_DEVICES = ("cuda", "cpu")    # T: where each twin counts
 
-#: NVIDIA H100 SXM data sheet: peak HBM rate (bytes/s) and float32 rate
-#: outside the tensor cores (FLOP/s)
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
+
+
+def h100():
+    """The card's rates: the package's declared H100 model
+    (``obs/roofline.py``: HBM 3.35 TB/s, float32 67 TFLOP/s outside the
+    tensor cores), which the perf lens reads too."""
+    from flow_updating_tpu_torch.obs.roofline import H100
+
+    return H100
 
 
 T_START = time.perf_counter()
@@ -646,9 +669,9 @@ def device_top(fn, n: int = 6) -> list:
 
 def bound(nbytes: int, ops: int) -> dict:
     """The least time the card could take: the larger of the bytes over
-    the HBM rate and the operations over the float32 rate."""
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / FP32_FLOP_PER_S * 1e3
+    the HBM rate and the operations over the float32 rate (:func:`h100`)."""
+    by_bytes = nbytes / h100().hbm_bytes_per_s * 1e3
+    by_ops = ops / h100().vpu_flop_per_s * 1e3
     return {"bytes": nbytes, "ops": ops,
             "bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
@@ -698,24 +721,10 @@ def b3_family(kind: str) -> str:
 
 
 def reset_counts() -> None:
-    from flow_updating_tpu_torch.ops import (
-        fused_passes,
-        halo_exchange,
-        sharded_round,
-    )
-    from flow_updating_tpu_torch.ops.fused_round import fused_banded_round
-    from flow_updating_tpu_torch.ops.spmv import neighbor_sum_ell
+    from flow_updating_tpu_torch.obs.profile import launch_counters
 
-    neighbor_sum_ell.launches = 0
-    fused_banded_round.launches = 0
-    sharded_round.sharded_fire.launches = 0
-    sharded_round.sharded_round.launches = 0
-    halo_exchange.fused_exchange_merge.launches = 0
-    halo_exchange.remote_block_exchange.launches = 0
-    for _, wrapper, _, _ in B3_FLAVOURS:
-        getattr(fused_passes, wrapper).launches = 0
-    for _, wrapper, _ in B4_FLAVOURS:
-        getattr(fused_passes, wrapper).launches = 0
+    for wrapper in launch_counters().values():
+        wrapper.launches = 0
 
 
 def b3_launches() -> dict:
@@ -2262,7 +2271,7 @@ def phase_k6(plan, cfg, dev):
     out["pull_ms"] = device_ms(lambda: hx.remote_block_exchange(
         pull_sets[next(turn) % PULL_SETS], offsets, 0), "exchange_kernel")
     out["pull_bound_ms"] = hx.halo_exchange_min_bytes(
-        [b.numel() for b in senders], 4) / HBM_BYTES_PER_S * 1e3
+        [b.numel() for b in senders], 4) / h100().hbm_bytes_per_s * 1e3
     del pull_sets
     # pure data movement: no arithmetic to bound by
     out.update(bound(hx.halo_exchange_min_bytes(
@@ -2271,7 +2280,8 @@ def phase_k6(plan, cfg, dev):
     out["hit_share"] = float(hit.float().mean())
     out["sector_bytes"] = _sector_bytes(hit, 4, [b.numel() * 4
                                                  for b in senders])
-    out["sector_floor_ms"] = out["sector_bytes"] / HBM_BYTES_PER_S * 1e3
+    out["sector_floor_ms"] = (out["sector_bytes"]
+                              / h100().hbm_bytes_per_s * 1e3)
     # the stream order under load: four shards, small Eb, many rounds
     topo = erdos_renyi(STRESS_NODES, 6.0, seed=SEED + 6)
     scfg = dataclasses.replace(RoundConfig.reference("collectall",
@@ -3616,6 +3626,280 @@ def profile_rounds(engine, rounds: int) -> dict:
             "top": [{"kernel": k[:90], "ms_per_round": us / 1e3,
                      "calls_per_round": c}
                     for k, us, c in device[:10]]}
+
+
+# ---- path T: Engine.profile on every kernel kind at full width -----------
+
+def _t_equal(a, b) -> bool:
+    """Two states (or any trees of tensors) equal bit for bit, their round
+    counters too."""
+    import torch
+
+    from flow_updating_tpu_torch.obs.profile import _tensors
+
+    ta, tb = _tensors(a), _tensors(b)
+    return (getattr(a, "t", None) == getattr(b, "t", None)
+            and len(ta) == len(tb)
+            and all(x.shape == y.shape and x.dtype == y.dtype
+                    and torch.equal(x, y) for x, y in zip(ta, tb)))
+
+
+def _t_run(engine, rounds: int):
+    """``rounds`` rounds of ``engine``'s program from a copy of its state
+    (the engine's own state stays as it is)."""
+    import torch
+
+    from flow_updating_tpu_torch.obs.profile import _clone
+
+    fn, args, nd = engine.round_program(rounds)
+    out = fn(*_clone(tuple(args[:nd])), *args[nd:])
+    torch.cuda.synchronize()
+    return out
+
+
+def t_profile(engine, expect: dict, rounds: int = None, **kw) -> dict:
+    """Gates 1, 2, 4 and 5 of a phase of path T on a full-width engine:
+    its state equal before and after ``Engine.profile(rounds,
+    roofline=True)``, a run after the profile equal to one before it,
+    ``roofline_frac`` in (0, 1], and the launches a round equal to
+    ``expect`` (the plans' own counts)."""
+    import torch
+
+    from flow_updating_tpu_torch.obs.profile import _clone
+
+    rounds = T_ROUNDS if rounds is None else rounds
+    before = _clone(engine.state)
+    ref = _t_run(engine, rounds)
+    t0 = time.perf_counter()
+    rec = engine.profile(rounds, roofline=True, **kw)
+    torch.cuda.synchronize()
+    profile_s = time.perf_counter() - t0
+    if not _t_equal(engine.state, before):
+        raise AssertionError(f"path T: {rec['mode']}'s state changed "
+                             "under Engine.profile")
+    if not _t_equal(_t_run(engine, rounds), ref):
+        raise AssertionError(f"path T: a run of {rec['mode']} after the "
+                             "profile differs from one before it")
+    del before, ref
+    rl = rec["roofline"]
+    frac = rl["roofline_frac"]
+    if not (isinstance(frac, float) and 0.0 < frac <= 1.0):
+        raise AssertionError(f"path T: {rl['mode']} roofline_frac {frac} "
+                             "outside (0, 1]")
+    got = rec["launches_per_round"]
+    want = {k: float(v) for k, v in expect.items() if v}
+    if got != want:
+        raise AssertionError(f"path T: {rl['mode']} launched {got} a "
+                             f"round, the plans give {want}")
+    return {"mode": rl["mode"], "rounds": rounds, "profile_s": profile_s,
+            "cost": {k: rec["cost"][k] for k in
+                     ("bytes_accessed", "flops", "kernels", "raw")},
+            "per_round": rec["per_round"], "memory": rec["memory"],
+            "timings": rec["timings"], "launches_per_round": got,
+            "launches_match_plans": True, "state_untouched": True,
+            "rerun_equal": True,
+            "roofline": {k: rl.get(k) for k in
+                         ("model", "binding", "bytes_per_round",
+                          "flops_per_round", "floor_s_per_round",
+                          "ceiling_rounds_per_sec",
+                          "measured_rounds_per_sec", "roofline_frac",
+                          "floor_frac", "known_discrepancy")},
+            "ms_per_round": 1e3 / rl["measured_rounds_per_sec"],
+            "nvidia_smi": nvidia_smi_line()}, rec
+
+
+def t_twin(make) -> dict:
+    """Gate 3: a small twin of the phase's kind counts the same bytes on
+    the card as on the CPU (``make(device)`` builds it).  On a mismatch
+    the per-op tallies name what differs."""
+    from flow_updating_tpu_torch.obs.profile import _clone
+    from flow_updating_tpu_torch.utils import cost
+
+    out, by_op = {}, {}
+    for side, dev in zip(("card", "cpu"), T_TWIN_DEVICES):
+        engine = make(dev)
+        rec = engine.profile(T_ROUNDS, execute=False)
+        out[side] = {"bytes_accessed": rec["cost"]["bytes_accessed"],
+                     "flops": rec["cost"]["flops"],
+                     "kernels": rec["cost"]["kernels"]}
+        if side == "card":
+            out["launches_per_round"] = rec["launches_per_round"]
+        fn, args, nd = engine.round_program(T_ROUNDS)
+        with cost.count() as c:
+            fn(*_clone(tuple(args[:nd])), *args[nd:])
+        by_op[side] = c.by_op
+        del engine
+    card, cpu = out["card"], out["cpu"]
+    if (card["bytes_accessed"], card["flops"]) \
+            != (cpu["bytes_accessed"], cpu["flops"]):
+        diff = {op: (by_op["card"].get(op), by_op["cpu"].get(op))
+                for op in set(by_op["card"]) | set(by_op["cpu"])
+                if by_op["card"].get(op) != by_op["cpu"].get(op)}
+        raise AssertionError(
+            f"path T: the twin counts {card} on the card and {cpu} on the "
+            f"CPU; per op (card, cpu): {diff}")
+    out["equal"] = True
+    return out
+
+
+def phase_path_t1(engine_a) -> dict:
+    """T1: kernel K1 (path A's engine, fat tree k=160, 'pallas')."""
+    from flow_updating_tpu_torch import Engine, RoundConfig
+    from flow_updating_tpu_torch.topology.generators import fat_tree
+
+    buckets = sum(1 for m in engine_a._node_kernel.arrays.mats
+                  if m.shape[0] and m.shape[1])
+    out, _ = t_profile(engine_a, {"K1": buckets})
+    cfg = RoundConfig.fast(kernel="node", spmv="pallas")
+    small = fat_tree(8)
+    out["twin"] = t_twin(lambda dev: Engine(config=cfg, device=dev)
+                         .set_topology(small).build())
+    return out
+
+
+def phase_path_t2(engine_b) -> dict:
+    """T2: kernel K2 (path B's engine, ring 1M, 'banded_fused')."""
+    from flow_updating_tpu_torch import Engine, RoundConfig
+    from flow_updating_tpu_torch.topology.generators import ring
+
+    out, _ = t_profile(engine_b, {"K2": 1})
+    cfg = RoundConfig.fast(kernel="node", spmv="banded_fused")
+    small = ring(T_RING_N, 2)
+    out["twin"] = t_twin(lambda dev: Engine(config=cfg, device=dev)
+                         .set_topology(small).build())
+    return out
+
+
+def phase_path_t3(engine_d) -> dict:
+    """T3: kernels B3 and B4 (path D's engine, the faithful edge round on
+    'benes_fused' networks)."""
+    from flow_updating_tpu_torch import Engine
+    from flow_updating_tpu_torch.topology.generators import fat_tree
+
+    plan = planned_launches(engine_d._topo_arrays, engine_d.config)
+    expect = {f"B3.{k}": plan[k] for k, _, _, _ in B3_FLAVOURS}
+    expect.update({f"B4.{k}": plan[k] for k, _, _ in B4_FLAVOURS})
+    out, _ = t_profile(engine_d, expect)
+    cfg = engine_d.config
+    small = fat_tree(8)
+    out["twin"] = t_twin(lambda dev: Engine(config=cfg, device=dev)
+                         .set_topology(small).build(seed=SEED))
+    return out
+
+
+def phase_path_t4(engine_e) -> dict:
+    """T4: kernel B5 (path E's engine, ring 1M over four shards,
+    overlapped)."""
+    from flow_updating_tpu_torch import Engine
+    from flow_updating_tpu_torch.ops.sharded_round import (
+        launches_per_shard_round,
+    )
+    from flow_updating_tpu_torch.parallel.mesh import make_mesh
+    from flow_updating_tpu_torch.topology.generators import ring
+
+    kern = engine_e._node_kernel
+    per_shard = launches_per_shard_round(kern.spec, kern.exchange)
+    out, _ = t_profile(engine_e, {"B5.merge": SHARDS * per_shard})
+    cfg = engine_e.config
+    small = ring(T_RING_N, 2)
+    out["twin"] = t_twin(lambda dev: Engine(
+        config=cfg, mesh=make_mesh(SHARDS, device=dev), halo="overlap",
+        device=dev).set_topology(small).build())
+    return out
+
+
+def phase_path_t5(engine_f, tmp) -> dict:
+    """T5: kernel B6 (path F's engine, the faithful halo round over four
+    shards, 'overlap_pallas') with a trace; then the ``profile`` CLI as a
+    process, ``doctor`` on its manifest (the CLI and in memory) and
+    ``regress`` of the manifest against itself."""
+    import contextlib
+    import io
+
+    from flow_updating_tpu_torch import Engine
+    from flow_updating_tpu_torch.cli import main as cli_main
+    from flow_updating_tpu_torch.obs import health
+    from flow_updating_tpu_torch.parallel.mesh import make_mesh
+    from flow_updating_tpu_torch.topology.generators import fat_tree
+
+    trace_dir = os.path.join(tmp, "t5_trace")
+    out, rec = t_profile(engine_f, {"B6.fused": SHARDS},
+                         rounds=T5_ROUNDS, trace_dir=trace_dir)
+    ov = rec["overlap"]
+    measured = ov.get("measured") or {}
+    out["trace"] = {k: v for k, v in rec["trace"].items()
+                    if k != "trace_file"}
+    out["overlap"] = {
+        "overlap_ratio": ov["overlap_ratio"],
+        "execute_s": ov["execute_s"],
+        "measured_overlap": measured.get("overlap_ratio_measured"),
+        "measured_trace_complete": measured.get("trace_complete"),
+        "measured_kernels": measured.get("kernels"),
+        "wire_ops": measured.get("wire_ops"),
+        "error": measured.get("error")}
+    print(f"chip_smoke: T5 measured_overlap="
+          f"{out['overlap']['measured_overlap']} trace_complete="
+          f"{out['trace']['trace_complete']} (overlap capture: "
+          f"{out['overlap']['measured_trace_complete']})", flush=True)
+    cfg = engine_f.config
+    small = fat_tree(8)
+    out["twin"] = t_twin(lambda dev: Engine(
+        config=cfg, mesh=make_mesh(SHARDS, device=dev), multichip="halo",
+        halo="overlap_pallas", partition="bfs", device=dev)
+        .set_topology(small).build(seed=SEED))
+    # the profile subcommand as a user runs it, in a process of its own
+    manifest = os.path.join(tmp, "t5_profile.json")
+    argv = [sys.executable, "-m", "flow_updating_tpu_torch", "profile",
+            "--generator", T5_CLI_GENERATOR, "--shards", str(SHARDS),
+            "--multichip", "halo", "--halo", "overlap_pallas",
+            "--rounds", str(T_ROUNDS), "--roofline",
+            "--trace-dir", os.path.join(tmp, "t5_cli_trace"),
+            "--report", manifest]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True,
+                          timeout=T5_CLI_TIMEOUT_S)
+    cli_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"path T: the profile CLI exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    with open(manifest) as f:
+        doc = json.load(f)
+    if doc["schema"] != "flow-updating-profile-report/v1" \
+            or doc["profile"]["cost"]["bytes_accessed"] <= 0:
+        raise AssertionError("path T: the profile manifest is malformed")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        doctor_rc = cli_main(["doctor", manifest])
+    doctor_cli = json.loads(buf.getvalue().strip().splitlines()[-1])
+    in_memory = health.diagnose_manifest(doc)
+    cli_verdicts = [(c["name"], c["status"]) for c in doctor_cli["checks"]]
+    mem_verdicts = [(c.name, c.status) for c in in_memory]
+    if cli_verdicts != mem_verdicts:
+        raise AssertionError(f"path T: the doctor CLI gives {cli_verdicts}, "
+                             f"diagnose_manifest {mem_verdicts}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        regress_rc = cli_main(["regress", "--fresh", manifest, "--against",
+                               manifest])
+    if regress_rc != 0:
+        raise AssertionError(f"path T: regress of the manifest against "
+                             f"itself exited {regress_rc}: "
+                             f"{buf.getvalue()[-1000:]}")
+    cli_trace = line.get("trace") or {}
+    out["cli"] = {
+        "generator": T5_CLI_GENERATOR, "process_s": cli_s,
+        "mode": line["roofline"]["mode"],
+        "roofline_frac": line["roofline"]["roofline_frac"],
+        "bytes_per_round": line["per_round"]["bytes_accessed"],
+        "launches_per_round": line["launches_per_round"],
+        "trace_complete": cli_trace.get("trace_complete"),
+        "measured_overlap": (line.get("overlap") or {}).get(
+            "overlap_ratio_measured"),
+        "doctor_rc": doctor_rc, "doctor_overall": doctor_cli["overall"],
+        "doctor_verdicts_equal": True, "verdicts": cli_verdicts,
+        "regress_rc": regress_rc}
+    return out
 
 
 # ---- path L: plan='auto' on the card and telemetry at full width ---------
@@ -6479,6 +6763,31 @@ def main() -> int:
                      "overlap_twin": profile_overlap(twin_f,
                                                      PROFILE_ROUNDS)}})
     torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    path_t = {"t1": phase_path_t1(engine_a)}
+    emit({"phase": "path_t", "part": "t1",
+          "topology": f"fat_tree:{FAT_TREE_K}", **path_t["t1"]})
+    path_t["t2"] = phase_path_t2(engine_b)
+    emit({"phase": "path_t", "part": "t2", "topology": f"ring:{RING_N}:2",
+          **path_t["t2"]})
+    path_t["t3"] = phase_path_t3(engine_d)
+    emit({"phase": "path_t", "part": "t3",
+          "topology": f"fat_tree:{FAT_TREE_K}", **path_t["t3"]})
+    path_t["t4"] = phase_path_t4(engine_e)
+    emit({"phase": "path_t", "part": "t4", "topology": f"ring:{RING_N}:2",
+          **path_t["t4"]})
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_profile_") as tmp:
+        path_t["t5"] = phase_path_t5(engine_f, tmp)
+    emit({"phase": "path_t", "part": "t5",
+          "topology": f"fat_tree:{FAT_TREE_K}", **path_t["t5"]})
+    torch.cuda.synchronize()
+    emit({"phase": "path_t", "wall_s": time.perf_counter() - t0,
+          "nvidia_smi": smi,
+          "roofline_frac": {k: v["roofline"]["roofline_frac"]
+                            for k, v in path_t.items()},
+          "twins_equal": {k: v["twin"]["equal"]
+                          for k, v in path_t.items()}})
 
     t0 = time.perf_counter()
     reset_counts()

@@ -1,10 +1,10 @@
 """Command-line entry point: the ``run``, ``oracle``, ``plan``, ``inspect``,
-``obs``, ``sweep``, ``scenarios``, ``serve``, ``query``, ``chaos`` and
-``doctor`` subcommands.
+``obs``, ``sweep``, ``scenarios``, ``serve``, ``query``, ``chaos``,
+``doctor``, ``profile`` and ``regress`` subcommands.
 
 Counterpart of ``flow_updating_tpu/cli.py``'s ``run``, ``oracle``,
 ``plan``, ``inspect``, ``obs export-trace``, ``sweep``, ``scenarios``,
-``serve``, ``query``, ``chaos`` and ``doctor``.
+``serve``, ``query``, ``chaos``, ``doctor``, ``profile`` and ``regress``.
 They take the same flags, so a JAX command line carries over, plus
 ``--device`` (``cuda``, the default, or ``cpu``).  Topology
 from ``--platform``/``--deployment`` XML or a synthetic ``--generator``;
@@ -32,8 +32,10 @@ the report as ``plan``).  ``--telemetry [METRICS]`` records the
 per-round series on the device (summary on stdout, the full series in
 the ``--report`` manifest, ``flow-updating-run-report/v1``);
 ``--event-log PATH`` writes JSONL ``run_start``, ``advance``, ``watch``
-and ``run_end`` records.  Flags whose machinery is not ported yet exit
-with a message naming the ROADMAP item.  ``--backend`` selects the JAX backend in the JAX package; it is
+and ``run_end`` records; ``--trace-dir DIR`` (or ``--profile DIR``)
+captures the rounds as one ``torch.profiler`` trace.  Flags whose
+machinery is not ported yet exit with a message naming the ROADMAP
+item.  ``--backend`` selects the JAX backend in the JAX package; it is
 accepted here for command-line compatibility and has no effect.
 
 ``oracle`` runs the native discrete-event simulator on the host (the
@@ -43,7 +45,8 @@ prints the JAX CLI's JSON keys.
 ``plan`` runs the topology compiler alone: the auto-selection decision
 with band occupancy and predicted costs as JSON (``--explain`` adds the
 table on stderr, ``--mixing`` the spectral-gap block, ``--autotune`` the
-measured probes on ``--device``, ``--report PATH`` a
+measured probes on ``--device``, ``--probe`` the ranking by each
+candidate's counted bytes a round, ``--report PATH`` a
 ``flow-updating-plan-report/v1`` manifest).
 
 ``inspect`` records per-node and per-edge fields on a live run on
@@ -64,8 +67,8 @@ buckets and advances each bucket's lanes together on ``--device``;
 ``scenarios`` runs the conformance registry (``--list``, names,
 ``--seeds``, ``--perturb``) and exits 1 when a declared signature
 fails; the ``agg_*`` names run the aggregate-kind fault cases, one
-mixed-kind ``AggregateFabric`` each; ``sweep --profile`` exits naming
-its ROADMAP item.
+mixed-kind ``AggregateFabric`` each; ``sweep --profile`` attaches one
+cost record per bucket.
 
 ``serve`` runs the streaming service (``flow_updating_tpu_torch.service``)
 on ``--device``: an event script (``--events FILE`` or ``-``) of ``run``,
@@ -75,7 +78,8 @@ on ``--device``: an event script (``--events FILE`` or ``-``) of ``run``,
 signatures: 1), ``--report`` (``flow-updating-service-report/v1``),
 ``--metrics`` (Prometheus text), ``--checkpoint`` / ``--resume`` (service
 archives of either package), ``--wal DIR`` (journal + checkpoint ring)
-and ``--wal DIR --recover``.
+and ``--wal DIR --recover``; ``--trace-dir DIR`` captures the serving
+body as one ``torch.profiler`` trace.
 
 ``query`` runs the multi-tenant query fabric
 (``flow_updating_tpu_torch.query``) on ``--device``: Poisson arrivals
@@ -92,6 +96,13 @@ and/or a live telemetry run on ``--device`` (``--generator`` or
 ``--deployment`` with ``run``'s flags, ``--rounds``) with the rules of
 ``obs/health.py``, prints ``{"overall", "checks"}`` and exits 1 on a
 ``fail`` (on a ``warn`` too under ``--strict``).
+
+``profile`` counts and times the configured kernel's ``--rounds`` on
+``--device`` (:meth:`Engine.profile`; ``--roofline``, ``--trace-dir``,
+``--no-execute``, ``--report`` a ``flow-updating-profile-report/v1``
+manifest).  ``regress --fresh F [--against R]`` gates a fresh profile
+manifest or bench line against a reference or the ``BENCH_*`` history
+(``obs/regress.py``) and exits 1 on a regression.
 """
 
 from __future__ import annotations
@@ -106,9 +117,7 @@ import time
 #: run and doctor flags of the JAX CLI that this package does not run
 #: yet -> item
 _LATER_FLAGS = {
-    "profile": "profiling and analysis (A14)",
-    "trace_dir": "profiling and analysis (A14)",
-    "golden": "profiling and analysis (A14)",
+    "golden": "profiling and analysis (A14 part 2)",
 }
 
 
@@ -229,6 +238,15 @@ def cmd_run(args) -> int:
             edges=engine.topology.num_edges, variant=engine.config.variant,
             fire_policy=engine.config.fire_policy)
 
+    # --trace-dir and --profile are the same torch.profiler capture
+    # (utils/trace.py) of the run's rounds; --trace-dir wins when both are
+    # given
+    import contextlib
+
+    from flow_updating_tpu_torch.utils.trace import trace
+
+    capture = contextlib.ExitStack()
+    capture.enter_context(trace(args.trace_dir or args.profile))
     until_rmse_result = None
     telemetry_series = None
     t_run0 = time.perf_counter()
@@ -275,6 +293,7 @@ def cmd_run(args) -> int:
         engine.add_watcher(run_until=args.until,
                            time_interval=args.observe_every, callback=cb)
         engine.run_until(args.until)
+    capture.close()
     report = engine.convergence_report()   # reads back: the run has ended
     run_s = time.perf_counter() - t_run0
     if until_rmse_result is not None:
@@ -621,12 +640,6 @@ def cmd_plan(args) -> int:
     optionally a ``flow-updating-plan-report/v1`` manifest."""
     from flow_updating_tpu_torch.plan import select_plan
 
-    if args.probe:
-        raise SystemExit(
-            "plan --probe ranks candidates by the compiler's cost analysis "
-            "of the lowered programs — the ROADMAP item 'profiling and "
-            "analysis (A14)', not ported yet; use --autotune for measured "
-            "rates")
     if args.latency_scale is None:
         args.latency_scale = 0.0
     cfg = _make_config(args)
@@ -636,6 +649,7 @@ def cmd_plan(args) -> int:
             topo, cfg, backend=args.plan_backend or args.device,
             max_lanes=args.max_lanes, min_fill=args.min_fill,
             remainder=args.remainder,
+            probe="aot" if args.probe else "analytic",
             autotune=True if args.autotune else False,
             device=args.device)
     except (ValueError, NotImplementedError, RuntimeError) as err:
@@ -831,6 +845,66 @@ def _csv_list(text, cast, flag: str):
     return vals
 
 
+def cmd_profile(args) -> int:
+    """``profile``: cost attribution of the configured kernel's rounds
+    on ``--device`` (:meth:`Engine.profile`), printed as JSON and, with
+    ``--report``, written as a ``flow-updating-profile-report/v1``
+    manifest (with ``--roofline``, its ``perf_lens`` block)."""
+    _check_run_flags(args)
+    engine = _new_engine(args, _make_config(args))
+    try:
+        engine.build(latency_scale=args.latency_scale, seed=args.seed)
+        prof = engine.profile(args.rounds, execute=not args.no_execute,
+                              trace_dir=args.trace_dir,
+                              roofline=args.roofline)
+    except (ValueError, NotImplementedError) as err:
+        raise SystemExit(f"profile: {err}") from err
+    if args.report:
+        from flow_updating_tpu_torch.obs.report import (
+            build_profile_manifest,
+            write_report,
+        )
+
+        extra = None
+        rl = prof.get("roofline")
+        if isinstance(rl, dict):
+            # the reconciled record as the manifest's perf-lens block, so
+            # `doctor` judges roofline_sane / roofline_floor
+            from flow_updating_tpu_torch.obs import roofline as _roof
+
+            extra = {"perf_lens": _roof.perf_lens_block(
+                [rl], _roof.resolve_model(engine.device))}
+        write_report(args.report, build_profile_manifest(
+            argv=getattr(args, "_argv", None), config=engine.config,
+            topo=engine.topology, profile=prof, extra=extra,
+            device=engine.device))
+        prof["report_path"] = args.report
+    print(json.dumps(prof))
+    return 0
+
+
+def cmd_regress(args) -> int:
+    """``regress``: gate a fresh bench result / profile manifest against
+    the artifact history (obs/regress.py); exit 1 beyond the recorded
+    spread."""
+    from flow_updating_tpu_torch.obs import health, regress
+
+    def _load(path):
+        try:
+            with open(path) as f:
+                return json.load(f)
+        except (OSError, ValueError) as err:
+            raise SystemExit(f"regress: cannot read {path}: {err}") from err
+
+    fresh = _load(args.fresh)
+    against = _load(args.against) if args.against else None
+    checks = regress.gate(fresh, history_pattern=args.history,
+                          against=against, margin_pct=args.margin)
+    print(json.dumps({"overall": health.overall(checks),
+                      "checks": [c.to_jsonable() for c in checks]}))
+    return health.exit_code(checks)
+
+
 def cmd_sweep(args) -> int:
     """``sweep``: a grid of (topology, seed, params) instances packed into
     shape buckets, each bucket's lanes advanced together on ``--device``
@@ -889,7 +963,8 @@ def cmd_sweep(args) -> int:
             instances, cfg, args.rounds, spec=spec,
             rmse_threshold=args.rmse_threshold,
             max_batch=args.max_batch or None,
-            include_series=args.include_series, device=args.device)
+            include_series=args.include_series, profile=args.profile,
+            device=args.device)
     except ValueError as err:
         raise SystemExit(f"invalid sweep configuration: {err}") from err
     wall_s = time.perf_counter() - t0
@@ -1208,18 +1283,24 @@ def cmd_serve(args) -> int:
     else:
         events = []
 
+    # --trace-dir captures the whole serving body (event script +
+    # trailing rounds) as one torch.profiler trace; the fu.segment spans
+    # (service/engine.py) land inside it
+    from flow_updating_tpu_torch.utils.trace import trace
+
     joined = []
-    for lineno, verb, a in events:
-        try:
-            _apply_service_event(svc, verb, a, joined)
-        except (ValueError, RuntimeError) as err:
-            raise SystemExit(
-                f"serve: events line {lineno}: {err}") from err
-    if args.rounds:
-        try:
-            svc.run(args.rounds)
-        except ValueError as err:
-            raise SystemExit(f"serve: {err}") from err
+    with trace(args.trace_dir):
+        for lineno, verb, a in events:
+            try:
+                _apply_service_event(svc, verb, a, joined)
+            except (ValueError, RuntimeError) as err:
+                raise SystemExit(
+                    f"serve: events line {lineno}: {err}") from err
+        if args.rounds:
+            try:
+                svc.run(args.rounds)
+            except ValueError as err:
+                raise SystemExit(f"serve: {err}") from err
 
     report = svc.convergence_report()
     timings = {"setup_s": setup_s}
@@ -1665,8 +1746,14 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--event-log", metavar="PATH",
                      help="append JSONL run_start / advance / watch / "
                           "run_end records to PATH")
-    run.add_argument("--profile", metavar="DIR")
-    run.add_argument("--trace-dir", metavar="DIR")
+    run.add_argument("--profile", metavar="DIR",
+                     help="capture the run's rounds as a torch.profiler "
+                          "trace into DIR (the same capture as "
+                          "--trace-dir, which wins when both are given)")
+    run.add_argument("--trace-dir", metavar="DIR",
+                     help="capture the run's rounds as one gzipped Chrome "
+                          "trace (torch.profiler: host ops and the card's "
+                          "kernels and copies) into DIR")
     run.add_argument("--save-checkpoint", metavar="PATH",
                      help="write the final state to PATH (.npz)")
     run.add_argument("--resume", metavar="PATH",
@@ -1712,8 +1799,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="rank candidates with this backend's cost model "
                          "instead of --device's")
     pl.add_argument("--probe", action="store_true",
-                    help="rank by the compiler's cost analysis (ROADMAP "
-                         "A14; exits naming it)")
+                    help="rank candidates by the bytes a round of each "
+                         "one's program moves, counted on --device "
+                         "(obs/profile.py) instead of the analytic model")
     pl.add_argument("--autotune", action="store_true",
                     help="time the banded-family candidates (band width "
                          "x fused-round tile x remainder route) on "
@@ -1885,8 +1973,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="embed each instance's full per-round series "
                          "in the manifest records (large)")
     sw.add_argument("--profile", action="store_true",
-                    help="per-bucket cost attribution (ROADMAP A14; "
-                         "exits naming it)")
+                    help="per-bucket cost attribution: each bucket's "
+                         "rounds counted once more (bytes, flops, "
+                         "kernels' declared work) into the summary's "
+                         "buckets (obs/profile.py)")
     sw.add_argument("--report", metavar="PATH",
                     help="write the flow-updating-sweep-report/v1 "
                          "manifest (one record per instance) to PATH")
@@ -1992,8 +2082,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="write the flight recorder's streaming metrics "
                          "as Prometheus text exposition to PATH at exit")
     sv.add_argument("--trace-dir", metavar="DIR",
-                    help="profiler capture of the serving body (ROADMAP "
-                         "A14; exits naming it)")
+                    help="capture the serving body (events and rounds) as "
+                         "one torch.profiler trace into DIR; the fu.segment "
+                         "spans mark each segment")
     sv.set_defaults(fn=cmd_serve, latency_scale=0.0, msg_bytes=104.0)
 
     qr = sub.add_parser(
@@ -2166,10 +2257,70 @@ def build_parser() -> argparse.ArgumentParser:
     dr.add_argument("--golden", nargs="?", const="GOLDEN_PROGRAMS.json",
                     metavar="PATH",
                     help="program_conformance: audit the golden-program "
-                         "ledger (ROADMAP A14; exits naming it)")
+                         "ledger (ROADMAP A14 part 2; exits naming it)")
     dr.add_argument("--strict", action="store_true",
                     help="warnings also exit 1")
     dr.set_defaults(fn=cmd_doctor)
+
+    pr = sub.add_parser(
+        "profile",
+        help="cost attribution of the configured kernel's rounds: bytes "
+             "and flops counted over the rounds (the kernels' declared "
+             "work included), peak memory on the card, the timed run, "
+             "the kernels' launches — a pure observer, the engine's state "
+             "is untouched (obs/profile.py)")
+    pr.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="where the rounds run: the CUDA card (default) "
+                         "or the host CPU with the plain tensor versions")
+    _add_topology_flags(pr)
+    _add_mesh_flags(pr)
+    _add_config_flags(pr)
+    pr.add_argument("--plan", default="off", choices=("off", "auto"))
+    pr.add_argument("--latency-scale", type=float, default=0.0,
+                    help=">0: latency-warped delays from platform "
+                         "latencies (as in `run`)")
+    pr.add_argument("--msg-bytes", type=float, default=104.0)
+    pr.add_argument("--rounds", type=int, default=64,
+                    help="rounds to attribute (the per_round block "
+                         "amortizes)")
+    pr.add_argument("--no-execute", action="store_true",
+                    help="skip the timed run (the counted run still runs "
+                         "the rounds)")
+    pr.add_argument("--report", metavar="PATH",
+                    help="write the flow-updating-profile-report/v1 "
+                         "manifest (argv, config, topology fingerprint, "
+                         "environment, attribution) to PATH")
+    pr.add_argument("--roofline", action="store_true",
+                    help="compose the cost record with the device's "
+                         "hardware model (obs/roofline.py): arithmetic "
+                         "intensity, binding resource, predicted ceiling "
+                         "and the measured-vs-ceiling roofline_frac ride "
+                         "the record (and the manifest's "
+                         "flow-updating-perf-lens/v1 block with --report)")
+    pr.add_argument("--trace-dir", metavar="DIR",
+                    help="also capture one run as a torch.profiler trace "
+                         "into DIR: the device events it kept against the "
+                         "kernels' launches (trace_complete), and on the "
+                         "halo round's overlap schedules the overlap "
+                         "ratio measured from the slices (obs/timeline.py)")
+    pr.set_defaults(fn=cmd_profile)
+
+    rg = sub.add_parser(
+        "regress",
+        help="perf regression gate: compare a fresh bench result line "
+             "or profile manifest against the BENCH_* artifact history "
+             "/ a reference manifest, flagging drops beyond the "
+             "recorded spread; exit 1 on regression (obs/regress.py)")
+    rg.add_argument("--fresh", required=True, metavar="PATH",
+                    help="fresh bench JSON line or profile manifest")
+    rg.add_argument("--against", metavar="PATH",
+                    help="reference profile manifest to compare against")
+    rg.add_argument("--history", default="BENCH_*.json", metavar="GLOB",
+                    help="bench artifact history (default: BENCH_*.json "
+                         "in the working directory)")
+    rg.add_argument("--margin", type=float, default=None, metavar="PCT",
+                    help="override the allowed drop/growth percentage")
+    rg.set_defaults(fn=cmd_regress)
     return ap
 
 

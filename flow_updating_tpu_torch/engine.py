@@ -248,6 +248,9 @@ class Engine:
         # explicit opt-in for the reference's register_actor(<any class>)
         self.host_actors = bool(host_actors)
         self._hostdes = None
+        # wall time of the last build() (plan, tables, networks, state):
+        # a profile record's lower_s
+        self._build_s = None
 
     def _apply_argv_cfg(self, cfg: RoundConfig) -> RoundConfig:
         """Consume SimGrid-style ``--cfg=key:value`` flags from argv: every
@@ -755,6 +758,9 @@ class Engine:
     def build(self, latency_scale: float = 0.0, seed: int = 0) -> Engine:
         """Resolve deployment(+platform) into topology + kernel + fresh
         state.  ``seed`` keys the edge kernel's message-loss draws."""
+        import time
+
+        t0 = time.perf_counter()
         self._resolve_topology(latency_scale)
         self._apply_plan()
         self._prepare_arrays(latency_scale)
@@ -768,6 +774,7 @@ class Engine:
         else:
             self.state = init_state(self.topology, self.config, seed=seed,
                                     device=self.device)
+        self._build_s = time.perf_counter() - t0
         return self
 
     def _size_contention(self) -> None:
@@ -1338,6 +1345,112 @@ class Engine:
             t=t, active=active, node=node, edge=edge, conv_round=conv,
             topk_idx=topk_idx, spec=spec, edges=edges,
             coords=node_coordinates(self.topology))
+
+    def round_program(self, n: int):
+        """``(fn, full_args, n_dynamic)`` of the configured kernel's ``n``
+        rounds from the engine's state — the kernel's own
+        ``round_program`` hook, which :meth:`profile` runs from copies of
+        the state.  ``fn(*full_args)`` returns the advanced state and
+        leaves the engine as it is only when given a copy."""
+        if self.state is None:
+            self.build()
+        kind = self._kernel_kind
+        if kind == "halo":
+            from flow_updating_tpu_torch.parallel import sharded
+
+            return sharded.round_program(
+                self.state, self._halo_plan, self.config, self.mesh, n,
+                arrays=self._halo_arrays, halo=self._halo_wire)
+        if kind in ("node", "pod"):
+            return self._node_kernel.round_program(self.state, n)
+        return (rounds.run_rounds,
+                (self.state, self._topo_arrays, self.config, n), 1)
+
+    def profile(self, n: int, *, execute: bool = True,
+                trace_dir: str | None = None,
+                roofline: bool = False) -> dict:
+        """Cost attribution of the configured kernel's ``n`` rounds
+        (:mod:`~flow_updating_tpu_torch.obs.profile`): the bytes and flops
+        counted over the rounds (``cost``, ``method: 'counted'``), the
+        card's memory (``memory``; ``available: False`` on the CPU), the
+        timings, the wrappers' launches (``launches`` and
+        ``launches_per_round``), in the JAX package's keys (``mode``,
+        ``rounds``, ``per_round``, ``topology``, ``config``, ``halo``,
+        ``overlap``, ``roofline``).
+
+        Profiling is a pure observer: it runs the kernel's own round
+        program (each kernel's ``round_program`` hook) from copies of
+        the state, and does not advance the engine's state or clock.
+        ``execute=False`` skips the timed run; in the port the counted
+        run still runs the rounds, since counting is how the cost is
+        known.  ``trace_dir`` captures one more run with
+        ``torch.profiler`` there and records the device events it kept
+        for each kernel (``trace``, with ``trace_complete``), and, on the
+        halo kernel's overlap schedules, measures the overlap ratio from
+        the trace's slices; ``roofline`` attaches the perf lens'
+        predicted-vs-measured record (:mod:`~flow_updating_tpu_torch.obs.
+        roofline`)."""
+        from flow_updating_tpu_torch.obs import profile as _prof
+
+        if n <= 0:
+            raise ValueError("profile needs a positive round count")
+        if self.state is None:
+            self.build()
+        if self._custom_actor is not None:
+            raise NotImplementedError(
+                "cost attribution covers the built-in kernels; a custom "
+                "VectorActor owns its rounds — count them with "
+                "obs.profile.profile_program directly")
+        kind = self._kernel_kind
+        fn, args, nd = self.round_program(n)
+        record = _prof.profile_program(
+            fn, args, n_dynamic=nd, execute=execute, label=kind,
+            device=self.device, rounds=n, lower_s=self._build_s,
+            trace_dir=trace_dir)
+        shards = self.mesh.size if self.mesh is not None else 0
+        record.update({
+            "mode": kind,
+            "rounds": n,
+            "per_round": _prof.per_round(record, n),
+            "launches_per_round": {k: v / n for k, v in
+                                   record["launches"].items()},
+            "topology": {"nodes": self.topology.num_nodes,
+                         "edges": self.topology.num_edges},
+            "config": {"kernel": self.config.kernel,
+                       "variant": self.config.variant,
+                       "fire_policy": self.config.fire_policy,
+                       "spmv": self.config.spmv,
+                       "delivery": self.config.delivery,
+                       "dtype": self.config.dtype,
+                       "multichip": (self.multichip
+                                     if self.mesh is not None else None),
+                       "halo": (self._halo_wire if kind == "halo"
+                                else None),
+                       "shards": shards},
+        })
+        if kind == "halo":
+            record["halo"] = self.halo_report()
+            if self._halo_wire in ("overlap", "overlap_pallas"):
+                record["overlap"] = _prof.overlap_report(
+                    self.state, self._halo_plan, self.config, self.mesh,
+                    n, arrays=self._halo_arrays, execute=execute,
+                    mode=self._halo_wire, trace_dir=trace_dir)
+        if roofline:
+            from flow_updating_tpu_torch.obs import roofline as _roof
+
+            mode = kind
+            if kind in ("node", "pod") and self.config.spmv:
+                mode = f"{kind}/{self.config.spmv}"
+            if shards:
+                mode += f"@s{shards}"
+            model = _roof.resolve_model(self.device)
+            exec_s = record["timings"].get("execute_s")
+            measured = (n / exec_s if isinstance(exec_s, (int, float))
+                        and exec_s > 0 else None)
+            record["roofline"] = _roof.reconcile(
+                _roof.analyze(record, model, rounds=n, mode=mode),
+                measured)
+        return record
 
     def run_until_rmse(self, threshold: float, max_rounds: int = 100_000,
                        chunk: int = 64) -> dict:

@@ -121,11 +121,11 @@ class TopoView:
     def sum_to_dst(self, edge_vals):
         """(E,) -> (N,): sum of each node's incoming edge values, in the
         in-edge ELL's fixed order (module docstring).  An ``(E,)`` float
-        leaf on the card goes through kernel K1; anything else through
-        its plain version."""
+        leaf goes through kernel K1's wrapper (the kernel on the card,
+        its plain version on the CPU, so a cost count reads the same on
+        both); anything else through the plain version."""
         x = edge_vals
-        if (x.dim() == 1 and x.dtype in (torch.float32, torch.float64)
-                and x.device.type == "cuda"):
+        if x.dim() == 1 and x.dtype in (torch.float32, torch.float64):
             rows = neighbor_sum_ell(x.contiguous(), self.ell)
         else:
             rows = neighbor_sum(x, self.ell)

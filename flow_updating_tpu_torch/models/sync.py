@@ -355,6 +355,15 @@ class NodeKernel:
     def run(self, state: NodeSyncState, num_rounds: int) -> NodeSyncState:
         return run_rounds_node(state, self.arrays, self.cfg, num_rounds)
 
+    def round_program(self, state: NodeSyncState, num_rounds: int):
+        """``(fn, full_args, n_dynamic)`` for the plain rounds — the
+        cost-attribution hook (:mod:`~flow_updating_tpu_torch.obs.profile`
+        runs ``fn`` from a copy of the state).  The function and argument
+        split is exactly what :meth:`run` calls, so the profiled program
+        IS the plain one."""
+        return (run_rounds_node,
+                (state, self.arrays, self.cfg, int(num_rounds)), 1)
+
     def run_telemetry(self, state: NodeSyncState, num_rounds: int, spec):
         """Device-resident per-round series (see
         :func:`run_rounds_node_telemetry`); returns ``(state, series)``.

@@ -12,15 +12,25 @@ side and the topology-resolved side.
 * :mod:`.health` — ``doctor``'s rule-based verdicts
   (:class:`CheckResult`, :func:`diagnose_manifest`) on series and on
   every kind of manifest, either package's;
-* :mod:`.roofline` — the perf lens' roofline floor table;
+* :mod:`.profile` — cost attribution (:func:`profile_program`: bytes
+  and flops counted over a round program, the kernels' declared work,
+  the card's memory, the timed run, the launches), the overlap report
+  and the payload-bytes and fused-round attributions;
+* :mod:`.roofline` + :mod:`.timeline` — the perf lens: the H100 model
+  (:data:`~.roofline.H100`) and the measured CPU calibration,
+  predicted-vs-measured reconciliation (``roofline_frac``; doctor
+  clauses ``roofline_sane`` / ``roofline_floor``), and ``torch.profiler``
+  traces parsed into device slices, kept events per kernel and a
+  *measured* overlap ratio;
+* :mod:`.regress` — fresh bench lines and profile manifests gated against
+  the history or a reference (the ``regress`` subcommand);
 * :mod:`.trace` — event logs and serving manifests as Chrome
   trace-event documents;
 * :mod:`.spectral` — the diffusion operator's spectral gap
   (``mixing_report``), persisted in the autotune cache;
 * :mod:`.forecast` — ``fit_log_decay``, the log-spread fit, and
   ``LaneForecaster``, the query fabric's per-lane ETA;
-* :mod:`.metrics`, :mod:`.spans` — the serving flight recorder;
-* :mod:`.profile` — the payload-bytes and fused-round attributions.
+* :mod:`.metrics`, :mod:`.spans` — the serving flight recorder.
 """
 
 from flow_updating_tpu_torch.obs.fields import (
@@ -35,10 +45,17 @@ from flow_updating_tpu_torch.obs.inspect import (
     blame,
     diff_fields,
 )
+from flow_updating_tpu_torch.obs.profile import profile_program
 from flow_updating_tpu_torch.obs.report import (
     build_field_manifest,
     build_manifest,
+    build_profile_manifest,
     write_report,
+)
+from flow_updating_tpu_torch.obs.roofline import (
+    HardwareModel,
+    calibrate_cpu,
+    resolve_model,
 )
 from flow_updating_tpu_torch.obs.telemetry import (
     ALL_METRICS,
@@ -47,6 +64,7 @@ from flow_updating_tpu_torch.obs.telemetry import (
     TelemetrySeries,
     TelemetrySpec,
 )
+from flow_updating_tpu_torch.obs.timeline import measured_overlap
 from flow_updating_tpu_torch.obs.trace import (
     eventlog_to_chrome_trace,
     read_eventlog,
@@ -62,16 +80,22 @@ __all__ = [
     "SUPPORTED_METRICS",
     "FieldSeries",
     "FieldSpec",
+    "HardwareModel",
     "TelemetrySeries",
     "TelemetrySpec",
     "ascii_heatmap",
     "blame",
     "build_field_manifest",
     "build_manifest",
+    "build_profile_manifest",
+    "calibrate_cpu",
     "diagnose_manifest",
     "diff_fields",
     "eventlog_to_chrome_trace",
+    "measured_overlap",
     "observer_sample",
+    "profile_program",
     "read_eventlog",
+    "resolve_model",
     "write_report",
 ]

@@ -11,16 +11,17 @@ schema names, :func:`build_manifest` (``run --report``,
 :func:`build_service_manifest` (``serve --report``,
 ``flow-updating-service-report/v1``), :func:`build_query_manifest`
 (``query --report``, ``flow-updating-query-report/v1``),
-:func:`build_recovery_manifest` (``flow-updating-recovery-report/v1``)
-and :func:`write_report`.
+:func:`build_recovery_manifest` (``flow-updating-recovery-report/v1``),
+:func:`build_profile_manifest` (``profile --report``,
+``flow-updating-profile-report/v1``) and :func:`write_report`.
 A manifest binds the invocation (argv and the resolved config), the
 topology (size and the checkpoint-grade content fingerprint), the
 execution substrate (torch, CUDA, the device), the timings, the final
 report and — when telemetry ran — the full per-round series (or, in a
 field manifest, the per-node and per-edge fields and the global series
 reduced from them), in the JAX package's keys, so its ``doctor`` and
-``inspect`` judge the port's manifests.  The profile, audit and budget
-builders move with their ROADMAP items.
+``inspect`` judge the port's manifests.  The audit and budget builders
+move with their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -135,6 +136,26 @@ def build_manifest(*, argv=None, config=None, topo=None, report=None,
             "rounds": len(telemetry),
             "series": telemetry.to_jsonable(),
         }
+    if extra:
+        manifest.update(extra)
+    return manifest
+
+
+def build_profile_manifest(*, argv=None, config=None, topo=None,
+                           profile=None, extra=None, device=None) -> dict:
+    """Assemble the profile manifest: the run manifest's argv, config,
+    topology and environment binding around one cost record
+    (:meth:`Engine.profile <flow_updating_tpu_torch.engine.Engine.
+    profile>`)."""
+    manifest = {
+        "schema": PROFILE_SCHEMA,
+        "created_unix": round(time.time(), 3),
+        "argv": list(argv) if argv is not None else None,
+        "config": _configs(config),
+        "topology": topology_summary(topo) if topo is not None else None,
+        "environment": environment_info(device),
+        "profile": profile,
+    }
     if extra:
         manifest.update(extra)
     return manifest

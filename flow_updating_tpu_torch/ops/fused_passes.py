@@ -47,6 +47,7 @@ import torch
 
 from flow_updating_tpu_torch import kernels
 from flow_updating_tpu_torch.ops.permute import StagePlan
+from flow_updating_tpu_torch.utils.cost import declares
 
 LANE = 128
 MAX_STAGES_PER_PASS = 32
@@ -483,8 +484,15 @@ def _wrapper(name: str, plain):
     run.__doc__ = (f"Kernel B3's {name.split('_')[0]} flavour: the plain "
                    f"version on a CPU tensor, the CUDA kernel (counted in "
                    f"``{name}.launches``) on a CUDA tensor.")
+    run = declares(f"B3.{name[:-len('_pass')]}", _b3_cost)(run)
     run.launches = 0
     return run
+
+
+def _b3_cost(x3, plane, ps, geom) -> tuple:
+    """B3's declared work per pass: :func:`pass_min_bytes`, no arithmetic
+    (pure data movement)."""
+    return pass_min_bytes(ps, geom, x3.shape[0], x3.element_size()), 0
 
 
 local_pass = _wrapper("local_pass", local_pass_plain)
@@ -670,6 +678,20 @@ def fill_pass_plain(x, dist, dists: tuple, geom: Geometry) -> torch.Tensor:
                             "fill_pass_plain")
 
 
+def _b4_cost(scan: bool):
+    def cost(x, dist, dists, *rest) -> tuple:
+        """B4's declared work: :func:`dist_pass_min_bytes` per pass; the
+        scan combines once per position, stage and lane, the fill moves
+        data only."""
+        geom = rest[-1]
+        batch = x.numel() // max(geom.P, 1)
+        passes = len(plan_dist_passes(dists, geom))
+        return (passes * dist_pass_min_bytes(geom, batch, x.element_size()),
+                geom.P * len(dists) * batch if scan else 0)
+    return cost
+
+
+@declares("B4.scan", _b4_cost(True))
 def segscan_pass(x, dist, dists: tuple, op: str,
                  geom: Geometry) -> torch.Tensor:
     """Kernel B4's scan: for each ``d`` in ``dists`` (ascending powers of
@@ -691,6 +713,7 @@ def segscan_pass(x, dist, dists: tuple, op: str,
                             "segscan_pass")
 
 
+@declares("B4.fill", _b4_cost(False))
 def fill_pass(x, dist, dists: tuple, geom: Geometry) -> torch.Tensor:
     """Kernel B4's fill-forward: for each ``d`` in ``dists``, ``x =
     where(dist & d, x[p - d], x)``.  The plain version on a CPU tensor;

@@ -50,6 +50,7 @@ import torch
 
 from flow_updating_tpu_torch import kernels
 from flow_updating_tpu_torch.models.state import _ex
+from flow_updating_tpu_torch.utils.cost import declares
 
 LANE = 128
 #: default band-tile height (rows of 128 lanes)
@@ -264,6 +265,17 @@ def fused_round_plain(S, G, avg_prev, A_prev, value, inv_depp1, deg,
     return S_next, G_next, avg, acc
 
 
+def _k2_cost(S, G, avg_prev, A_prev, value, inv_depp1, deg, leaves,
+             spec, a_rem=None) -> tuple:
+    """K2's declared work: :func:`fused_round_min_bytes`; per node and
+    lane, fire 3, one add per kept diagonal, the remainder add, merge 8."""
+    D = S.numel() // max(spec.P, 1)
+    return (fused_round_min_bytes(spec, dtype_bytes=S.element_size(),
+                                  features=D),
+            spec.P * (12 + len(spec.offsets)) * D)
+
+
+@declares("K2", _k2_cost)
 def fused_banded_round(S, G, avg_prev, A_prev, value, inv_depp1, deg,
                        leaves: FusedRoundLeaves, spec: FusedRoundSpec,
                        a_rem=None):

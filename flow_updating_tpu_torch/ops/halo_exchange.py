@@ -45,6 +45,7 @@ import ctypes
 import torch
 
 from flow_updating_tpu_torch import kernels
+from flow_updating_tpu_torch.utils.cost import declares
 
 #: most offsets one launch takes (the pointer table is a kernel argument)
 MAX_BLOCKS = 32
@@ -167,6 +168,30 @@ def _launch(senders, dst_dev, merge):
     return recv, (out if merge is not None else None)
 
 
+def _pull_cost(blocks_by_shard, offsets, me: int) -> tuple:
+    """B6's pull: :func:`halo_exchange_min_bytes` of the incoming blocks;
+    pure data movement."""
+    senders = _senders(blocks_by_shard, offsets, me)
+    if not senders:
+        return 0, 0
+    return halo_exchange_min_bytes([b.numel() for b in senders],
+                                   senders[0].element_size()), 0
+
+
+def _fused_cost(blocks_by_shard, offsets, me: int, hit, pay_flow, pay_est,
+                buf_flow, buf_est, buf_valid) -> tuple:
+    """B6 with its merge: :func:`halo_exchange_min_bytes` with this call's
+    hit cells and hit columns; pure data movement."""
+    senders = _senders(blocks_by_shard, offsets, me)
+    D, Eb = hit.shape
+    nf = buf_flow[0, 0].numel() if buf_flow.numel() else 1
+    return halo_exchange_min_bytes(
+        [b.numel() for b in senders], buf_flow.element_size(), D, Eb, nf,
+        hit_cells=int(hit.sum()),
+        hit_columns=int(hit.any(0).sum())), 0
+
+
+@declares("B6.pull", _pull_cost)
 def remote_block_exchange(blocks_by_shard, offsets, me: int) -> list:
     """B6's block pull for shard ``me`` (the fast-pairwise exchange of
     ``halo='overlap_pallas'``).  CPU tensors take
@@ -187,6 +212,7 @@ def remote_block_exchange(blocks_by_shard, offsets, me: int) -> list:
 remote_block_exchange.launches = 0
 
 
+@declares("B6.fused", _fused_cost)
 def fused_exchange_merge(blocks_by_shard, offsets, me: int, hit, pay_flow,
                          pay_est, buf_flow, buf_est, buf_valid):
     """B6 with its merge, for shard ``me`` (the message modes of

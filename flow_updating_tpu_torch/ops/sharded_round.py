@@ -49,6 +49,7 @@ import dataclasses
 import torch
 
 from flow_updating_tpu_torch import kernels
+from flow_updating_tpu_torch.utils.cost import declares
 
 LANE = 128
 #: per-shard length multiple (8 tile-rows of 128, the JAX package's tile)
@@ -224,6 +225,13 @@ def _check_leaves(leaves, spec, like, what):
                          "contiguous, on the shard's device)")
 
 
+def _fire_cost(value, S, A_prev, inv_depp1, leaves, spec, out=None) -> tuple:
+    """B5's fire: value, S, A_prev and inv read, avg written; 3 flops a
+    node."""
+    return 5 * spec.local * S.element_size(), 3 * spec.local
+
+
+@declares("B5.fire", _fire_cost)
 def sharded_fire(value, S, A_prev, inv_depp1, leaves: ShardedRoundLeaves,
                  spec: ShardedRoundSpec, out=None):
     """B5's fire over one whole shard; returns the new ``avg``, written
@@ -248,6 +256,21 @@ def sharded_fire(value, S, A_prev, inv_depp1, leaves: ShardedRoundLeaves,
 sharded_fire.launches = 0
 
 
+def _merge_cost(S, G, avg_prev, A_prev, deg, avg, recv_lo, recv_hi, leaves,
+                spec, row_begin, row_end, out, *, fire, rows2=None) -> tuple:
+    """B5's merge over its rows: :func:`sharded_round_min_bytes` for
+    those rows, with the offsets and both received halos counted by the
+    launch that merges row 0 (one a shard-round, whatever the
+    ``row_ranges``), and per node the fold's fire 3, one add per kept
+    diagonal and remainder slot, the remainder add and merge 8."""
+    rows = row_end - row_begin + (rows2[1] - rows2[0] if rows2 else 0)
+    first = row_begin == 0 or (rows2 is not None and rows2[0] == 0)
+    return (sharded_round_min_bytes(spec, dtype_bytes=S.element_size(),
+                                    rows=rows, per_shard=first),
+            rows * LANE * (12 + len(spec.offsets) + spec.rem_width))
+
+
+@declares("B5.merge", _merge_cost)
 def sharded_round(S, G, avg_prev, A_prev, deg, avg, recv_lo, recv_hi,
                   leaves: ShardedRoundLeaves, spec: ShardedRoundSpec,
                   row_begin: int, row_end: int, out, *, fire,
@@ -297,16 +320,21 @@ sharded_round.launches = 0
 
 
 def sharded_round_min_bytes(spec: ShardedRoundSpec, *,
-                            dtype_bytes: int = 4) -> int:
+                            dtype_bytes: int = 4, rows: int | None = None,
+                            per_shard: bool = True) -> int:
     """The least bytes one shard's round must move — the numerator of
     B5's bound on the card: every input read once (value, S, G,
     avg_prev, A_prev, inv, deg, the bit planes, the offsets, the
     remainder table and the two received halos) and the four outputs
-    (S', G', avg, A) written once."""
-    L = spec.local
+    (S', G', avg, A) written once.  ``rows`` limits the node terms to
+    that many tile-rows (default: the whole shard); ``per_shard=False``
+    leaves out the terms read once a shard-round (the offsets and the
+    halos) — how a merge launch of part of the rows declares its work."""
+    L = spec.local if rows is None else int(rows) * LANE
     vec = L * dtype_bytes
-    reads = 7 * vec + spec.n_planes * L * 4 + len(spec.offsets) * 4 \
-        + 2 * spec.halo * dtype_bytes
+    reads = 7 * vec + spec.n_planes * L * 4
+    if per_shard:
+        reads += len(spec.offsets) * 4 + 2 * spec.halo * dtype_bytes
     if spec.rem_route == "inline":
         reads += L * max(spec.rem_width, 1) * 4
     return int(reads + 4 * vec)

@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from flow_updating_tpu_torch import kernels
+from flow_updating_tpu_torch.utils.cost import declares
 
 #: bucket row counts are padded to this multiple on the ``spmv='pallas'``
 #: path, so the state layout matches the JAX package's (its Pallas grid
@@ -49,6 +50,17 @@ def neighbor_sum(x: torch.Tensor, mats) -> torch.Tensor:
     return torch.cat(parts) if len(parts) > 1 else parts[0]
 
 
+def _k1_cost(x: torch.Tensor, mats) -> tuple:
+    """K1's declared work: :func:`neighbor_sum_min_bytes` and one add per
+    stored neighbor index (the slot ``M`` stands for zero), per lane."""
+    M = x.shape[0]
+    lanes = x.numel() // max(M, 1)
+    adds = sum(int((m < M).sum()) for m in mats if m.numel())
+    return (neighbor_sum_min_bytes(mats, M, x.element_size() * lanes),
+            adds * lanes)
+
+
+@declares("K1", _k1_cost)
 def neighbor_sum_ell(x: torch.Tensor, mats) -> torch.Tensor:
     """Kernel K1's wrapper: A(x) for a scalar ``(M,)`` payload.
 

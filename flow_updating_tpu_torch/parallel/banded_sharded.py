@@ -360,6 +360,13 @@ class ShardedBandedKernel:
                       *rows, out, rows2=rows2,
                       fire=(sh.value, sh.inv_depp1))
 
+    def round_program(self, state, num_rounds: int):
+        """``(fn, full_args, n_dynamic)`` for the rounds :meth:`run`
+        runs — the cost-attribution hook (:mod:`~flow_updating_tpu_torch.
+        obs.profile` runs ``fn`` from a copy of the state), so the profiled
+        program IS the plain one."""
+        return (self.run, (state, int(num_rounds)), 1)
+
     def run(self, state: ShardedNodeState, num_rounds: int
             ) -> ShardedNodeState:
         """``num_rounds`` rounds from ``state``, which stays as it was.  On

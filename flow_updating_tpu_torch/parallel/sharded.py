@@ -839,8 +839,26 @@ def run_rounds_sharded(state: ShardedState, plan: ShardPlan,
     On the card each shard's stream first waits for the caller's stream,
     and at the end the caller's stream waits for every shard's, so what
     the caller reads next is final."""
-    return _run_sharded(state, plan, cfg, mesh, num_rounds, arrays, halo,
-                        _internal)
+    fn, args, _ = round_program(state, plan, cfg, mesh, num_rounds,
+                                arrays=arrays, halo=halo,
+                                _internal=_internal)
+    return fn(*args)
+
+
+def round_program(state: ShardedState, plan: ShardPlan, cfg: RoundConfig,
+                  mesh: Mesh, num_rounds: int, arrays: tuple | None = None,
+                  halo: str = "ppermute", _internal: bool = False):
+    """``(fn, full_args, n_dynamic)`` for the plain sharded rounds —
+    :func:`run_rounds_sharded` calls through this, and the cost
+    attribution (:mod:`~flow_updating_tpu_torch.obs.profile`) runs the
+    same split from a copy of the state, so the profiled program IS the
+    plain one.  ``halo='interior'`` (the overlap schedule with the
+    exchange elided) is a timing probe for ``obs.profile.overlap_report``,
+    accepted only with ``_internal=True``."""
+    _check_halo(halo, _internal=_internal)
+    return (_run_sharded,
+            (state, plan, cfg, mesh, int(num_rounds), arrays, halo,
+             _internal), 1)
 
 
 def _run_sharded(state: ShardedState, plan: ShardPlan, cfg: RoundConfig,

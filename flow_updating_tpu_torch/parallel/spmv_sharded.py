@@ -327,6 +327,13 @@ class ShardedNodeKernel:
         return ShardedSpmvState(t=st.t + 1,
                                 **{f: tuple(v) for f, v in out.items()})
 
+    def round_program(self, state, num_rounds: int):
+        """``(fn, full_args, n_dynamic)`` for the rounds :meth:`run`
+        runs — the cost-attribution hook (:mod:`~flow_updating_tpu_torch.
+        obs.profile` runs ``fn`` from a copy of the state), so the profiled
+        program IS the plain one."""
+        return (self.run, (state, int(num_rounds)), 1)
+
     def run(self, state: ShardedSpmvState, num_rounds: int
             ) -> ShardedSpmvState:
         """``num_rounds`` rounds from ``state``, which stays as it was.  On

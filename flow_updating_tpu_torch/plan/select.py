@@ -26,10 +26,14 @@ the analytic estimate of another.
 one device it credits the overlap schedule with no hiding — there is no
 wire to hide.
 
-What waits: ``probe='aot'`` ranks by the compiler's cost analysis of the
-lowered candidates, and ``FLOW_UPDATING_ROOFLINE`` annotates a probe
-record with roofline fractions — both ROADMAP A14.
-:func:`autotune_metrics` is the cache's Prometheus face: its counters
+``probe='aot'`` replaces the analytic numbers with the bytes a round of
+each candidate's program moves, counted on the device
+(:func:`_aot_costs`, :mod:`~flow_updating_tpu_torch.obs.profile`: the
+plain ops' bytes and the kernels' declared work).  The JAX package ranks
+by XLA's cost analysis of the lowered programs instead, so on some graph
+the two packages' picks may differ.  ``FLOW_UPDATING_ROOFLINE`` annotates
+a fresh probe record with each raced family's roofline fraction
+(:func:`_annotate_roofline`).  :func:`autotune_metrics` is the cache's Prometheus face: its counters
 (and a record's measured rates) into a ``MetricsRegistry``.
 """
 
@@ -42,6 +46,7 @@ import time
 
 import numpy as np
 
+from flow_updating_tpu_torch.kernels import KernelError
 from flow_updating_tpu_torch.plan.compile import ExecutionPlan, compile_topology
 
 #: relative cost of one dynamically gathered element vs one streamed
@@ -121,6 +126,47 @@ def _remainder_cost(s, cg: float, N: float) -> float:
         return cost + len(s.rem_unperm_plan.stages.dists) \
             * float(s.rem_unperm_plan.stages.n)
     return 0.0
+
+
+def _aot_costs(topo, cfg, plan, candidates, device) -> dict:
+    """Replace analytic predictions with the bytes a round of each
+    candidate's program moves, counted on ``device`` (one round from a
+    fresh state; :func:`~flow_updating_tpu_torch.obs.profile.
+    profile_program` without the timed run).  A candidate that refuses
+    the graph (the ``ValueError`` a program raises for a shape it does not
+    take) ranks last, its error recorded; a kernel that fails to build,
+    load or launch raises, as it does everywhere else."""
+    from flow_updating_tpu_torch.obs.profile import profile_program
+
+    out = {}
+    for cand in candidates:
+        kernel, _, impl = cand.partition("/")
+        try:
+            if kernel == "node":
+                from flow_updating_tpu_torch.models import sync
+
+                c = dataclasses.replace(cfg, kernel="node", spmv=impl)
+                k = sync.NodeKernel(topo, c, plan=plan, device=device)
+                fn, args, nd = k.round_program(k.init_state(), 1)
+            else:
+                from flow_updating_tpu_torch.models.rounds import run_rounds
+                from flow_updating_tpu_torch.models.state import init_state
+
+                c = dataclasses.replace(cfg, kernel="edge")
+                arrays = topo.device_arrays(coloring=c.needs_coloring,
+                                            device=device)
+                fn, args, nd = (run_rounds,
+                                (init_state(topo, c, device=device),
+                                 arrays, c, 1), 1)
+            rec = profile_program(fn, args, n_dynamic=nd, execute=False,
+                                  label=f"plan:{cand}", device=device,
+                                  rounds=1)
+            bytes_ = rec["cost"].get("bytes_accessed")
+            out[cand] = float(bytes_) if bytes_ else float("inf")
+        except ValueError as exc:  # a candidate that refuses the graph
+            out[cand] = float("inf")
+            out[f"{cand}#error"] = f"{type(exc).__name__}: {exc}"[:200]
+    return out
 
 
 def _analytic_costs(topo, plan: ExecutionPlan | None, backend: str,
@@ -408,8 +454,8 @@ H2H_PASSES = 60
 #: records the route as skipped instead
 INLINE_MAX_SLOTS = 1 << 25
 
-#: the opt-in roofline annotation of a fresh probe record (JAX package:
-#: obs/roofline.py), ROADMAP A14 here
+#: the opt-in roofline annotation of a fresh probe record
+#: (obs/roofline.py)
 ROOFLINE_ENV = "FLOW_UPDATING_ROOFLINE"
 
 
@@ -724,14 +770,52 @@ def autotune_fused(topo, cfg, *, backend: str | None = None,
         },
         "probes_run": probes,
     }
-    if os.environ.get(ROOFLINE_ENV, "0") not in ("", "0"):
-        # the JAX package contains a lens failure inside the record; here
-        # the lens itself is not ported
-        entry["roofline_error"] = (
-            "NotImplementedError: the roofline lens is the ROADMAP item "
-            "'profiling and analysis (A14)', not ported yet")
+    _annotate_roofline(entry, raced, factories, dev)
     _store_autotune_entry(path, key, entry)
     return {**entry, "cache": "miss"}
+
+
+def _annotate_roofline(entry: dict, raced: dict, factories: dict,
+                       device) -> None:
+    """Attach a perf-lens block to a fresh autotune record: each raced
+    banded family's candidate is counted once more over
+    :data:`PROBE_ROUNDS` rounds (no extra timed run) and its raced rate
+    reconciled against the device's roofline ceiling.  Opt-in via
+    ``FLOW_UPDATING_ROOFLINE`` and contained — a lens failure never loses
+    the probe record."""
+    from flow_updating_tpu_torch.obs import roofline as _roof
+
+    fams = [f for f in ("node/banded", "node/banded_fused")
+            if f in factories and raced.get(f)]
+    if not _roof.enabled() or not fams:
+        return
+    try:
+        from flow_updating_tpu_torch.obs.profile import profile_program
+
+        model = _roof.resolve_model(device)
+        programs = []
+        fracs = {}
+        for fam in fams:
+            kern = factories[fam]()
+            fn, fargs, nd = kern.round_program(kern.init_state(),
+                                               PROBE_ROUNDS)
+            rec = profile_program(fn, fargs, n_dynamic=nd, execute=False,
+                                  label=f"autotune/{fam}", device=device,
+                                  rounds=PROBE_ROUNDS)
+            rl = _roof.reconcile(
+                _roof.analyze(rec, model, rounds=PROBE_ROUNDS,
+                              mode=f"autotune/{fam}"),
+                raced[fam])
+            programs.append(rl)
+            if rl.get("roofline_frac") is not None:
+                fracs[fam] = rl["roofline_frac"]
+        entry["roofline"] = _roof.perf_lens_block(programs, model)
+        if fracs:
+            entry["roofline_frac"] = fracs
+    except KernelError:           # a kernel fault is no lens error
+        raise
+    except Exception as exc:      # noqa: BLE001 — lens must not break probes
+        entry["roofline_error"] = f"{type(exc).__name__}: {exc}"[:160]
 
 
 def autotune_metrics(registry, record: dict | None = None) -> None:
@@ -776,14 +860,10 @@ def select_plan(topo, cfg, *, backend: str | None = None,
     it is given, the graph has at least :data:`AUTOTUNE_MIN_NODES` nodes,
     ``FLOW_UPDATING_AUTOTUNE`` is not '0' and the backend is the device's
     own; ``autotune=True`` probes on ``device`` (default: the card).
-    ``probe='aot'`` raises: it is ROADMAP A14."""
-    if probe == "aot":
-        raise NotImplementedError(
-            "probe='aot' ranks candidates by the compiler's cost analysis "
-            "of the lowered programs — the ROADMAP item 'profiling and "
-            "analysis (A14)', not ported yet; use the analytic model "
-            "(probe='analytic') or measured probes (autotune=True)")
-    if probe != "analytic":
+    ``probe='aot'`` ranks the candidates by the bytes a round of each
+    one's program moves, counted on ``device`` (default: the card;
+    :func:`_aot_costs`)."""
+    if probe not in ("analytic", "aot"):
         raise ValueError(f"unknown probe {probe!r}: use 'analytic' or "
                          "'aot'")
     backend = _backend_name(backend, device)
@@ -822,7 +902,13 @@ def select_plan(topo, cfg, *, backend: str | None = None,
                             remainder=remainder, features=features)
     candidates = ["node/banded", "node/banded_fused", "node/xla",
                   "edge/gather"]
-    predicted = _analytic_costs(topo, plan, backend, candidates)
+    if probe == "aot":
+        from flow_updating_tpu_torch.utils.device import resolve_device
+
+        predicted = _aot_costs(topo, cfg, plan, candidates,
+                               resolve_device(device))
+    else:
+        predicted = _analytic_costs(topo, plan, backend, candidates)
 
     # measured probes (cached): band width x tile x remainder route timed
     # on the engine's device — real rates replace the modeled

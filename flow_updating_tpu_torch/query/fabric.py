@@ -69,6 +69,7 @@ from flow_updating_tpu_torch.obs.spans import SpanRecorder
 from flow_updating_tpu_torch.service import ServiceEngine
 from flow_updating_tpu_torch.service.engine import _host, _signature
 from flow_updating_tpu_torch.topology.padding import masked_values
+from flow_updating_tpu_torch.utils.trace import annotate
 
 #: the payload planes a lane owns a column of (last axis); the control
 #: planes are shared by every lane and never written per lane
@@ -665,7 +666,7 @@ class QueryFabric:
         for _ in range(rounds // seg):
             svc._signatures.add(("run_rounds",) + _signature(
                 svc.state, svc.arrays, svc.params))
-            with torch.profiler.record_function("fu.segment"):
+            with annotate("fu.segment"):
                 # a round at a time through svc.state: one call of seg
                 # rounds would keep the segment's first state alive to its
                 # end (~23 GB of payload planes at 1024 lanes and
@@ -674,7 +675,7 @@ class QueryFabric:
                     svc.state = run_rounds(svc.state, svc.arrays,
                                            svc.config, 1,
                                            params=svc.params)
-            with torch.profiler.record_function("fu.boundary"):
+            with annotate("fu.boundary"):
                 self._boundary()
             svc._pending_events = []
         if self._ring is not None and rounds:
@@ -887,7 +888,7 @@ class QueryFabric:
         copy (plus the alive mask)."""
         svc = self.svc
         self._probe_signatures.add(_signature(svc.state, svc.arrays))
-        with torch.profiler.record_function("fu.lane_probe"):
+        with annotate("fu.lane_probe"):
             mx, mn, s, resid, live = _lane_probe(svc.state, svc.arrays)
             vec = _host(torch.stack([mx, mn, s, resid]))
             alive = _host(svc.state.alive)

@@ -68,6 +68,7 @@ from flow_updating_tpu_torch.topology.padding import (
     pad_topology_to,
 )
 from flow_updating_tpu_torch.utils.device import resolve_device
+from flow_updating_tpu_torch.utils.trace import annotate
 
 SERVICE_EVENTS = ("join", "leave", "update", "add_edge", "remove_edge",
                   "suspend", "resume")
@@ -758,7 +759,7 @@ class ServiceEngine:
             if telemetry is None:
                 self._signatures.add(("run_rounds",) + _signature(
                     self.state, self.arrays, self.params))
-                with torch.profiler.record_function("fu.segment"):
+                with annotate("fu.segment"):
                     self.state = run_rounds(
                         self.state, self.arrays, self.config,
                         self.segment_rounds, params=self.params)
@@ -767,7 +768,7 @@ class ServiceEngine:
                     ("run_rounds_telemetry", telemetry.metrics)
                     + _signature(self.state, self.arrays, self.params))
                 mean = self._live_mean()
-                with torch.profiler.record_function("fu.segment"):
+                with annotate("fu.segment"):
                     self.state, seg = run_rounds_telemetry(
                         self.state, self.arrays, self.config,
                         self.segment_rounds, telemetry, mean,

@@ -17,6 +17,8 @@ end.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -92,6 +94,23 @@ def lane_sample(state, arrays, spec, means, processed, send_mask) -> dict:
     if spec.has("active"):
         out["active"] = alive.sum(1, dtype=torch.int32)
     return out
+
+
+def _run_bucket_states(states, bucket, cfg, num_rounds: int, spec,
+                       rmse_threshold: float):
+    return run_bucket_telemetry(dataclasses.replace(bucket, states=states),
+                                cfg, num_rounds, spec, rmse_threshold)
+
+
+def bucket_program(bucket, cfg, num_rounds: int, spec,
+                   rmse_threshold: float = 0.0):
+    """``(fn, full_args, n_dynamic)`` for the bucket's telemetry rounds —
+    the cost-attribution hook (``sweep --profile`` attaches one record per
+    bucket to the sweep manifest).  ``fn`` is :func:`run_bucket_telemetry`
+    on the bucket with the given states, which the profiler copies."""
+    return (_run_bucket_states,
+            (bucket.states, bucket, cfg, int(num_rounds), spec,
+             rmse_threshold), 1)
 
 
 def run_bucket_telemetry(bucket, cfg, num_rounds: int, spec,

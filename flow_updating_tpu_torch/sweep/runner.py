@@ -101,14 +101,14 @@ def run_sweep(instances, cfg: RoundConfig, rounds: int, spec=None,
     bucket structures by the JAX package's compile key (JAX compiles one
     program per structure; nothing is compiled here).
 
-    ``profile=True`` (AOT cost attribution per bucket) is the ROADMAP item
-    'profiling and analysis (A14)' and raises ``NotImplementedError``."""
+    ``profile=True`` counts each bucket's rounds once more through the
+    cost attribution (:mod:`~flow_updating_tpu_torch.obs.profile`, from a
+    copy of the bucket's states, no timed run) and attaches flops, bytes,
+    the kernels' declared work and memory per bucket to
+    ``summary['buckets']``; the execution time comes from the real run
+    (``run_s`` per bucket)."""
     from flow_updating_tpu_torch.obs.telemetry import TelemetrySpec
 
-    if profile:
-        raise NotImplementedError(
-            "sweep profiling (per-bucket cost attribution) is the ROADMAP "
-            "item 'profiling and analysis (A14)', not ported yet")
     instances = list(instances)
     spec = TelemetrySpec.default() if spec is None else spec
     spec = spec.for_kernel("edge")
@@ -120,6 +120,23 @@ def run_sweep(instances, cfg: RoundConfig, rounds: int, spec=None,
     buckets = pack_instances(instances, cfg, max_batch=max_batch,
                              device=device)
     pack_s = time.perf_counter() - t0
+
+    bucket_profiles: list = []
+    if profile:
+        from flow_updating_tpu_torch.obs.profile import (
+            per_round,
+            profile_program,
+        )
+        from flow_updating_tpu_torch.sweep.batch import bucket_program
+
+        for bucket in buckets:
+            fn, args, nd = bucket_program(bucket, cfg, rounds, spec,
+                                          rmse_threshold=rmse_threshold)
+            rec = profile_program(fn, args, n_dynamic=nd, execute=False,
+                                  label=f"bucket{tuple(bucket.shape)}",
+                                  rounds=rounds)
+            rec["per_round"] = per_round(rec, rounds)
+            bucket_profiles.append(rec)
 
     records: list = [None] * len(instances)
     converged = 0
@@ -154,7 +171,9 @@ def run_sweep(instances, cfg: RoundConfig, rounds: int, spec=None,
     summary = {
         "instances": len(records),
         "buckets": [{"shape": list(map(int, b.shape)), "size": b.size,
-                     "run_s": bucket_run_s[i]}
+                     "run_s": bucket_run_s[i],
+                     **({"profile": bucket_profiles[i]}
+                        if bucket_profiles else {})}
                     for i, b in enumerate(buckets)],
         "compiled_programs": len({_structure_key(b) for b in buckets}),
         "rounds": int(rounds),

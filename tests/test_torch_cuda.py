@@ -1653,3 +1653,95 @@ def test_actor_checkpoint_resumes_bit_for_bit_on_card(card, tmp_path):
             tree_leaves_with_path(twin.state)):
         assert ka == kb and va.device.type == card.type
         assert torch.equal(va, vb) and torch.equal(va, vt), ka
+
+
+# ---- cost attribution on the card (A14 part 1) ----------------------------
+
+def _profile_twins(card, make):
+    """The same engine built on the card and on the CPU, each profiled:
+    ``(card record, cpu record)``."""
+    return (make(card).profile(4, roofline=True),
+            make("cpu").profile(4, execute=False))
+
+
+def test_profile_k1_counts_as_on_the_cpu(card):
+    """A profile of B1 (K1): the card's count equals the CPU's (the
+    kernel's declared work there, its plain version's here), the launches
+    a round are the non-empty buckets, the state is untouched and the
+    card's roofline fraction lies in (0, 1]."""
+    cfg = RoundConfig.fast(kernel="node", spmv="pallas")
+    topo = fat_tree(8)
+
+    def make(dev):
+        return Engine(config=cfg, device=dev).set_topology(topo).build()
+
+    eng = make(card)
+    before = [t.clone() for t in (eng.state.S, eng.state.G)]
+    rec = eng.profile(4, roofline=True)
+    assert torch.equal(eng.state.S, before[0]) \
+        and torch.equal(eng.state.G, before[1])
+    host = make("cpu").profile(4, execute=False)
+    assert rec["cost"]["bytes_accessed"] == host["cost"]["bytes_accessed"]
+    assert rec["cost"]["flops"] == host["cost"]["flops"]
+    assert rec["cost"]["kernels"] == host["cost"]["kernels"]
+    buckets = sum(1 for m in eng._node_kernel.arrays.mats
+                  if m.shape[0] and m.shape[1])
+    assert rec["launches_per_round"] == {"K1": float(buckets)}
+    assert rec["memory"]["available"] and rec["memory"]["peak_bytes"] > 0
+    assert 0.0 < rec["roofline"]["roofline_frac"] <= 1.0
+    assert rec["roofline"]["model"] == "nvidia-h100"
+
+
+def test_profile_b3_b4_counts_as_on_the_cpu(card):
+    """A profile of B3 and B4 together (the faithful edge round on
+    'benes_fused' networks): the card's count equals the CPU's and every
+    pass launched is declared."""
+    cfg = RoundConfig.reference("collectall", segment_impl="benes_fused",
+                                delivery="benes_fused")
+    topo = fat_tree(8)
+    rec, host = _profile_twins(
+        card, lambda dev: Engine(config=cfg, device=dev)
+        .set_topology(topo).build())
+    assert rec["cost"]["bytes_accessed"] == host["cost"]["bytes_accessed"]
+    assert rec["cost"]["flops"] == host["cost"]["flops"]
+    assert rec["cost"]["kernels"] == host["cost"]["kernels"]
+    assert {k.split(".")[0] for k in rec["launches"]} == {"B3", "B4"}
+    for name, n in rec["launches"].items():
+        assert rec["cost"]["kernels"][name]["calls"] == n
+    assert 0.0 < rec["roofline"]["roofline_frac"] <= 1.0
+
+
+def test_profile_trace_holds_every_launch_or_says_so(card, tmp_path):
+    """With a trace, each kernel's kept events are held against its
+    launches: complete, or ``trace_complete`` False and no device time."""
+    cfg = RoundConfig.fast(kernel="node", spmv="pallas")
+    eng = Engine(config=cfg, device=card).set_topology(fat_tree(8)).build()
+    rec = eng.profile(4, trace_dir=str(tmp_path))
+    tr = rec["trace"]
+    assert tr["kernels"]["K1"]["launches"] == 4 * rec["launches_per_round"][
+        "K1"]
+    if tr["trace_complete"]:
+        assert tr["kernels"]["K1"]["events"] == tr["kernels"]["K1"][
+            "launches"] and tr["kernels"]["K1"]["device_ms"] > 0
+    else:
+        assert tr["trace_complete"] is False and "device_ms" not in tr
+
+
+def test_aot_probe_raises_when_k2_fails_on_card(card, monkeypatch):
+    """``select_plan(probe='aot')`` on the card: a K2 launch that fails
+    raises out of the probe; node/banded_fused does not quietly lose."""
+    from flow_updating_tpu_torch.kernels import KernelError
+    from flow_updating_tpu_torch.models import sync
+    from flow_updating_tpu_torch.plan import select
+
+    def broken(*args, **kwargs):
+        raise KernelError("fused_round: CUDA launch failed with "
+                          "cudaError_t 1")
+
+    monkeypatch.setattr(sync, "fused_banded_round", broken)
+    cfg = RoundConfig.fast(kernel="node")
+    topo = erdos_renyi(250, avg_degree=6.0, seed=1)
+    with pytest.raises(KernelError, match="fused_round"):
+        select.select_plan(topo, cfg, probe="aot", autotune=False,
+                           device=card)
+

@@ -202,6 +202,7 @@ def test_help_lists_both_subcommands(capsys):
         port_cli.main(["--help"])
     # the plan subcommand joined run and oracle in A5, inspect and obs in
     # A9 part 2, doctor in A9 part 3, sweep and scenarios in A10, serve in
-    # A11 part 1, query (and chaos, which names A11 part 3) in A11 part 2
+    # A11 part 1, query (and chaos, which names A11 part 3) in A11 part 2,
+    # profile and regress in A14 part 1
     assert ("{run,oracle,plan,inspect,obs,sweep,scenarios,serve,query,"
-            "chaos,doctor}") in capsys.readouterr().out
+            "chaos,doctor,profile,regress}") in capsys.readouterr().out

@@ -287,9 +287,10 @@ def test_strict_turns_warn_into_exit_1(tmp_path, capsys):
 
 
 def test_golden_names_its_item(tmp_path):
-    with pytest.raises(SystemExit, match=r"profiling and analysis \(A14\)"):
+    with pytest.raises(SystemExit,
+                       match=r"profiling and analysis \(A14 part 2\)"):
         port_main(["doctor", "--golden"])
-    with pytest.raises(SystemExit, match="A14"):
+    with pytest.raises(SystemExit, match="A14 part 2"):
         port_main(["doctor", "--golden", str(tmp_path / "g.json"),
                    "--device", "cpu", *LIVE])
 

@@ -176,8 +176,14 @@ def test_cuda_backend_keeps_jax_invariants():
         == "structured"
     with pytest.raises(ValueError, match="virtual"):
         select.select_plan(virtual, pcfg, backend="cuda", features=2)
-    with pytest.raises(NotImplementedError, match="A14"):
-        select.select_plan(_bridge(IRREGULAR["er"]()), pcfg, probe="aot")
+    # probe='aot' ranks by the bytes a round of each candidate's program
+    # moves, counted on the device (ported in A14 part 1)
+    aot = select.select_plan(_bridge(IRREGULAR["er"]()), pcfg, probe="aot",
+                             device="cpu")
+    cands = ("node/banded", "node/banded_fused", "node/xla", "edge/gather")
+    assert all(0 < aot.predicted[c] < float("inf") for c in cands)
+    best = min(cands, key=aot.predicted.get)
+    assert f"{aot.kernel}/{aot.spmv or 'gather'}" == best
 
 
 @pytest.mark.parametrize("features,max_round_bytes",
@@ -365,9 +371,24 @@ def test_autotune_off_switches_and_roofline_note(monkeypatch):
     # the cost model of another backend never probes this device
     assert select.select_plan(pt, pcfg, backend="cuda",
                               device="cpu").fused is None
+    # the roofline annotation (ported in A14 part 1): each raced banded
+    # family's counted rounds reconciled against the CPU calibration
+    # (canned generous rates: a ceiling, so every frac stays <= 1)
+    from flow_updating_tpu_torch.obs import roofline
+
+    monkeypatch.setenv(roofline.ROOFLINE_CACHE_ENV,
+                       str(select.autotune_cache_path()) + ".roofline")
+    monkeypatch.setattr(roofline, "_measure_cpu", lambda seconds=0.12: {
+        "stream_gbps_1t": 50.0, "fma_gflops_1t": 50.0,
+        "triad_elems": 1 << 22, "fma_elems": 1 << 16})
     monkeypatch.setenv("FLOW_UPDATING_ROOFLINE", "1")
     rec = select.autotune_fused(pt, pcfg, device="cpu")
-    assert "A14" in rec["roofline_error"]
+    assert "roofline_error" not in rec
+    assert rec["roofline"]["schema"] == "flow-updating-perf-lens/v1"
+    assert set(rec["roofline_frac"]) == {"node/banded", "node/banded_fused"}
+    assert all(0.0 < f <= 1.0 for f in rec["roofline_frac"].values())
+    assert {p["mode"] for p in rec["roofline"]["programs"]} == {
+        "autotune/node/banded", "autotune/node/banded_fused"}
 
 
 def test_fused_inline_remainder_equals_lanes():
@@ -446,9 +467,13 @@ def test_plan_cli_matches_jax_decision(capsys, tmp_path):
                       "--plan-backend", "cuda"]) == 0
     cdoc = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert (cdoc["backend"], cdoc["spmv"]) == ("cuda", "structured")
-    with pytest.raises(SystemExit, match="A14"):
-        port_main(["plan", "--device", "cpu", "--generator", "ring:16",
-                   "--probe"])
+    # --probe ranks by the counted bytes a round (ported in A14 part 1)
+    assert port_main(["plan", "--device", "cpu", *flags[:4], "--probe"]) \
+        == 0
+    pdoc = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    cands = ("node/banded", "node/banded_fused", "node/xla", "edge/gather")
+    assert all(isinstance(pdoc["predicted_cost"][c], float) for c in cands)
+    assert pdoc["predicted_cost"] != doc["predicted_cost"]
 
 
 def test_run_plan_auto_reports_plan(capsys):

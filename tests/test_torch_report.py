@@ -123,8 +123,14 @@ def test_run_watcher_and_stream_event_logs(tmp_path, capsys):
                    str(tmp_path / "x.jsonl")])
     with pytest.raises(SystemExit, match="unknown telemetry metric"):
         port_main([*base, "--telemetry", "bogus"])
-    with pytest.raises(SystemExit, match="A14"):
-        port_main([*base, "--trace-dir", str(tmp_path)])
+    # --trace-dir captures the rounds as one torch.profiler trace (ported
+    # in A14 part 1); --trace-dir wins over --profile
+    assert port_main([*base, "--rounds", "8", "--trace-dir",
+                      str(tmp_path / "tr"), "--profile",
+                      str(tmp_path / "pr")]) == 0
+    capsys.readouterr()
+    assert list((tmp_path / "tr").glob("*.pt.trace.json.gz"))
+    assert not (tmp_path / "pr").exists()
 
 
 def test_builders_match_jax_keys(tmp_path):

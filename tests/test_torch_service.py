@@ -696,9 +696,17 @@ def test_serve_cli_manifest_and_doctor(tmp_path, capsys):
     with pytest.raises(SystemExit, match="line 2.*frobnicate"):
         port_main(["serve", "--device", "cpu", "--generator", "ring:8:1",
                    "--events", str(bad)])
-    with pytest.raises(SystemExit, match="A14"):
-        port_main(["serve", "--device", "cpu", "--generator", "ring:8:1",
-                   "--trace-dir", str(tmp_path / "trace")])
+    # --trace-dir captures the serving body, its fu.segment spans inside
+    # (ported in A14 part 1)
+    from flow_updating_tpu_torch.obs import timeline
+
+    assert port_main(["serve", "--device", "cpu", "--generator", "ring:8:1",
+                      "--segment-rounds", "4", "--rounds", "8",
+                      "--trace-dir", str(tmp_path / "trace")]) == 0
+    capsys.readouterr()
+    events, _ = timeline.load_trace_events(
+        timeline.latest_trace_file(str(tmp_path / "trace")))
+    assert len(timeline.annotation_spans(events, "fu.segment")) == 2
 
 
 def test_serve_cli_summary_matches_jax(tmp_path, capsys):

@@ -624,8 +624,14 @@ def test_pack_rejects_unbatchable_configs():
     with pytest.raises(ValueError, match="max_batch"):
         pack_instances(insts, RoundConfig.fast(variant="collectall"),
                        max_batch=-1, device="cpu")
-    with pytest.raises(NotImplementedError, match="A14"):
-        run_sweep(insts, RoundConfig.fast(), 5, profile=True, device="cpu")
+    # per-bucket cost attribution (ported in A14 part 1): counted, never
+    # re-run for time
+    _, summary = run_sweep(insts, RoundConfig.fast(), 5, profile=True,
+                           device="cpu")
+    prof = summary["buckets"][0]["profile"]
+    assert prof["cost"]["bytes_accessed"] > 0 and prof["cost"]["flops"] > 0
+    assert prof["cost"]["method"] == "counted"
+    assert prof["timings"]["execute_s"] is None
 
 
 def test_max_batch_splits_buckets_in_input_order():
@@ -728,9 +734,11 @@ def test_sweep_cli_validation(capsys):
     with pytest.raises(SystemExit, match="rmse"):
         port_main(["sweep", "--device", "cpu", "--generator", "ring:8:2",
                    "--rounds", "5", "--telemetry", "mass,fired_total"])
-    with pytest.raises(SystemExit, match="A14"):
-        port_main(["sweep", "--device", "cpu", "--generator", "ring:8:2",
-                   "--profile"])
+    # --profile attaches one cost record per bucket (A14 part 1)
+    assert port_main(["sweep", "--device", "cpu", "--generator", "ring:8:2",
+                      "--rounds", "5", "--profile"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["buckets"][0]["profile"]["cost"]["flops"] > 0
 
 
 def test_sweep_cli_latency_scales_size_the_ring(tmp_path, capsys):

@@ -210,11 +210,15 @@ def test_cli_run_json_matches_jax(capsys, spmv):
         assert abs(prep[key] - jrep[key]) <= 1e-6, key
 
 
-def test_cli_refuses_unported_flags():
+def test_cli_refuses_unported_flags(tmp_path, capsys):
     base = ["run", "--device", "cpu", "--generator", "ring:16",
             "--kernel", "node", "--fire-policy", "every_round"]
-    with pytest.raises(SystemExit, match="A14"):
-        port_main([*base, "--profile", "prof"])
+    # --profile DIR captures the run as a torch.profiler trace (ported in
+    # A14 part 1)
+    assert port_main([*base, "--rounds", "5", "--profile",
+                      str(tmp_path / "prof")]) == 0
+    capsys.readouterr()
+    assert list((tmp_path / "prof").glob("*.pt.trace.json.gz"))
     # --shards runs the sharded banded and Beneš rounds (with --multichip
     # halo the edge kernel's halo round, with --multichip pod the pod
     # stencil, spmv='structured' only); GSPMD's 'xla' path exits
